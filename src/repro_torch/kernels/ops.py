@@ -1,0 +1,226 @@
+"""Public wrappers around the TOPSIS CUDA kernels — port of the TOPSIS half
+of ``repro.kernels.ops``: padding, layout, and the global reductions the
+kernels consume.
+
+Each wrapper computes in plain torch what XLA computed outside the Pallas
+call — weight normalisation, column norms, ``inv_norm``, the masked ideal
+points — pads the criteria axis to ``C_PAD = 8``, launches the kernel
+(``repro_torch.kernels.topsis_cuda``) and writes ``-inf`` over invalid
+rows. On CUDA tensors that is the hand-written kernel; on CPU tensors the
+kernel's plain PyTorch version (the path the CPU tests take). Inputs may be
+numpy arrays or tensors; ``device=None`` keeps a tensor input where it is
+and sends numpy input to the card.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core import topsis as _topsis
+from repro_torch.device import resolve_device
+from repro_torch.kernels import topsis_cuda as _tc
+
+C_PAD = _tc.C_PAD
+_EPS = 1e-12
+
+
+def _device_for(x, device) -> torch.device:
+    if device is not None or not isinstance(x, torch.Tensor):
+        return resolve_device(device)
+    return x.device
+
+
+def as_f32(x, device: torch.device) -> torch.Tensor:
+    """float32 tensor on ``device`` from a tensor or an array (a read-only
+    array, such as a broadcast view, is copied first)."""
+    if isinstance(x, np.ndarray) and not x.flags.writeable:
+        x = x.astype(np.float32)
+    return torch.as_tensor(x, dtype=torch.float32, device=device)
+
+
+def as_mask(x, device: torch.device) -> torch.Tensor | None:
+    """bool tensor on ``device`` (None stays None)."""
+    if x is None:
+        return None
+    if isinstance(x, np.ndarray) and not x.flags.writeable:
+        x = x.copy()
+    return torch.as_tensor(x, dtype=torch.bool, device=device)
+
+
+def _pad_c(x: torch.Tensor) -> torch.Tensor:
+    """(..., c) -> contiguous (..., C_PAD), zero-filled."""
+    c = x.shape[-1]
+    if c > C_PAD:
+        raise ValueError(f"at most {C_PAD} criteria, got {c}")
+    if c == C_PAD:
+        return x.contiguous()
+    return F.pad(x, (0, C_PAD - c))
+
+
+def _criteria(mats, c: int, device: torch.device) -> torch.Tensor:
+    """float32 criteria tensor with ``c`` real columns, either already
+    padded to C_PAD (the scheduler's resident mirror: used in place) or
+    with exactly ``c`` columns."""
+    m = as_f32(mats, device)
+    if m.shape[-1] not in (c, C_PAD):
+        raise ValueError(f"criteria tensor has {m.shape[-1]} columns; "
+                         f"expected {c} (the benefit mask) or {C_PAD}")
+    return m
+
+
+def _norm_weights(weights, shape: tuple, device) -> torch.Tensor:
+    w = as_f32(weights, device)
+    w = torch.broadcast_to(w, shape)
+    return w / torch.clamp_min(torch.sum(w, dim=-1, keepdim=True), _EPS)
+
+
+def _inv_norm(m: torch.Tensor) -> torch.Tensor:
+    """(..., N, c) -> (..., c) reciprocal column norms."""
+    norms = torch.sqrt(torch.sum(m * m, dim=-2))
+    return 1.0 / torch.clamp_min(norms, _EPS)
+
+
+def fill_invalid(cc: torch.Tensor, valid: torch.Tensor | None):
+    """-inf over the invalid entries of a kernel's closeness."""
+    return cc if valid is None else torch.where(valid, cc, -torch.inf)
+
+
+# Each ``*_operands`` function prepares one kernel's arguments — the
+# global reductions and the C_PAD padding — and returns them with the
+# validity mask; the public wrapper below it launches the kernel on them
+# and writes -inf over invalid rows. chip_smoke.py feeds the same operands
+# to a kernel and to its plain version.
+def single_operands(matrix, weights, benefit, *, valid=None, device=None):
+    """K1 operands for an (N, C) matrix: ``((x, inv_norm, w, a_pos,
+    a_neg), valid)``."""
+    dev = _device_for(matrix, device)
+    benefit = np.asarray(benefit, dtype=bool)
+    c = len(benefit)
+    m = _criteria(matrix, c, dev)
+    valid = as_mask(valid, dev)
+    w = _norm_weights(weights, (c,), dev)
+    inv_norm = _inv_norm(m[:, :c])
+    v = m[:, :c] * inv_norm * w
+    a_pos, a_neg = _topsis.masked_ideal_points(v, benefit, valid)
+    return tuple(map(_pad_c, (m, inv_norm, w, a_pos, a_neg))), valid
+
+
+def topsis_closeness(matrix, weights, benefit, *, valid=None,
+                     device=None) -> torch.Tensor:
+    """(N,) closeness for an (N, C) decision matrix; C <= 8 (both the
+    paper's 5-criteria matrix and the carbon-extended 6-criteria one fit
+    the kernel's C_PAD = 8 padding — padded criteria carry zero weight and
+    contribute nothing). ``valid`` is an optional (N,) feasibility mask:
+    invalid rows are excluded from the ideal points and returned as -inf —
+    identical semantics to ``repro_torch.core.topsis.closeness``. K1."""
+    args, valid = single_operands(matrix, weights, benefit, valid=valid,
+                                  device=device)
+    return fill_invalid(_tc.single(*args), valid)
+
+
+def batched_operands(mats, weights, benefit, *, valid=None, device=None):
+    """K2 operands for a (P, N, C) queue tensor."""
+    dev = _device_for(mats, device)
+    benefit = np.asarray(benefit, dtype=bool)
+    c = len(benefit)
+    m = _criteria(mats, c, dev)
+    p = m.shape[0]
+    valid = as_mask(valid, dev)
+    w = _norm_weights(weights, (p, c), dev)
+    inv_norm = _inv_norm(m[..., :c])                              # (P, C)
+    v = m[..., :c] * inv_norm[:, None, :] * w[:, None, :]
+    a_pos, a_neg = _topsis.masked_ideal_points(v, benefit, valid)  # (P, C)
+    return tuple(map(_pad_c, (m, inv_norm, w, a_pos, a_neg))), valid
+
+
+def topsis_closeness_batched(mats, weights, benefit, *, valid=None,
+                             device=None) -> torch.Tensor:
+    """(P, N) closeness for a (P, N, C) queue tensor; C <= 8. Per-pod
+    column norms and ideal points are global reductions in torch; the
+    kernel streams the (node blocks x pods) grid. ``weights`` is (C,)
+    shared or (P, C) per pod; ``valid`` an optional (P, N) feasibility
+    mask (excluded from ideals, -inf in the result). K2."""
+    args, valid = batched_operands(mats, weights, benefit, valid=valid,
+                                   device=device)
+    return fill_invalid(_tc.batched(*args), valid)
+
+
+def grid_operands(mats, weights, benefit, *, valid=None, device=None):
+    """K4 operands for a (P, N, C) queue tensor under (S, C) weights; the
+    returned mask is (1, P, N), broadcasting over schemes."""
+    dev = _device_for(mats, device)
+    benefit = np.asarray(benefit, dtype=bool)
+    c = len(benefit)
+    m = _criteria(mats, c, dev)
+    p = m.shape[0]
+    ws = as_f32(weights, dev)
+    if ws.dim() != 2 or ws.shape[-1] != c:
+        raise ValueError(f"weights must be (S, {c}), got {tuple(ws.shape)}")
+    s = ws.shape[0]
+    ws = ws / torch.clamp_min(torch.sum(ws, dim=-1, keepdim=True), _EPS)
+    valid = as_mask(valid, dev)
+    valid = None if valid is None else valid[None]
+    inv_norm = _inv_norm(m[..., :c])                              # (P, C)
+    # (S, P, N, C) weighted normalized tensor — only for the ideal-point
+    # reductions; the kernel recomputes v rowwise from the (P, N, C) data
+    v = m[None, ..., :c] * inv_norm[None, :, None, :] * ws[:, None, None, :]
+    a_pos, a_neg = _topsis.masked_ideal_points(v, benefit, valid)  # (S, P, C)
+    wsp = torch.broadcast_to(ws[:, None, :], (s, p, c))
+    return tuple(map(_pad_c, (m, inv_norm, wsp, a_pos, a_neg))), valid
+
+
+def topsis_closeness_grid(mats, weights, benefit, *, valid=None,
+                          device=None) -> torch.Tensor:
+    """(S, P, N) closeness for a (P, N, C) queue tensor under an (S, C)
+    weight-scheme grid; C <= 8. Column norms are scheme-independent and
+    computed once per pod; the per-(scheme, pod) ideal points are global
+    reductions in torch; the kernel reads each criteria row once and
+    scores it under all S schemes. ``valid`` is the usual (P, N)
+    feasibility mask, shared by every scheme. K4."""
+    args, valid = grid_operands(mats, weights, benefit, valid=valid,
+                                device=device)
+    return fill_invalid(_tc.grid(*args), valid)
+
+
+def kinds_operands(mats_kinds, kind_idx, weights, benefit, *, valid=None,
+                   device=None):
+    """K3 operands: ``((kind_idx, x, inv_norm, w, a_pos, a_neg), valid)``
+    with ``kind_idx`` int32 on the device and ``x`` the (K, N, C_PAD)
+    kind tensor (an already padded contiguous one is used in place)."""
+    dev = _device_for(mats_kinds, device)
+    benefit = np.asarray(benefit, dtype=bool)
+    c = len(benefit)
+    m = _criteria(mats_kinds, c, dev)
+    k = m.shape[0]
+    kidx_np = np.asarray(kind_idx.cpu() if isinstance(kind_idx, torch.Tensor)
+                         else kind_idx)
+    if kidx_np.size and (kidx_np.min() < 0 or kidx_np.max() >= k):
+        raise IndexError(f"kind_idx out of range for {k} kinds")
+    kidx = torch.as_tensor(kidx_np.astype(np.int32), device=dev)
+    p = kidx.shape[0]
+    valid = as_mask(valid, dev)
+    w = _norm_weights(weights, (p, c), dev)
+    inv_norm = _inv_norm(m[..., :c])[kidx.long()]                 # (P, C)
+    v = m[..., :c][kidx.long()] * inv_norm[:, None, :] * w[:, None, :]
+    a_pos, a_neg = _topsis.masked_ideal_points(v, benefit, valid)  # (P, C)
+    return (kidx,) + tuple(map(_pad_c, (m, inv_norm, w, a_pos, a_neg))), \
+        valid
+
+
+def topsis_closeness_kinds(mats_kinds, kind_idx, weights, benefit, *,
+                           valid=None, device=None) -> torch.Tensor:
+    """(P, N) closeness from a deduplicated (K, N, C) kind tensor plus a
+    (P,) pod->kind index; C <= 8. The incremental batch path: the fleet
+    criteria cache keeps one matrix per workload *kind*, so the kernel
+    streams K criteria tensors instead of P near-duplicate pod copies.
+    ``mats_kinds`` may already be padded to (K, N, C_PAD) — the
+    scheduler's resident device mirror is, and is then read in place.
+
+    Per-pod column norms are gathered from per-kind norms — bitwise equal
+    to the per-pod reduction because each pod's rows ARE its kind's rows.
+    Ideal points stay per pod (``valid`` differs pod to pod); ``weights``
+    is (C,) shared or (P, C) per pod; invalid -> -inf. K3."""
+    args, valid = kinds_operands(mats_kinds, kind_idx, weights, benefit,
+                                 valid=valid, device=device)
+    return fill_invalid(_tc.kinds(*args), valid)

@@ -1,0 +1,82 @@
+"""The port stands alone: every ``repro_torch`` module imports without JAX
+and without anything of the reference package ``repro``, and without
+``triton`` or ``nvcc`` (kernels are built at first use, never on import)."""
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import jax  # noqa: F401  (JAX and torch in one test process, as the suite)
+import pytest
+import torch  # noqa: F401
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+EXPECTED = {
+    "repro_torch", "repro_torch.device", "repro_torch.convert",
+    "repro_torch.core", "repro_torch.core.telemetry",
+    "repro_torch.core.policy", "repro_torch.core.energy",
+    "repro_torch.core.carbon", "repro_torch.core.elastic",
+    "repro_torch.core.criteria", "repro_torch.core.weighting",
+    "repro_torch.core.topsis", "repro_torch.core.scheduler",
+    "repro_torch.cluster", "repro_torch.cluster.node",
+    "repro_torch.cluster.workload", "repro_torch.cluster.engine",
+    "repro_torch.cluster.simulator", "repro_torch.kernels",
+    "repro_torch.kernels.ops", "repro_torch.kernels.ref",
+    "repro_torch.kernels.topsis_cuda",
+}
+
+_PROBE = """
+import importlib, json, pkgutil, sys
+import repro_torch
+names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
+    repro_torch.__path__, "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+print(json.dumps({"modules": names, "loaded": sorted(sys.modules)}))
+"""
+
+
+def _probe() -> dict:
+    import json
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", _PROBE], env=env,
+                         capture_output=True, text=True, timeout=120,
+                         check=True)
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+@pytest.fixture(scope="module")
+def probe():
+    return _probe()
+
+
+def test_every_port_module_imports(probe):
+    assert EXPECTED <= set(probe["modules"])
+
+
+@pytest.mark.parametrize("forbidden", ["jax", "jaxlib", "repro", "triton"])
+def test_no_forbidden_module_loaded(probe, forbidden):
+    """No module of JAX, of the reference package, or of Triton is in
+    ``sys.modules`` after importing the whole port in a fresh process."""
+    hits = [m for m in probe["loaded"]
+            if m == forbidden or m.startswith(forbidden + ".")]
+    assert not hits, hits
+
+
+@pytest.mark.parametrize("path", sorted(
+    [p for p in PORT.rglob("*.py")] + [ROOT / "chip_smoke.py"]),
+    ids=lambda p: str(p.relative_to(ROOT)))
+def test_sources_import_nothing_of_jax_or_repro(path):
+    """Static check, including imports inside functions (which a fresh
+    import does not execute) and chip_smoke.py."""
+    tree = ast.parse(path.read_text())
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            roots.add(node.module.split(".")[0])
+    assert not roots & {"jax", "jaxlib", "repro"}, roots

@@ -1,0 +1,193 @@
+"""The port's TOPSIS kernel wrappers (``repro_torch.kernels.ops``) against
+the reference Pallas wrappers (``repro.kernels.ops``, interpret mode on the
+CPU, as tests/test_kernels.py runs them) and the pure oracles, at atol 1e-5.
+
+Here the port runs with ``device="cpu"``: each wrapper computes its global
+reductions, pads to C_PAD = 8 and calls the kernel binding, which takes the
+kernel's plain PyTorch version because the tensors lie on the CPU. The
+K3/K4 sweeps are in tests/test_torch_kernels_indexed.py. The one
+``gpu``-marked test compares each CUDA kernel with its plain version on
+the card and skips where there is none. The card's machine has no JAX, so
+the reference is imported by a fixture rather than at the top: the file
+collects there, and ``-m gpu`` selects the card test alone.
+"""
+import re
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import ops, topsis_cuda
+from repro_torch.kernels import ref as port_ref
+
+NS = [1, 4, 100, 1000]
+CS = [2, 5, 6, 8]
+ATOL = 1e-5
+
+
+def _same(got, want, atol=ATOL):
+    got = np.asarray(got, dtype=np.float64)
+    want = np.asarray(want, dtype=np.float64)
+    assert got.shape == want.shape
+    assert np.array_equal(np.isneginf(got), np.isneginf(want))
+    finite = np.isfinite(want)
+    assert np.isfinite(got[finite]).all()
+    np.testing.assert_allclose(got[finite], want[finite], atol=atol, rtol=0)
+
+
+@pytest.fixture(scope="module")
+def reference():
+    """The JAX package's Pallas wrappers and pure oracle."""
+    from repro.kernels import ops as ref_ops
+    from repro.kernels import ref as ref_oracle
+    return ref_ops, ref_oracle
+
+
+def _single_inputs(n, c, seed):
+    rng = np.random.default_rng(seed)
+    mat = rng.uniform(0.05, 10.0, (n, c)).astype(np.float32)
+    w = rng.uniform(0.1, 1.0, c).astype(np.float32)
+    benefit = rng.random(c) > 0.5
+    valid = rng.random(n) > 0.1
+    valid[0] = True
+    return mat, w, benefit, valid
+
+
+# --- K1: single matrix ------------------------------------------------------
+@pytest.mark.parametrize("n", NS)
+@pytest.mark.parametrize("c", CS)
+def test_single_sweep(n, c, reference):
+    ref_ops, ref_oracle = reference
+    mat, w, benefit, valid = _single_inputs(n, c, seed=n * 31 + c)
+    got = ops.topsis_closeness(mat, w, benefit, device="cpu")
+    _same(got, ref_oracle.topsis_closeness_ref(mat, w, benefit))
+    _same(got, port_ref.topsis_closeness_ref(torch.from_numpy(mat),
+                                             torch.from_numpy(w), benefit))
+    got_v = ops.topsis_closeness(mat, w, benefit, valid=valid, device="cpu")
+    _same(got_v, ref_ops.topsis_closeness(mat, w, benefit, valid=valid))
+
+
+# --- K2: per-pod batch ------------------------------------------------------
+@pytest.mark.parametrize("n", NS)
+@pytest.mark.parametrize("c", CS)
+def test_batched_sweep(n, c, reference):
+    ref_ops, ref_oracle = reference
+    rng = np.random.default_rng(n * 7 + c)
+    p = 8
+    mats = rng.uniform(0.05, 10.0, (p, n, c)).astype(np.float32)
+    ws = rng.uniform(0.1, 1.0, (p, c)).astype(np.float32)
+    benefit = rng.random(c) > 0.5
+    valid = rng.random((p, n)) > 0.1
+    valid[:, 0] = True
+    got = ops.topsis_closeness_batched(mats, ws, benefit, valid=valid,
+                                       device="cpu")
+    _same(got, ref_ops.topsis_closeness_batched(mats, ws, benefit,
+                                                valid=valid))
+    unmasked = ops.topsis_closeness_batched(mats, ws, benefit, device="cpu")
+    for i in range(p):
+        _same(unmasked[i], ref_oracle.topsis_closeness_ref(mats[i], ws[i],
+                                                           benefit))
+
+
+def test_degenerate_all_equal_gives_half():
+    mat = np.ones((16, 5), np.float32)
+    got = ops.topsis_closeness(mat, np.ones(5), np.ones(5, bool),
+                               device="cpu")
+    assert torch.all(got == 0.5)
+
+
+def test_tensor_inputs_stay_on_their_device(reference):
+    _, ref_oracle = reference
+    mat, w, benefit, _ = _single_inputs(50, 5, seed=3)
+    got = ops.topsis_closeness(torch.from_numpy(mat), torch.from_numpy(w),
+                               benefit)
+    assert got.device.type == "cpu"
+    _same(got, ref_oracle.topsis_closeness_ref(mat, w, benefit))
+
+
+def test_numpy_input_without_device_needs_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: device=None resolves to it")
+    mat, w, benefit, _ = _single_inputs(8, 5, seed=0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ops.topsis_closeness(mat, w, benefit)
+
+
+def test_cpu_path_launches_no_kernel():
+    before = dict(topsis_cuda.LAUNCHES)
+    mat, w, benefit, valid = _single_inputs(100, 5, seed=1)
+    ops.topsis_closeness(mat, w, benefit, valid=valid, device="cpu")
+    ops.topsis_closeness_batched(mat[None], w, benefit, device="cpu")
+    assert topsis_cuda.LAUNCHES == before
+
+
+@pytest.mark.parametrize("bad", ["too_many_criteria", "wrong_width",
+                                 "meta_device", "not_a_tensor"])
+def test_wrappers_reject_what_the_kernels_do_not_take(bad):
+    x = torch.zeros(4, topsis_cuda.C_PAD)
+    small = torch.zeros(topsis_cuda.C_PAD)
+    if bad == "too_many_criteria":
+        with pytest.raises(ValueError, match="at most 8 criteria"):
+            ops.topsis_closeness(np.ones((4, 9)), np.ones(9),
+                                 np.ones(9, bool), device="cpu")
+    elif bad == "wrong_width":
+        with pytest.raises(ValueError, match="last axis 8"):
+            topsis_cuda.single(torch.zeros(4, 5), small, small, small, small)
+    elif bad == "meta_device":
+        with pytest.raises(ValueError, match="not supported"):
+            topsis_cuda.single(x.to("meta"), small, small, small, small)
+    else:
+        with pytest.raises(ValueError, match="criteria tensor"):
+            topsis_cuda.batched(np.zeros((1, 4, 8)), small, small, small,
+                                small)
+
+
+def test_ctypes_signatures_match_the_cuda_source():
+    """Each C entry point in csrc/topsis.cu takes as many parameters as the
+    binding declares, pointers where the binding passes c_void_p."""
+    src = Path(topsis_cuda.SOURCE).read_text()
+    for name, argtypes in topsis_cuda.SIGNATURES.items():
+        m = re.search(rf"int {name}\(([^)]*)\)", src)
+        assert m, name
+        params = [p.strip() for p in m.group(1).split(",")]
+        assert len(params) == len(argtypes), name
+        for p, t in zip(params, argtypes):
+            is_ptr = "*" in p
+            assert is_ptr == (t is topsis_cuda._PTR), (name, p)
+    assert len(re.findall(r"__global__", src)) == 4
+
+
+# --- on the card -------------------------------------------------------------
+@pytest.mark.gpu
+def test_cuda_kernels_match_plain_versions():
+    """Each CUDA kernel against its plain PyTorch version on the same card
+    inputs (~10% invalid nodes), at main-path widths cut to test size.
+    Tolerance 1e-5: float32 with another summation order."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run with -m gpu on the card)")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    n, p, k, s, c = 3001, 16, 3, 5, 6
+    benefit = np.array([False, False, True, True, True, False])
+    valid = rng.random((p, n)) > 0.1
+    kinds = rng.uniform(0.05, 10.0, (k, n, c))
+    kidx = rng.integers(0, k, p)
+    ws = rng.dirichlet(np.ones(c), s)
+    mats = kinds[kidx]
+    cases = {
+        "topsis_single": lambda d: ops.topsis_closeness(
+            mats[0], ws[0], benefit, valid=valid[0], device=d),
+        "topsis_batched": lambda d: ops.topsis_closeness_batched(
+            mats, ws[0], benefit, valid=valid, device=d),
+        "topsis_kinds": lambda d: ops.topsis_closeness_kinds(
+            kinds, kidx, ws[0], benefit, valid=valid, device=d),
+        "topsis_grid": lambda d: ops.topsis_closeness_grid(
+            mats, ws, benefit, valid=valid, device=d),
+    }
+    for name, run in cases.items():
+        before = topsis_cuda.LAUNCHES[name]
+        got = run(dev)
+        torch.cuda.synchronize()
+        assert topsis_cuda.LAUNCHES[name] == before + 1
+        _same(got.cpu(), run("cpu"))
