@@ -5,16 +5,30 @@ Run from the root of a checkout, on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-It builds the TOPSIS CUDA kernels from ``src/repro_torch/kernels/csrc``,
-holds each against its plain PyTorch version at main-path shapes, then
-drives the GreenPod scheduling path end to end on the card — a
-15,000-node fleet taking eight bursts of 512 pods through
-``run_scenario(..., batch=True)`` on the ``cuda`` backend — checking every
-batch round against the ``torch`` and float64 ``numpy`` backends and the
-whole run against a ``numpy`` run. Phases print one line each; the line
-before the last JSON line is the kernel table; the last line is
-``{"ok": true, "device": {...}}``. Any failure exits non-zero before it.
-Without a CUDA device, or outside a checkout, it exits non-zero at once.
+It builds every CUDA kernel of the port from
+``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, all started
+together) and holds each against its plain PyTorch version at main-path
+shapes. Then it drives the port's two main paths on the card:
+
+* the GreenPod scheduling path — a 15,000-node fleet taking eight bursts
+  of 512 pods through ``run_scenario(..., batch=True)`` on the ``cuda``
+  backend — checking every batch round against the ``torch`` and float64
+  ``numpy`` backends and the whole run against a ``numpy`` run (K1-K4);
+* the llama3-8b serving path at full width and depth with seeded random
+  weights — 8 requests of 1024-2048 prompt tokens in waves of 4 through
+  ``serve.engine.Engine``, prefill through the flash-attention kernel (K5)
+  — checking every prefill and decode logit row against the same model
+  with K5's plain version, teacher-forced on the kernel run's tokens; then
+  the same in float32 at a tight limit, which a control with the
+  probabilities rounded to bf16 must fail.
+
+The kernel checks are shown to reject planted faults: K5 with p rounded to
+bf16 or a key tile dropped, K8 rounded before its gamma multiply.
+
+Phases print one line each; the line before the last JSON line is the
+kernel table; the last line is ``{"ok": true, "device": {...}}``. Any
+failure exits non-zero before it. Without a CUDA device, or outside a
+checkout, it exits non-zero at once.
 """
 from __future__ import annotations
 
@@ -35,7 +49,54 @@ GRID_S, GRID_P = 64, 64
 TOL = 1e-5               # float32 kernels vs float32 plain / float64 numpy
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS = 67e12         # H100 SXM data sheet, non-tensor float32
+BF16_FLOPS = 989e12        # H100 SXM data sheet, dense bf16 tensor cores
 SOURCE = "src/repro_torch/kernels/csrc/topsis.cu"
+CSRC = "src/repro_torch/kernels/csrc"
+
+# K5 / K8 against their plain versions. float32: |got - want| <= 2e-5 +
+# 2e-5 |want|, another summation order (the reference's kernel-sweep
+# tolerance). bfloat16: both sides are float32 results rounded once, so
+# they may differ by one output ulp (<= 2**-7 |want|, plus 1e-4 where want
+# is near 0), and only where the two float32 values straddle a rounding
+# boundary: on at most BF16_FLIP_SHARE of the elements. A kernel that
+# rounds an intermediate to bf16 (p before P.V, x before the gamma
+# multiply) flips about 40% of them. lse is float32 in both.
+F32_TOL = 2e-5
+BF16_ATOL, BF16_RTOL, BF16_FLIP_SHARE = 1e-4, 2 ** -7, 1e-2
+# K5 inputs: q has standard deviation K5_Q_STD and k, v 1, so the logits
+# have standard deviation 2 and attention is peaked (out of the order of
+# v, not a near-uniform mean that hides a dropped key tile).
+K5_Q_STD = 2.0
+K5_TILE = 64             # BK of csrc/flash_attention.cu
+# The serving slice: llama3-8b, 8 requests in waves of 4.
+SERVE_ARCH = "llama3-8b"
+SERVE_REQUESTS, SERVE_SLOTS, SERVE_NEW = 8, 4, 32
+SERVE_PROMPT = (1024, 2048)          # prompt lengths, inclusive
+# bf16 logits at full depth, kernel path vs plain path (and the top-2 gap
+# that makes a differing argmax a near-tie). Both paths round to bf16 at
+# the same points, but their float32 sums run in another order, and the
+# one-ulp flips that follow compound over 32 layers: the plain path itself
+# lies 0.089 from the same model with float64 attention (PERF.md). 5e-2
+# holds at the 2-layer SMOKE depth, where the CPU tests check it. This
+# limit cannot tell a kernel that rounds p to bf16 (the same flips, more
+# often); the float32 comparison below does.
+LOGIT_TOL = 0.2
+# The same weights upcast to float32, teacher-forced on the bf16 run's
+# tokens: K5's float32 instantiation against its plain version, within
+# F32_LOGIT_TOL; the plain version with p rounded to bf16 before P.V (the
+# control) must lie beyond it.
+F32_LOGIT_TOL = 1e-3
+PROFILE_STEPS = 8        # decode steps under the profiler
+# K5 cases: (tag, B, H, Hkv, S, D, dtype, window, timed reps): (a) the
+# serving shape, (b) float32, (c) window 64, (d) a ragged S. Every head dim
+# the kernel is built for is then checked at K5_SMALL = (B, H, Hkv, S).
+# Planted faults are held to the check at (a) and (b).
+K5_CASES = [("a", 4, 32, 8, 2048, 128, "bfloat16", None, 10),
+            ("b", 1, 32, 8, 2048, 128, "float32", None, 10),
+            ("c", 4, 32, 8, 2048, 128, "bfloat16", 64, 20),
+            ("d", 4, 32, 8, 1000, 128, "bfloat16", None, 20)]
+K5_SMALL = (2, 8, 2, 333)
+K8_SHAPE = (4 * 2048, 4096)          # rows of a 4 x 2048 prefill, d_model
 
 
 class SmokeFailure(AssertionError):
@@ -95,10 +156,27 @@ def raw_launch(name, args, out):
     return lambda: fn(*raw)
 
 
-def bound(bytes_moved, flops):
+def bound(bytes_moved, flops, peak=FP32_FLOPS):
     """Least time for the work on the card (ms) and what sets it."""
-    t_b, t_o = bytes_moved / HBM_BYTES_PER_S, flops / FP32_FLOPS
+    t_b, t_o = bytes_moved / HBM_BYTES_PER_S, flops / peak
     return 1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+
+
+def agreement(got, want):
+    """(passes, max |got - want|, share of elements that differ) of a
+    kernel's output against its plain version, by the limits above."""
+    import torch
+    check(got.shape == want.shape and got.dtype == want.dtype,
+          f"{got.shape} {got.dtype} vs {want.shape} {want.dtype}")
+    g, w = got.double(), want.double()
+    err = (g - w).abs()
+    share = float((got != want).double().mean())
+    if got.dtype == torch.bfloat16:
+        ok = bool((err <= BF16_ATOL + BF16_RTOL * w.abs()).all()) \
+            and share <= BF16_FLIP_SHARE
+    else:
+        ok = bool((err <= F32_TOL + F32_TOL * w.abs()).all())
+    return ok, float(err.max()), share
 
 
 def max_err(got, want):
@@ -126,14 +204,22 @@ def device_phase():
 
 
 def build_phase():
-    from repro_torch.kernels import topsis_cuda
-    lib = topsis_cuda.build()
-    ptxas = [ln.strip() for ln in lib.ptxas_log.splitlines()
-             if "Compiling entry" in ln or "registers" in ln
-             or "spill" in ln]
-    phase("build", seconds=f"{lib.build_seconds:.2f}", library=lib.path.name)
-    for ln in ptxas:
-        print(f"[build] ptxas {ln}", flush=True)
+    """Start one nvcc per source, then load each library."""
+    from repro_torch.kernels import flash_cuda, rmsnorm_cuda, topsis_cuda
+    libs = [m.LIBRARY for m in (topsis_cuda, flash_cuda, rmsnorm_cuda)]
+    t0 = time.perf_counter()
+    for lib in libs:
+        lib.start()
+    for lib in libs:
+        lib.load()
+        ptxas = [ln.strip() for ln in lib.ptxas_log.splitlines()
+                 if "Compiling entry" in ln or "registers" in ln
+                 or "spill" in ln]
+        phase("build", seconds=f"{lib.build_seconds:.2f}",
+              library=lib.path.name)
+        for ln in ptxas:
+            print(f"[build] ptxas {ln}", flush=True)
+    phase("build", all_seconds=f"{time.perf_counter() - t0:.2f}")
 
 
 # --- phase 3: kernels against their plain versions ---------------------------
@@ -230,6 +316,190 @@ def kernel_phase(dev):
             replaces=tc.REPLACES[name], launches=0, max_abs_err=err, ms=ms,
             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
             library_ms=None))
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+    return table
+
+
+# --- phase 3b: K5 and K8 against their plain versions ---------------------------
+def _attention_case(dev, gen, b, h, hkv, s, d, dtype):
+    import torch
+    q, k, v = (torch.randn((b, n, s, d), generator=gen, device=dev)
+               for n in (h, hkv, hkv))
+    return q.mul_(K5_Q_STD).to(dtype), k.to(dtype), v.to(dtype)
+
+
+def attention_pairs(s, window):
+    """Valid (query, key) pairs of a causal (optionally windowed) s x s
+    mask: the work K5 does after skipping masked tiles' arithmetic."""
+    if window is None:
+        return s * (s + 1) // 2
+    w = min(window, s)
+    return w * (w + 1) // 2 + (s - w) * w
+
+
+def attention_fault(q, k, v, *, sm_scale, causal=True, window=None,
+                    kv_len=None, fault="p_bf16"):
+    """K5's function with a planted fault, in plain torch: ``p_bf16``
+    rounds the normalised probabilities to bf16 before P.V (what ``_sdpa``
+    does); ``diagonal_tile`` drops the keys of each query's own K5_TILE
+    tile. Returns (out, lse) as ``flash_fwd`` does."""
+    import torch
+
+    from repro_torch.kernels import flash_cuda as fc
+    b, h, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    qg = (q.float() * sm_scale).reshape(b, hkv, h // hkv, sq, d)
+    z = torch.einsum("bkgqd,bktd->bkgqt", qg, k.float())
+    ok = fc.mask(sq, skv, causal=causal, window=window,
+                 kv_len=skv if kv_len is None else kv_len, device=q.device)
+    if fault == "diagonal_tile":
+        qt = torch.arange(sq, device=q.device)[:, None] // K5_TILE
+        ok = ok & (torch.arange(skv, device=q.device)[None, :] // K5_TILE
+                   != qt)
+    z = torch.where(ok, z, fc.NEG_BIG)
+    m = torch.amax(z, dim=-1, keepdim=True)
+    p = torch.where(ok, torch.exp(z - m), 0.0)
+    del z
+    lm = torch.clamp_min(torch.sum(p, dim=-1, keepdim=True), 1e-30)
+    if fault == "p_bf16":
+        acc = torch.einsum("bkgqt,bktd->bkgqd",
+                           (p / lm).to(torch.bfloat16).float(), v.float())
+    else:
+        acc = torch.einsum("bkgqt,bktd->bkgqd", p, v.float()) / lm
+    out = acc.to(q.dtype).reshape(b, h, sq, d)
+    return out, (m + torch.log(lm)).reshape(b, h, sq)
+
+
+def k5_agreement(out, lse, pout, plse):
+    """(passes, max |out err|, max |lse err|, share of out elements that
+    differ) of K5's (out, lse) against the plain version's."""
+    ok_o, err, share = agreement(out, pout)
+    ok_l, err_lse, _ = agreement(lse, plse)
+    return ok_o and ok_l, err, err_lse, share
+
+
+def lm_kernel_phase(dev):
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_cuda as fc
+    from repro_torch.kernels import rmsnorm_cuda as rc
+    from repro_torch.models import layers
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    table = {}
+    for tag, b, h, hkv, s, d, dname, window, reps in K5_CASES:
+        dtype = getattr(torch, dname)
+        q, k, v = _attention_case(dev, gen, b, h, hkv, s, d, dtype)
+        scale = d ** -0.5
+        kw = dict(sm_scale=scale, causal=True, window=window)
+        out, lse = fc.flash_fwd(q, k, v, **kw)
+        pout, plse = fc.flash_fwd_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        ok, err, err_lse, share = k5_agreement(out, lse, pout, plse)
+        check(ok, f"K5 {tag}: out err {err} (differing share {share}), "
+              f"lse err {err_lse}, beyond the {dname} limits")
+        faults = {}
+        if tag in ("a", "b"):
+            for fault in ("p_bf16", "diagonal_tile"):
+                f_ok, f_err, f_lse, f_share = k5_agreement(
+                    *attention_fault(q, k, v, **kw, fault=fault), pout, plse)
+                check(not f_ok, f"K5 {tag}: the check passed planted fault "
+                      f"{fault} (out err {f_err}, share {f_share})")
+                faults[fault] = f"{f_err:.3e}/{f_lse:.3e}/{f_share:.4f}"
+        ms = cuda_ms(lambda: fc.flash_fwd(q, k, v, **kw), reps)
+        plain_ms = cuda_ms(lambda: fc.flash_fwd_plain(q, k, v, **kw), 3,
+                           warmup=1)
+        if window is None:
+            lib = lambda: F.scaled_dot_product_attention(   # noqa: E731
+                q, k, v, is_causal=True, scale=scale, enable_gqa=True)
+        else:
+            allowed = fc.mask(s, s, causal=True, window=window, kv_len=s,
+                              device=dev)
+            lib = lambda: F.scaled_dot_product_attention(   # noqa: E731
+                q, k, v, attn_mask=allowed, scale=scale, enable_gqa=True)
+        lib_err = float((lib().float() - pout.float()).abs().max())
+        library_ms = cuda_ms(lib, reps)
+        elt = q.element_size()
+        nbytes = (q.numel() + k.numel() + v.numel() + out.numel()) * elt \
+            + lse.numel() * 4
+        flops = 4 * d * b * h * attention_pairs(s, window)
+        b_ms, b_by = bound(nbytes, flops, BF16_FLOPS if dtype ==
+                           torch.bfloat16 else FP32_FLOPS)
+        phase("kernels", kernel="flash_attention_fwd", case=tag, B=b, H=h,
+              Hkv=hkv, S=s, D=d, dtype=dname, window=window,
+              max_abs_err=f"{err:.3e}", lse_max_abs_err=f"{err_lse:.3e}",
+              differing_share=f"{share:.2e}",
+              max_abs_out=f"{float(pout.float().abs().max()):.3f}",
+              library_max_abs_err=f"{lib_err:.3e}", ms=f"{ms:.6f}",
+              plain_ms=f"{plain_ms:.6f}", library_ms=f"{library_ms:.6f}",
+              bound_ms=f"{b_ms:.6f}", bound_by=b_by,
+              tflops=f"{flops / ms / 1e9:.2f}")
+        if faults:
+            # out err / lse err / share of out elements that differ
+            phase("kernels", kernel="flash_attention_fwd", case=tag,
+                  planted_faults_rejected=",".join(faults),
+                  **{f"{f}_err": r for f, r in faults.items()})
+        row = table.setdefault("flash_attention_fwd", dict(
+            name="flash_attention_fwd", route="cuda",
+            source=f"{CSRC}/flash_attention.cu", replaces=fc.REPLACES,
+            launches=0, max_abs_err=max(err, err_lse), ms=ms,
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=library_ms))
+        row["max_abs_err"] = max(row["max_abs_err"], err, err_lse)
+        del q, k, v, out, lse, pout, plse
+        torch.cuda.empty_cache()
+    # every other head dim the kernel is built for, at a small shape
+    for d in fc.HEAD_DIMS:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = _attention_case(dev, gen, *K5_SMALL, d, dtype)
+            for causal, window in ((True, None), (False, None), (True, 48)):
+                kw = dict(sm_scale=d ** -0.5, causal=causal, window=window)
+                ok, err, err_lse, share = k5_agreement(
+                    *fc.flash_fwd(q, k, v, **kw),
+                    *fc.flash_fwd_plain(q, k, v, **kw))
+                check(ok, f"K5 D={d} {dtype} causal={causal} "
+                      f"window={window}: out err {err} (share {share}), "
+                      f"lse err {err_lse}")
+                table["flash_attention_fwd"]["max_abs_err"] = max(
+                    table["flash_attention_fwd"]["max_abs_err"], err,
+                    err_lse)
+    phase("kernels", kernel="flash_attention_fwd", head_dims_checked=str(
+        fc.HEAD_DIMS).replace(" ", ""),
+          shape="B={},H={},Hkv={},S={}".format(*K5_SMALL))
+    rows, d = K8_SHAPE
+    for dtype in (torch.bfloat16, torch.float32):
+        x = torch.randn((rows, d), generator=gen, device=dev).to(dtype)
+        g = torch.randn(d, generator=gen, device=dev)
+        y = rc.rmsnorm(x, g, 1e-6)
+        yp = rc.rmsnorm_plain(x, g, 1e-6)
+        torch.cuda.synchronize()
+        dname = str(dtype).split(".")[1]
+        ok, err, share = agreement(y, yp)
+        check(ok, f"K8 {dname}: err {err} (differing share {share})")
+        fault = {}
+        if dtype == torch.bfloat16:
+            # the model's RMSNorm, which rounds before the gamma multiply
+            f_ok, f_err, f_share = agreement(layers.rmsnorm(x, g, 1e-6), yp)
+            check(not f_ok, "K8: the check passed the model's RMSNorm")
+            fault = dict(model_rmsnorm_err=f"{f_err:.3e}/{f_share:.4f}")
+        ms = cuda_ms(lambda: rc.rmsnorm(x, g, 1e-6), 100)
+        plain_ms = cuda_ms(lambda: rc.rmsnorm_plain(x, g, 1e-6), 20)
+        gl = g.to(dtype)
+        library_ms = cuda_ms(lambda: F.rms_norm(x, (d,), gl, 1e-6), 100)
+        nbytes = 2 * x.numel() * x.element_size() + g.numel() * 4
+        b_ms, b_by = bound(nbytes, 4 * rows * d)
+        phase("kernels", kernel="rmsnorm_fwd", R=rows, D=d, dtype=dname,
+              max_abs_err=f"{err:.3e}", differing_share=f"{share:.2e}",
+              **fault, ms=f"{ms:.6f}",
+              plain_ms=f"{plain_ms:.6f}", library_ms=f"{library_ms:.6f}",
+              bound_ms=f"{b_ms:.6f}", bound_by=b_by,
+              gb_per_s=f"{nbytes / ms / 1e6:.1f}")
+        row = table.setdefault("rmsnorm_fwd", dict(
+            name="rmsnorm_fwd", route="cuda", source=f"{CSRC}/rmsnorm.cu",
+            replaces=rc.REPLACES, launches=0, max_abs_err=err, ms=ms,
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=library_ms))
         row["max_abs_err"] = max(row["max_abs_err"], err)
     return table
 
@@ -547,6 +817,269 @@ def slice_phase(dev):
     return launches
 
 
+# --- phase 5: the serving slice ----------------------------------------------------
+class RecordingLM:
+    """The LM as ``Engine`` sees it, recording each call's input tokens,
+    logits and wall time (the host clock around work that ends in a
+    synchronise)."""
+
+    def __init__(self, model):
+        self.model = model
+        self.calls = []
+
+    def _record(self, kind, tokens, fn):
+        import torch
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = fn()
+        torch.cuda.synchronize()
+        self.calls.append(dict(kind=kind, tokens=tokens, logits=logits,
+                               seconds=time.perf_counter() - t0))
+        return logits, cache
+
+    def prefill(self, tokens, max_len):
+        return self._record("prefill", tokens,
+                            lambda: self.model.prefill(tokens, max_len))
+
+    def decode(self, cache, tokens):
+        return self._record("decode", tokens.clone(),
+                            lambda: self.model.decode(cache, tokens))
+
+
+@contextlib.contextmanager
+def attention_route(fn):
+    """Route K5's binding to ``fn`` for one run: the same model, weights
+    and rounding points, with the attention arithmetic done by ``fn``."""
+    from repro_torch.kernels import flash_cuda
+    saved = flash_cuda.flash_fwd
+    flash_cuda.flash_fwd = fn
+    try:
+        yield
+    finally:
+        flash_cuda.flash_fwd = saved
+
+
+def teacher_forced(model, calls, max_len):
+    """The logits of every recorded call, replayed on ``model`` with the
+    recorded input tokens."""
+    out, cache = [], None
+    for call in calls:
+        if call["kind"] == "prefill":
+            logits, cache = model.prefill(call["tokens"], max_len)
+        else:
+            logits, cache = model.decode(cache, call["tokens"])
+        out.append(logits)
+    return out
+
+
+def max_diff(a, b):
+    return max(float((x - y).abs().max()) for x, y in zip(a, b))
+
+
+def compare_logits(got, want, stats, tol):
+    """Every row of ``got`` within ``tol`` of ``want``; where the argmax
+    differs, the plain path's top-2 gap is a near-tie (<= ``tol``)."""
+    import torch
+    check(got.shape == want.shape, f"logits {got.shape} vs {want.shape}")
+    check(bool(torch.isfinite(got).all()), "non-finite logits")
+    err = float((got - want).abs().max())
+    stats["max_err"] = max(stats["max_err"], err)
+    check(err <= tol, f"logits differ by {err} > {tol}")
+    a_got, a_want = got.argmax(-1), want.argmax(-1)
+    for i in torch.nonzero(a_got != a_want).flatten().tolist():
+        gap = float(want[i, a_want[i]] - want[i, a_got[i]])
+        check(gap <= tol, f"argmax {int(a_got[i])} vs plain "
+              f"{int(a_want[i])}: plain gap {gap} > {tol}")
+        stats["near_ties"] += 1
+        stats["max_tie_gap"] = max(stats["max_tie_gap"], gap)
+    stats["rows"] += got.shape[0]
+
+
+def compare_runs(got, want, tol):
+    """compare_logits over every call of two teacher-forced runs."""
+    stats = dict(max_err=0.0, near_ties=0, max_tie_gap=0.0, rows=0)
+    for g, w in zip(got, want, strict=True):
+        compare_logits(g, w, stats, tol)
+    return stats
+
+
+def float32_model(model):
+    """``model`` with its weights upcast to float32 in place: the same
+    function with every bf16 rounding point a no-op."""
+    import dataclasses
+    model.float()
+    model.cfg = dataclasses.replace(model.cfg, dtype="float32")
+    return model
+
+
+def device_ms(fn):
+    """Device time (ms) of everything ``fn`` launches, by torch.profiler,
+    split into K5, matrix products (cuBLAS's gemm / gemv / nvjet kernels,
+    CUTLASS) and the rest; None
+    where the profiler records no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    split = {"k5": 0.0, "gemm": 0.0, "other": 0.0}
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = ev.key.lower()
+        group = ("k5" if "flash_fwd_kernel" in name else
+                 "gemm" if any(t in name for t in ("gemm", "gemv", "xmma",
+                                                   "cutlass", "nvjet"))
+                 else "other")
+        split[group] += ev.self_device_time_total / 1e3
+    return split if sum(split.values()) > 0 else None
+
+
+def serve_phase(dev):
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.kernels import flash_cuda, rmsnorm_cuda
+    from repro_torch.models.lm import LM
+    from repro_torch.serve.engine import Engine, Request
+
+    cfg = registry.config(SERVE_ARCH, attn_impl="flash")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = LM(cfg, device=dev, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    rng = np.random.default_rng(0)
+    lengths = rng.integers(SERVE_PROMPT[0], SERVE_PROMPT[1] + 1,
+                           SERVE_REQUESTS)
+    reqs = [Request(i, rng.integers(2, cfg.vocab, n).astype(np.int32),
+                    max_new_tokens=SERVE_NEW, eos_id=-1)
+            for i, n in enumerate(lengths)]
+    max_len = int(lengths.max()) + SERVE_NEW
+    rec = RecordingLM(model)
+    eng = Engine(rec, batch_slots=SERVE_SLOTS, max_len=max_len)
+
+    # the main path: counts set to 0 just before, read just after
+    flash_cuda.reset_launches()
+    rmsnorm_cuda.reset_launches()
+    t0 = time.perf_counter()
+    results = eng.serve(reqs)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    launches = {**flash_cuda.LAUNCHES, **rmsnorm_cuda.LAUNCHES}
+    peak = torch.cuda.max_memory_allocated()
+
+    waves = -(-SERVE_REQUESTS // SERVE_SLOTS)
+    check(launches[flash_cuda.NAME] == cfg.n_layers * waves,
+          f"K5 launches {launches[flash_cuda.NAME]} != n_layers x waves "
+          f"{cfg.n_layers * waves}")
+    check(launches[rmsnorm_cuda.NAME] == 0, "K8 ran on the serving path")
+    check(sorted(r.uid for r in results) == list(range(SERVE_REQUESTS)),
+          "requests lost")
+    for r in results:
+        check(len(r.tokens) == SERVE_NEW, f"request {r.uid}: "
+              f"{len(r.tokens)} tokens")
+        check(bool(((r.tokens >= 0) & (r.tokens < cfg.vocab)).all()),
+              f"request {r.uid}: token out of range")
+
+    # the same requests on K5's plain version, teacher-forced on the
+    # kernel run's tokens
+    kernel_logits = [c["logits"] for c in rec.calls]
+    with attention_route(flash_cuda.flash_fwd_plain):
+        plain = teacher_forced(model, rec.calls, max_len)
+    check(flash_cuda.LAUNCHES[flash_cuda.NAME] == cfg.n_layers * waves,
+          "a comparison run launched K5")
+    stats = compare_runs(kernel_logits, plain, LOGIT_TOL)
+
+    prefill_s = [c["seconds"] for c in rec.calls if c["kind"] == "prefill"]
+    decode_s = [c["seconds"] for c in rec.calls if c["kind"] == "decode"]
+
+    # where the time goes: device time of the last wave's prefill and of
+    # its first decode steps, against the unprofiled host-clock times
+    last = [c for c in rec.calls if c["kind"] == "prefill"][-1]
+    state = {}
+
+    def prefill():
+        state["logits"], state["cache"] = model.prefill(last["tokens"],
+                                                        max_len)
+
+    def decode():
+        tok = torch.argmax(state["logits"], dim=-1)
+        for _ in range(PROFILE_STEPS):
+            logits, state["cache"] = model.decode(state["cache"], tok)
+            tok = torch.argmax(logits, dim=-1)
+
+    split_pre, split_dec = device_ms(prefill), device_ms(decode)
+    for tag, split, wall_ms in (
+            ("prefill", split_pre, 1e3 * prefill_s[-1]),
+            ("decode_step", split_dec and {k: v / PROFILE_STEPS for k, v in
+                                           split_dec.items()},
+             1e3 * float(np.median(decode_s)))):
+        if split is None:
+            phase("serve", profile=tag, device_time="not recorded")
+            continue
+        busy = sum(split.values())
+        phase("serve", profile=tag, wall_ms=f"{wall_ms:.3f}",
+              device_ms=f"{busy:.3f}", k5_ms=f"{split['k5']:.3f}",
+              gemm_ms=f"{split['gemm']:.3f}",
+              other_ms=f"{split['other']:.3f}",
+              device_idle_share=f"{max(0.0, 1 - busy / wall_ms):.3f}")
+    prefill_tok = sum(c["tokens"].size for c in rec.calls
+                      if c["kind"] == "prefill")
+    n_tok = sum(len(r.tokens) for r in results)
+    phase("serve", arch=SERVE_ARCH, n_layers=cfg.n_layers,
+          params=n_params, requests=SERVE_REQUESTS, slots=SERVE_SLOTS,
+          waves=waves, prompt_lengths=",".join(map(str, lengths)),
+          max_new_tokens=SERVE_NEW, max_len=max_len,
+          init_s=f"{init_s:.3f}", serve_s=f"{serve_s:.3f}",
+          tokens=n_tok, tokens_per_s=f"{n_tok / serve_s:.2f}",
+          prefill_s_per_wave=",".join(f"{x:.4f}" for x in prefill_s),
+          prefill_padded_tokens_per_s=f"{prefill_tok / sum(prefill_s):.1f}",
+          decode_steps=len(decode_s),
+          decode_ms_median=f"{1e3 * float(np.median(decode_s)):.3f}",
+          decode_ms_max=f"{1e3 * max(decode_s):.3f}",
+          max_memory_allocated=peak,
+          launches=json.dumps(launches, separators=(",", ":")))
+    phase("serve", compared_rows=stats["rows"],
+          max_abs_logit=f"{max(float(x.abs().max()) for x in plain):.4f}",
+          max_logit_err_vs_plain=f"{stats['max_err']:.4e}",
+          logit_tol=LOGIT_TOL, near_ties=stats["near_ties"],
+          max_near_tie_gap=f"{stats['max_tie_gap']:.4e}")
+
+    # the same weights in float32: K5's float32 instantiation against its
+    # plain version, and the control (p rounded to bf16) beyond the limit
+    del plain, kernel_logits, state
+    t0 = time.perf_counter()
+    float32_model(model)
+    torch.cuda.empty_cache()
+    before = flash_cuda.LAUNCHES[flash_cuda.NAME]
+    k32 = teacher_forced(model, rec.calls, max_len)
+    check(flash_cuda.LAUNCHES[flash_cuda.NAME] - before
+          == cfg.n_layers * waves, "the float32 run did not launch K5 "
+          "once per layer and prefill")
+    with attention_route(flash_cuda.flash_fwd_plain):
+        p32 = teacher_forced(model, rec.calls, max_len)
+    with attention_route(attention_fault):
+        c32 = teacher_forced(model, rec.calls, max_len)
+    control = max_diff(c32, p32)
+    phase("serve", dtype="float32",
+          max_logit_err_vs_plain=f"{max_diff(k32, p32):.4e}",
+          control_p_bf16_vs_plain=f"{control:.4e}",
+          logit_tol=F32_LOGIT_TOL, seconds=f"{time.perf_counter() - t0:.1f}",
+          max_memory_allocated=torch.cuda.max_memory_allocated())
+    stats32 = compare_runs(k32, p32, F32_LOGIT_TOL)
+    check(control > F32_LOGIT_TOL, f"the control (p rounded to bf16) lies "
+          f"within {F32_LOGIT_TOL} of the plain path: {control}")
+    phase("serve", dtype="float32", compared_rows=stats32["rows"],
+          near_ties=stats32["near_ties"],
+          max_near_tie_gap=f"{stats32['max_tie_gap']:.4e}")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -557,19 +1090,23 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False); this script runs only on the card", file=sys.stderr)
         return 1
-    if not (SRC / "repro_torch" / "kernels" / "csrc" / "topsis.cu").is_file():
+    if not all((ROOT / CSRC / f).is_file()
+               for f in ("topsis.cu", "flash_attention.cu", "rmsnorm.cu")):
         print(f"chip_smoke: {SRC / 'repro_torch'} not found; run from a "
               f"checkout of the repository", file=sys.stderr)
         return 1
     sys.path.insert(0, str(SRC))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
     smi, name, count = device_phase()
     build_phase()
     table = kernel_phase(dev)
+    table.update(lm_kernel_phase(dev))
     launches = slice_phase(dev)
+    launches.update(serve_phase(dev))
     for row in table.values():
         row["launches"] = launches[row["name"]]
     phase("done", seconds=f"{time.perf_counter() - t0:.1f}")

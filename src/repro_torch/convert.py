@@ -6,15 +6,22 @@ functions build the port's objects from values any caller can produce —
 for instance the columns of a reference ``NodeTable`` mid-run — without
 importing the reference. Weight vectors need no conversion: they stay
 numpy ``(C,)`` / ``(S, C)`` arrays.
+
+An LM's weights come across as the reference's parameter pytree in nested
+dicts of numpy arrays (``lm_params_from_numpy``).
 """
 from __future__ import annotations
 
 from typing import Iterable, Mapping
 
 import numpy as np
+import torch
 
 from repro_torch.cluster.node import FleetState, Node
 from repro_torch.cluster.workload import WORKLOADS, Pod, WorkloadSpec
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import attn_shapes, dtype_of, ffn_shapes
+from repro_torch.models.lm import LM
 
 # NodeTable fields, in declaration order. The first eight (and the two
 # list columns) define the nodes; the three profile columns are derived
@@ -80,3 +87,58 @@ def pods_from_records(records: Iterable[tuple]) -> list[Pod]:
                         deferrable=bool(deferrable),
                         deadline_s=float(deadline_s)))
     return pods
+
+
+def tensor_from_numpy(a: np.ndarray) -> torch.Tensor:
+    """A CPU tensor of ``a``'s values. A bfloat16 array (``ml_dtypes``, as
+    ``np.asarray`` of a bf16 JAX array gives) goes through its bits."""
+    a = np.ascontiguousarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a.copy())
+
+
+def lm_params_from_numpy(cfg: ModelConfig, tree: Mapping, *,
+                         device=None):
+    """The port's ``LM`` with the reference's parameters: ``tree`` is
+    ``repro.models.lm.build(cfg).init(key)`` as nested dicts of numpy
+    arrays, the dense segment's leaves stacked on axis 0. Weights keep the
+    reference's (d_in, d_out) layout; shapes and dtypes are checked."""
+    model = LM(cfg, device=device, seed=None)
+    dt, D, L = dtype_of(cfg), cfg.d_model, cfg.n_layers
+
+    def put(dst: torch.Tensor, a, name: str, dtype: torch.dtype) -> None:
+        t = tensor_from_numpy(np.asarray(a))
+        if tuple(t.shape) != tuple(dst.shape) or t.dtype != dtype:
+            raise ValueError(f"{name}: {tuple(t.shape)} {t.dtype}, expected "
+                             f"{tuple(dst.shape)} {dtype}")
+        dst.copy_(t)
+
+    expected = {"embed", "final_ln", "dense"} | (
+        set() if cfg.tie_embeddings else {"lm_head"})
+    if set(tree) != expected:
+        raise KeyError(f"parameter tree has {sorted(tree)}, expected "
+                       f"{sorted(expected)}")
+    seg = tree["dense"]
+    with torch.no_grad():
+        put(model.embed, tree["embed"], "embed", dt)
+        put(model.final_ln, tree["final_ln"], "final_ln", torch.float32)
+        if model.lm_head is not None:
+            put(model.lm_head, tree["lm_head"], "lm_head", dt)
+        for name, shapes in (("attn", attn_shapes(cfg)),
+                             ("ffn", ffn_shapes(cfg))):
+            if set(seg[name]) != set(shapes):
+                raise KeyError(f"dense.{name} has {sorted(seg[name])}")
+        for i, blk in enumerate(model.blocks):
+            for ln in ("ln1", "ln2"):
+                if np.shape(seg[ln]) != (L, D):
+                    raise ValueError(f"dense.{ln}: {np.shape(seg[ln])}")
+                put(getattr(blk, ln), seg[ln][i], f"dense.{ln}[{i}]",
+                    torch.float32)
+            for name in ("attn", "ffn"):
+                for k, w in getattr(blk, name).items():
+                    a = seg[name][k]
+                    if np.shape(a)[0] != L:
+                        raise ValueError(f"dense.{name}.{k}: {np.shape(a)}")
+                    put(w, a[i], f"dense.{name}.{k}[{i}]", dt)
+    return model

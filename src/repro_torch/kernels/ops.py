@@ -1,6 +1,7 @@
-"""Public wrappers around the TOPSIS CUDA kernels — port of the TOPSIS half
-of ``repro.kernels.ops``: padding, layout, and the global reductions the
-kernels consume.
+"""Public wrappers around the port's CUDA kernels — port of
+``repro.kernels.ops``: padding, layout, and the global reductions the
+kernels consume. The TOPSIS wrappers (K1-K4) come first; RMSNorm (K8) and
+flash attention (K5) follow them.
 
 Each wrapper computes in plain torch what XLA computed outside the Pallas
 call — weight normalisation, column norms, ``inv_norm``, the masked ideal
@@ -19,6 +20,8 @@ import torch.nn.functional as F
 
 from repro_torch.core import topsis as _topsis
 from repro_torch.device import resolve_device
+from repro_torch.kernels import flash_cuda as _fc
+from repro_torch.kernels import rmsnorm_cuda as _rc
 from repro_torch.kernels import topsis_cuda as _tc
 
 C_PAD = _tc.C_PAD
@@ -224,3 +227,41 @@ def topsis_closeness_kinds(mats_kinds, kind_idx, weights, benefit, *,
     args, valid = kinds_operands(mats_kinds, kind_idx, weights, benefit,
                                  valid=valid, device=device)
     return fill_invalid(_tc.kinds(*args), valid)
+
+
+# --- RMSNorm ----------------------------------------------------------------
+def _as_tensor(x, device: torch.device) -> torch.Tensor:
+    """A tensor (its dtype kept) or an array (float32 stays float32) on
+    ``device``."""
+    if isinstance(x, np.ndarray) and not x.flags.writeable:
+        x = x.copy()
+    return torch.as_tensor(x, device=device)
+
+
+def rmsnorm(x, gamma, eps: float = 1e-6, *, device=None) -> torch.Tensor:
+    """Fused RMSNorm over the last axis of x (any leading shape) through K8:
+    ``x * rsqrt(mean(x^2) + eps) * gamma`` in float32, in x's dtype. On the
+    card the kernel takes any width, so nothing is padded."""
+    dev = _device_for(x, device)
+    x = _as_tensor(x, dev)
+    gamma = as_f32(gamma, dev).contiguous()
+    d = x.shape[-1]
+    out = _rc.rmsnorm(x.reshape(-1, d).contiguous(), gamma, eps)
+    return out.reshape(x.shape)
+
+
+# --- Flash attention ----------------------------------------------------------
+def flash_attention(q, k, v, *, causal: bool = True,
+                    window: int | None = None, sm_scale: float | None = None,
+                    device=None) -> torch.Tensor:
+    """(B, H, S, D) GQA flash attention through K5; k and v are
+    (B, Hkv, S, D). ``sm_scale`` defaults to 1/sqrt(D). Returns ``out`` in
+    q's dtype and memory layout. The kernel masks its own ragged edges, so
+    nothing is padded."""
+    dev = _device_for(q, device)
+    q, k, v = (_as_tensor(t, dev) for t in (q, k, v))
+    if sm_scale is None:
+        sm_scale = 1.0 / (q.shape[-1] ** 0.5)
+    out, _ = _fc.flash_fwd(q, k, v, sm_scale=sm_scale, causal=causal,
+                           window=window)
+    return out

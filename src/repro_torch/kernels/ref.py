@@ -1,6 +1,7 @@
-"""Pure-torch oracle for the TOPSIS kernels — port of the TOPSIS part of
+"""Pure-torch oracles for the port's kernels — port of
 ``repro.kernels.ref``. The semantic ground truth the wrapper sweeps in
-tests/test_torch_kernels.py are held against."""
+tests/test_torch_kernels.py, test_torch_flash.py and test_torch_rmsnorm.py
+are held against."""
 from __future__ import annotations
 
 import torch
@@ -26,3 +27,38 @@ def topsis_closeness_ref(matrix: torch.Tensor, weights: torch.Tensor,
     d_neg = torch.sqrt(torch.sum((v - a_neg) ** 2, dim=1))
     cc = d_neg / torch.clamp_min(d_pos + d_neg, _EPS)
     return torch.where(d_pos + d_neg <= _EPS, 0.5, cc)
+
+
+# --- RMSNorm ----------------------------------------------------------------
+def rmsnorm_ref(x: torch.Tensor, gamma: torch.Tensor,
+                eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    rms = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    return (xf * rms * gamma.float()).to(x.dtype)
+
+
+# --- Flash attention (causal / full) ----------------------------------------
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool = True, sm_scale: float | None = None,
+                  window: int | None = None) -> torch.Tensor:
+    """(B, H, S, D) x (B, Hkv, S, D) -> (B, H, S, D); GQA broadcast when
+    H > Hkv; optional sliding window (mixtral)."""
+    b, h, s, d = q.shape
+    hkv = k.shape[1]
+    if sm_scale is None:
+        sm_scale = 1.0 / (d ** 0.5)
+    if hkv != h:
+        rep = h // hkv
+        k = torch.repeat_interleave(k, rep, dim=1)
+        v = torch.repeat_interleave(v, rep, dim=1)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * sm_scale
+    qi = torch.arange(s, device=q.device)[:, None]
+    ki = torch.arange(s, device=q.device)[None, :]
+    mask = torch.ones((s, s), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= ki <= qi
+    if window is not None:
+        mask &= ki > qi - window
+    logits = torch.where(mask, logits, -torch.inf)
+    probs = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", probs, v.float()).to(q.dtype)

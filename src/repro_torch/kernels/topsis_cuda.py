@@ -14,31 +14,19 @@ Each of the four kernels has here:
   launches its kernel and nowhere else.
 
 The kernels are compiled at first use with ``nvcc`` for ``sm_90a`` into a
-shared library with a plain C interface (no PyTorch headers: seconds, not
-minutes), cached under ``build/`` at the repository root by a hash of the
-source, and loaded with ``ctypes``. Nothing is built or imported from CUDA
-when this module is imported.
+shared library with a plain C interface and loaded with ``ctypes``
+(``kernels/cubuild.py``). Nothing is built or imported from CUDA when this
+module is imported.
 """
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
-
 import torch
+
+from repro_torch.kernels import cubuild
 
 C_PAD = 8
 MAX_PODS = 65535          # gridDim.y limit: one block row per pod
 _EPS = 1e-12
-
-SOURCE = Path(__file__).resolve().parent / "csrc" / "topsis.cu"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # The Pallas kernel each CUDA kernel replaces (file:line of its body).
 REPLACES = {
@@ -49,16 +37,15 @@ REPLACES = {
 }
 LAUNCHES: dict[str, int] = {name: 0 for name in REPLACES}
 
-# ctypes argument types of the C entry points: pointers and the stream as
-# c_void_p (a Python int would be cut to 32 bits), sizes and the device
-# index as c_int.
-_PTR, _I32 = ctypes.c_void_p, ctypes.c_int
+_PTR, _I32 = cubuild.PTR, cubuild.I32
 SIGNATURES = {
     "topsis_single": [_PTR] * 6 + [_I32, _I32, _PTR],
     "topsis_batched": [_PTR] * 6 + [_I32, _I32, _I32, _PTR],
     "topsis_kinds": [_PTR, _I32] + [_PTR] * 6 + [_I32, _I32, _I32, _PTR],
     "topsis_grid": [_PTR] * 6 + [_I32, _I32, _I32, _I32, _PTR],
 }
+LIBRARY = cubuild.CudaLibrary("topsis", SIGNATURES)
+SOURCE = LIBRARY.source
 
 
 def reset_launches() -> None:
@@ -66,63 +53,13 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-# --- build and load -----------------------------------------------------------
-class _Library:
-    """The compiled kernels, built and loaded once per process."""
-
-    lib: ctypes.CDLL | None = None
-    build_seconds: float = 0.0
-    ptxas_log: str = ""
-    path: Path | None = None
-
-
-def _nvcc() -> str:
-    for cand in (os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
-                 shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"):
-        if cand and os.path.isfile(cand):
-            return cand
-    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
-                       "the TOPSIS CUDA kernels are compiled at first use")
-
-
-def build() -> _Library:
+def build() -> cubuild.CudaLibrary:
     """Compile ``csrc/topsis.cu`` (once per source version) and load it."""
-    if _Library.lib is not None:
-        return _Library
-    digest = hashlib.sha256(SOURCE.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    path = BUILD_DIR / f"libtopsis_{digest}.so"
-    log_path = path.with_suffix(".ptxas.txt")
-    t0 = time.perf_counter()
-    if not path.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                               str(SOURCE)], capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}) on {SOURCE}:"
-                               f"\n{proc.stdout}\n{proc.stderr}")
-        log_path.write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, path)
-    _Library.build_seconds = time.perf_counter() - t0
-    _Library.ptxas_log = log_path.read_text() if log_path.exists() else ""
-    lib = ctypes.CDLL(str(path))
-    for name, argtypes in SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    lib.topsis_error_string.argtypes = [ctypes.c_int]
-    lib.topsis_error_string.restype = ctypes.c_char_p
-    _Library.lib, _Library.path = lib, path
-    return _Library
+    return LIBRARY.load()
 
 
 def _launch(name: str, *args) -> None:
-    lib = build().lib
-    rc = getattr(lib, name)(*args)
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc} "
-                           f"({lib.topsis_error_string(rc).decode()})")
+    LIBRARY.call(name, *args)
     LAUNCHES[name] += 1
 
 
@@ -152,21 +89,6 @@ def _check_x(x: torch.Tensor, ndim: int) -> None:
                          f"{tuple(getattr(x, 'shape', ()))}")
     if x.shape[-2] >= 2 ** 31:
         raise ValueError(f"at most 2**31 - 1 nodes, got {x.shape[-2]}")
-
-
-def _stream(device: torch.device) -> tuple[int, int]:
-    index = device.index if device.index is not None \
-        else torch.cuda.current_device()
-    return index, torch.cuda.current_stream(device).cuda_stream
-
-
-def _on_card(x: torch.Tensor) -> bool:
-    if x.device.type == "cuda":
-        return True
-    if x.device.type == "cpu":
-        return False
-    raise ValueError(f"tensors on {x.device} are not supported; use cuda "
-                     f"(the kernels) or cpu (their plain versions)")
 
 
 # --- the plain PyTorch versions ---------------------------------------------------
@@ -210,7 +132,7 @@ def single(x: torch.Tensor, inv_norm: torch.Tensor, w: torch.Tensor,
            a_pos: torch.Tensor, a_neg: torch.Tensor) -> torch.Tensor:
     """K1 (replaces ``_topsis_kernel``): (N, 8) -> (N,) closeness."""
     _check_x(x, 2)
-    if not _on_card(x):
+    if not cubuild.on_card(x):
         return single_plain(x, inv_norm, w, a_pos, a_neg)
     n = x.shape[0]
     _check("x", x, (n, C_PAD), x.device)
@@ -221,7 +143,7 @@ def single(x: torch.Tensor, inv_norm: torch.Tensor, w: torch.Tensor,
     if n:
         _launch("topsis_single", x.data_ptr(), inv_norm.data_ptr(),
                 w.data_ptr(), a_pos.data_ptr(), a_neg.data_ptr(),
-                out.data_ptr(), n, *_stream(x.device))
+                out.data_ptr(), n, *cubuild.stream(x.device))
     return out
 
 
@@ -229,7 +151,7 @@ def batched(x: torch.Tensor, inv_norm: torch.Tensor, w: torch.Tensor,
             a_pos: torch.Tensor, a_neg: torch.Tensor) -> torch.Tensor:
     """K2 (replaces ``_topsis_batched_kernel``): (P, N, 8) -> (P, N)."""
     _check_x(x, 3)
-    if not _on_card(x):
+    if not cubuild.on_card(x):
         return batched_plain(x, inv_norm, w, a_pos, a_neg)
     p, n, _ = x.shape
     if p > MAX_PODS:
@@ -242,7 +164,7 @@ def batched(x: torch.Tensor, inv_norm: torch.Tensor, w: torch.Tensor,
     if p and n:
         _launch("topsis_batched", x.data_ptr(), inv_norm.data_ptr(),
                 w.data_ptr(), a_pos.data_ptr(), a_neg.data_ptr(),
-                out.data_ptr(), n, p, *_stream(x.device))
+                out.data_ptr(), n, p, *cubuild.stream(x.device))
     return out
 
 
@@ -253,7 +175,7 @@ def kinds(kind_idx: torch.Tensor, x: torch.Tensor, inv_norm: torch.Tensor,
     (K, N, 8) per-kind tensor -> (P, N). A kind outside [0, K) gives NaN
     over that pod's row."""
     _check_x(x, 3)
-    if not _on_card(x):
+    if not cubuild.on_card(x):
         return kinds_plain(kind_idx, x, inv_norm, w, a_pos, a_neg)
     k, n, _ = x.shape
     if not isinstance(kind_idx, torch.Tensor) or kind_idx.dim() != 1:
@@ -270,7 +192,7 @@ def kinds(kind_idx: torch.Tensor, x: torch.Tensor, inv_norm: torch.Tensor,
     if p and n:
         _launch("topsis_kinds", kind_idx.data_ptr(), k, x.data_ptr(),
                 inv_norm.data_ptr(), w.data_ptr(), a_pos.data_ptr(),
-                a_neg.data_ptr(), out.data_ptr(), n, p, *_stream(x.device))
+                a_neg.data_ptr(), out.data_ptr(), n, p, *cubuild.stream(x.device))
     return out
 
 
@@ -279,7 +201,7 @@ def grid(x: torch.Tensor, inv_norm: torch.Tensor, w: torch.Tensor,
     """K4 (replaces ``_topsis_grid_kernel``): (P, N, 8) under S schemes ->
     (S, P, N); inv_norm (P, 8), w/a_pos/a_neg (S, P, 8)."""
     _check_x(x, 3)
-    if not _on_card(x):
+    if not cubuild.on_card(x):
         return grid_plain(x, inv_norm, w, a_pos, a_neg)
     p, n, _ = x.shape
     if not isinstance(w, torch.Tensor) or w.dim() != 3:
@@ -295,5 +217,5 @@ def grid(x: torch.Tensor, inv_norm: torch.Tensor, w: torch.Tensor,
     if s and p and n:
         _launch("topsis_grid", x.data_ptr(), inv_norm.data_ptr(),
                 w.data_ptr(), a_pos.data_ptr(), a_neg.data_ptr(),
-                out.data_ptr(), n, p, s, *_stream(x.device))
+                out.data_ptr(), n, p, s, *cubuild.stream(x.device))
     return out

@@ -1,0 +1,245 @@
+"""Dense neural layers of the port: norms, rope, GQA attention with a decode
+cache, FFNs — port of the dense subset of ``repro.models.layers``.
+
+Plain functions over parameter mappings (a dict of tensors or an
+``nn.ParameterDict``), with the reference's ``(d_in, d_out)`` weight layout
+so that ``dot`` is ``x @ w``. Weights are in ``cfg.dtype``; normalisation
+and softmax run in float32; every product accumulates in float32 and is
+rounded to the input dtype where the reference rounds:
+
+* after every ``dot``;
+* in ``rmsnorm`` before the gamma multiply;
+* in rope after the float32 rotation;
+* ``probs`` to v's dtype in ``_sdpa`` (the decode path);
+* nowhere inside the flash kernel (prefill with ``attn_impl="flash"``).
+
+Self-attention prefill goes through K5 (``kernels.ops.flash_attention``)
+when ``cfg.attn_impl == "flash"``: one card is a model axis of 1, so no
+mesh condition applies. Decode uses ``_sdpa``, plain torch as the
+reference's is plain XLA. The decode cache is updated in place.
+"""
+from __future__ import annotations
+
+from typing import Mapping
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.kernels import ops as kops
+from repro_torch.models.config import ModelConfig
+
+Params = Mapping[str, torch.Tensor]
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def dtype_of(cfg: ModelConfig) -> torch.dtype:
+    return DTYPES[cfg.dtype]
+
+
+def dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` over x's last axis, accumulated in float32, then cast to
+    x's dtype. cuBLAS accumulates bf16 products in float32 (with reduced
+    precision reductions switched off by the caller); on the CPU the
+    product is taken in float32 explicitly."""
+    if x.dtype == torch.float32 or x.is_cuda:
+        return torch.matmul(x, w)
+    return torch.matmul(x.float(), w.float()).to(x.dtype)
+
+
+def dot_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` accumulated and returned in float32 (the unembedding)."""
+    if x.dtype == torch.bfloat16 and x.is_cuda:
+        lead = x.shape[:-1]
+        out = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+        return out.reshape(*lead, w.shape[-1])
+    return torch.matmul(x.float(), w.float())
+
+
+# --- init helpers ------------------------------------------------------------
+def dense_init(gen: torch.Generator, d_in: int, d_out: int,
+               dtype: torch.dtype) -> torch.Tensor:
+    """(d_in, d_out) normal * d_in**-0.5 in ``dtype``, drawn on the
+    generator's device. Not JAX's bits: weights are carried across by
+    ``convert.lm_params_from_numpy`` where parity matters."""
+    w = torch.randn((d_in, d_out), generator=gen, device=gen.device,
+                    dtype=torch.float32)
+    return w.mul_(d_in ** -0.5).to(dtype)
+
+
+def attn_shapes(cfg: ModelConfig) -> dict:
+    D, hd = cfg.d_model, cfg.hd
+    return {"wq": (D, cfg.n_heads * hd), "wk": (D, cfg.n_kv_heads * hd),
+            "wv": (D, cfg.n_kv_heads * hd), "wo": (cfg.n_heads * hd, D)}
+
+
+def ffn_shapes(cfg: ModelConfig) -> dict:
+    return {"w1": (cfg.d_model, cfg.d_ff), "w3": (cfg.d_model, cfg.d_ff),
+            "w2": (cfg.d_ff, cfg.d_model)}
+
+
+def init_dense(gen: torch.Generator | None, shapes: dict, cfg: ModelConfig,
+               device) -> dict:
+    """Weights of the given (d_in, d_out) shapes, drawn in order with
+    ``dense_init``; uninitialised when ``gen`` is None (a converter fills
+    them)."""
+    dt = dtype_of(cfg)
+    if gen is None:
+        return {k: torch.empty(s, dtype=dt, device=device)
+                for k, s in shapes.items()}
+    return {k: dense_init(gen, *s, dt) for k, s in shapes.items()}
+
+
+def attn_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    return init_dense(gen, attn_shapes(cfg), cfg, gen.device)
+
+
+def frozen(tensors: dict) -> nn.ParameterDict:
+    """Inference weights: parameters that take no gradient."""
+    return nn.ParameterDict({k: nn.Parameter(v, requires_grad=False)
+                             for k, v in tensors.items()})
+
+
+# --- RMSNorm ------------------------------------------------------------------
+def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float) -> torch.Tensor:
+    """The model's RMSNorm (reference layers.py:45): normalised in float32,
+    rounded to x's dtype, then scaled by gamma in x's dtype. Not K8, whose
+    gamma multiply is in float32 before the rounding."""
+    xf = x.float()
+    ms = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(ms + eps)).to(x.dtype) * gamma.to(x.dtype)
+
+
+# --- RoPE ---------------------------------------------------------------------
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., S, H, D); positions: (..., S) integers."""
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, x.device)                       # (D/2,)
+    ang = positions[..., None].to(torch.float32) * freqs         # (..., S, D/2)
+    cos = torch.cos(ang)[..., None, :]                           # (..., S, 1, D/2)
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# --- Attention (GQA, optional window) -------------------------------------------
+# materialising (S, T) logits beyond this many query rows switches to the
+# exact q-chunked path (bounds live memory to (B, H, CHUNK, T)).
+_Q_CHUNK = 4096
+
+
+def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
+          window: int | None, q_pos: torch.Tensor | None = None,
+          kv_len: int | None = None) -> torch.Tensor:
+    """q: (B, S, H, D); k/v: (B, T, Hkv, D) -> (B, S, H, D), the grouped
+    einsum form: q is seen as (B, S, Hkv, G, D), so query head h reads kv
+    head h // G, as K5 does.
+
+    q_pos: (S,) absolute query positions (decode: the cache length);
+    kv_len: number of valid kv entries (decode with a preallocated cache).
+    """
+    b, s, h, d = q.shape
+    if s > _Q_CHUNK and s % _Q_CHUNK == 0:
+        if q_pos is None:
+            q_pos = torch.arange(s, device=q.device)
+        return torch.cat([
+            _sdpa(q[:, i:i + _Q_CHUNK], k, v, causal=causal, window=window,
+                  q_pos=q_pos[i:i + _Q_CHUNK], kv_len=kv_len)
+            for i in range(0, s, _Q_CHUNK)], dim=1)
+    t, hkv = k.shape[1], k.shape[2]
+    g = h // hkv
+    qg = q.reshape(b, s, hkv, g, d)
+    logits = torch.einsum("bskgd,btkd->bkgst", qg.float(),
+                          k.float()) * (d ** -0.5)
+    qi = (q_pos if q_pos is not None
+          else torch.arange(s, device=q.device))[:, None]
+    ki = torch.arange(t, device=q.device)[None, :]
+    mask = torch.ones((s, t), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= ki <= qi
+    if window is not None:
+        mask &= ki > qi - window
+    if kv_len is not None:
+        mask &= ki < kv_len
+    logits = torch.where(mask, logits, -1e30)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgst,btkd->bskgd", probs.to(v.dtype).float(),
+                       v.float())
+    return out.reshape(b, s, h, v.shape[-1]).to(q.dtype)
+
+
+def _flash_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                causal: bool, window: int | None) -> torch.Tensor:
+    """(B, S, H, D) attention through K5; the kernel reads the (B, H, S, D)
+    views in place and writes its output in q's layout."""
+    out = kops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                               v.transpose(1, 2), causal=causal,
+                               window=window)
+    return out.transpose(1, 2)
+
+
+def attention(p: Params, cfg: ModelConfig, x: torch.Tensor, *, kv_src=None,
+              positions: torch.Tensor | None = None, causal: bool = True,
+              cache: dict | None = None, use_rope: bool = True):
+    """Self-attention. x: (B, S, D). Returns (out, cache').
+
+    cache: None (no cache) or {k, v, len} with preallocated (B, T, Hkv, hd)
+    buffers; k/v of this call are written at ``len`` in place and the cache
+    comes back with ``len + S``.
+    """
+    if kv_src is not None:
+        raise NotImplementedError(
+            "cross-attention (kv_src) is not ported yet: ROADMAP Queue 1 "
+            "item 4 (models/layers.py)")
+    B, S, _ = x.shape
+    hd = cfg.hd
+    q = dot(x, p["wq"]).reshape(B, S, cfg.n_heads, hd)
+    k = dot(x, p["wk"]).reshape(B, S, cfg.n_kv_heads, hd)
+    v = dot(x, p["wv"]).reshape(B, S, cfg.n_kv_heads, hd)
+    if positions is None:
+        positions = torch.arange(S, device=x.device)
+    if use_rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    use_flash = cfg.attn_impl == "flash" and S > 1
+    if cache is not None:
+        idx = int(cache["len"])
+        ck, cv = cache["k"], cache["v"]
+        if idx + S > ck.shape[1]:
+            raise ValueError(f"cache of length {ck.shape[1]} cannot take "
+                             f"{S} more entries at position {idx}")
+        ck[:, idx:idx + S] = k
+        cv[:, idx:idx + S] = v
+        if use_flash:
+            # prefill starts from an empty cache (idx == 0), so attention
+            # over the in-flight k/v equals attention over the cache
+            out = _flash_sdpa(q, k, v, causal=True, window=cfg.attn_window)
+        else:
+            out = _sdpa(q, ck, cv, causal=True, window=cfg.attn_window,
+                        q_pos=positions, kv_len=idx + S)
+        new_cache = {"k": ck, "v": cv, "len": idx + S}
+        return dot(out.reshape(B, S, cfg.n_heads * hd), p["wo"]), new_cache
+    if use_flash:
+        out = _flash_sdpa(q, k, v, causal=causal, window=cfg.attn_window)
+    else:
+        out = _sdpa(q, k, v, causal=causal, window=cfg.attn_window)
+    return dot(out.reshape(B, S, cfg.n_heads * hd), p["wo"]), None
+
+
+# --- FFN (swiglu / geglu) -------------------------------------------------------
+def ffn(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    gate = dot(x, p["w1"])
+    if cfg.ffn_kind == "geglu":
+        act = F.gelu(gate.float(), approximate="tanh").to(x.dtype)
+    else:
+        act = gate * torch.sigmoid(gate)      # jax.nn.silu: x * sigmoid(x)
+    return dot(act * dot(x, p["w3"]), p["w2"])
+

@@ -1,0 +1,213 @@
+"""K5, the port's flash-attention forward, against the reference.
+
+The port's ``ops.flash_attention`` runs here on CPU tensors, where the
+kernel binding takes the kernel's plain PyTorch version
+(``flash_cuda.flash_fwd_plain``); the reference's ``ops.flash_attention``
+runs its Pallas kernel in interpret mode, as tests/test_kernels.py runs it.
+Inputs are made with numpy from a seed and handed to both. Tolerances are
+the reference sweep's: f32 2e-5, bf16 2e-2 (one bf16 ulp of the output).
+The ``gpu``-marked test holds the CUDA kernel against its plain version on
+the card and skips here. The card's machine has no JAX, so the reference
+is imported by a fixture: the file collects there and ``-m gpu`` selects
+the card test alone.
+"""
+import re
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import flash_cuda, ops
+
+F32_TOL = dict(atol=2e-5, rtol=2e-5)
+BF16_TOL = dict(atol=2e-2, rtol=2e-2)
+
+
+@pytest.fixture(scope="module")
+def jref():
+    import jax.numpy as jnp
+    from repro.kernels import ops as rops
+    return jnp, rops
+
+
+def _qkv(seed, b, h, hkv, s, d, skv=None):
+    rng = np.random.default_rng(seed)
+    skv = s if skv is None else skv
+    return (rng.normal(size=(b, h, s, d)).astype(np.float32) * 0.5,
+            rng.normal(size=(b, hkv, skv, d)).astype(np.float32) * 0.5,
+            rng.normal(size=(b, hkv, skv, d)).astype(np.float32) * 0.5)
+
+
+def _both(jnp, arrays, dtype):
+    """The same values as JAX and torch arrays of ``dtype`` (float32 or
+    bfloat16; both round to nearest even)."""
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    return ([jnp.asarray(a).astype(jdt) for a in arrays],
+            [torch.from_numpy(a).to(tdt) for a in arrays])
+
+
+def _np(x):
+    return np.asarray(x.float() if isinstance(x, torch.Tensor) else x,
+                      np.float32)
+
+
+@pytest.mark.parametrize("s,h,hkv,d", [
+    (64, 4, 4, 32),          # MHA
+    (128, 8, 2, 64),         # GQA 4:1
+    (256, 4, 1, 64),         # MQA
+    (96, 2, 2, 80),          # ragged seq + odd head dim
+])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_sweep_matches_reference(jref, s, h, hkv, d, causal, dtype):
+    jnp, rops = jref
+    arrays = _qkv(s + h * 7 + d, 2, h, hkv, s, d)
+    (jq, jk, jv), (tq, tk, tv) = _both(jnp, arrays, dtype)
+    want = rops.flash_attention(jq, jk, jv, causal=causal)
+    got = ops.flash_attention(tq, tk, tv, causal=causal, device="cpu")
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    tol = BF16_TOL if dtype == "bfloat16" else F32_TOL
+    np.testing.assert_allclose(_np(got), _np(want), **tol)
+
+
+@pytest.mark.parametrize("window", [16, 64])
+def test_flash_sliding_window_matches_reference(jref, window):
+    jnp, rops = jref
+    arrays = _qkv(9, 1, 2, 2, 128, 64)
+    (jq, jk, jv), (tq, tk, tv) = _both(jnp, arrays, "float32")
+    want = rops.flash_attention(jq, jk, jv, causal=True, window=window)
+    got = ops.flash_attention(tq, tk, tv, causal=True, window=window,
+                              device="cpu")
+    np.testing.assert_allclose(_np(got), _np(want), **F32_TOL)
+
+
+def test_flash_matches_model_sdpa(jref):
+    """K5 semantics == the reference model's einsum ``_sdpa`` (B, S, H, D),
+    and == the port's own ``_sdpa``: the (B, Hkv, G) grouping of ``_sdpa``
+    and K5's kv head h // G agree."""
+    from repro.models.layers import _sdpa as ref_sdpa
+
+    from repro_torch.models.layers import _sdpa
+    jnp, _ = jref
+    rng = np.random.default_rng(13)
+    B, S, H, HKV, D = 2, 64, 4, 2, 32
+    q = rng.normal(size=(B, S, H, D)).astype(np.float32) * 0.5
+    k = rng.normal(size=(B, S, HKV, D)).astype(np.float32) * 0.5
+    v = rng.normal(size=(B, S, HKV, D)).astype(np.float32) * 0.5
+    want = np.asarray(ref_sdpa(jnp.asarray(q), jnp.asarray(k),
+                               jnp.asarray(v), causal=True, window=None))
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    got = ops.flash_attention(tq.transpose(1, 2), tk.transpose(1, 2),
+                              tv.transpose(1, 2), causal=True, device="cpu")
+    np.testing.assert_allclose(_np(got.transpose(1, 2)), want, **F32_TOL)
+    port = _sdpa(tq, tk, tv, causal=True, window=None)
+    np.testing.assert_allclose(_np(port), want, **F32_TOL)
+
+
+@pytest.mark.parametrize("causal,window,kv_len", [
+    (True, None, None), (False, None, 70), (True, 16, None), (True, 8, 50)])
+def test_plain_lse_is_logsumexp(causal, window, kv_len):
+    """The plain version's lse is the logsumexp of the scaled, masked
+    logits (float64 oracle), and its out the softmax-weighted values, on
+    every query with a valid key (the rest: see the next test)."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(3, 2, 4, 2, 96, 32))
+    scale = 32 ** -0.5
+    out, lse = flash_cuda.flash_fwd_plain(q, k, v, sm_scale=scale,
+                                          causal=causal, window=window,
+                                          kv_len=kv_len)
+    kk = torch.repeat_interleave(k.double(), 2, dim=1)
+    vv = torch.repeat_interleave(v.double(), 2, dim=1)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.double(), kk) * scale
+    ok = flash_cuda.mask(96, 96, causal=causal, window=window,
+                         kv_len=96 if kv_len is None else kv_len,
+                         device="cpu")
+    logits = torch.where(ok, logits, -torch.inf)
+    has = ok.any(-1)
+    assert has.any()
+    np.testing.assert_allclose(lse[..., has].numpy(),
+                               torch.logsumexp(logits, -1)[..., has].numpy(),
+                               atol=2e-5, rtol=2e-5)
+    probs = torch.softmax(logits[..., has, :], -1)
+    np.testing.assert_allclose(out[..., has, :].numpy(),
+                               torch.einsum("bhqk,bhkd->bhqd", probs,
+                                            vv).numpy(), **F32_TOL)
+
+
+def test_plain_fully_masked_rows_are_zero():
+    """A query with no valid key (kv_len 0) gives out 0 and
+    lse = NEG_BIG + log(1e-30), as the Pallas kernel's finish step does."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(4, 1, 2, 1, 8, 32))
+    out, lse = flash_cuda.flash_fwd_plain(q, k, v, sm_scale=0.2,
+                                          causal=True, kv_len=0)
+    assert torch.equal(out, torch.zeros_like(out))
+    np.testing.assert_allclose(
+        lse.numpy(), np.float32(flash_cuda.NEG_BIG) + np.log(np.float32(1e-30)))
+
+
+def test_wrapper_rejects_bad_shapes():
+    q, k, v = (torch.from_numpy(a) for a in _qkv(5, 1, 3, 2, 8, 32))
+    with pytest.raises(ValueError, match="multiple"):
+        flash_cuda.flash_fwd(q, k, v, sm_scale=1.0)
+    q, k, v = (torch.from_numpy(a) for a in _qkv(5, 1, 4, 2, 8, 32))
+    with pytest.raises(ValueError, match="kv_len"):
+        flash_cuda.flash_fwd(q, k, v, sm_scale=1.0, kv_len=9)
+    with pytest.raises(ValueError, match="window"):
+        flash_cuda.flash_fwd(q, k, v, sm_scale=1.0, window=0)
+    with pytest.raises(TypeError, match="dtypes"):
+        flash_cuda.flash_fwd(q, k.double(), v, sm_scale=1.0)
+    with pytest.raises(ValueError, match="not supported"):
+        flash_cuda.flash_fwd(q.to("meta"), k.to("meta"), v.to("meta"),
+                             sm_scale=1.0)
+
+
+def test_c_signature_matches_binding():
+    """The C entry point takes as many parameters as the binding declares,
+    pointers where the binding passes c_void_p; the source instantiates
+    every supported head dim."""
+    src = flash_cuda.LIBRARY.source.read_text()
+    m = re.search(rf"int {flash_cuda.NAME}\(([^)]*)\)", src)
+    params = [p.strip() for p in m.group(1).split(",")]
+    argtypes = flash_cuda.SIGNATURES[flash_cuda.NAME]
+    assert len(params) == len(argtypes)
+    for p, t in zip(params, argtypes):
+        assert ("*" in p) == (t is flash_cuda._P), p
+    for d in flash_cuda.HEAD_DIMS:
+        assert f"case {d}: return launch<T, {d}>" in src
+
+
+# --- on the card ----------------------------------------------------------------
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal,window,dtype,s", [
+    (True, None, torch.bfloat16, 1000), (False, None, torch.float32, 256),
+    (True, 64, torch.bfloat16, 512), (True, None, torch.float32, 333)])
+def test_cuda_flash_matches_plain(causal, window, dtype, s):
+    """The CUDA kernel against its plain version on the same card inputs,
+    out and lse, for every head dim. q is scaled so that the logits have
+    standard deviation 2 and attention is peaked. Both sides are float32
+    results rounded once: bf16 out may differ by one ulp (2**-7 |want|,
+    plus 1e-4 near 0), on at most 1% of the elements; f32 out and lse by
+    2e-5 (another summation order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run with -m gpu on the card)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    for d in flash_cuda.HEAD_DIMS:
+        q, k, v = _qkv(d + s, 2, 8, 2, s, d)
+        q, k, v = (torch.from_numpy(a).to(dev, dtype) for a in (q * 8, k, v))
+        before = flash_cuda.LAUNCHES[flash_cuda.NAME]
+        out, lse = flash_cuda.flash_fwd(q, k, v, sm_scale=d ** -0.5,
+                                        causal=causal, window=window)
+        pout, plse = flash_cuda.flash_fwd_plain(
+            q, k, v, sm_scale=d ** -0.5, causal=causal, window=window)
+        torch.cuda.synchronize()
+        assert flash_cuda.LAUNCHES[flash_cuda.NAME] == before + 1
+        if dtype == torch.bfloat16:
+            np.testing.assert_allclose(_np(out.cpu()), _np(pout.cpu()),
+                                       atol=1e-4, rtol=2 ** -7)
+            assert float((out != pout).double().mean()) <= 1e-2
+        else:
+            np.testing.assert_allclose(_np(out.cpu()), _np(pout.cpu()),
+                                       **F32_TOL)
+        np.testing.assert_allclose(lse.cpu().numpy(), plse.cpu().numpy(),
+                                   **F32_TOL)

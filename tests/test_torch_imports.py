@@ -25,7 +25,17 @@ EXPECTED = {
     "repro_torch.cluster.workload", "repro_torch.cluster.engine",
     "repro_torch.cluster.simulator", "repro_torch.kernels",
     "repro_torch.kernels.ops", "repro_torch.kernels.ref",
-    "repro_torch.kernels.topsis_cuda",
+    "repro_torch.kernels.topsis_cuda", "repro_torch.kernels.cubuild",
+    "repro_torch.kernels.flash_cuda", "repro_torch.kernels.rmsnorm_cuda",
+    "repro_torch.models", "repro_torch.models.config",
+    "repro_torch.models.layers", "repro_torch.models.lm",
+    "repro_torch.configs", "repro_torch.configs.registry",
+    *(f"repro_torch.configs.{arch}" for arch in (
+        "mixtral_8x7b", "deepseek_v3_671b", "deepseek_coder_33b",
+        "gemma_7b", "minitron_8b", "llama3_8b", "zamba2_7b", "rwkv6_1b6",
+        "llama32_vision_90b", "whisper_base")),
+    "repro_torch.serve", "repro_torch.serve.engine",
+    "repro_torch.launch", "repro_torch.launch.serve",
 }
 
 _PROBE = """

@@ -1,0 +1,293 @@
+"""The port's dense layers and LM (``repro_torch.models``) against the
+reference (``repro.models``), on the same weights and inputs.
+
+Weights are the reference's own init, carried across as numpy by
+``convert.lm_params_from_numpy`` / ``tensor_from_numpy``; inputs are made
+with numpy from a seed. The reference's flash path needs an ambient mesh
+with a ``model`` axis (layers.py:89), so every comparison that involves
+``attn_impl="flash"`` traces the reference under a 1x1 ("data", "model")
+mesh; there its prefill runs the Pallas kernel in interpret mode.
+
+Tolerances: layers f32 2e-5, bf16 2e-2; LM logits f32 1e-5, bf16 5e-2 —
+in bf16 both sides round at the same points, and a one-ulp flip in an
+early layer carries through (JAX's own flash and einsum paths differ by
+3.7e-2 at this size).
+"""
+import contextlib
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import compat
+from repro.configs import registry as rregistry
+from repro.models import layers as rlayers
+from repro.models import lm as rlm
+from repro_torch.configs import registry
+from repro_torch.convert import lm_params_from_numpy, tensor_from_numpy
+from repro_torch.models import layers
+from repro_torch.models.lm import LM
+
+LAYER_TOL = {"float32": dict(atol=2e-5, rtol=2e-5),
+             "bfloat16": dict(atol=2e-2, rtol=2e-2)}
+LOGIT_ATOL = {"float32": 1e-5, "bfloat16": 5e-2}
+
+
+def mesh_1x1():
+    return jax.set_mesh(jax.make_mesh((1, 1), ("data", "model"),
+                                      **compat.axis_types_kwarg(2)))
+
+
+def _ctx(attn_impl):
+    return mesh_1x1() if attn_impl == "flash" else contextlib.nullcontext()
+
+
+def _t(a):
+    return tensor_from_numpy(np.asarray(a))
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, np.float32)
+
+
+def _cfgs(dtype, attn_impl="flash", **kw):
+    return (rregistry.smoke_config("llama3-8b", dtype=dtype,
+                                   attn_impl=attn_impl, **kw),
+            registry.smoke_config("llama3-8b", dtype=dtype,
+                                  attn_impl=attn_impl, **kw))
+
+
+def _x(shape, dtype, seed=0, scale=1.0):
+    a = np.random.default_rng(seed).normal(size=shape).astype(np.float32)
+    a *= scale
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    return jnp.asarray(a).astype(jdt), torch.from_numpy(a).to(
+        getattr(torch, dtype))
+
+
+# --- layers ------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_matches_reference(dtype):
+    jx, tx = _x((3, 5, 64), dtype)
+    g = np.random.default_rng(1).normal(size=64).astype(np.float32)
+    want = rlayers.rmsnorm(jx, jnp.asarray(g), 1e-6)
+    got = layers.rmsnorm(tx, torch.from_numpy(g), 1e-6)
+    assert got.dtype == tx.dtype
+    np.testing.assert_allclose(_np(got), _np(want), **LAYER_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("theta", [1e4, 5e5])
+def test_rope_matches_reference(dtype, theta):
+    jx, tx = _x((2, 12, 4, 32), dtype)
+    pos = np.arange(7, 19, dtype=np.int32)
+    want = rlayers.apply_rope(jx, jnp.asarray(pos), theta)
+    got = layers.apply_rope(tx, torch.from_numpy(pos), theta)
+    np.testing.assert_allclose(_np(got), _np(want), **LAYER_TOL[dtype])
+    np.testing.assert_allclose(
+        layers.rope_freqs(32, theta).numpy(),
+        np.asarray(rlayers.rope_freqs(32, theta)), rtol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("ffn_kind", ["swiglu", "geglu"])
+def test_ffn_matches_reference(dtype, ffn_kind):
+    rcfg, pcfg = _cfgs(dtype, ffn_kind=ffn_kind)
+    p = rlayers.ffn_init(jax.random.PRNGKey(3), rcfg)
+    jx, tx = _x((2, 6, rcfg.d_model), dtype)
+    want = rlayers.ffn(p, rcfg, jx)
+    got = layers.ffn({k: _t(v) for k, v in p.items()}, pcfg, tx)
+    np.testing.assert_allclose(_np(got), _np(want), **LAYER_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("attn_impl", ["einsum", "flash"])
+def test_attention_without_cache_matches_reference(dtype, attn_impl):
+    rcfg, pcfg = _cfgs(dtype, attn_impl)
+    p = rlayers.attn_init(jax.random.PRNGKey(4), rcfg)
+    jx, tx = _x((2, 9, rcfg.d_model), dtype, scale=0.5)
+    with _ctx(attn_impl):
+        want, _ = rlayers.attention(p, rcfg, jx)
+    got, cache = layers.attention({k: _t(v) for k, v in p.items()}, pcfg, tx)
+    assert cache is None
+    np.testing.assert_allclose(_np(got), _np(want), **LAYER_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("attn_impl", ["einsum", "flash"])
+def test_attention_with_cache_matches_reference(dtype, attn_impl):
+    """Prefill S=7 into an empty (B, 16, Hkv, hd) cache, then two decode
+    steps at positions 7 and 8: outputs and cache contents agree."""
+    rcfg, pcfg = _cfgs(dtype, attn_impl)
+    p = rlayers.attn_init(jax.random.PRNGKey(5), rcfg)
+    tp = {k: _t(v) for k, v in p.items()}
+    shape = (2, 16, rcfg.n_kv_heads, rcfg.hd)
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    rc = {"k": jnp.zeros(shape, jdt), "v": jnp.zeros(shape, jdt), "len": 0}
+    pc = {"k": torch.zeros(shape, dtype=getattr(torch, dtype)),
+          "v": torch.zeros(shape, dtype=getattr(torch, dtype)), "len": 0}
+    jx, tx = _x((2, 7, rcfg.d_model), dtype, seed=6, scale=0.5)
+    with _ctx(attn_impl):
+        for step in range(3):
+            if step:
+                jx, tx = _x((2, 1, rcfg.d_model), dtype, seed=6 + step,
+                            scale=0.5)
+            n = tx.shape[1]
+            pos = np.arange(pc["len"], pc["len"] + n)
+            want, rc = rlayers.attention(p, rcfg, jx, positions=jnp.asarray(pos),
+                                         cache=rc)
+            got, pc = layers.attention(tp, pcfg, tx,
+                                       positions=torch.from_numpy(pos),
+                                       cache=pc)
+            assert pc["len"] == int(rc["len"])
+            np.testing.assert_allclose(_np(got), _np(want),
+                                       **LAYER_TOL[dtype])
+    for key in ("k", "v"):
+        np.testing.assert_allclose(_np(pc[key]), _np(rc[key]),
+                                   **LAYER_TOL[dtype])
+
+
+def test_sdpa_q_chunked_path_matches_unchunked(monkeypatch):
+    """The q-chunked branch of ``_sdpa`` (S > _Q_CHUNK) equals the
+    one-shot form."""
+    rng = np.random.default_rng(8)
+    q = torch.from_numpy(rng.normal(size=(1, 32, 4, 16)).astype(np.float32))
+    k = torch.from_numpy(rng.normal(size=(1, 32, 2, 16)).astype(np.float32))
+    v = torch.from_numpy(rng.normal(size=(1, 32, 2, 16)).astype(np.float32))
+    whole = layers._sdpa(q, k, v, causal=True, window=5)
+    monkeypatch.setattr(layers, "_Q_CHUNK", 8)
+    chunked = layers._sdpa(q, k, v, causal=True, window=5)
+    np.testing.assert_allclose(chunked.numpy(), whole.numpy(), atol=1e-6)
+
+
+def test_cache_overflow_raises():
+    """The reference's dynamic_update_slice clamps a write past the end of
+    the cache onto its last entries; the port raises instead."""
+    _, pcfg = _cfgs("float32")
+    tp = layers.attn_init(torch.Generator().manual_seed(0), pcfg)
+    shape = (1, 4, pcfg.n_kv_heads, pcfg.hd)
+    cache = {"k": torch.zeros(shape), "v": torch.zeros(shape), "len": 3}
+    with pytest.raises(ValueError, match="cache of length 4"):
+        layers.attention(tp, pcfg, torch.zeros(1, 2, pcfg.d_model),
+                         positions=torch.arange(3, 5), cache=cache)
+
+
+def test_decode_updates_cache_in_place():
+    """The port writes k/v into the cache it is given (the reference
+    returns a new one): decode hands back the same tensors, one longer."""
+    _, pcfg = _cfgs("float32")
+    model = LM(pcfg, device="cpu", seed=0)
+    logits, cache = model.prefill(np.array([[3, 4, 5]]), 8)
+    k_before = cache["dense"]["k"]
+    _, after = model.decode(cache, torch.argmax(logits, -1))
+    assert after["dense"]["k"] is k_before and after["len"] == 4
+    assert bool(k_before[:, :, 3].abs().sum() > 0)
+
+
+def test_unported_paths_raise():
+    _, pcfg = _cfgs("float32")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        layers.attention({}, pcfg, torch.zeros(1, 2, pcfg.d_model),
+                         kv_src=torch.zeros(1, 3, pcfg.d_model))
+    for arch in ("mixtral-8x7b", "deepseek-v3-671b", "zamba2-7b",
+                 "rwkv6-1.6b", "llama-3.2-vision-90b", "whisper-base"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            LM(registry.smoke_config(arch), device="cpu")
+
+
+# --- the LM --------------------------------------------------------------------
+def _models(rcfg, pcfg, seed=0):
+    model = rlm.build(rcfg)
+    params = model.init(jax.random.PRNGKey(seed))
+    port = lm_params_from_numpy(pcfg, jax.tree.map(np.asarray, params),
+                                device="cpu")
+    return model, params, port
+
+
+def _run_both(rcfg, pcfg, tokens, max_len, steps):
+    """Prefill + ``steps`` greedy decode steps on both, the reference's
+    tokens fed to both; yields (what, reference logits, port logits)."""
+    model, params, port = _models(rcfg, pcfg)
+    with _ctx(rcfg.attn_impl):
+        rl, rc = model.prefill(params, {"tokens": jnp.asarray(tokens)},
+                               max_len)
+        pl, pc = port.prefill(tokens, max_len)
+        yield "prefill", rl, pl
+        for step in range(steps):
+            tok = np.asarray(jnp.argmax(rl, -1)).astype(np.int32)
+            rl, rc = model.decode(params, rc, jnp.asarray(tok))
+            pl, pc = port.decode(pc, torch.from_numpy(tok))
+            yield f"decode {step}", rl, pl
+    np.testing.assert_allclose(_np(pc["dense"]["k"]), _np(rc["dense"]["k"]),
+                               atol=LOGIT_ATOL[rcfg.dtype])
+    assert pc["len"] == int(rc["len"])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("attn_impl", ["flash", "einsum"])
+def test_lm_prefill_decode_logits_match_reference(dtype, attn_impl):
+    rcfg, pcfg = _cfgs(dtype, attn_impl)
+    tokens = np.random.default_rng(0).integers(
+        0, rcfg.vocab, (2, 11)).astype(np.int32)
+    for what, want, got in _run_both(rcfg, pcfg, tokens, 16, 3):
+        assert got.dtype == torch.float32 and got.shape == (2, rcfg.vocab)
+        np.testing.assert_allclose(_np(got), _np(want),
+                                   atol=LOGIT_ATOL[dtype], rtol=0,
+                                   err_msg=what)
+
+
+def test_lm_prefill_runs_pallas_under_the_mesh():
+    """The reference comparison above really is against its flash kernel:
+    under the 1x1 mesh its prefill jaxpr holds a pallas_call."""
+    rcfg, _ = _cfgs("float32")
+    model = rlm.build(rcfg)
+    params = model.init(jax.random.PRNGKey(0))
+    toks = jnp.zeros((1, 8), jnp.int32)
+    with mesh_1x1():
+        jaxpr = jax.make_jaxpr(
+            lambda p, t: model.prefill(p, {"tokens": t}, 8))(params, toks)
+    assert "pallas_call" in str(jaxpr)
+
+
+def test_lm_one_layer_at_llama3_8b_attention_geometry():
+    """One block at llama3-8b's attention geometry (d_model 4096, 32 query
+    heads, 8 kv heads, head dim 128, rope theta 5e5) with a narrow FFN and
+    vocabulary, f32, flash prefill + two decode steps."""
+    full = rregistry.config("llama3-8b")
+    over = dict(n_layers=1, d_ff=256, vocab=512, dtype="float32",
+                attn_impl="flash")
+    rcfg = dataclasses.replace(full, **over)
+    pcfg = dataclasses.replace(registry.config("llama3-8b"), **over)
+    assert (pcfg.d_model, pcfg.n_heads, pcfg.n_kv_heads, pcfg.hd) == \
+        (4096, 32, 8, 128)
+    tokens = np.random.default_rng(2).integers(
+        0, rcfg.vocab, (2, 12)).astype(np.int32)
+    for what, want, got in _run_both(rcfg, pcfg, tokens, 16, 2):
+        np.testing.assert_allclose(_np(got), _np(want), atol=1e-5, rtol=0,
+                                   err_msg=what)
+
+
+def test_converter_checks_tree():
+    rcfg, pcfg = _cfgs("float32")
+    tree = jax.tree.map(np.asarray,
+                        rlm.build(rcfg).init(jax.random.PRNGKey(0)))
+    with pytest.raises(KeyError):
+        lm_params_from_numpy(pcfg, {k: v for k, v in tree.items()
+                                    if k != "lm_head"}, device="cpu")
+    bad = dict(tree, embed=tree["embed"][:, :8])
+    with pytest.raises(ValueError, match="embed"):
+        lm_params_from_numpy(pcfg, bad, device="cpu")
+
+
+def test_bf16_leaves_convert_bit_exactly():
+    x = jnp.asarray(np.random.default_rng(3).normal(size=(5, 7)),
+                    jnp.bfloat16)
+    t = tensor_from_numpy(np.asarray(x))
+    assert t.dtype == torch.bfloat16
+    assert np.array_equal(t.view(torch.int16).numpy().view(np.uint16),
+                          np.asarray(x).view(np.uint16))
