@@ -8,7 +8,8 @@ Run from the root of a checkout, on a machine with one CUDA card:
 It builds every CUDA kernel of the port from
 ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, all started
 together) and holds each against its plain PyTorch version at main-path
-shapes. Then it drives the port's two main paths on the card:
+shapes, the flash-attention backward (K6, K7) included. Then it drives
+the port's three main paths on the card:
 
 * the GreenPod scheduling path — a 15,000-node fleet taking eight bursts
   of 512 pods through ``run_scenario(..., batch=True)`` on the ``cuda``
@@ -20,10 +21,20 @@ shapes. Then it drives the port's two main paths on the card:
   — checking every prefill and decode logit row against the same model
   with K5's plain version, teacher-forced on the kernel run's tokens; then
   the same in float32 at a tight limit, which a control with the
-  probabilities rounded to bf16 must fail.
+  probabilities rounded to bf16 must fail;
+* the llama3-8b training path at full width and depth — 3 AdamW steps
+  (int8 moments) on one 4096-token sequence through ``launch.train``'s
+  functions, every layer's attention through K5 forward, K5 again in the
+  per-layer recompute, K6 and K7 — checked against the same 3 steps with
+  attention on the plain versions (and, for the spread, in float64); then
+  4 layers in float32 at tight limits, which a control with a planted K7
+  fault must fail; then the checkpoint / restart round trip of the fault
+  Supervisor at the smoke size.
 
 The kernel checks are shown to reject planted faults: K5 with p rounded to
-bf16 or a key tile dropped, K8 rounded before its gamma multiply.
+bf16 or a key tile dropped, K8 rounded before its gamma multiply, K6/K7
+with dk and dv from one head of each GQA group, ds without its dd term, or
+dq without its diagonal key tile.
 
 Phases print one line each; the line before the last JSON line is the
 kernel table; the last line is ``{"ok": true, "device": {...}}``. Any
@@ -32,8 +43,11 @@ checkout, it exits non-zero at once.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
+import gc
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -97,6 +111,31 @@ K5_CASES = [("a", 4, 32, 8, 2048, 128, "bfloat16", None, 10),
             ("d", 4, 32, 8, 1000, 128, "bfloat16", None, 20)]
 K5_SMALL = (2, 8, 2, 333)
 K8_SHAPE = (4 * 2048, 4096)          # rows of a 4 x 2048 prefill, d_model
+# K6/K7 cases: (tag, B, H, Hkv, S, D, dtype, window, timed reps): the
+# training shape (one 4096-token sequence, the model sees 4095), then
+# float32 with window 64. Every head dim is then checked at K5_SMALL.
+# bf16 gradients are held to agreement()'s one-ulp rule, float32 ones to
+# BWD_F32_REL of the largest |grad| (float32 sums in another order).
+BWD_CASES = [("train", 1, 32, 8, 4095, 128, "bfloat16", None, 5),
+             ("f32_window", 1, 32, 8, 1000, 128, "float32", 64, 10)]
+BWD_F32_REL = 1e-4
+# The training slice: launch.train's code path at full width and depth.
+TRAIN_STEPS = 3
+TRAIN_ARGV = ["--arch", "llama3-8b", "--seq-len", "4096",
+              "--global-batch", "1", "--n-micro", "1", "--lr", "3e-4",
+              "--steps", str(TRAIN_STEPS), "--device", "cuda"]
+# bf16 at full depth, kernel run vs plain run (relative): step-1 loss,
+# step-1 grad norm, and the loss of every step. Both round to bf16 at the
+# same points; their float32 sums run in another order, and the one-ulp
+# flips compound over 32 layers and, after step 1, through AdamW's
+# sign-like first updates. The limits are ~10x the spread between the
+# plain path and float64 attention (6.6e-6, 1.5e-4, 1.5e-3 on an H100;
+# PERF.md), which the script prints beside them.
+TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL, TRAIN_LOSSES_RTOL = 1e-4, 2e-3, 1e-2
+# float32 at full width, F32_TRAIN_LAYERS layers, float32 moments: step-1
+# gradients of every leaf within F32_GRAD_REL of its largest |g|, losses
+# of every step within F32_LOSS_RTOL; a K7 with a planted fault must fail.
+F32_TRAIN_LAYERS, F32_GRAD_REL, F32_LOSS_RTOL = 4, 1e-4, 1e-5
 
 
 class SmokeFailure(AssertionError):
@@ -206,7 +245,8 @@ def device_phase():
 def build_phase():
     """Start one nvcc per source, then load each library."""
     from repro_torch.kernels import flash_cuda, rmsnorm_cuda, topsis_cuda
-    libs = [m.LIBRARY for m in (topsis_cuda, flash_cuda, rmsnorm_cuda)]
+    libs = [m.LIBRARY for m in (topsis_cuda, flash_cuda, rmsnorm_cuda)] \
+        + [flash_cuda.BWD_LIBRARY]
     t0 = time.perf_counter()
     for lib in libs:
         lib.start()
@@ -442,7 +482,7 @@ def lm_kernel_phase(dev):
                   **{f"{f}_err": r for f, r in faults.items()})
         row = table.setdefault("flash_attention_fwd", dict(
             name="flash_attention_fwd", route="cuda",
-            source=f"{CSRC}/flash_attention.cu", replaces=fc.REPLACES,
+            source=f"{CSRC}/flash_attention.cu", replaces=fc.REPLACES[fc.NAME],
             launches=0, max_abs_err=max(err, err_lse), ms=ms,
             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
             library_ms=library_ms))
@@ -501,6 +541,184 @@ def lm_kernel_phase(dev):
             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
             library_ms=library_ms))
         row["max_abs_err"] = max(row["max_abs_err"], err)
+    return table
+
+
+# --- phase 3c: K6 and K7 against their plain version ------------------------------
+def _bwd_fault(q, k, v, do, lse, dd, *, sm_scale, causal=True, window=None,
+               kv_len=None, fault):
+    """The backward of K5 from lse and dd in plain torch, with a planted
+    fault: ``first_head`` sums dk and dv over the first query head of each
+    GQA group only; ``no_dd`` leaves the dd term out of ds;
+    ``diagonal_tile`` drops each query's own K5_TILE key tile from dq (K6
+    without its diagonal tile). Returns (dq, dk, dv)."""
+    import torch
+
+    from repro_torch.kernels import flash_cuda as fc
+    hkv, skv = k.shape[1], k.shape[2]
+    sq, g = q.shape[2], q.shape[1] // hkv
+    ok = fc.mask(sq, skv, causal=causal, window=window,
+                 kv_len=skv if kv_len is None else kv_len, device=q.device)
+    ok_dq = ok
+    if fault == "diagonal_tile":
+        qt = torch.arange(sq, device=q.device)[:, None] // K5_TILE
+        ok_dq = ok & (torch.arange(skv, device=q.device)[None, :] // K5_TILE
+                      != qt)
+    n = 1 if fault == "first_head" else g
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
+    dv = torch.empty(v.shape, dtype=torch.float32, device=q.device)
+    for bi in range(q.shape[0]):
+        for kh in range(hkv):
+            hs = slice(kh * g, (kh + 1) * g)
+            qf, dof = q[bi, hs].float(), do[bi, hs].float()
+            kf, vf = k[bi, kh].float(), v[bi, kh].float()
+            s = torch.matmul(qf, kf.T) * sm_scale
+            p = torch.where(ok, torch.exp(s - lse[bi, hs, :, None]), 0.0)
+            del s
+            dp = torch.matmul(dof, vf.T)
+            if fault != "no_dd":
+                dp = dp - dd[bi, hs, :, None]
+            ds = p * dp * sm_scale
+            del dp
+            dq[bi, hs] = torch.matmul(torch.where(ok_dq, ds, 0.0), kf)
+            dk[bi, kh] = torch.einsum("gqt,gqd->td", ds[:n], qf[:n])
+            dv[bi, kh] = torch.einsum("gqt,gqd->td", p[:n], dof[:n])
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def grad_agreement(got, want):
+    """(passes, max |got - want|, share of elements that differ) of a
+    kernel's gradient against the plain version's: bf16 by agreement()'s
+    one-ulp rule, float32 within BWD_F32_REL of the largest |want|."""
+    import torch
+    if got.dtype == torch.bfloat16:
+        return agreement(got, want)
+    check(got.shape == want.shape and got.dtype == want.dtype,
+          f"{got.shape} {got.dtype} vs {want.shape} {want.dtype}")
+    err = float((got.double() - want.double()).abs().max())
+    scale = float(want.double().abs().max())
+    return (err <= BWD_F32_REL * scale, err,
+            float((got != want).double().mean()))
+
+
+def bwd_kernel_phase(dev):
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_cuda as fc
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    table = {}
+    names = ("dq", "dk", "dv")
+    for tag, b, h, hkv, s, d, dname, window, reps in BWD_CASES:
+        dtype = getattr(torch, dname)
+        q, k, v = _attention_case(dev, gen, b, h, hkv, s, d, dtype)
+        do = torch.randn(q.shape, generator=gen, device=dev).to(dtype)
+        scale = d ** -0.5
+        kw = dict(sm_scale=scale, causal=True, window=window)
+        out, lse = fc.flash_fwd(q, k, v, **kw)
+        dd = torch.sum(do.float() * out.float(), dim=-1)
+        got = (fc.flash_bwd_dq(q, k, v, do, lse, dd, **kw),
+               *fc.flash_bwd_dkv(q, k, v, do, lse, dd, **kw))
+        want = fc.flash_bwd_plain(q, k, v, out, lse, do, **kw)
+        torch.cuda.synchronize()
+        res = dict(zip(names, map(grad_agreement, got, want)))
+        for n, (ok, err, share) in res.items():
+            check(ok, f"K6/K7 {tag} d{n}: err {err} (differing share "
+                  f"{share}) beyond the {dname} limit")
+        faults = {}
+        for fault in ("first_head", "no_dd", "diagonal_tile"):
+            f_res = list(map(grad_agreement, _bwd_fault(
+                q, k, v, do, lse, dd, **kw, fault=fault), want))
+            check(not all(r[0] for r in f_res), f"K6/K7 {tag}: the check "
+                  f"passed planted fault {fault}")
+            faults[fault] = "/".join(f"{r[1]:.3e}" for r in f_res)
+        dq_ms = cuda_ms(lambda: fc.flash_bwd_dq(q, k, v, do, lse, dd, **kw),
+                        reps)
+        dkv_ms = cuda_ms(lambda: fc.flash_bwd_dkv(q, k, v, do, lse, dd, **kw),
+                         reps)
+        plain_ms = cuda_ms(lambda: fc.flash_bwd_plain(q, k, v, out, lse, do,
+                                                      **kw), 3, warmup=1)
+        library_ms, lib_err = None, None
+        if window is None:
+            # the yardstick: autograd's backward of SDPA, dq, dk and dv
+            # together (never called by the port)
+            leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+            o = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                               scale=scale, enable_gqa=True)
+            lib = lambda: torch.autograd.grad(      # noqa: E731
+                o, leaves, do, retain_graph=True)
+            lib_err = max(float((x.float() - w.float()).abs().max())
+                          for x, w in zip(lib(), want))
+            library_ms = cuda_ms(lib, reps)
+            del o, leaves
+        elt = q.element_size()
+        pairs = attention_pairs(s, window)
+        # inputs q, do, k, v (elt) and lse, dd (float32); outputs
+        inputs = (2 * q.numel() + k.numel() + v.numel()) * elt \
+            + 2 * lse.numel() * 4
+        peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
+        rows = {fc.DQ: (dq_ms, bound(inputs + q.numel() * elt,
+                                     6 * d * b * h * pairs, peak),
+                        6 * d * b * h * pairs, ("dq",)),
+                fc.DKV: (dkv_ms, bound(inputs + 2 * k.numel() * elt,
+                                       8 * d * b * h * pairs, peak),
+                         8 * d * b * h * pairs, ("dk", "dv"))}
+        for name, (ms, (b_ms, b_by), flops, outs) in rows.items():
+            err = max(res[n][1] for n in outs)
+            phase("kernels", kernel=name, case=tag, B=b, H=h, Hkv=hkv, S=s,
+                  D=d, dtype=dname, window=window,
+                  **{f"d{n[1:]}_max_abs_err": f"{res[n][1]:.3e}"
+                     for n in outs},
+                  **{f"d{n[1:]}_differing_share": f"{res[n][2]:.2e}"
+                     for n in outs},
+                  ms=f"{ms:.6f}", plain_ms_dq_dk_dv=f"{plain_ms:.6f}",
+                  library_ms_dq_dk_dv=(None if library_ms is None
+                                       else f"{library_ms:.6f}"),
+                  library_max_abs_err=(None if lib_err is None
+                                       else f"{lib_err:.3e}"),
+                  bound_ms=f"{b_ms:.6f}", bound_by=b_by,
+                  tflops=f"{flops / ms / 1e9:.2f}")
+            row = table.setdefault(name, dict(
+                name=name, route="cuda",
+                source=f"{CSRC}/flash_attention_bwd.cu",
+                replaces=fc.REPLACES[name], launches=0, max_abs_err=err,
+                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=library_ms))
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+        # dq / dk / dv max |err| of each planted fault
+        phase("kernels", kernel="flash_attention_bwd", case=tag,
+              planted_faults_rejected=",".join(faults),
+              **{f"{f}_err": r for f, r in faults.items()},
+              max_abs_grad="/".join(f"{float(w.float().abs().max()):.3f}"
+                                    for w in want))
+        del q, k, v, do, out, lse, dd, got, want
+        torch.cuda.empty_cache()
+    # every head dim the kernels are built for, at a small shape
+    for d in fc.HEAD_DIMS:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = _attention_case(dev, gen, *K5_SMALL, d, dtype)
+            do = torch.randn(q.shape, generator=gen, device=dev).to(dtype)
+            for causal, window, kv_len in ((True, None, None),
+                                           (False, None, 300),
+                                           (True, 48, None)):
+                kw = dict(sm_scale=d ** -0.5, causal=causal, window=window,
+                          kv_len=kv_len)
+                out, lse = fc.flash_fwd(q, k, v, **kw)
+                got = fc.flash_bwd(q, k, v, out, lse, do, **kw)
+                want = fc.flash_bwd_plain(q, k, v, out, lse, do, **kw)
+                for n, g_, w_, name in zip(names, got, want,
+                                           (fc.DQ, fc.DKV, fc.DKV)):
+                    ok, err, share = grad_agreement(g_, w_)
+                    check(ok, f"K6/K7 D={d} {dtype} causal={causal} "
+                          f"window={window} kv_len={kv_len} d{n}: err {err} "
+                          f"(share {share})")
+                    table[name]["max_abs_err"] = max(
+                        table[name]["max_abs_err"], err)
+    phase("kernels", kernel="flash_attention_bwd", head_dims_checked=str(
+        fc.HEAD_DIMS).replace(" ", ""),
+          shape="B={},H={},Hkv={},S={}".format(*K5_SMALL))
     return table
 
 
@@ -847,16 +1065,25 @@ class RecordingLM:
 
 
 @contextlib.contextmanager
-def attention_route(fn):
-    """Route K5's binding to ``fn`` for one run: the same model, weights
-    and rounding points, with the attention arithmetic done by ``fn``."""
+def kernel_route(**fns):
+    """Route bindings of ``flash_cuda`` (``flash_fwd=...``,
+    ``flash_bwd=...``, ``flash_bwd_dkv=...``) to other functions for one
+    run: the same model, weights and rounding points, with the attention
+    arithmetic done by them."""
     from repro_torch.kernels import flash_cuda
-    saved = flash_cuda.flash_fwd
-    flash_cuda.flash_fwd = fn
+    saved = {name: getattr(flash_cuda, name) for name in fns}
+    for name, fn in fns.items():
+        setattr(flash_cuda, name, fn)
     try:
         yield
     finally:
-        flash_cuda.flash_fwd = saved
+        for name, fn in saved.items():
+            setattr(flash_cuda, name, fn)
+
+
+def attention_route(fn):
+    """Route K5's binding to ``fn`` for one run."""
+    return kernel_route(flash_fwd=fn)
 
 
 def teacher_forced(model, calls, max_len):
@@ -914,8 +1141,8 @@ def float32_model(model):
 
 def device_ms(fn):
     """Device time (ms) of everything ``fn`` launches, by torch.profiler,
-    split into K5, matrix products (cuBLAS's gemm / gemv / nvjet kernels,
-    CUTLASS) and the rest; None
+    split into K5, K6, K7, matrix products (cuBLAS's gemm / gemv / nvjet
+    kernels, CUTLASS) and the rest; None
     where the profiler records no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -924,12 +1151,14 @@ def device_ms(fn):
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    split = {"k5": 0.0, "gemm": 0.0, "other": 0.0}
+    split = {"k5": 0.0, "k6": 0.0, "k7": 0.0, "gemm": 0.0, "other": 0.0}
     for ev in prof.key_averages():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
         name = ev.key.lower()
         group = ("k5" if "flash_fwd_kernel" in name else
+                 "k6" if "flash_bwd_dq_kernel" in name else
+                 "k7" if "flash_bwd_dkv_kernel" in name else
                  "gemm" if any(t in name for t in ("gemm", "gemv", "xmma",
                                                    "cutlass", "nvjet"))
                  else "other")
@@ -978,6 +1207,8 @@ def serve_phase(dev):
           f"K5 launches {launches[flash_cuda.NAME]} != n_layers x waves "
           f"{cfg.n_layers * waves}")
     check(launches[rmsnorm_cuda.NAME] == 0, "K8 ran on the serving path")
+    check(launches[flash_cuda.DQ] == launches[flash_cuda.DKV] == 0,
+          "K6/K7 ran on the serving path")
     check(sorted(r.uid for r in results) == list(range(SERVE_REQUESTS)),
           "requests lost")
     for r in results:
@@ -1080,6 +1311,297 @@ def serve_phase(dev):
     return launches
 
 
+# --- phase 6: the training slice ----------------------------------------------------
+def _plain64_fwd(q, k, v, **kw):
+    """K5's plain version in float64, rounded back: a third correct
+    evaluation, for the spread of the bf16 comparison."""
+    from repro_torch.kernels import flash_cuda as fc
+    out, lse = fc.flash_fwd_plain(q.double(), k.double(), v.double(), **kw)
+    return out.to(q.dtype), lse.float()
+
+
+def _plain64_bwd(q, k, v, out, lse, do, **kw):
+    from repro_torch.kernels import flash_cuda as fc
+    grads = fc.flash_bwd_plain(*(t.double() for t in (q, k, v, out, lse,
+                                                      do)), **kw)
+    return tuple(g.to(q.dtype) for g in grads)
+
+
+def _free():
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _rel(a, b):
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def full_depth_run(tag, route, profile=False):
+    """TRAIN_STEPS steps of launch.train's code path (``build`` then
+    ``train_steps``) with the flash bindings routed by ``route``; the
+    launch counts of each step, the peak device memory and, with
+    ``profile``, the time split of one more step."""
+    import torch
+
+    from repro_torch.kernels import flash_cuda as fc
+    from repro_torch.launch import train as lt
+    from repro_torch.optim import adamw
+    from repro_torch.train import loop as tl
+
+    args = lt.parse(TRAIN_ARGV + ["--quantized-state"])
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    out = {}
+    with kernel_route(**route):
+        t0 = time.perf_counter()
+        r = lt.build(args)
+        torch.cuda.synchronize()
+        out["init_s"] = time.perf_counter() - t0
+        out["params"] = sum(p.numel() for p in r.model.parameters())
+        last = {}
+
+        def on_step(h):
+            h["launches"] = {k: n - last.get(k, 0)
+                             for k, n in fc.LAUNCHES.items()}
+            last.update(fc.LAUNCHES)
+            phase("train", run=tag, step=h["step"], loss=f"{h['loss']:.6f}",
+                  grad_norm=f"{h['grad_norm']:.6f}", lr=f"{h['lr']:.6e}",
+                  time_s=f"{h['time_s']:.3f}",
+                  launches=json.dumps(h["launches"], separators=(",", ":")))
+
+        # the main path: counts set to 0 just before, read just after
+        fc.reset_launches()
+        out["hist"] = lt.train_steps(r, 0, TRAIN_STEPS, on_step=on_step)
+        out["launches"] = dict(fc.LAUNCHES)
+        out["peak"] = torch.cuda.max_memory_allocated()
+        if profile:
+            n = TRAIN_STEPS
+            t0 = time.perf_counter()
+            out["split"] = device_ms(lambda: lt.train_steps(r, n, n + 1))
+            out["profiled_wall_s"] = time.perf_counter() - t0
+            # the same step's two halves on the host clock, unprofiled
+            batch = r.data_fn(n + 1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, _, grads = tl.microbatch_grads(r.model, r.state["params"],
+                                              batch, 1)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            adamw.update(r.ocfg, grads, r.state["opt_state"],
+                         r.state["params"], decay=r.model.decays())
+            torch.cuda.synchronize()
+            out["grads_s"], out["update_s"] = t1 - t0, time.perf_counter() - t1
+        del r
+    _free()
+    return out
+
+
+def train_phase(dev):
+    """llama3-8b training at full width and depth, kernel run against the
+    plain run; returns the kernel run's launch counts."""
+    import numpy as np
+
+    from repro_torch.configs import registry
+    from repro_torch.kernels import flash_cuda as fc
+
+    n_layers = registry.config("llama3-8b").n_layers
+    kern = full_depth_run("kernel", {}, profile=True)
+    for h in kern["hist"]:
+        check(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"]),
+              f"step {h['step']}: loss {h['loss']} grad_norm "
+              f"{h['grad_norm']}")
+        want = {fc.NAME: 2 * n_layers, fc.DQ: n_layers, fc.DKV: n_layers}
+        got = {k: h["launches"][k] for k in want}
+        check(got == want, f"step {h['step']}: launches {got} != {want} "
+              f"(forward + recompute, dq, dk/dv per layer)")
+    launches = kern["launches"]
+    plain = full_depth_run("plain", dict(flash_fwd=fc.flash_fwd_plain,
+                                         flash_bwd=fc.flash_bwd_plain))
+    check(sum(plain["launches"].values()) == 0, "the plain run launched a "
+          "flash kernel")
+    spread = full_depth_run("plain_float64", dict(flash_fwd=_plain64_fwd,
+                                                  flash_bwd=_plain64_bwd))
+    k1, p1, s1 = kern["hist"][0], plain["hist"][0], spread["hist"][0]
+    cmp = dict(
+        step1_loss_rel=_rel(k1["loss"], p1["loss"]),
+        step1_grad_norm_rel=_rel(k1["grad_norm"], p1["grad_norm"]),
+        losses_rel=max(_rel(a["loss"], b["loss"]) for a, b in
+                       zip(kern["hist"], plain["hist"], strict=True)))
+    spr = dict(
+        step1_loss_rel=_rel(p1["loss"], s1["loss"]),
+        step1_grad_norm_rel=_rel(p1["grad_norm"], s1["grad_norm"]),
+        losses_rel=max(_rel(a["loss"], b["loss"]) for a, b in
+                       zip(plain["hist"], spread["hist"], strict=True)))
+    # the profiler slows the host several-fold, so the device's idle share
+    # is taken against the last unprofiled step's wall time
+    split, wall = kern["split"], kern["hist"][-1]["time_s"]
+    if split is None:
+        phase("train", profile="step", device_time="not recorded")
+    else:
+        busy = sum(split.values())
+        phase("train", profile="step", wall_ms=f"{1e3 * wall:.3f}",
+              profiled_wall_ms=f"{1e3 * kern['profiled_wall_s']:.3f}",
+              device_ms=f"{busy:.3f}",
+              **{f"{k}_ms": f"{v:.3f}" for k, v in split.items()},
+              device_idle_share=f"{max(0.0, 1 - busy / (1e3 * wall)):.3f}")
+    phase("train", arch="llama3-8b", n_layers=n_layers, params=kern["params"],
+          seq_len=4096, tokens_per_step=4095, steps=TRAIN_STEPS,
+          quantized_state=True, init_s=f"{kern['init_s']:.3f}",
+          step_s=",".join(f"{h['time_s']:.3f}" for h in kern["hist"]),
+          plain_step_s=",".join(f"{h['time_s']:.3f}" for h in plain["hist"]),
+          tokens_per_s=f"{4095 / kern['hist'][-1]['time_s']:.1f}",
+          grads_s=f"{kern['grads_s']:.3f}", update_s=f"{kern['update_s']:.3f}",
+          max_memory_allocated=kern["peak"],
+          plain_max_memory_allocated=plain["peak"],
+          launches=json.dumps(launches, separators=(",", ":")))
+    phase("train", compare="kernel_vs_plain",
+          **{k: f"{v:.3e}" for k, v in cmp.items()},
+          limits=f"{TRAIN_LOSS_RTOL}/{TRAIN_GNORM_RTOL}/{TRAIN_LOSSES_RTOL}")
+    phase("train", compare="plain_vs_float64_attention",
+          **{k: f"{v:.3e}" for k, v in spr.items()})
+    check(cmp["step1_loss_rel"] <= TRAIN_LOSS_RTOL, f"step-1 loss: kernel "
+          f"{k1['loss']} vs plain {p1['loss']}")
+    check(cmp["step1_grad_norm_rel"] <= TRAIN_GNORM_RTOL, f"step-1 grad "
+          f"norm: kernel {k1['grad_norm']} vs plain {p1['grad_norm']}")
+    check(cmp["losses_rel"] <= TRAIN_LOSSES_RTOL, f"losses differ by "
+          f"{cmp['losses_rel']} relative")
+    return launches
+
+
+def f32_run(route, steps):
+    """``steps`` steps of the float32 F32_TRAIN_LAYERS-layer model from
+    launch.train's ``build``: the step-1 gradients (through the loop's
+    microbatch_grads and adamw.update, kept) and the losses of every
+    step."""
+    import torch
+
+    from repro_torch.launch import train as lt
+    from repro_torch.optim import adamw
+    from repro_torch.train import loop as tl
+
+    args = lt.parse(TRAIN_ARGV + ["--layers", str(F32_TRAIN_LAYERS),
+                                  "--dtype", "float32"])
+    _free()
+    with kernel_route(**route):
+        r = lt.build(args)
+        loss, _, grads = tl.microbatch_grads(r.model, r.state["params"],
+                                             r.data_fn(0), 1)
+        kept = dict(grads)
+        p, o, _ = adamw.update(r.ocfg, grads, r.state["opt_state"],
+                               r.state["params"], decay=r.model.decays())
+        r.state = {"params": p, "opt_state": o}
+        losses = [float(loss)]
+        losses += [h["loss"] for h in lt.train_steps(r, 1, steps)]
+        torch.cuda.synchronize()
+        del r, p, o
+    _free()
+    return kept, losses
+
+
+def leaf_errors(got, want):
+    """Largest |got - want| / max |want| over the leaves, and its leaf."""
+    worst = (0.0, "")
+    for n, w in want.items():
+        rel = float((got[n] - w).abs().max()) / max(float(w.abs().max()),
+                                                     1e-30)
+        worst = max(worst, (rel, n))
+    return worst
+
+
+def f32_train_phase(dev):
+    """Full width, F32_TRAIN_LAYERS layers, float32 weights and moments:
+    the kernels against the plain versions at tight limits, and a control
+    with a planted K7 fault (dk, dv from one head per group) beyond them."""
+    import torch
+
+    from repro_torch.kernels import flash_cuda as fc
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    before = dict(fc.LAUNCHES)
+    g_k, l_k = f32_run({}, TRAIN_STEPS)
+    check(all(fc.LAUNCHES[k] > before[k] for k in before),
+          "the float32 run did not launch K5, K6 and K7")
+    g_p, l_p = f32_run(dict(flash_fwd=fc.flash_fwd_plain,
+                            flash_bwd=fc.flash_bwd_plain), TRAIN_STEPS)
+    grad_rel, grad_leaf = leaf_errors(g_k, g_p)
+    loss_rel = max(_rel(a, b) for a, b in zip(l_k, l_p, strict=True))
+    del g_k
+    _free()
+
+    def faulty_dkv(q, k, v, do, lse, dd, **kw):
+        return _bwd_fault(q, k, v, do, lse, dd, **kw, fault="first_head")[1:]
+
+    g_c, _ = f32_run(dict(flash_bwd_dkv=faulty_dkv), 1)
+    ctl_rel, ctl_leaf = leaf_errors(g_c, g_p)
+    del g_c, g_p
+    _free()
+    phase("train", dtype="float32", n_layers=F32_TRAIN_LAYERS,
+          steps=TRAIN_STEPS, losses=",".join(f"{x:.7f}" for x in l_k),
+          step1_grad_rel_err=f"{grad_rel:.3e}", worst_leaf=grad_leaf,
+          losses_rel_err=f"{loss_rel:.3e}",
+          control_k7_first_head_grad_rel_err=f"{ctl_rel:.3e}",
+          control_worst_leaf=ctl_leaf,
+          limits=f"{F32_GRAD_REL}/{F32_LOSS_RTOL}",
+          seconds=f"{time.perf_counter() - t0:.1f}",
+          max_memory_allocated=torch.cuda.max_memory_allocated())
+    check(grad_rel <= F32_GRAD_REL, f"float32 step-1 gradient of "
+          f"{grad_leaf} off by {grad_rel} of its largest value")
+    check(loss_rel <= F32_LOSS_RTOL, f"float32 losses differ by {loss_rel}")
+    check(ctl_rel > F32_GRAD_REL, f"the control (K7 with one head per "
+          f"group) lies within {F32_GRAD_REL}: {ctl_rel}")
+
+
+def supervisor_phase(dev):
+    """The fault Supervisor on the card at the smoke size: a fault at step
+    3 restarts from the step-2 checkpoint, and the run ends where an
+    uninterrupted one does."""
+    import torch
+
+    from repro_torch.launch import train as lt
+    from repro_torch.train import checkpoint, fault
+
+    ckpt = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    args = lt.parse(["--smoke", "--head-dim", "32", "--device", "cuda",
+                     "--steps", "6",
+                     "--global-batch", "4", "--seq-len", "64",
+                     "--n-micro", "2", "--quantized-state"])
+    armed = [True]
+
+    def hook(step):
+        if step == 3 and armed[0]:
+            armed[0] = False
+            raise RuntimeError("injected fault")
+
+    try:
+        r = lt.build(args)
+        sup = fault.Supervisor(ckpt_dir=str(ckpt), ckpt_every=2,
+                               max_restarts=1)
+        final, hist = sup.run(state=r.state, step_fn=r.step_fn,
+                              data_fn=r.data_fn, n_steps=6, fault_hook=hook)
+        steps = [h["step"] for h in hist]
+        check(steps == [0, 1, 2, 2, 3, 4, 5], f"steps run {steps}")
+        check(checkpoint.latest_step(str(ckpt)) == 6, "no final checkpoint")
+        back = checkpoint.restore(str(ckpt), 6, final)
+        for n, p in final["params"].items():
+            check(torch.equal(back["params"][n], p), f"restored {n} differs")
+        ref = lt.build(args)
+        ref_hist = lt.train_steps(ref, 0, 6)
+        err = max(_rel(h["loss"], ref_hist[h["step"]]["loss"]) for h in hist)
+        check(err <= 1e-6, f"restarted run's losses differ by {err}")
+        p_err = max(float((final["params"][n] - p).abs().max().detach())
+                    for n, p in ref.state["params"].items())
+        check(p_err <= 1e-6, f"restarted run ends {p_err} from the "
+              f"uninterrupted one")
+        phase("train", supervisor="restart", steps_run=",".join(
+            map(str, steps)), restarted_loss_rel_err=f"{err:.3e}",
+              final_param_max_abs_err=f"{p_err:.3e}")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -1091,7 +1613,8 @@ def main() -> int:
               "False); this script runs only on the card", file=sys.stderr)
         return 1
     if not all((ROOT / CSRC / f).is_file()
-               for f in ("topsis.cu", "flash_attention.cu", "rmsnorm.cu")):
+               for f in ("topsis.cu", "flash_attention.cu", "rmsnorm.cu",
+                         "flash_attention_bwd.cu")):
         print(f"chip_smoke: {SRC / 'repro_torch'} not found; run from a "
               f"checkout of the repository", file=sys.stderr)
         return 1
@@ -1105,8 +1628,14 @@ def main() -> int:
     build_phase()
     table = kernel_phase(dev)
     table.update(lm_kernel_phase(dev))
-    launches = slice_phase(dev)
+    table.update(bwd_kernel_phase(dev))
+    # each main path's counts, summed: slice (K1-K4), serve (K5), train
+    # (K5, K6, K7)
+    launches = collections.Counter(slice_phase(dev))
     launches.update(serve_phase(dev))
+    launches.update(train_phase(dev))
+    f32_train_phase(dev)
+    supervisor_phase(dev)
     for row in table.values():
         row["launches"] = launches[row["name"]]
     phase("done", seconds=f"{time.perf_counter() - t0:.1f}")

@@ -8,7 +8,9 @@ importing the reference. Weight vectors need no conversion: they stay
 numpy ``(C,)`` / ``(S, C)`` arrays.
 
 An LM's weights come across as the reference's parameter pytree in nested
-dicts of numpy arrays (``lm_params_from_numpy``).
+dicts of numpy arrays (``lm_params_from_numpy``), and go back the same way
+(``lm_params_to_numpy``, which also takes gradients or any other tensors
+named as the LM's parameters).
 """
 from __future__ import annotations
 
@@ -142,3 +144,40 @@ def lm_params_from_numpy(cfg: ModelConfig, tree: Mapping, *,
                         raise ValueError(f"dense.{name}.{k}: {np.shape(a)}")
                     put(w, a[i], f"dense.{name}.{k}[{i}]", dt)
     return model
+
+
+def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A numpy copy of ``t``; bfloat16 (which numpy has not got) comes back
+    as float32, exactly."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.numpy().copy()
+
+
+def lm_params_to_numpy(model: LM, tensors: Mapping[str, torch.Tensor]
+                       | None = None) -> dict:
+    """The inverse of ``lm_params_from_numpy``: the reference's parameter
+    pytree as nested dicts of numpy arrays, with the blocks' leaves stacked
+    on axis 0. ``tensors`` maps the LM's parameter names (``"embed"``,
+    ``"blocks.3.attn.wq"``, ...) to tensors of their shapes, such as the
+    gradients of a training step; default: the parameters themselves."""
+    if tensors is None:
+        tensors = dict(model.named_parameters())
+    names = [n for n, _ in model.named_parameters()]
+    if set(tensors) != set(names):
+        raise KeyError(f"tensors name {sorted(set(tensors) ^ set(names))} "
+                       f"differently from the model's parameters")
+    L = model.cfg.n_layers
+    tree = {k: tensor_to_numpy(tensors[k])
+            for k in ("embed", "final_ln", "lm_head") if k in tensors}
+
+    def stack(suffix: str) -> np.ndarray:
+        return np.stack([tensor_to_numpy(tensors[f"blocks.{i}.{suffix}"])
+                         for i in range(L)])
+
+    blk = model.blocks[0]
+    tree["dense"] = {"ln1": stack("ln1"), "ln2": stack("ln2"),
+                     "attn": {k: stack(f"attn.{k}") for k in blk.attn},
+                     "ffn": {k: stack(f"ffn.{k}") for k in blk.ffn}}
+    return tree

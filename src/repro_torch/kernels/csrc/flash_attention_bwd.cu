@@ -1,0 +1,454 @@
+// Flash-attention backward for Hopper (sm_90a): K6 (dq) and K7 (dk, dv).
+//
+// Replaces the Pallas kernels _flash_bwd_dq_kernel and
+// _flash_bwd_dkv_kernel of src/repro/kernels/flash_attention.py, the
+// backward of the custom_vjp around K5. With lse from K5's forward and
+// dd = rowsum(do * out) from the caller (outside the kernels, as in the
+// reference), both recompute, per valid (query, key) pair:
+//
+//   s  = (q . k) * sm_scale                  in float32
+//   p  = exp(s - lse)  on valid keys, 0 elsewhere
+//   dp = do . v
+//   ds = p * (dp - dd) * sm_scale
+//
+// and K6 sums dq = sum_k ds * k, K7 dk = sum_q ds^T * q and
+// dv = sum_q p^T * do over every query of every head of the key's GQA
+// group. The mask is K5's: key < kv_len, key <= query (causal),
+// key > query - window; rows past Sq and keys past Skv are masked too, so
+// nothing is padded (the reference pads S to a tile multiple and relies on
+// do = 0 there).
+//
+// K6: one block per (64-row query tile, batch * head), looping over key
+// tiles with the dq tile in registers (the TPU kernel carries it in VMEM
+// across its sequential kv grid axis). K7: one block per (64-row key tile,
+// batch * kv head), looping over every query head of the group and every
+// query tile, the reference's flattened (group, iq) axis, with dk and dv in
+// registers. No atomics: each output row is written once, by one block, so
+// dk and dv are deterministic and need no zero-fill pass. Tiles wholly
+// above the causal diagonal, outside the window or past kv_len are skipped,
+// as K5 skips them.
+//
+// Thread layout (both kernels). 256 threads, (ty, tx) = (tid / 16,
+// tid % 16). Thread (ty, tx) computes the 4x4 block of the score tile at
+// rows 4*ty.. (queries in K6, keys in K7) and columns 4*tx.. (keys in K6,
+// queries in K7), and owns output columns tx + 16*c (c < D/16) of rows
+// 4*ty..4*ty+3. Q, dO, K and V tiles sit in shared memory transposed
+// (D x 68 floats), so the score products read broadcast or conflict-free
+// float4s; the output products read the transposed tiles by column (a
+// 2-way bank conflict) and ds / p by float4.
+//
+// Bound. At the training shape (B=1, H=32, Hkv=8, S=4095, D=128, bf16,
+// causal) each valid pair costs K6 6*D operations (s, dp, dq) and K7 8*D
+// (s, dp, dv, dk): ~2.1e11 and ~2.7e11 per layer, 208 and 277 us at the
+// bf16 tensor-core peak, against ~35 us for the bytes: both are bound by
+// operations. These first kernels do their arithmetic in float32 FMAs on
+// the CUDA cores (67 TFLOP/s peak), as K5 does; tensor cores (with p and
+// ds split into two bf16 halves to keep float32 semantics) are later work.
+//
+// Templated on the element type (float, __nv_bfloat16) and the head dim
+// (32, 64, 80, 128). C interface, loaded with ctypes by
+// repro_torch/kernels/flash_cuda.py; each entry point launches on the
+// given stream, does not synchronise, and returns cudaGetLastError().
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int BQ = 64;
+constexpr int BK = 64;
+constexpr int THREADS = 256;
+constexpr int TP = 68;  // row pitch (floats) of every transposed tile
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16_rn(x);
+}
+
+struct Params {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* dout;
+  const float* lse;  // (B, H, Sq) contiguous
+  const float* dd;   // (B, H, Sq) contiguous
+  void* dq;
+  void* dk;
+  void* dv;
+  int h, hkv, sq, skv, kv_len, window;  // window <= 0: none
+  int causal;
+  float sm_scale;
+  int64_t q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss;
+  int64_t o_sb, o_sh, o_ss;     // dout
+  int64_t dq_sb, dq_sh, dq_ss;
+  int64_t dk_sb, dk_sh, dk_ss, dv_sb, dv_sh, dv_ss;
+};
+
+// rows r0 .. r0+63 of a (S, D) slab (row stride ss) into dst[d * TP + r],
+// zero past the slab's n rows.
+template <typename T, int D>
+__device__ __forceinline__ void load_t(float* dst, const T* src, int64_t ss,
+                                       int r0, int n) {
+  const int valid = min(BQ, n - r0);
+  for (int i = threadIdx.x; i < BQ * D; i += THREADS) {
+    const int r = i / D, d = i - r * D;
+    dst[d * TP + r] = r < valid ? to_f32(src[(int64_t)(r0 + r) * ss + d])
+                                : 0.f;
+  }
+}
+
+// a[i][j] += sum_d A[d][ra + i] * B[d][cb + j] and
+// c[i][j] += sum_d C[d][ra + i] * E[d][cb + j], the two score products.
+template <int D>
+__device__ __forceinline__ void score_products(
+    float a[4][4], float c[4][4], const float* A, const float* B,
+    const float* C, const float* E, int ra, int cb) {
+#pragma unroll 4
+  for (int d = 0; d < D; ++d) {
+    const float4 x = *reinterpret_cast<const float4*>(&A[d * TP + ra]);
+    const float4 y = *reinterpret_cast<const float4*>(&B[d * TP + cb]);
+    const float4 z = *reinterpret_cast<const float4*>(&C[d * TP + ra]);
+    const float4 w = *reinterpret_cast<const float4*>(&E[d * TP + cb]);
+    const float xv[4] = {x.x, x.y, x.z, x.w};
+    const float yv[4] = {y.x, y.y, y.z, y.w};
+    const float zv[4] = {z.x, z.y, z.z, z.w};
+    const float wv[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        a[i][j] = fmaf(xv[i], yv[j], a[i][j]);
+        c[i][j] = fmaf(zv[i], wv[j], c[i][j]);
+      }
+  }
+}
+
+__device__ __forceinline__ bool valid_pair(const Params& p, int qi, int kj) {
+  bool ok = qi < p.sq && kj < p.kv_len && kj < p.skv;
+  if (p.causal) ok = ok && kj <= qi;
+  if (p.window > 0) ok = ok && kj > qi - p.window;
+  return ok;
+}
+
+template <int D>
+constexpr int smem_dq() { return (int)sizeof(float) * (4 * D * TP + BK * TP); }
+template <int D>
+constexpr int smem_dkv() {
+  return (int)sizeof(float) * (4 * D * TP + 2 * BQ * TP);
+}
+
+// --- K6: dq --------------------------------------------------------------------
+template <typename T, int D>
+__global__ void __launch_bounds__(THREADS)
+flash_bwd_dq_kernel(const Params p) {
+  constexpr int DN = D / 16;
+  extern __shared__ float4 smem4[];
+  float* Qt = reinterpret_cast<float*>(smem4);  // D x TP, q^T
+  float* Ot = Qt + D * TP;                      // D x TP, do^T
+  float* Kt = Ot + D * TP;                      // D x TP, k^T
+  float* Vt = Kt + D * TP;                      // D x TP, v^T
+  float* St = Vt + D * TP;                      // BK x TP, ds^T
+  __shared__ float lse_s[BQ], dd_s[BQ];
+
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int iq = gridDim.x - 1 - blockIdx.x;    // longest tiles first
+  const int b = blockIdx.y / p.h, h = blockIdx.y % p.h;
+  const int hk = h / (p.h / p.hkv);
+  const int q0 = iq * BQ;
+  const T* qg = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const T* og = static_cast<const T*>(p.dout) + b * p.o_sb + h * p.o_sh;
+  const T* kg = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
+  const T* vg = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
+  const int64_t row = ((int64_t)b * p.h + h) * p.sq;
+
+  load_t<T, D>(Qt, qg, p.q_ss, q0, p.sq);
+  load_t<T, D>(Ot, og, p.o_ss, q0, p.sq);
+  if (tid < BQ) {
+    const bool in = q0 + tid < p.sq;
+    lse_s[tid] = in ? p.lse[row + q0 + tid] : 0.f;
+    dd_s[tid] = in ? p.dd[row + q0 + tid] : 0.f;
+  }
+
+  float acc[4][DN];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < DN; ++c) acc[i][c] = 0.f;
+
+  int k_end = min(p.kv_len, p.skv);
+  if (p.causal) k_end = min(k_end, q0 + BQ);
+  int k_begin = 0;
+  if (p.window > 0) k_begin = max(0, q0 - p.window + 1) / BK * BK;
+
+  for (int k0 = k_begin; k0 < k_end; k0 += BK) {
+    __syncthreads();  // Q, dO staged; the previous tile's K, ds consumed
+    load_t<T, D>(Kt, kg, p.k_ss, k0, p.skv);
+    load_t<T, D>(Vt, vg, p.v_ss, k0, p.skv);
+    __syncthreads();
+
+    float s[4][4], dp[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+    score_products<D>(s, dp, Qt, Kt, Ot, Vt, 4 * ty, 4 * tx);
+
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qi = q0 + 4 * ty + i;
+      const float lse = lse_s[4 * ty + i], dd = dd_s[4 * ty + i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const bool ok = valid_pair(p, qi, k0 + 4 * tx + j);
+        const float pr = ok ? expf(s[i][j] * p.sm_scale - lse) : 0.f;
+        s[i][j] = pr * (dp[i][j] - dd) * p.sm_scale;  // ds
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      *reinterpret_cast<float4*>(&St[(4 * tx + j) * TP + 4 * ty]) =
+          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
+    __syncthreads();
+
+#pragma unroll 4
+    for (int kk = 0; kk < BK; ++kk) {
+      const float4 g = *reinterpret_cast<const float4*>(&St[kk * TP + 4 * ty]);
+#pragma unroll
+      for (int c = 0; c < DN; ++c) {
+        const float kv = Kt[(tx + 16 * c) * TP + kk];
+        acc[0][c] = fmaf(g.x, kv, acc[0][c]);
+        acc[1][c] = fmaf(g.y, kv, acc[1][c]);
+        acc[2][c] = fmaf(g.z, kv, acc[2][c]);
+        acc[3][c] = fmaf(g.w, kv, acc[3][c]);
+      }
+    }
+  }
+
+  T* dqg = static_cast<T*>(p.dq) + b * p.dq_sb + h * p.dq_sh;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = q0 + 4 * ty + i;
+    if (r >= p.sq) continue;
+#pragma unroll
+    for (int c = 0; c < DN; ++c)
+      store(&dqg[(int64_t)r * p.dq_ss + tx + 16 * c], acc[i][c]);
+  }
+}
+
+// --- K7: dk, dv ------------------------------------------------------------------
+template <typename T, int D>
+__global__ void __launch_bounds__(THREADS)
+flash_bwd_dkv_kernel(const Params p) {
+  constexpr int DN = D / 16;
+  extern __shared__ float4 smem4[];
+  float* Kt = reinterpret_cast<float*>(smem4);  // D x TP, k^T (resident)
+  float* Vt = Kt + D * TP;                      // D x TP, v^T (resident)
+  float* Qt = Vt + D * TP;                      // D x TP, q^T
+  float* Ot = Qt + D * TP;                      // D x TP, do^T
+  float* Ps = Ot + D * TP;                      // BQ x TP, p[query][key]
+  float* Ss = Ps + BQ * TP;                     // BQ x TP, ds[query][key]
+  __shared__ float lse_s[BQ], dd_s[BQ];
+
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int ik = blockIdx.x;                    // causal: longest tiles first
+  const int b = blockIdx.y / p.hkv, hk = blockIdx.y % p.hkv;
+  const int group = p.h / p.hkv;
+  const int k0 = ik * BK;
+  const T* kg = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
+  const T* vg = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
+
+  load_t<T, D>(Kt, kg, p.k_ss, k0, p.skv);
+  load_t<T, D>(Vt, vg, p.v_ss, k0, p.skv);
+
+  float dk[4][DN], dv[4][DN];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < DN; ++c) dk[i][c] = dv[i][c] = 0.f;
+
+  // query tiles that hold a valid pair with a key of this tile
+  int iq_begin = 0, iq_end = (p.sq + BQ - 1) / BQ;
+  if (k0 >= min(p.kv_len, p.skv)) iq_end = 0;
+  if (p.causal) iq_begin = k0 / BQ;
+  if (p.window > 0)
+    iq_end = min(iq_end, (k0 + BK - 1 + p.window - 1) / BQ + 1);
+
+  for (int g = 0; g < group; ++g) {
+    const int h = hk * group + g;
+    const T* qg = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
+    const T* og = static_cast<const T*>(p.dout) + b * p.o_sb + h * p.o_sh;
+    const int64_t row = ((int64_t)b * p.h + h) * p.sq;
+    for (int iq = iq_begin; iq < iq_end; ++iq) {
+      const int q0 = iq * BQ;
+      __syncthreads();  // the previous tile's Q, dO, p, ds are consumed
+      load_t<T, D>(Qt, qg, p.q_ss, q0, p.sq);
+      load_t<T, D>(Ot, og, p.o_ss, q0, p.sq);
+      if (tid < BQ) {
+        const bool in = q0 + tid < p.sq;
+        lse_s[tid] = in ? p.lse[row + q0 + tid] : 0.f;
+        dd_s[tid] = in ? p.dd[row + q0 + tid] : 0.f;
+      }
+      __syncthreads();
+
+      // s^T and dp^T: rows are keys 4*ty.., columns queries 4*tx..
+      float s[4][4], dp[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+      score_products<D>(s, dp, Kt, Qt, Vt, Ot, 4 * ty, 4 * tx);
+
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int qi = q0 + 4 * tx + j;
+        const float lse = lse_s[4 * tx + j], dd = dd_s[4 * tx + j];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const bool ok = valid_pair(p, qi, k0 + 4 * ty + i);
+          const float pr = ok ? expf(s[i][j] * p.sm_scale - lse) : 0.f;
+          s[i][j] = pr;
+          dp[i][j] = pr * (dp[i][j] - dd) * p.sm_scale;  // ds
+        }
+        *reinterpret_cast<float4*>(&Ps[(4 * tx + j) * TP + 4 * ty]) =
+            make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
+        *reinterpret_cast<float4*>(&Ss[(4 * tx + j) * TP + 4 * ty]) =
+            make_float4(dp[0][j], dp[1][j], dp[2][j], dp[3][j]);
+      }
+      __syncthreads();
+
+#pragma unroll 2
+      for (int qq = 0; qq < BQ; ++qq) {
+        const float4 pp = *reinterpret_cast<const float4*>(&Ps[qq * TP + 4 * ty]);
+        const float4 gs = *reinterpret_cast<const float4*>(&Ss[qq * TP + 4 * ty]);
+#pragma unroll
+        for (int c = 0; c < DN; ++c) {
+          const float ov = Ot[(tx + 16 * c) * TP + qq];
+          const float qv = Qt[(tx + 16 * c) * TP + qq];
+          dv[0][c] = fmaf(pp.x, ov, dv[0][c]);
+          dv[1][c] = fmaf(pp.y, ov, dv[1][c]);
+          dv[2][c] = fmaf(pp.z, ov, dv[2][c]);
+          dv[3][c] = fmaf(pp.w, ov, dv[3][c]);
+          dk[0][c] = fmaf(gs.x, qv, dk[0][c]);
+          dk[1][c] = fmaf(gs.y, qv, dk[1][c]);
+          dk[2][c] = fmaf(gs.z, qv, dk[2][c]);
+          dk[3][c] = fmaf(gs.w, qv, dk[3][c]);
+        }
+      }
+    }
+  }
+
+  T* dkg = static_cast<T*>(p.dk) + b * p.dk_sb + hk * p.dk_sh;
+  T* dvg = static_cast<T*>(p.dv) + b * p.dv_sb + hk * p.dv_sh;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = k0 + 4 * ty + i;
+    if (r >= p.skv) continue;
+#pragma unroll
+    for (int c = 0; c < DN; ++c) {
+      store(&dkg[(int64_t)r * p.dk_ss + tx + 16 * c], dk[i][c]);
+      store(&dvg[(int64_t)r * p.dv_ss + tx + 16 * c], dv[i][c]);
+    }
+  }
+}
+
+template <typename T, int D>
+cudaError_t launch(const Params& p, int batch, bool dkv, cudaStream_t stream) {
+  // one flag per instantiation and kernel: the attribute is set once
+  static bool configured[2] = {false, false};
+  const int bytes = dkv ? smem_dkv<D>() : smem_dq<D>();
+  const void* fn = dkv ? (const void*)flash_bwd_dkv_kernel<T, D>
+                       : (const void*)flash_bwd_dq_kernel<T, D>;
+  if (!configured[dkv]) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return e;
+    configured[dkv] = true;
+  }
+  if (dkv) {
+    const dim3 grid((p.skv + BK - 1) / BK, batch * p.hkv);
+    flash_bwd_dkv_kernel<T, D><<<grid, THREADS, bytes, stream>>>(p);
+  } else {
+    const dim3 grid((p.sq + BQ - 1) / BQ, batch * p.h);
+    flash_bwd_dq_kernel<T, D><<<grid, THREADS, bytes, stream>>>(p);
+  }
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch(const Params& p, int batch, int d, bool dkv,
+                     cudaStream_t s) {
+  switch (d) {
+    case 32: return launch<T, 32>(p, batch, dkv, s);
+    case 64: return launch<T, 64>(p, batch, dkv, s);
+    case 80: return launch<T, 80>(p, batch, dkv, s);
+    case 128: return launch<T, 128>(p, batch, dkv, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+int run(int dtype, const Params& p, int batch, int d, bool dkv, int device,
+        void* stream) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  e = dtype == 1 ? dispatch<__nv_bfloat16>(p, batch, d, dkv, s)
+      : dtype == 0 ? dispatch<float>(p, batch, d, dkv, s)
+                   : cudaErrorInvalidValue;
+  return (int)e;
+}
+
+}  // namespace
+
+extern "C" {
+
+// dtype: 0 float32, 1 bfloat16. Strides are in elements; every head-dim
+// axis is contiguous. lse and dd are contiguous (B, H, Sq) float32.
+int flash_attention_bwd_dq(int dtype, const void* q, const void* k,
+                           const void* v, const void* dout, const float* lse,
+                           const float* dd, void* dq, int batch, int h,
+                           int hkv, int sq, int skv, int d,
+                           int64_t q_sb, int64_t q_sh, int64_t q_ss,
+                           int64_t k_sb, int64_t k_sh, int64_t k_ss,
+                           int64_t v_sb, int64_t v_sh, int64_t v_ss,
+                           int64_t o_sb, int64_t o_sh, int64_t o_ss,
+                           int64_t dq_sb, int64_t dq_sh, int64_t dq_ss,
+                           float sm_scale, int causal, int window,
+                           int kv_len, int device, void* stream) {
+  Params p{q, k, v, dout, lse, dd, dq, nullptr, nullptr,
+           h, hkv, sq, skv, kv_len, window, causal, sm_scale,
+           q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
+           o_sb, o_sh, o_ss, dq_sb, dq_sh, dq_ss, 0, 0, 0, 0, 0, 0};
+  return run(dtype, p, batch, d, false, device, stream);
+}
+
+int flash_attention_bwd_dkv(int dtype, const void* q, const void* k,
+                            const void* v, const void* dout,
+                            const float* lse, const float* dd, void* dk,
+                            void* dv, int batch, int h, int hkv, int sq,
+                            int skv, int d,
+                            int64_t q_sb, int64_t q_sh, int64_t q_ss,
+                            int64_t k_sb, int64_t k_sh, int64_t k_ss,
+                            int64_t v_sb, int64_t v_sh, int64_t v_ss,
+                            int64_t o_sb, int64_t o_sh, int64_t o_ss,
+                            int64_t dk_sb, int64_t dk_sh, int64_t dk_ss,
+                            int64_t dv_sb, int64_t dv_sh, int64_t dv_ss,
+                            float sm_scale, int causal, int window,
+                            int kv_len, int device, void* stream) {
+  Params p{q, k, v, dout, lse, dd, nullptr, dk, dv,
+           h, hkv, sq, skv, kv_len, window, causal, sm_scale,
+           q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
+           o_sb, o_sh, o_ss, 0, 0, 0, dk_sb, dk_sh, dk_ss,
+           dv_sb, dv_sh, dv_ss};
+  return run(dtype, p, batch, d, true, device, stream);
+}
+
+const char* flash_attention_bwd_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

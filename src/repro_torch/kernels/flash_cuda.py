@@ -1,18 +1,25 @@
-"""Binding of K5, the flash-attention forward CUDA kernel in
-``csrc/flash_attention.cu``.
+"""Bindings of the flash-attention CUDA kernels: K5, the forward in
+``csrc/flash_attention.cu``, and K6 (dq) / K7 (dk, dv), the backward in
+``csrc/flash_attention_bwd.cu``.
 
-* ``flash_fwd`` is the wrapper: it checks device, dtype, shapes and strides,
-  allocates ``out`` (in ``q``'s memory layout) and ``lse`` with
-  ``torch.empty`` and launches the kernel on the current stream. On CPU
-  tensors it runs ``flash_fwd_plain`` instead; on CUDA tensors it launches
-  the kernel or raises.
-* ``flash_fwd_plain`` is the plain PyTorch version of the same function.
-* ``LAUNCHES`` counts the wrapper's launches; ``REPLACES`` names the
+* ``flash_fwd`` (K5), ``flash_bwd_dq`` (K6) and ``flash_bwd_dkv`` (K7) are
+  the wrappers: they check device, dtype, shapes and strides, allocate
+  their outputs with ``torch.empty`` (in the memory layout of the input
+  they mirror) and launch the kernel on the current stream. On CPU tensors
+  they run the plain version instead; on CUDA tensors they launch the
+  kernel or raise. ``flash_bwd`` computes ``dd = rowsum(do * out)`` and
+  calls K6 and K7.
+* ``flash_fwd_plain`` and ``flash_bwd_plain`` are the plain PyTorch
+  versions of the same functions. They compute in float32 (in float64 for
+  float64 inputs, which only the CPU takes) and loop over (batch, kv head)
+  so that no (B, H, Sq, Skv) tensor is ever whole.
+* ``LAUNCHES`` counts each wrapper's launches; ``REPLACES`` names each
   Pallas kernel.
 
-Layout is the reference's: q (B, H, Sq, D), k and v (B, Hkv, Skv, D), any
-strides with a contiguous head-dim axis (a ``(B, S, H, D)`` tensor seen
-through ``transpose(1, 2)`` is taken as it is).
+Layout is the reference's: q and do (B, H, Sq, D), k and v (B, Hkv, Skv,
+D), any strides with a contiguous head-dim axis (a ``(B, S, H, D)`` tensor
+seen through ``transpose(1, 2)`` is taken as it is); lse and dd are
+(B, H, Sq) float32.
 """
 from __future__ import annotations
 
@@ -21,21 +28,29 @@ import torch
 from repro_torch.kernels import cubuild
 
 NAME = "flash_attention_fwd"
-REPLACES = "src/repro/kernels/flash_attention.py:29"
+DQ = "flash_attention_bwd_dq"
+DKV = "flash_attention_bwd_dkv"
+REPLACES = {NAME: "src/repro/kernels/flash_attention.py:29",
+            DQ: "src/repro/kernels/flash_attention.py:135",
+            DKV: "src/repro/kernels/flash_attention.py:167"}
 HEAD_DIMS = (32, 64, 80, 128)
 MAX_BATCH_HEADS = 65535          # gridDim.y: one block row per (b, h)
 NEG_BIG = -0.7 * float(torch.finfo(torch.float32).max)
-LAUNCHES = {NAME: 0}
+LAUNCHES = {NAME: 0, DQ: 0, DKV: 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _L = cubuild.PTR, cubuild.I32, cubuild.I64
-SIGNATURES = {NAME: [_I] + [_P] * 5 + [_I] * 6 + [_L] * 12
-              + [cubuild.F32, _I, _I, _I, _I, _P]}
+_TAIL = [cubuild.F32, _I, _I, _I, _I, _P]
+SIGNATURES = {NAME: [_I] + [_P] * 5 + [_I] * 6 + [_L] * 12 + _TAIL}
+BWD_SIGNATURES = {DQ: [_I] + [_P] * 7 + [_I] * 6 + [_L] * 15 + _TAIL,
+                  DKV: [_I] + [_P] * 8 + [_I] * 6 + [_L] * 18 + _TAIL}
 LIBRARY = cubuild.CudaLibrary("flash_attention", SIGNATURES)
+BWD_LIBRARY = cubuild.CudaLibrary("flash_attention_bwd", BWD_SIGNATURES)
 
 
 def reset_launches() -> None:
-    LAUNCHES[NAME] = 0
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
 
 
 def mask(sq: int, skv: int, *, causal: bool, window: int | None,
@@ -51,29 +66,88 @@ def mask(sq: int, skv: int, *, causal: bool, window: int | None,
     return torch.broadcast_to(m, (sq, skv))
 
 
+def _wide(x: torch.Tensor) -> torch.Tensor:
+    """x in float32, or float64 where it is float64."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
+def _groups(q: torch.Tensor, k: torch.Tensor):
+    """(b, kv head, slice of its query heads) for every kv head."""
+    b, h = q.shape[:2]
+    hkv = k.shape[1]
+    g = h // hkv
+    for bi in range(b):
+        for kh in range(hkv):
+            yield bi, kh, slice(kh * g, (kh + 1) * g)
+
+
 def flash_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     sm_scale: float, causal: bool = True,
                     window: int | None = None, kv_len: int | None = None
                     ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The kernel's function in plain torch: float32 logits from
-    ``q * sm_scale``, the kernel's mask, float32 probabilities through the
-    P.V product, ``out`` in q's dtype and ``lse`` (B, H, Sq) float32."""
+    """K5's function in plain torch: float32 logits from ``q * sm_scale``,
+    the kernel's mask, float32 probabilities through the P.V product,
+    ``out`` in q's dtype and ``lse`` (B, H, Sq) float32."""
     b, h, sq, d = q.shape
-    hkv, skv = k.shape[1], k.shape[2]
+    skv = k.shape[2]
     kv_len = skv if kv_len is None else kv_len
-    g = h // hkv
-    qg = (q.float() * sm_scale).reshape(b, hkv, g, sq, d)
-    s = torch.einsum("bkgqd,bktd->bkgqt", qg, k.float())
     ok = mask(sq, skv, causal=causal, window=window, kv_len=kv_len,
               device=q.device)
-    s = torch.where(ok, s, NEG_BIG)
-    m = torch.amax(s, dim=-1, keepdim=True)
-    p = torch.where(ok, torch.exp(s - m), 0.0)
-    lm = torch.clamp_min(torch.sum(p, dim=-1, keepdim=True), 1e-30)
-    acc = torch.einsum("bkgqt,bktd->bkgqd", p, v.float())
-    out = (acc / lm).to(q.dtype).reshape(b, h, sq, d)
-    lse = (m + torch.log(lm)).reshape(b, h, sq)
+    wide = torch.promote_types(q.dtype, torch.float32)
+    out = torch.empty((b, h, sq, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, sq), dtype=wide, device=q.device)
+    for bi, kh, hs in _groups(q, k):
+        s = torch.matmul(_wide(q[bi, hs]) * sm_scale, _wide(k[bi, kh]).T)
+        s = torch.where(ok, s, NEG_BIG)
+        m = torch.amax(s, dim=-1, keepdim=True)
+        p = torch.where(ok, torch.exp(s - m), 0.0)
+        del s
+        lm = torch.clamp_min(torch.sum(p, dim=-1, keepdim=True), 1e-30)
+        out[bi, hs] = (torch.matmul(p, _wide(v[bi, kh])) / lm).to(q.dtype)
+        lse[bi, hs] = (m + torch.log(lm))[..., 0]
     return out, lse
+
+
+def _bwd_plain(q, k, v, do, lse, dd, *, sm_scale, causal, window, kv_len):
+    """(dq, dk, dv) from lse and dd = rowsum(do * out): the function of K6
+    and K7 in plain torch, in q's dtype."""
+    sq, skv = q.shape[2], k.shape[2]
+    ok = mask(sq, skv, causal=causal, window=window, kv_len=kv_len,
+              device=q.device)
+    wide = torch.promote_types(q.dtype, torch.float32)
+    dq = torch.empty(q.shape, dtype=wide, device=q.device)
+    dk = torch.empty(k.shape, dtype=wide, device=q.device)
+    dv = torch.empty(v.shape, dtype=wide, device=q.device)
+    for bi, kh, hs in _groups(q, k):
+        qf, dof = _wide(q[bi, hs]), _wide(do[bi, hs])          # (G, Sq, D)
+        kf, vf = _wide(k[bi, kh]), _wide(v[bi, kh])            # (Skv, D)
+        s = torch.matmul(qf, kf.T) * sm_scale                   # (G, Sq, Skv)
+        p = torch.where(ok, torch.exp(s - lse[bi, hs, :, None]), 0.0)
+        del s
+        dp = torch.matmul(dof, vf.T)
+        ds = p * (dp - dd[bi, hs, :, None]) * sm_scale
+        del dp
+        dq[bi, hs] = torch.matmul(ds, kf)
+        dk[bi, kh] = torch.einsum("gqt,gqd->td", ds, qf)
+        dv[bi, kh] = torch.einsum("gqt,gqd->td", p, dof)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    out: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                    *, sm_scale: float, causal: bool = True,
+                    window: int | None = None, kv_len: int | None = None
+                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward of K5 (K6 and K7 together) in plain torch, as
+    ``flash_attention_bwd_blocks`` computes it: ``dd = rowsum(do * out)``,
+    ``s = (q.k) * sm_scale``, ``p = exp(s - lse)`` on valid keys and 0
+    elsewhere, ``ds = p * (do.v - dd) * sm_scale``; dq = ds.k, dk = ds^T.q
+    and dv = p^T.do, dk and dv summed over each kv head's query heads.
+    Returns (dq, dk, dv) in q's dtype."""
+    kv_len = k.shape[2] if kv_len is None else kv_len
+    dd = torch.sum(_wide(do) * _wide(out), dim=-1)
+    return _bwd_plain(q, k, v, do, lse, dd, sm_scale=sm_scale, causal=causal,
+                      window=window, kv_len=kv_len)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -99,6 +173,27 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         f"{v.dtype}")
 
 
+def _check_card(*tensors: tuple[str, torch.Tensor]) -> None:
+    """What the CUDA kernels take: float32 or bf16, a built head dim,
+    B*H block rows, int32 sequence lengths, one device, contiguous head
+    dims. ``tensors`` starts with ("q", q) and ("k", k)."""
+    (_, q), (_, k) = tensors[:2]
+    b, h, sq, d = q.shape
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"dtype {q.dtype} not supported; float32 or bfloat16")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d} not supported; one of {HEAD_DIMS}")
+    if b * h > MAX_BATCH_HEADS:
+        raise ValueError(f"B*H = {b * h} > {MAX_BATCH_HEADS}")
+    if max(sq, k.shape[2]) >= 2 ** 31:
+        raise ValueError("sequence longer than 2**31 - 1")
+    for name, t in tensors:
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if t.stride(3) != 1:
+            raise ValueError(f"{name}'s head-dim axis must be contiguous")
+
+
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               sm_scale: float, causal: bool = True,
               window: int | None = None, kv_len: int | None = None
@@ -110,22 +205,9 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if not cubuild.on_card(q):
         return flash_fwd_plain(q, k, v, sm_scale=sm_scale, causal=causal,
                                window=window, kv_len=kv_len)
+    _check_card(("q", q), ("k", k), ("v", v))
     b, h, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
-    if q.dtype not in _DTYPES:
-        raise TypeError(f"dtype {q.dtype} not supported; float32 or bfloat16")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d} not supported; one of {HEAD_DIMS}")
-    if b * h > MAX_BATCH_HEADS:
-        raise ValueError(f"B*H = {b * h} > {MAX_BATCH_HEADS}")
-    if max(sq, skv) >= 2 ** 31:
-        raise ValueError("sequence longer than 2**31 - 1")
-    for name, t in (("k", k), ("v", v)):
-        if t.device != q.device:
-            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.stride(3) != 1:
-            raise ValueError(f"{name}'s head-dim axis must be contiguous")
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     if b and h and sq:
@@ -137,3 +219,100 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      *cubuild.stream(q.device))
         LAUNCHES[NAME] += 1
     return out, lse
+
+
+def _bwd_operands(q, k, v, do, lse, dd, kv_len, window):
+    """Checks the backward's operands for the card; returns do, lse and dd
+    as the kernels take them (``do`` copied with ``.contiguous()`` only if
+    its head-dim axis is strided, lse and dd only if they are not
+    contiguous)."""
+    _check(q, k, v, kv_len, window)
+    if do.shape != q.shape or do.dtype != q.dtype:
+        raise ValueError(f"do {tuple(do.shape)} {do.dtype} must match q "
+                         f"{tuple(q.shape)} {q.dtype}")
+    rows = q.shape[:3]
+    for name, t in (("lse", lse), ("dd", dd)):
+        if t.shape != rows or t.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32 {tuple(rows)}, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+    if do.stride(3) != 1:
+        do = do.contiguous()
+    _check_card(("q", q), ("k", k), ("v", v), ("do", do))
+    return do, lse.contiguous(), dd.contiguous()
+
+
+def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 do: torch.Tensor, lse: torch.Tensor, dd: torch.Tensor, *,
+                 sm_scale: float, causal: bool = True,
+                 window: int | None = None, kv_len: int | None = None
+                 ) -> torch.Tensor:
+    """K6 (replaces ``_flash_bwd_dq_kernel``): dq (B, H, Sq, D) in q's
+    dtype and layout, from lse and dd = rowsum(do * out)."""
+    kv_len = k.shape[2] if kv_len is None else kv_len
+    if not cubuild.on_card(q):
+        _check(q, k, v, kv_len, window)
+        return _bwd_plain(q, k, v, do, lse, dd, sm_scale=sm_scale,
+                          causal=causal, window=window, kv_len=kv_len)[0]
+    do, lse, dd = _bwd_operands(q, k, v, do, lse, dd, kv_len, window)
+    b, h, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    dq = torch.empty_like(q)
+    if b and h and sq:
+        strides = [s for t in (q, k, v, do, dq) for s in t.stride()[:3]]
+        BWD_LIBRARY.call(DQ, _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
+                         v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                         dd.data_ptr(), dq.data_ptr(), b, h, hkv, sq, skv, d,
+                         *strides, float(sm_scale), int(causal),
+                         0 if window is None else int(window), int(kv_len),
+                         *cubuild.stream(q.device))
+        LAUNCHES[DQ] += 1
+    return dq
+
+
+def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  do: torch.Tensor, lse: torch.Tensor, dd: torch.Tensor, *,
+                  sm_scale: float, causal: bool = True,
+                  window: int | None = None, kv_len: int | None = None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K7 (replaces ``_flash_bwd_dkv_kernel``): (dk, dv), each (B, Hkv,
+    Skv, D) in k's dtype and layout, summed over every query head of the
+    GQA group."""
+    kv_len = k.shape[2] if kv_len is None else kv_len
+    if not cubuild.on_card(q):
+        _check(q, k, v, kv_len, window)
+        return _bwd_plain(q, k, v, do, lse, dd, sm_scale=sm_scale,
+                          causal=causal, window=window, kv_len=kv_len)[1:]
+    do, lse, dd = _bwd_operands(q, k, v, do, lse, dd, kv_len, window)
+    b, h, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if b and hkv and skv:
+        strides = [s for t in (q, k, v, do, dk, dv) for s in t.stride()[:3]]
+        BWD_LIBRARY.call(DKV, _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
+                         v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                         dd.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h,
+                         hkv, sq, skv, d, *strides, float(sm_scale),
+                         int(causal), 0 if window is None else int(window),
+                         int(kv_len), *cubuild.stream(q.device))
+        LAUNCHES[DKV] += 1
+    return dk, dv
+
+
+def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              out: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, *,
+              sm_scale: float, causal: bool = True,
+              window: int | None = None, kv_len: int | None = None
+              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward of K5: ``dd = rowsum(do * out)`` in float32 (outside
+    the kernels, as in the reference), then K6 and K7. On CPU tensors,
+    ``flash_bwd_plain``."""
+    if not cubuild.on_card(q):
+        return flash_bwd_plain(q, k, v, out, lse, do, sm_scale=sm_scale,
+                               causal=causal, window=window, kv_len=kv_len)
+    dd = torch.sum(do.float() * out.float(), dim=-1)
+    kw = dict(sm_scale=sm_scale, causal=causal, window=window, kv_len=kv_len)
+    dq = flash_bwd_dq(q, k, v, do, lse, dd, **kw)
+    dk, dv = flash_bwd_dkv(q, k, v, do, lse, dd, **kw)
+    return dq, dk, dv

@@ -1,7 +1,7 @@
 """Public wrappers around the port's CUDA kernels — port of
 ``repro.kernels.ops``: padding, layout, and the global reductions the
 kernels consume. The TOPSIS wrappers (K1-K4) come first; RMSNorm (K8) and
-flash attention (K5) follow them.
+flash attention (K5 forward, K6 and K7 backward) follow them.
 
 Each wrapper computes in plain torch what XLA computed outside the Pallas
 call — weight normalisation, column norms, ``inv_norm``, the masked ideal
@@ -251,17 +251,41 @@ def rmsnorm(x, gamma, eps: float = 1e-6, *, device=None) -> torch.Tensor:
 
 
 # --- Flash attention ----------------------------------------------------------
+class FlashAttention(torch.autograd.Function):
+    """K5 forward, K6 and K7 backward: the counterpart of the reference's
+    ``_flash_core`` custom_vjp (ops.py:262-288). The forward saves q, k, v,
+    out and lse; the backward computes dd = rowsum(do * out) and runs K6
+    (dq) and K7 (dk, dv). The bindings are looked up at call time, so a
+    caller may route them (chip_smoke.py does, to run the plain versions).
+    On CPU tensors both directions take the plain versions."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, sm_scale: float, causal: bool,
+                window: int | None):
+        out, lse = _fc.flash_fwd(q, k, v, sm_scale=sm_scale, causal=causal,
+                                 window=window)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.opts = dict(sm_scale=sm_scale, causal=causal, window=window)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _fc.flash_bwd(q, k, v, out, lse, do, **ctx.opts)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(q, k, v, *, causal: bool = True,
                     window: int | None = None, sm_scale: float | None = None,
                     device=None) -> torch.Tensor:
-    """(B, H, S, D) GQA flash attention through K5; k and v are
-    (B, Hkv, S, D). ``sm_scale`` defaults to 1/sqrt(D). Returns ``out`` in
-    q's dtype and memory layout. The kernel masks its own ragged edges, so
-    nothing is padded."""
+    """(B, H, S, D) GQA flash attention through K5, differentiable through
+    K6 and K7 (``FlashAttention``); k and v are (B, Hkv, S, D).
+    ``sm_scale`` defaults to 1/sqrt(D). Returns ``out`` in q's dtype and
+    memory layout. The kernels mask their own ragged edges, so nothing is
+    padded."""
     dev = _device_for(q, device)
     q, k, v = (_as_tensor(t, dev) for t in (q, k, v))
     if sm_scale is None:
         sm_scale = 1.0 / (q.shape[-1] ** 0.5)
-    out, _ = _fc.flash_fwd(q, k, v, sm_scale=sm_scale, causal=causal,
-                           window=window)
-    return out
+    return FlashAttention.apply(q, k, v, float(sm_scale), bool(causal),
+                                window)

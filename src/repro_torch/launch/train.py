@@ -1,0 +1,149 @@
+"""Training entry point of the port — counterpart of
+``repro.launch.train``, with ``--device`` (default: the card).
+
+The model runs with ``attn_impl="flash"``: every layer's attention goes
+through K5 forward and, in the backward, K5 again in the per-layer
+recompute (``cfg.remat``), then K6 and K7. With ``--ckpt-dir`` the steps run
+under the fault ``Supervisor`` (checkpoints every ``--ckpt-every`` steps and
+at the end, restart from the latest on a fault); without it they run
+directly through the train step and nothing is written.
+
+Usage:
+  PYTHONPATH=src python -m repro_torch.launch.train --arch llama3-8b --smoke \\
+      --steps 20 --device cpu
+"""
+from __future__ import annotations
+
+import argparse
+import time
+import types
+
+import numpy as np
+import torch
+
+from repro_torch.configs import registry
+from repro_torch.data.pipeline import SyntheticLM, device_batch
+from repro_torch.device import resolve_device
+from repro_torch.models.lm import LM
+from repro_torch.optim import adamw
+from repro_torch.train import fault
+from repro_torch.train import loop as tl
+
+
+def parse(argv=None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="llama3-8b")
+    ap.add_argument("--smoke", action="store_true",
+                    help="reduced config (CPU-runnable)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="override the config's depth")
+    ap.add_argument("--dtype", default=None, choices=["float32", "bfloat16"],
+                    help="override the config's dtype")
+    ap.add_argument("--head-dim", type=int, default=None,
+                    help="override the config's head dim (on the card the "
+                         "flash kernels take 32, 64, 80 or 128; the SMOKE "
+                         "config's is 8)")
+    ap.add_argument("--steps", type=int, default=200)
+    ap.add_argument("--global-batch", type=int, default=16)
+    ap.add_argument("--seq-len", type=int, default=128)
+    ap.add_argument("--n-micro", type=int, default=2)
+    ap.add_argument("--lr", type=float, default=3e-3)
+    ap.add_argument("--quantized-state", action="store_true")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the CUDA card)")
+    return ap.parse_args(argv)
+
+
+def config(args: argparse.Namespace):
+    over = {"attn_impl": "flash"}
+    if args.layers is not None:
+        over["n_layers"] = args.layers
+    if args.dtype is not None:
+        over["dtype"] = args.dtype
+    if args.head_dim is not None:
+        over["head_dim"] = args.head_dim
+    return (registry.smoke_config(args.arch, **over) if args.smoke
+            else registry.config(args.arch, **over))
+
+
+def build(args: argparse.Namespace) -> types.SimpleNamespace:
+    """The model (weights from seed 0 on the device), its optimizer
+    and train step, the training state and the data: ``cfg``, ``model``,
+    ``ocfg``, ``step_fn``, ``state`` ({"params", "opt_state"}) and
+    ``data_fn(step)``."""
+    cfg = config(args)
+    dev = resolve_device(args.device)
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            False
+    model = LM(cfg, device=dev, seed=0, trainable=True)
+    ocfg = adamw.AdamWConfig(lr=args.lr, warmup_steps=min(20, args.steps),
+                             total_steps=args.steps,
+                             quantized_state=args.quantized_state)
+    ds = SyntheticLM(vocab=cfg.vocab, seq_len=args.seq_len,
+                     global_batch=args.global_batch)
+    params = tl.params_of(model)
+    return types.SimpleNamespace(
+        cfg=cfg, model=model, ocfg=ocfg,
+        step_fn=tl.make_train_fn(model, ocfg, n_micro=args.n_micro),
+        state={"params": params, "opt_state": adamw.init(ocfg, params)},
+        data_fn=lambda s: device_batch({"tokens": ds.batch_at(s)}, dev))
+
+
+def train_steps(r: types.SimpleNamespace, first: int, last: int, *,
+                on_step=None) -> list[dict]:
+    """Steps ``first .. last - 1`` of ``build``'s run, without
+    checkpoints; ``r.state`` advances. Each history entry's ``time_s`` is
+    the host clock around the step, data included, up to the card's
+    finishing it."""
+    hist = []
+    for s in range(first, last):
+        t0 = time.perf_counter()
+        p, o, m = r.step_fn(r.state["params"], r.state["opt_state"],
+                            r.data_fn(s))
+        r.state = {"params": p, "opt_state": o}
+        m = {k: float(v) for k, v in m.items()}     # waits for the card
+        hist.append({"step": s, "time_s": time.perf_counter() - t0, **m})
+        if on_step is not None:
+            on_step(hist[-1])
+    return hist
+
+
+def run(args: argparse.Namespace, *, on_step=None) -> list[dict]:
+    """Train as the arguments say; returns the per-step history
+    (``step``, ``time_s``, ``loss``, ``grad_norm``, ``lr``). ``on_step``
+    is called with each history entry (under the Supervisor, after the
+    run)."""
+    r = build(args)
+    if not args.ckpt_dir:
+        return train_steps(r, 0, args.steps, on_step=on_step)
+    sup = fault.Supervisor(ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every)
+    _, hist = sup.run(state=r.state, step_fn=r.step_fn, data_fn=r.data_fn,
+                      n_steps=args.steps)
+    if on_step is not None:
+        for h in hist:
+            on_step(h)
+    return hist
+
+
+def main(argv=None) -> list[dict]:
+    args = parse(argv)
+
+    def show(h):
+        print(f"step {h['step']} loss={h['loss']:.6f} "
+              f"grad_norm={h['grad_norm']:.6f} lr={h['lr']:.6e} "
+              f"time_s={h['time_s']:.3f}", flush=True)
+
+    hist = run(args, on_step=show)
+    losses = [h["loss"] for h in hist]
+    print(f"steps={len(hist)} first_loss={losses[0]:.4f} "
+          f"final_loss={losses[-1]:.4f} "
+          f"mean_step_s={np.mean([h['time_s'] for h in hist]):.3f}")
+    return hist
+
+
+if __name__ == "__main__":
+    main()

@@ -13,10 +13,12 @@ rounded to the input dtype where the reference rounds:
 * ``probs`` to v's dtype in ``_sdpa`` (the decode path);
 * nowhere inside the flash kernel (prefill with ``attn_impl="flash"``).
 
-Self-attention prefill goes through K5 (``kernels.ops.flash_attention``)
-when ``cfg.attn_impl == "flash"``: one card is a model axis of 1, so no
-mesh condition applies. Decode uses ``_sdpa``, plain torch as the
-reference's is plain XLA. The decode cache is updated in place.
+Self-attention over a whole sequence (prefill, training) goes through K5
+(``kernels.ops.flash_attention``) when ``cfg.attn_impl == "flash"``, and
+its gradient through K6 and K7: one card is a model axis of 1, so no mesh
+condition applies. Decode uses ``_sdpa``, plain torch as the reference's
+is plain XLA. The decode cache is updated in place. Every function here is
+differentiable with ``torch.autograd``.
 """
 from __future__ import annotations
 
@@ -48,11 +50,34 @@ def dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x.float(), w.float()).to(x.dtype)
 
 
+class _DotF32(torch.autograd.Function):
+    """(N, K) @ (K, M) of bf16 card tensors, accumulated and returned in
+    float32 (cuBLAS through ``torch.mm``'s ``out_dtype``). The backward
+    takes the float32 cotangent through float32 products and rounds each
+    gradient to its input's dtype, as JAX transposes a ``dot_general``
+    with ``preferred_element_type=float32``."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return torch.mm(x, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.mm(g, w.float().T).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = torch.mm(x.float().T, g).to(w.dtype)
+        return dx, dw
+
+
 def dot_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` accumulated and returned in float32 (the unembedding)."""
     if x.dtype == torch.bfloat16 and x.is_cuda:
         lead = x.shape[:-1]
-        out = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+        out = _DotF32.apply(x.reshape(-1, x.shape[-1]), w)
         return out.reshape(*lead, w.shape[-1])
     return torch.matmul(x.float(), w.float())
 
@@ -178,8 +203,9 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
 
 def _flash_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 causal: bool, window: int | None) -> torch.Tensor:
-    """(B, S, H, D) attention through K5; the kernel reads the (B, H, S, D)
-    views in place and writes its output in q's layout."""
+    """(B, S, H, D) attention through K5 (and, under autograd, K6 and K7);
+    the kernels read the (B, H, S, D) views in place and write their
+    outputs in their inputs' layouts."""
     out = kops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                                v.transpose(1, 2), causal=causal,
                                window=window)

@@ -10,14 +10,19 @@ decode cache keeps the reference's layout — ``{"len": int, "dense": {"k",
 "v"}}`` with k and v of shape (n_layers, B, T, Hkv, hd) — and is updated
 in place: a cache handed to ``decode`` is the one it returns.
 
+``loss`` is the training objective (lm.py:454-461): next-token
+cross-entropy over ``tokens[:, :-1]``, chunked by 1024 positions, with
+each block recomputed in the backward (``torch.utils.checkpoint``) when
+``cfg.remat``, as ``jax.checkpoint`` does in the reference's scan.
+
 Only the dense segment is ported; MoE, MLA, hybrid, SSM, VLM and
-encoder-decoder configurations raise ``NotImplementedError``. ``loss``
-belongs to the training slice.
+encoder-decoder configurations raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
@@ -62,9 +67,11 @@ class LM(nn.Module):
     """Dense LM on one device. ``seed`` draws the weights on that device
     from a ``torch.Generator`` one tensor at a time (not JAX's bits);
     ``seed=None`` leaves them uninitialised for a converter to fill.
-    ``device=None`` is the card."""
+    ``device=None`` is the card. ``trainable=True`` gives every parameter
+    ``requires_grad`` (training); the default serves, without gradients."""
 
-    def __init__(self, cfg: ModelConfig, *, device=None, seed: int | None = 0):
+    def __init__(self, cfg: ModelConfig, *, device=None, seed: int | None = 0,
+                 trainable: bool = False):
         super().__init__()
         kind = _unported_kind(cfg)
         if kind is not None:
@@ -95,6 +102,7 @@ class LM(nn.Module):
                   torch.ones(D, dtype=torch.float32, device=dev),
                   torch.ones(D, dtype=torch.float32, device=dev))
             for _ in range(cfg.n_layers))
+        self.requires_grad_(trainable)
 
     @property
     def device(self) -> torch.device:
@@ -114,21 +122,27 @@ class LM(nn.Module):
     def _tokens(self, tokens) -> torch.Tensor:
         return torch.as_tensor(tokens, device=self.device).long()
 
+    def _block(self, blk: Block, x: torch.Tensor, positions: torch.Tensor,
+               cache: dict | None = None) -> torch.Tensor:
+        """One block: x + attention(rmsnorm(x)), then + ffn(rmsnorm(x));
+        a decode ``cache`` ({k, v, len} of this block) is written in
+        place."""
+        cfg = self.cfg
+        h, _ = attention(blk.attn, cfg, rmsnorm(x, blk.ln1, cfg.norm_eps),
+                         positions=positions, cache=cache)
+        x = x + h
+        return x + ffn(blk.ffn, cfg, rmsnorm(x, blk.ln2, cfg.norm_eps))
+
     def _forward(self, tokens: torch.Tensor, cache: dict,
                  pos: int) -> torch.Tensor:
         """Hidden states (B, S, D) of ``tokens`` at positions pos + arange(S),
         writing their k/v into ``cache`` at ``pos``."""
-        cfg = self.cfg
-        eps = cfg.norm_eps
         x = self.embed[tokens]
         positions = pos + torch.arange(tokens.shape[1], device=self.device)
         kc, vc = cache["dense"]["k"], cache["dense"]["v"]
         for i, blk in enumerate(self.blocks):
-            c = {"k": kc[i], "v": vc[i], "len": pos}
-            h, _ = attention(blk.attn, cfg, rmsnorm(x, blk.ln1, eps),
-                             positions=positions, cache=c)
-            x = x + h
-            x = x + ffn(blk.ffn, cfg, rmsnorm(x, blk.ln2, eps))
+            x = self._block(blk, x, positions,
+                            {"k": kc[i], "v": vc[i], "len": pos})
         return x
 
     def _unembed(self, x: torch.Tensor) -> torch.Tensor:
@@ -157,3 +171,52 @@ class LM(nn.Module):
         new_cache = {"len": pos + 1, "dense": cache["dense"]}
         return self._unembed(x)[:, 0], new_cache
 
+    # --- training ------------------------------------------------------------
+    def decays(self) -> dict[str, bool]:
+        """Which parameters take AdamW's decoupled weight decay. The
+        reference decays leaves with ``ndim >= 2`` (adamw.py:136), and its
+        per-block leaves are stacked (n_layers, ...): every block parameter
+        here, the 1-d norm gammas included, is one slice of such a leaf and
+        decays. ``final_ln`` (D,) does not."""
+        return {name: p.dim() >= 2 or name.startswith("blocks.")
+                for name, p in self.named_parameters()}
+
+    def hidden(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Hidden states (B, S, D) of ``tokens`` over the whole sequence,
+        without a cache (the reference's ``mode="full"``); each block is
+        recomputed in the backward when ``cfg.remat``."""
+        x = self.embed[tokens]
+        positions = torch.arange(tokens.shape[1], device=self.device)
+        for blk in self.blocks:
+            if self.cfg.remat and torch.is_grad_enabled():
+                x = checkpoint(self._block, blk, x, positions,
+                               use_reentrant=False)
+            else:
+                x = self._block(blk, x, positions)
+        return x
+
+    def _chunked_ce(self, hidden: torch.Tensor, targets: torch.Tensor,
+                    chunk: int = 1024) -> torch.Tensor:
+        """Mean cross-entropy with the float32 logits made ``chunk``
+        positions at a time (the reference's ``_chunked_ce``, every
+        position valid)."""
+        B, S, _ = hidden.shape
+        total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+        for i in range(0, S, chunk):
+            logits = self._unembed(hidden[:, i:i + chunk])       # float32
+            lse = torch.logsumexp(logits, dim=-1)
+            gold = torch.gather(logits, -1,
+                                targets[:, i:i + chunk, None])[..., 0]
+            total = total + torch.sum(lse - gold)
+        return total / max(B * S, 1)
+
+    def loss(self, tokens) -> tuple[torch.Tensor, dict]:
+        """Next-token loss of ``tokens`` (B, S): the model reads
+        ``tokens[:, :-1]`` and predicts ``tokens[:, 1:]``. Returns
+        ``(total, {"ce", "aux"})``; a dense model has no auxiliary loss, so
+        ``total = ce + 0.01 * 0``."""
+        tokens = self._tokens(tokens)
+        hidden = self.hidden(tokens[:, :-1])
+        ce = self._chunked_ce(hidden, tokens[:, 1:])
+        aux = torch.zeros((), dtype=torch.float32, device=self.device)
+        return ce + 0.01 * aux, {"ce": ce, "aux": aux}

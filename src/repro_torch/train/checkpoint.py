@@ -1,0 +1,146 @@
+"""Checkpointing with atomic publish and async save — port of
+``repro.train.checkpoint``.
+
+Format: <dir>/step_<N>/
+  manifest.json        — every leaf's shape and dtype, and the step
+  <leaf-path>.npy      — one file per leaf
+
+A tree is nested dicts, tuples and lists (``OptState`` included),
+``QTensor``s (two leaves, ``q`` and ``scale``), tensors and Python ints.
+numpy has no bfloat16: a bf16 tensor is stored as its raw 16 bits
+(``uint16``), with ``"bfloat16"`` in the manifest, and restored bit for bit.
+A save snapshots every leaf to host memory in the calling thread, then
+writes the files (on a background thread when ``blocking=False``) into a
+writer-unique staging directory and publishes it with ``os.replace``.
+``restore`` puts each leaf back on the device and in the dtype of the
+matching leaf of ``like_tree``; there is one device, so nothing is
+re-sharded (the reference's elastic restore waits for the sharding slice).
+"""
+from __future__ import annotations
+
+import itertools
+import json
+import os
+import shutil
+import threading
+
+import numpy as np
+import torch
+
+from repro_torch.optim.adamw import QTensor
+
+_SEP = "__"
+_save_seq = itertools.count()
+
+
+def _items(node):
+    """(key, child) pairs of an inner node; None for a leaf."""
+    if isinstance(node, dict):
+        return [(str(k), v) for k, v in node.items()]
+    if isinstance(node, QTensor):
+        return [("q", node.q), ("scale", node.scale)]
+    if isinstance(node, tuple) and hasattr(node, "_fields"):
+        return list(zip(node._fields, node))
+    if isinstance(node, (tuple, list)):
+        return [(str(i), v) for i, v in enumerate(node)]
+    return None
+
+
+def _flatten(tree, prefix: tuple = ()) -> dict:
+    items = _items(tree)
+    if items is None:
+        return {_SEP.join(prefix): tree}
+    flat = {}
+    for k, v in items:
+        flat.update(_flatten(v, prefix + (k,)))
+    return flat
+
+
+def _to_host(leaf) -> tuple[np.ndarray, str]:
+    if isinstance(leaf, torch.Tensor):
+        t = leaf.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(np.uint16).copy(), \
+                "bfloat16"
+        return t.numpy().copy(), str(t.numpy().dtype)
+    a = np.asarray(leaf)
+    return a, str(a.dtype)
+
+
+def save(ckpt_dir: str, step: int, tree, *, blocking: bool = True):
+    """Save ``tree``; returns the writer thread when ``blocking=False``.
+
+    The staging dir is writer-unique so a blocking save and a still-running
+    async save of the same step never collide; os.replace publishes
+    atomically and the loser's rename is a no-op failure we swallow."""
+    out = os.path.join(ckpt_dir, f"step_{step:08d}")
+    tmp = out + f".tmp.{os.getpid()}.{next(_save_seq)}"
+    os.makedirs(tmp, exist_ok=True)
+    host = {k: _to_host(v) for k, v in _flatten(tree).items()}  # snapshot
+    manifest = {"step": step,
+                "leaves": {k: {"shape": list(a.shape), "dtype": dt}
+                           for k, (a, dt) in host.items()}}
+
+    def write():
+        for k, (a, _) in host.items():
+            np.save(os.path.join(tmp, k + ".npy"), a)
+        with open(os.path.join(tmp, "manifest.json"), "w") as f:
+            json.dump(manifest, f)
+        try:
+            os.replace(tmp, out)  # atomic publish
+        except OSError:
+            # another writer already published this step
+            shutil.rmtree(tmp, ignore_errors=True)
+
+    if blocking:
+        write()
+        return None
+    t = threading.Thread(target=write, daemon=True)
+    t.start()
+    return t
+
+
+def latest_step(ckpt_dir: str) -> int | None:
+    if not os.path.isdir(ckpt_dir):
+        return None
+    steps = [int(d.split("_")[1].split(".")[0]) for d in os.listdir(ckpt_dir)
+             if d.startswith("step_") and ".tmp" not in d]
+    return max(steps) if steps else None
+
+
+def _load(src: str, key: str, dtype: str, like):
+    a = np.load(os.path.join(src, key + ".npy"))
+    if tuple(a.shape) != tuple(np.shape(like)):
+        raise ValueError(f"{key}: checkpoint shape {a.shape}, expected "
+                         f"{tuple(np.shape(like))}")
+    if not isinstance(like, torch.Tensor):
+        return type(like)(a) if isinstance(like, (int, float)) else a
+    if dtype == "bfloat16":
+        t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    return t.to(device=like.device, dtype=like.dtype)
+
+
+def restore(ckpt_dir: str, step: int, like_tree):
+    """The tree saved at ``step``, in the structure of ``like_tree``, each
+    leaf on the device and in the dtype of ``like_tree``'s."""
+    src = os.path.join(ckpt_dir, f"step_{step:08d}")
+    with open(os.path.join(src, "manifest.json")) as f:
+        leaves = json.load(f)["leaves"]
+
+    def build(node, prefix):
+        items = _items(node)
+        if items is None:
+            key = _SEP.join(prefix)
+            return _load(src, key, leaves[key]["dtype"], node)
+        kids = [build(v, prefix + (k,)) for k, v in items]
+        if isinstance(node, dict):
+            return dict(zip(node.keys(), kids))
+        if isinstance(node, QTensor):
+            return QTensor(kids[0], kids[1], node.shape)
+        if isinstance(node, tuple) and hasattr(node, "_fields"):
+            return type(node)(*kids)
+        return type(node)(kids)
+
+    return build(like_tree, ())

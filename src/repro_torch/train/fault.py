@@ -1,0 +1,108 @@
+"""Fault tolerance: supervised training with checkpoint/restart and
+straggler detection — port of ``repro.train.fault``.
+
+The supervisor wraps the train loop; any step may raise (a hardware fault
+is simulated by an injected callback in tests). Recovery = restore the
+latest checkpoint and continue. Straggler mitigation: per-step wall times
+(the host clock after the card has finished the step) feed an EWMA; a step
+slower than ``straggler_factor`` x EWMA raises a StragglerAlert that the
+fleet layer answers by re-running TOPSIS placement for the slow slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Callable
+
+import torch
+
+from repro_torch.train import checkpoint
+
+
+class StragglerAlert(RuntimeError):
+    def __init__(self, step: int, t: float, ewma: float):
+        super().__init__(f"step {step}: {t:.3f}s vs ewma {ewma:.3f}s")
+        self.step, self.t, self.ewma = step, t, ewma
+
+
+def _synchronize(tree) -> None:
+    """Wait for the card where ``tree`` holds CUDA tensors, so that a
+    step's wall time is the step's and not its enqueue."""
+    for leaf in checkpoint._flatten(tree).values():
+        if isinstance(leaf, torch.Tensor) and leaf.is_cuda:
+            torch.cuda.synchronize(leaf.device)
+            return
+
+
+@dataclasses.dataclass
+class Supervisor:
+    ckpt_dir: str
+    ckpt_every: int = 50
+    max_restarts: int = 3
+    straggler_factor: float = 3.0
+    ewma_alpha: float = 0.2
+    on_straggler: Callable[[StragglerAlert], None] | None = None
+
+    def run(self, *, state: dict[str, Any], step_fn, data_fn, n_steps: int,
+            fault_hook=None):
+        """state: {"params": ..., "opt_state": ...}; step_fn(params,
+        opt_state, batch) -> (params, opt_state, metrics); data_fn(step) ->
+        batch. Returns (final state, history). fault_hook(step) may raise to
+        simulate node failure."""
+        restarts = 0
+        pending: list = []
+        history: list[dict] = []
+        start = checkpoint.latest_step(self.ckpt_dir)
+        step = 0
+        if start is not None:
+            state = checkpoint.restore(self.ckpt_dir, start, state)
+            step = start
+        ewma = None
+        while step < n_steps:
+            try:
+                t0 = time.perf_counter()
+                if fault_hook is not None:
+                    fault_hook(step)
+                batch = data_fn(step)
+                p, o, m = step_fn(state["params"], state["opt_state"], batch)
+                state = {"params": p, "opt_state": o}
+                _synchronize(m)
+                dt = time.perf_counter() - t0
+                ewma = dt if ewma is None else (
+                    self.ewma_alpha * dt + (1 - self.ewma_alpha) * ewma)
+                if dt > self.straggler_factor * ewma and step > 2:
+                    alert = StragglerAlert(step, dt, ewma)
+                    if self.on_straggler:
+                        self.on_straggler(alert)
+                history.append({"step": step, "time_s": dt,
+                                **{k: float(v) for k, v in m.items()}})
+                step += 1
+                if step % self.ckpt_every == 0 or step == n_steps:
+                    pending.append(checkpoint.save(
+                        self.ckpt_dir, step, state, blocking=False))
+            except StragglerAlert:
+                raise
+            except Exception:
+                restarts += 1
+                if restarts > self.max_restarts:
+                    raise
+                # land in-flight async saves before looking for the latest
+                # checkpoint, else a crash right after a non-blocking save
+                # restarts from a stale (or no) checkpoint
+                for t in pending:
+                    if t is not None:
+                        t.join()
+                pending.clear()
+                last = checkpoint.latest_step(self.ckpt_dir)
+                if last is not None:
+                    state = checkpoint.restore(self.ckpt_dir, last, state)
+                    step = last
+                else:
+                    step = 0
+        # drain async writers, then a final blocking checkpoint so
+        # restore-after-run is deterministic
+        for t in pending:
+            if t is not None:
+                t.join()
+        checkpoint.save(self.ckpt_dir, step, state, blocking=True)
+        return state, history

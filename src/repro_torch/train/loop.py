@@ -1,0 +1,95 @@
+"""The training step — port of ``repro.train.loop``'s
+``microbatch_grads`` and ``make_train_fn`` (loop.py:18-81): gradients of
+``LM.loss`` by ``torch.autograd``, microbatched accumulation, then
+``adamw.update`` (global-norm clip, AdamW, optional int8 moments).
+
+Parameters are the model's own tensors, as a dict keyed by parameter name
+(``params_of(model)``); a step updates them in place and returns the same
+dict. A dict of other tensors (a restored checkpoint) is copied into the
+model first. ZeRO-1 state shardings and the compressed data-parallel step
+wait for the sharding slice.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models.lm import LM
+from repro_torch.optim import adamw
+
+
+def params_of(model: LM) -> dict[str, torch.nn.Parameter]:
+    """The model's parameters by name: the ``params`` a step takes."""
+    return dict(model.named_parameters())
+
+
+@torch.no_grad()
+def bind(model: LM, params: dict) -> dict:
+    """Make ``params`` the model's values: tensors that are not already
+    the model's parameters are copied into them. Returns
+    ``params_of(model)``."""
+    own = params_of(model)
+    if set(params) != set(own):
+        raise KeyError(f"params name {sorted(set(params) ^ set(own))} "
+                       f"differently from the model's parameters")
+    for name, p in own.items():
+        if params[name] is not p:
+            p.copy_(params[name])
+    return own
+
+
+def _grads(model: LM, tokens: torch.Tensor):
+    """(loss, metrics, {name: grad}) of one batch; the gradients are taken
+    off the parameters, so the returned dict holds the only reference."""
+    model.zero_grad(set_to_none=True)
+    loss, metrics = model.loss(tokens)
+    loss.backward()
+    grads = {}
+    for name, p in model.named_parameters():
+        grads[name], p.grad = p.grad, None
+    return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
+
+
+def microbatch_grads(model: LM, params: dict, batch: dict, n_micro: int,
+                     grad_dtype: torch.dtype | None = None):
+    """Mean loss + grads over ``n_micro`` microbatches of ``batch``'s rows.
+    ``n_micro == 1`` returns the loss's metrics and grads in the
+    parameters' dtype (as ``jax.value_and_grad``); more microbatches
+    accumulate in ``grad_dtype`` (default float32) and return float32 grads
+    and no metrics."""
+    bind(model, params)
+    tokens = batch["tokens"]
+    if n_micro == 1:
+        return _grads(model, tokens)
+    b = tokens.shape[0]
+    if b % n_micro:
+        raise ValueError(f"batch of {b} rows does not split into {n_micro} "
+                         f"microbatches")
+    acc_dt = grad_dtype or torch.float32
+    acc = {n: torch.zeros(p.shape, dtype=acc_dt, device=p.device)
+           for n, p in model.named_parameters()}
+    lsum = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    for mb in tokens.reshape(n_micro, b // n_micro, *tokens.shape[1:]):
+        loss, _, grads = _grads(model, mb)
+        for n, g in grads.items():
+            acc[n].add_(g.to(acc_dt))
+        lsum = lsum + loss
+    inv = 1.0 / n_micro
+    return lsum * inv, {}, {n: (g * inv).float() for n, g in acc.items()}
+
+
+def make_train_fn(model: LM, opt_cfg: adamw.AdamWConfig, n_micro: int = 1,
+                  grad_dtype: torch.dtype | None = None):
+    """``train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics)``: gradients, then one AdamW update of the model's parameters
+    in place, with the reference's weight-decay rule (``LM.decays``).
+    ``metrics`` holds ``loss``, ``grad_norm`` and ``lr``."""
+    decay = model.decays()
+
+    def train_step(params, opt_state, batch):
+        loss, _, grads = microbatch_grads(model, params, batch, n_micro,
+                                          grad_dtype=grad_dtype)
+        new_params, new_state, m = adamw.update(
+            opt_cfg, grads, opt_state, params_of(model), decay=decay)
+        return new_params, new_state, dict(m, loss=loss)
+
+    return train_step

@@ -36,6 +36,11 @@ EXPECTED = {
         "llama32_vision_90b", "whisper_base")),
     "repro_torch.serve", "repro_torch.serve.engine",
     "repro_torch.launch", "repro_torch.launch.serve",
+    "repro_torch.launch.train", "repro_torch.optim",
+    "repro_torch.optim.adamw", "repro_torch.data",
+    "repro_torch.data.pipeline", "repro_torch.train",
+    "repro_torch.train.loop", "repro_torch.train.checkpoint",
+    "repro_torch.train.fault",
 }
 
 _PROBE = """
