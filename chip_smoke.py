@@ -7,9 +7,13 @@ Run from the root of a checkout, on a machine with one CUDA card:
 
 It builds every CUDA kernel of the port from
 ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, all started
-together) and holds each against its plain PyTorch version at main-path
-shapes, the flash-attention backward (K6, K7) included. Then it drives
-the port's three main paths on the card:
+together; the bf16 tensor-core instantiations of K5 and K7 at D = 128 must
+not spill) and holds each against its plain PyTorch version at main-path
+shapes, the flash-attention backward (K6, K7) included. The bf16 cases run
+K5's and K7's tensor-core instantiations (mma.sync with p and ds split
+into bf16 halves); the float32 cases and the float32 model runs below hold
+the float32 FMA instantiations. Then it drives the port's main paths on
+the card:
 
 * the GreenPod scheduling path — a 15,000-node fleet taking eight bursts
   of 512 pods through ``run_scenario(..., batch=True)`` on the ``cuda``
@@ -22,6 +26,8 @@ the port's three main paths on the card:
   with K5's plain version, teacher-forced on the kernel run's tokens; then
   the same in float32 at a tight limit, which a control with the
   probabilities rounded to bf16 must fail;
+* ``launch.serve --smoke`` through its own entry point, whose head dim
+  (8) the flash wrapper pads to 32, through K5;
 * the llama3-8b training path at full width and depth — 3 AdamW steps
   (int8 moments) on one 4096-token sequence through ``launch.train``'s
   functions, every layer's attention through K5 forward, K5 again in the
@@ -29,12 +35,13 @@ the port's three main paths on the card:
   attention on the plain versions (and, for the spread, in float64); then
   4 layers in float32 at tight limits, which a control with a planted K7
   fault must fail; then the checkpoint / restart round trip of the fault
-  Supervisor at the smoke size.
+  Supervisor at the smoke size (head dim 8, padded).
 
 The kernel checks are shown to reject planted faults: K5 with p rounded to
 bf16 or a key tile dropped, K8 rounded before its gamma multiply, K6/K7
-with dk and dv from one head of each GQA group, ds without its dd term, or
-dq without its diagonal key tile.
+with dk and dv from one head of each GQA group, ds without its dd term, dq
+without its diagonal key tile, or (bf16) p or ds rounded to bf16 before
+K7's products.
 
 Phases print one line each; the line before the last JSON line is the
 kernel table; the last line is ``{"ok": true, "device": {...}}``. Any
@@ -242,8 +249,23 @@ def device_phase():
     return smi, name, count
 
 
+def spill_stores(ptxas_log, kernel):
+    """Bytes of spill stores ptxas reports for the entry whose mangled
+    name contains ``kernel`` (None if there is no such entry)."""
+    import re
+    lines = ptxas_log.splitlines()
+    for i, ln in enumerate(lines):
+        if "Compiling entry" in ln and kernel in ln:
+            for nxt in lines[i + 1:i + 3]:
+                m = re.search(r"(\d+) bytes spill stores", nxt)
+                if m:
+                    return int(m.group(1))
+    return None
+
+
 def build_phase():
-    """Start one nvcc per source, then load each library."""
+    """Start one nvcc per source, then load each library; the tensor-core
+    kernels' D = 128 instantiations must not spill."""
     from repro_torch.kernels import flash_cuda, rmsnorm_cuda, topsis_cuda
     libs = [m.LIBRARY for m in (topsis_cuda, flash_cuda, rmsnorm_cuda)] \
         + [flash_cuda.BWD_LIBRARY]
@@ -259,6 +281,11 @@ def build_phase():
               library=lib.path.name)
         for ln in ptxas:
             print(f"[build] ptxas {ln}", flush=True)
+    for lib, kernel in ((flash_cuda.LIBRARY, "flash_fwd_kernel"),
+                        (flash_cuda.BWD_LIBRARY, "flash_bwd_dkv_kernel")):
+        n = spill_stores(lib.ptxas_log, f"{kernel}I13__nv_bfloat16Li128E")
+        check(n == 0, f"{kernel}<bf16, 128> spills {n} bytes")
+        phase("build", kernel=f"{kernel}<bf16,128>", spill_store_bytes=n)
     phase("build", all_seconds=f"{time.perf_counter() - t0:.2f}")
 
 
@@ -551,7 +578,9 @@ def _bwd_fault(q, k, v, do, lse, dd, *, sm_scale, causal=True, window=None,
     fault: ``first_head`` sums dk and dv over the first query head of each
     GQA group only; ``no_dd`` leaves the dd term out of ds;
     ``diagonal_tile`` drops each query's own K5_TILE key tile from dq (K6
-    without its diagonal tile). Returns (dq, dk, dv)."""
+    without its diagonal tile); ``p_bf16`` rounds p to bf16 before
+    P^T.dO and ``ds_bf16`` rounds ds to bf16 before dS^T.Q (K7 without the
+    hi/lo split of its tensor-core operands). Returns (dq, dk, dv)."""
     import torch
 
     from repro_torch.kernels import flash_cuda as fc
@@ -565,6 +594,10 @@ def _bwd_fault(q, k, v, do, lse, dd, *, sm_scale, causal=True, window=None,
         ok_dq = ok & (torch.arange(skv, device=q.device)[None, :] // K5_TILE
                       != qt)
     n = 1 if fault == "first_head" else g
+
+    def rounded(x, which):
+        return x.to(torch.bfloat16).float() if fault == which else x
+
     dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
     dv = torch.empty(v.shape, dtype=torch.float32, device=q.device)
@@ -582,8 +615,10 @@ def _bwd_fault(q, k, v, do, lse, dd, *, sm_scale, causal=True, window=None,
             ds = p * dp * sm_scale
             del dp
             dq[bi, hs] = torch.matmul(torch.where(ok_dq, ds, 0.0), kf)
-            dk[bi, kh] = torch.einsum("gqt,gqd->td", ds[:n], qf[:n])
-            dv[bi, kh] = torch.einsum("gqt,gqd->td", p[:n], dof[:n])
+            dk[bi, kh] = torch.einsum("gqt,gqd->td",
+                                      rounded(ds[:n], "ds_bf16"), qf[:n])
+            dv[bi, kh] = torch.einsum("gqt,gqd->td",
+                                      rounded(p[:n], "p_bf16"), dof[:n])
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -627,13 +662,19 @@ def bwd_kernel_phase(dev):
         for n, (ok, err, share) in res.items():
             check(ok, f"K6/K7 {tag} d{n}: err {err} (differing share "
                   f"{share}) beyond the {dname} limit")
-        faults = {}
-        for fault in ("first_head", "no_dd", "diagonal_tile"):
+        faults, split = {}, {}
+        controls = ("first_head", "no_dd", "diagonal_tile") \
+            + (("p_bf16", "ds_bf16") if dtype == torch.bfloat16 else ())
+        for fault in controls:
             f_res = list(map(grad_agreement, _bwd_fault(
                 q, k, v, do, lse, dd, **kw, fault=fault), want))
             check(not all(r[0] for r in f_res), f"K6/K7 {tag}: the check "
                   f"passed planted fault {fault}")
             faults[fault] = "/".join(f"{r[1]:.3e}" for r in f_res)
+            if fault in ("p_bf16", "ds_bf16"):
+                # the share of dk / dv elements that differ from plain,
+                # beside the kernel's (the split's controls)
+                split[fault] = "/".join(f"{r[2]:.4f}" for r in f_res[1:])
         dq_ms = cuda_ms(lambda: fc.flash_bwd_dq(q, k, v, do, lse, dd, **kw),
                         reps)
         dkv_ms = cuda_ms(lambda: fc.flash_bwd_dkv(q, k, v, do, lse, dd, **kw),
@@ -693,6 +734,13 @@ def bwd_kernel_phase(dev):
               **{f"{f}_err": r for f, r in faults.items()},
               max_abs_grad="/".join(f"{float(w.float().abs().max()):.3f}"
                                     for w in want))
+        if split:
+            phase("kernels", kernel="flash_attention_bwd_dkv", case=tag,
+                  dk_dv_differing_share=f"{res['dk'][2]:.4f}/"
+                  f"{res['dv'][2]:.4f}",
+                  **{f"control_{f}_dk_dv_differing_share": r
+                     for f, r in split.items()},
+                  flip_share_limit=BF16_FLIP_SHARE)
         del q, k, v, do, out, lse, dd, got, want
         torch.cuda.empty_cache()
     # every head dim the kernels are built for, at a small shape
@@ -1311,6 +1359,32 @@ def serve_phase(dev):
     return launches
 
 
+def serve_smoke_phase(dev):
+    """``python -m repro_torch.launch.serve --smoke``, the launcher's own
+    entry point on the card: the SMOKE head dim (8) is none the kernels
+    take, so ``ops.flash_attention`` pads it to 32 and every prefill runs
+    K5. Returns its launch counts."""
+    from repro_torch.configs import registry
+    from repro_torch.kernels import flash_cuda, ops
+    from repro_torch.launch import serve
+
+    cfg = registry.smoke_config(SERVE_ARCH)
+    # the main path: counts set to 0 just before, read just after
+    flash_cuda.reset_launches()
+    results = serve.main(["--arch", SERVE_ARCH, "--smoke"])
+    launches = dict(flash_cuda.LAUNCHES)
+    check(launches[flash_cuda.NAME] > 0, "launch.serve --smoke did not run "
+          "K5")
+    check(all(len(r.tokens) > 0 and bool(((r.tokens >= 0)
+                                          & (r.tokens < cfg.vocab)).all())
+              for r in results), "launch.serve --smoke: bad tokens")
+    phase("serve_smoke", arch=SERVE_ARCH, head_dim=cfg.hd,
+          padded_head_dim=ops.padded_head_dim(cfg.hd), requests=len(results),
+          tokens=sum(len(r.tokens) for r in results),
+          launches=json.dumps(launches, separators=(",", ":")))
+    return launches
+
+
 # --- phase 6: the training slice ----------------------------------------------------
 def _plain64_fwd(q, k, v, **kw):
     """K5's plain version in float64, rounded back: a third correct
@@ -1564,8 +1638,7 @@ def supervisor_phase(dev):
 
     ckpt = ROOT / "build" / "chip_smoke_ckpt"
     shutil.rmtree(ckpt, ignore_errors=True)
-    args = lt.parse(["--smoke", "--head-dim", "32", "--device", "cuda",
-                     "--steps", "6",
+    args = lt.parse(["--smoke", "--device", "cuda", "--steps", "6",
                      "--global-batch", "4", "--seq-len", "64",
                      "--n-micro", "2", "--quantized-state"])
     armed = [True]
@@ -1614,7 +1687,7 @@ def main() -> int:
         return 1
     if not all((ROOT / CSRC / f).is_file()
                for f in ("topsis.cu", "flash_attention.cu", "rmsnorm.cu",
-                         "flash_attention_bwd.cu")):
+                         "flash_attention_bwd.cu", "mma_bf16.cuh")):
         print(f"chip_smoke: {SRC / 'repro_torch'} not found; run from a "
               f"checkout of the repository", file=sys.stderr)
         return 1
@@ -1629,10 +1702,11 @@ def main() -> int:
     table = kernel_phase(dev)
     table.update(lm_kernel_phase(dev))
     table.update(bwd_kernel_phase(dev))
-    # each main path's counts, summed: slice (K1-K4), serve (K5), train
-    # (K5, K6, K7)
+    # each main path's counts, summed: slice (K1-K4), serve (K5), the
+    # smoke-size serving launcher (K5), train (K5, K6, K7)
     launches = collections.Counter(slice_phase(dev))
     launches.update(serve_phase(dev))
+    launches.update(serve_smoke_phase(dev))
     launches.update(train_phase(dev))
     f32_train_phase(dev)
     supervisor_phase(dev)

@@ -4,39 +4,49 @@
 // src/repro/kernels/flash_attention.py. It computes what that kernel
 // computes, not its block structure:
 //
-//   s   = (q * sm_scale) . k^T                     in float32
+//   s   = q . k^T * sm_scale                       in float32
 //   mask: key < kv_len, key <= query (causal), key > query - window
 //   m   = running max of the masked s (NEG_BIG where nothing is valid)
 //   p   = exp(s - m) on valid keys, 0 elsewhere    (float32 through P.V)
 //   out = acc / max(l, 1e-30)  in q's dtype,  lse = m + log(max(l, 1e-30))
 //
-// with GQA: query head h reads key/value head h / (H / Hkv).
-//
-// Shape. One block per (query tile of BQ = 64 rows, batch * head), 256
-// threads, a loop over key tiles of BK = 64 rows with online softmax. The
-// TPU kernel runs its key axis as the sequential innermost grid dimension
-// and carries (m, l, acc) in VMEM scratch; here the loop runs inside the
-// block and the carry lives in registers, since blocks run in no order.
-// Key tiles wholly above the causal diagonal, wholly before the window, or
-// past kv_len are skipped, not masked (the TPU kernel masks them; the
-// result is the same). Query tiles are scheduled longest first.
-//
-// Thread layout. Thread (ty, tx) = (tid / 16, tid % 16) owns query rows
-// 4*ty .. 4*ty+3 of the tile: the 4x4 block of S at key columns
-// 4*tx .. 4*tx+3, and output columns tx + 16*c (c < D/16) of those rows.
-// The 16 threads that share a row are 16 consecutive lanes of one warp, so
-// the row max and row sum are 4 shuffles. Q^T, K^T and P^T sit in shared
-// memory transposed and padded so that every inner-loop read is a float4
-// that is either broadcast or conflict-free; V sits row-major.
+// with GQA: query head h reads key/value head h / (H / Hkv). One block per
+// (query tile, batch * head), longest tiles first; a loop over key tiles
+// of BK = 64 rows with online softmax (the TPU kernel runs its key axis as
+// the sequential innermost grid dimension and carries (m, l, acc) in VMEM
+// scratch; here the loop runs inside the block and the carry lives in
+// registers). Key tiles wholly above the causal diagonal, wholly before the
+// window, or past kv_len are skipped, not masked; nothing is padded along
+// S, and rows past Sq are never stored.
 //
 // Bound. At the serving shape (B=4, H=32, Hkv=8, S=2048, D=128, bf16,
-// causal) the work is ~1.4e11 operations against ~168 MB of traffic, so the
-// card's limit is operations (139 us at the bf16 tensor-core peak, against
-// 50 us for the bytes). This first kernel does its arithmetic in float32
-// FMAs on the CUDA cores (67 TFLOP/s peak, no tensor cores): it reads each
-// K/V tile once per query tile, keeps the softmax state in registers and
-// writes only out and lse. Tensor cores (mma.sync / wgmma with a split
-// P) and TMA staging are later work.
+// causal) the work is 4*D operations per valid pair, ~1.4e11 against ~168
+// MB of traffic: the card's limit is operations, 139 us at the bf16
+// tensor-core peak (50 us for the bytes).
+//
+// bf16 (the main path): tensor cores. Each of the block's 4 warps owns 16
+// query rows (BQ = 64; 8 warps and 128 rows measured slower). The q strip
+// stays in shared memory and is read by ldmatrix at each k-step: held in
+// registers for the whole loop, it spilled at D = 128 and ran slower. K and
+// V tiles are bf16 in shared memory (pitched rows, see mma_bf16.cuh),
+// double-buffered: cp.async brings tile j+1 while tile j is computed, one
+// barrier per tile. s = q.k^T runs on mma.sync m16n8k16 (bf16 x bf16
+// products are exact in float32, the sums float32) and is scaled after the
+// product. The online softmax works on the accumulator fragments (a row's
+// 4 lanes reduce by 2 shuffles) and masks only in tiles that cross the
+// diagonal, the window edge or kv_len. p never goes to shared memory: the
+// accumulator layout is the next product's A layout, so p is split in
+// registers into hi = bf16(p) and lo = bf16(p - hi) and P.V runs as two
+// MMAs: about 16 bits of p, where bf16(p) would keep 8, at 1.5x the tensor
+// work the bound counts (2*D + 2*(2*D) per pair against 4*D). Each tile's
+// P.V goes into a fresh accumulator, added to O by one FFMA with the
+// rescale. At D = 128 the block holds 85 KB of shared memory: two blocks
+// per SM.
+//
+// float32: the FMA kernel of the first port (CUDA cores, q^T, k^T and p^T
+// transposed in shared memory as float32). On tensor cores float32 inputs
+// would need q, k and v split as well; it is the instantiation that
+// chip_smoke's tight float32 checks (serving in float32) hold.
 //
 // Templated on the element type (float, __nv_bfloat16) and the head dim
 // (32, 64, 80, 128). C interface, loaded with ctypes by
@@ -46,6 +56,8 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -79,13 +91,19 @@ struct Params {
 };
 
 template <int D>
-constexpr int smem_bytes() {
+constexpr int smem_fma() {
   return (int)sizeof(float) * (D * QS + D * KS + BK * D + BK * QS);
 }
 
+// float32: thread (ty, tx) = (tid / 16, tid % 16) of THREADS owns query
+// rows 4*ty .. 4*ty+3 of the BQ-row tile: the 4x4 block of S at key columns
+// 4*tx .. 4*tx+3, and output columns tx + 16*c (c < D/16) of those rows.
+// The 16 threads that share a row are 16 consecutive lanes of one warp, so
+// the row max and row sum are 4 shuffles. Q^T, K^T and P^T sit in shared
+// memory transposed and padded so that every inner-loop read is a float4
+// that is either broadcast or conflict-free; V sits row-major.
 template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const Params p) {
+__device__ __forceinline__ void fwd_fma(const Params& p) {
   constexpr int DN = D / 16;  // output columns per thread
   extern __shared__ float4 smem4[];
   float* Qt = reinterpret_cast<float*>(smem4);  // D x QS, q^T * sm_scale
@@ -216,9 +234,213 @@ flash_fwd_kernel(const Params p) {
   }
 }
 
+
+// bf16: BQ / 16 warps, each 16 query rows of the tile; lane (g, t) =
+// (lane / 4, lane % 4) holds rows g and g + 8 of its warp's strip.
+constexpr int THREADS_TC = 2 * BQ;
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int D>
+constexpr int smem_tc() {
+  return (int)sizeof(__nv_bfloat16) * (BQ + 4 * BK) *
+         mma_bf16::Tile<D>::PITCH;
+}
+
+template <int D>
+__device__ __forceinline__ void fwd_tc(const Params& p) {
+  using namespace mma_bf16;
+  using bf16 = __nv_bfloat16;
+  constexpr int PITCH = Tile<D>::PITCH;
+  constexpr int KD = D / 16;   // k-steps of q.k^T
+  constexpr int ND = D / 8;    // 8-column tiles of O
+  constexpr int NK = BK / 8;   // 8-column tiles of S
+  constexpr int NT = THREADS_TC;
+  extern __shared__ float4 smem4[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem4);  // BQ x PITCH
+  bf16* Ks = Qs + BQ * PITCH;                 // 2 x BK x PITCH
+  bf16* Vs = Ks + 2 * BK * PITCH;             // 2 x BK x PITCH
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int iq = gridDim.x - 1 - blockIdx.x;    // longest tiles first
+  const int b = blockIdx.y / p.h, h = blockIdx.y % p.h;
+  const int hk = h / (p.h / p.hkv);
+  const int q0 = iq * BQ;
+  const int qw = q0 + 16 * warp;                // the warp's first row
+  const bf16* qg = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const bf16* kg = static_cast<const bf16*>(p.k) + b * p.k_sb + hk * p.k_sh;
+  const bf16* vg = static_cast<const bf16*>(p.v) + b * p.v_sb + hk * p.v_sh;
+
+  const int kv_end = min(p.kv_len, p.skv);
+  int k_end = kv_end;
+  if (p.causal) k_end = min(k_end, q0 + BQ);
+  int k_begin = 0;
+  if (p.window > 0) k_begin = max(0, q0 - p.window + 1) / BK * BK;
+  const int n_tiles = k_end > k_begin ? (k_end - k_begin + BK - 1) / BK : 0;
+
+  load_tile<BQ, D, NT>(Qs, qg, p.q_ss, q0, p.sq);
+  if (n_tiles > 0) {
+    load_tile<BK, D, NT>(Ks, kg, p.k_ss, k_begin, p.skv);
+    load_tile<BK, D, NT>(Vs, vg, p.v_ss, k_begin, p.skv);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+
+  float o[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  float m[2] = {NEG_BIG, NEG_BIG}, l[2] = {0.f, 0.f};
+  const int rows[2] = {qw + g, qw + g + 8};
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int k0 = k_begin + j * BK;
+    const int buf = j & 1;
+    if (j > 0) {
+      cp_async_wait<0>();  // tile j has landed (this thread's copies)
+      __syncthreads();     // ... everyone's; tile j-1's buffer is free
+    }
+    if (j + 1 < n_tiles) {
+      load_tile<BK, D, NT>(Ks + (buf ^ 1) * BK * PITCH, kg, p.k_ss,
+                           k0 + BK, p.skv);
+      load_tile<BK, D, NT>(Vs + (buf ^ 1) * BK * PITCH, vg, p.v_ss,
+                           k0 + BK, p.skv);
+    }
+    cp_async_commit();
+    // warp-uniform: a tile with no valid pair for this warp's rows
+    if (qw >= p.sq || (p.causal && k0 > qw + 15) ||
+        (p.window > 0 && k0 + BK - 1 <= qw - p.window))
+      continue;
+    const bf16* Kb = Ks + buf * BK * PITCH;
+    const bf16* Vb = Vs + buf * BK * PITCH;
+
+    float s[NK][4];
+#pragma unroll
+    for (int n = 0; n < NK; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t qa[4];  // re-read: held in registers, the q strip spills
+      ldsm_x4(qa, a_addr<D>(Qs, 16 * warp, 16 * kk, lane));
+#pragma unroll
+      for (int n = 0; n < NK; n += 2) {
+        uint32_t kf[4];
+        ldsm_x4(kf, bt_addr<D>(Kb, 8 * n, 16 * kk, lane));
+        mma(s[n], qa, kf[0], kf[1]);
+        mma(s[n + 1], qa, kf[2], kf[3]);
+      }
+    }
+
+    // scale; mask only where the tile crosses kv_len, the diagonal or the
+    // window edge for some row of the warp
+    const bool edge = k0 + BK > kv_end || (p.causal && k0 + BK - 1 > qw) ||
+                      (p.window > 0 && k0 <= qw + 15 - p.window);
+    uint32_t dead = 0;  // bit 4n + e: element (n, e) is masked
+    float rmax[2] = {NEG_BIG, NEG_BIG};
+#pragma unroll
+    for (int n = 0; n < NK; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[n][e] * p.sm_scale;
+        if (edge) {
+          const int key = k0 + 8 * n + 2 * t + (e & 1);
+          const int qi = rows[e >> 1];
+          bool ok = key < kv_end;
+          if (p.causal) ok = ok && key <= qi;
+          if (p.window > 0) ok = ok && key > qi - p.window;
+          if (!ok) {
+            x = NEG_BIG;
+            dead |= 1u << (4 * n + e);
+          }
+        }
+        s[n][e] = x;
+        rmax[e >> 1] = fmaxf(rmax[e >> 1], x);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      rmax[i] = fmaxf(rmax[i], __shfl_xor_sync(0xffffffffu, rmax[i], 1));
+      rmax[i] = fmaxf(rmax[i], __shfl_xor_sync(0xffffffffu, rmax[i], 2));
+      const float m_new = fmaxf(m[i], rmax[i]);
+      alpha[i] = exp2f((m[i] - m_new) * LOG2E);
+      m[i] = m_new;
+      l[i] *= alpha[i];
+    }
+    // p = hi + lo, in the A layout, straight from the accumulators
+    uint32_t ph[NK / 2][4], pl[NK / 2][4];
+#pragma unroll
+    for (int n = 0; n < NK; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float pr = (dead >> (4 * n + e)) & 1u
+            ? 0.f : exp2f((s[n][e] - m[e >> 1]) * LOG2E);
+        s[n][e] = pr;
+        l[e >> 1] += pr;  // this lane's columns; the row sum is taken last
+      }
+#pragma unroll
+    for (int c = 0; c < NK / 2; ++c)
+      split_a(s[2 * c], s[2 * c + 1], ph[c], pl[c]);
+
+    // O = alpha * O + P.V. The tile's 2 * BK / 16 products go into a fresh
+    // accumulator, added to O by one FFMA: the tensor cores' float32
+    // additions are not rounded to nearest, and a chain of every key
+    // tile's products into O would carry their error along.
+#pragma unroll
+    for (int n = 0; n < ND; n += 2) {
+      float pv[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+      for (int c = 0; c < NK / 2; ++c) {
+        uint32_t vf[4];
+        ldsm_x4_t(vf, a_addr<D>(Vb, 16 * c, 8 * n, lane));
+        mma(pv[0], ph[c], vf[0], vf[1]);
+        mma(pv[0], pl[c], vf[0], vf[1]);
+        mma(pv[1], ph[c], vf[2], vf[3]);
+        mma(pv[1], pl[c], vf[2], vf[3]);
+      }
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          o[n + u][e] = fmaf(o[n + u][e], alpha[e >> 1], pv[u][e]);
+    }
+  }
+
+  bf16* og = static_cast<bf16*>(p.o) + b * p.o_sb + h * p.o_sh;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    const int r = rows[i];
+    if (r >= p.sq) continue;
+    const float lm = fmaxf(l[i], 1e-30f);
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(
+          &og[(int64_t)r * p.o_ss + 8 * n + 2 * t]) =
+          __floats2bfloat162_rn(o[n][2 * i] / lm, o[n][2 * i + 1] / lm);
+    if (t == 0) p.lse[((int64_t)b * p.h + h) * p.sq + r] = m[i] + logf(lm);
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(
+    mma_bf16::kTensorCores<T> ? THREADS_TC : THREADS,
+    mma_bf16::kTensorCores<T> ? 2 : 1)  // two bf16 blocks an SM
+flash_fwd_kernel(const Params p) {
+  if constexpr (mma_bf16::kTensorCores<T>)
+    fwd_tc<D>(p);
+  else
+    fwd_fma<T, D>(p);
+}
+
 template <typename T, int D>
 cudaError_t launch(const Params& p, int batch, cudaStream_t stream) {
-  constexpr int bytes = smem_bytes<D>();
+  constexpr bool tc = mma_bf16::kTensorCores<T>;
+  constexpr int bytes = tc ? smem_tc<D>() : smem_fma<D>();
   static bool configured = false;
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -228,7 +450,8 @@ cudaError_t launch(const Params& p, int batch, cudaStream_t stream) {
     configured = true;
   }
   const dim3 grid((p.sq + BQ - 1) / BQ, batch * p.h);
-  flash_fwd_kernel<T, D><<<grid, THREADS, bytes, stream>>>(p);
+  flash_fwd_kernel<T, D><<<grid, tc ? THREADS_TC : THREADS, bytes, stream>>>(
+      p);
   return cudaGetLastError();
 }
 

@@ -28,22 +28,30 @@
 // above the causal diagonal, outside the window or past kv_len are skipped,
 // as K5 skips them.
 //
-// Thread layout (both kernels). 256 threads, (ty, tx) = (tid / 16,
-// tid % 16). Thread (ty, tx) computes the 4x4 block of the score tile at
-// rows 4*ty.. (queries in K6, keys in K7) and columns 4*tx.. (keys in K6,
-// queries in K7), and owns output columns tx + 16*c (c < D/16) of rows
-// 4*ty..4*ty+3. Q, dO, K and V tiles sit in shared memory transposed
-// (D x 68 floats), so the score products read broadcast or conflict-free
-// float4s; the output products read the transposed tiles by column (a
-// 2-way bank conflict) and ds / p by float4.
-//
 // Bound. At the training shape (B=1, H=32, Hkv=8, S=4095, D=128, bf16,
 // causal) each valid pair costs K6 6*D operations (s, dp, dq) and K7 8*D
-// (s, dp, dv, dk): ~2.1e11 and ~2.7e11 per layer, 208 and 277 us at the
+// (s, dp, dv, dk): ~2.1e11 and ~2.7e11 per layer, 208 and 278 us at the
 // bf16 tensor-core peak, against ~35 us for the bytes: both are bound by
-// operations. These first kernels do their arithmetic in float32 FMAs on
-// the CUDA cores (67 TFLOP/s peak), as K5 does; tensor cores (with p and
-// ds split into two bf16 halves to keep float32 semantics) are later work.
+// operations.
+//
+// K7 in bf16 (the main path) runs on the tensor cores: mma.sync m16n8k16
+// on bf16 tiles staged by cp.async, p and ds split into two bf16 halves in
+// registers to keep their float32 semantics (dkv_tc below; the building
+// blocks are in mma_bf16.cuh). With the split its tensor work is 12*D a
+// pair, 1.5x what the bound counts (417 us at the peak).
+//
+// K6, and K7 in float32, are the FMA kernels of the first port (CUDA
+// cores, 67 TFLOP/s peak). Thread layout: 256 threads, (ty, tx) =
+// (tid / 16, tid % 16). Thread (ty, tx) computes the 4x4 block of the
+// score tile at rows 4*ty.. (queries in K6, keys in K7) and columns 4*tx..
+// (keys in K6, queries in K7), and owns output columns tx + 16*c
+// (c < D/16) of rows 4*ty..4*ty+3. Q, dO, K and V tiles sit in shared
+// memory transposed (D x 68 floats), so the score products read broadcast
+// or conflict-free float4s; the output products read the transposed tiles
+// by column (a 2-way bank conflict) and ds / p by float4. K7's float32
+// instantiation is what chip_smoke's float32 checks (4 training layers in
+// float32, the f32_window case) hold; the bf16 one is held by the bf16
+// checks and their planted faults.
 //
 // Templated on the element type (float, __nv_bfloat16) and the head dim
 // (32, 64, 80, 128). C interface, loaded with ctypes by
@@ -53,6 +61,8 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -241,9 +251,10 @@ flash_bwd_dq_kernel(const Params p) {
 }
 
 // --- K7: dk, dv ------------------------------------------------------------------
+// float32: the FMA layout above; one block per (key tile, batch * kv head)
+// with blockIdx.x the key tile.
 template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dkv_kernel(const Params p) {
+__device__ __forceinline__ void dkv_fma(const Params& p) {
   constexpr int DN = D / 16;
   extern __shared__ float4 smem4[];
   float* Kt = reinterpret_cast<float*>(smem4);  // D x TP, k^T (resident)
@@ -356,11 +367,264 @@ flash_bwd_dkv_kernel(const Params p) {
   }
 }
 
+
+// bf16: tensor cores. One block per (batch * kv head, key tile of BK = 64
+// rows), blockIdx.y the key tile, so the longest (causal) tiles are
+// dispatched first. Each of the 4 warps owns 16 key rows; K and V stay in
+// shared memory (bf16, pitched), the q and do tiles (BQ = 64 rows) with
+// their lse and dd are double-buffered by cp.async over the flattened
+// (head of the group, query tile) loop. The query tile is taken in parts
+// of SUB = 16 queries so that at D = 128 the dK and dV accumulators (128
+// floats a lane) leave room for s^T and dp^T (8 each) without spilling
+// (parts of 32 spilled 48 bytes a thread):
+//   s^T  = K.Q^T           (A: K by ldmatrix, B: Q by ldmatrix)
+//   p^T  = exp(s^T * scale - lse), 0 off the mask
+//   dV  += P^T.dO          (A: p^T split hi/lo, B: dO by ldmatrix.trans)
+//   dp^T = V.dO^T
+//   ds^T = p^T * (dp^T - dd) * scale
+//   dK  += dS^T.Q          (A: ds^T split hi/lo, B: Q by ldmatrix.trans)
+// p and ds never leave the registers. The split costs 12*D tensor
+// operations a valid pair where the bound counts 8*D.
+constexpr int THREADS_DKV = 2 * BK;  // a warp per 16 keys
+constexpr int SUB = 16;
+constexpr float LOG2E = 1.4426950408889634f;
+
+// acc (16 key rows x D) += X^T.Y for X = the score-shaped x (16 keys x
+// NS*8 queries, float32, split hi/lo) and Y = rows c0.. of the pitched
+// tile Y (queries x D, read by ldmatrix.trans). Each 8-column tile's
+// products go into a fresh accumulator that one FADD adds to acc: the
+// tensor cores' float32 additions are not rounded to nearest, and a chain
+// of every query tile's products into acc drifts (by 1% of bf16 outputs
+// differing from the plain version at the training shape).
+template <int D, int NS>
+__device__ __forceinline__ void accumulate(float (&acc)[D / 8][4],
+                                           const float (&x)[NS][4],
+                                           const __nv_bfloat16* Y, int c0,
+                                           int lane) {
+  using namespace mma_bf16;
+  uint32_t hi[NS / 2][4], lo[NS / 2][4];
+#pragma unroll
+  for (int c = 0; c < NS / 2; ++c)
+    split_a(x[2 * c], x[2 * c + 1], hi[c], lo[c]);
+#pragma unroll
+  for (int n = 0; n < D / 8; n += 2) {
+    float part[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+    for (int c = 0; c < NS / 2; ++c) {
+      uint32_t yf[4];
+      ldsm_x4_t(yf, a_addr<D>(Y, c0 + 16 * c, 8 * n, lane));
+      mma(part[0], hi[c], yf[0], yf[1]);
+      mma(part[0], lo[c], yf[0], yf[1]);
+      mma(part[1], hi[c], yf[2], yf[3]);
+      mma(part[1], lo[c], yf[2], yf[3]);
+    }
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n + u][e] += part[u][e];
+  }
+}
+
+template <int D>
+constexpr int smem_dkv_tc() {
+  return (int)sizeof(__nv_bfloat16) * (2 * BK + 4 * BQ) *
+             mma_bf16::Tile<D>::PITCH +
+         (int)sizeof(float) * 4 * BQ;
+}
+
+template <int D>
+__device__ __forceinline__ void dkv_tc(const Params& p) {
+  using namespace mma_bf16;
+  using bf16 = __nv_bfloat16;
+  constexpr int PITCH = Tile<D>::PITCH;
+  constexpr int KD = D / 16;    // k-steps of the score products
+  constexpr int ND = D / 8;     // 8-column tiles of dK, dV
+  constexpr int NS = SUB / 8;   // 8-column tiles of a score part
+  constexpr int NT = THREADS_DKV;
+  extern __shared__ float4 smem4[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem4);  // BK x PITCH (resident)
+  bf16* Vs = Ks + BK * PITCH;                 // BK x PITCH (resident)
+  bf16* Qs = Vs + BK * PITCH;                 // 2 x BQ x PITCH
+  bf16* Os = Qs + 2 * BQ * PITCH;             // 2 x BQ x PITCH, do
+  float* Ls = reinterpret_cast<float*>(Os + 2 * BQ * PITCH);  // 2 x BQ lse
+  float* Ds = Ls + 2 * BQ;                                    // 2 x BQ dd
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int b = blockIdx.x / p.hkv, hk = blockIdx.x % p.hkv;
+  const int group = p.h / p.hkv;
+  const int k0 = blockIdx.y * BK;
+  const int kw = k0 + 16 * warp;                // the warp's first key
+  const int kv_end = min(p.kv_len, p.skv);
+  const bf16* kg = static_cast<const bf16*>(p.k) + b * p.k_sb + hk * p.k_sh;
+  const bf16* vg = static_cast<const bf16*>(p.v) + b * p.v_sb + hk * p.v_sh;
+
+  // query tiles that hold a valid pair with a key of this tile
+  int iq_begin = 0, iq_end = (p.sq + BQ - 1) / BQ;
+  if (k0 >= kv_end) iq_end = 0;
+  if (p.causal) iq_begin = k0 / BQ;
+  if (p.window > 0)
+    iq_end = min(iq_end, (k0 + BK - 1 + p.window - 1) / BQ + 1);
+  const int nqt = max(0, iq_end - iq_begin);
+  const int n_iter = group * nqt;
+
+  // stage the (head, query tile) of iteration it into buffer buf
+  auto stage = [&](int it, int buf) {
+    const int h = hk * group + it / nqt;
+    const int q0 = (iq_begin + it % nqt) * BQ;
+    const bf16* qg =
+        static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
+    const bf16* og =
+        static_cast<const bf16*>(p.dout) + b * p.o_sb + h * p.o_sh;
+    load_tile<BQ, D, NT, true>(Qs + buf * BQ * PITCH, qg, p.q_ss, q0, p.sq);
+    load_tile<BQ, D, NT, true>(Os + buf * BQ * PITCH, og, p.o_ss, q0, p.sq);
+    const int64_t row = ((int64_t)b * p.h + h) * p.sq;
+    const int r = tid & (BQ - 1);
+    const bool in = q0 + r < p.sq;
+    const float* src = (tid < BQ ? p.lse : p.dd) + row + (in ? q0 + r : 0);
+    cp_async4((tid < BQ ? Ls : Ds) + buf * BQ + r, src, in);
+  };
+
+  load_tile<BK, D, NT, true>(Ks, kg, p.k_ss, k0, p.skv);
+  load_tile<BK, D, NT, true>(Vs, vg, p.v_ss, k0, p.skv);
+  if (n_iter > 0) stage(0, 0);
+  cp_async_commit();
+
+  float dk[ND][4], dv[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+  const int keys[2] = {kw + g, kw + g + 8};
+
+  for (int it = 0; it < n_iter; ++it) {
+    const int buf = it & 1;
+    cp_async_wait<0>();  // iteration it's tiles have landed (this thread's)
+    __syncthreads();     // ... everyone's; iteration it-1's buffer is free
+    if (it + 1 < n_iter) stage(it + 1, buf ^ 1);
+    cp_async_commit();
+    const int q0 = (iq_begin + it % nqt) * BQ;
+    const bf16* Qb = Qs + buf * BQ * PITCH;
+    const bf16* Ob = Os + buf * BQ * PITCH;
+    const float* Lb = Ls + buf * BQ;
+    const float* Db = Ds + buf * BQ;
+
+#pragma unroll 1
+    for (int part = 0; part < BQ / SUB; ++part) {
+      const int c0 = part * SUB;   // first column (query) of the part
+      const int qs = q0 + c0;
+      // warp-uniform: no valid pair between the warp's keys and the part
+      if (kw >= kv_end || qs >= p.sq || (p.causal && qs + SUB - 1 < kw) ||
+          (p.window > 0 && qs - p.window >= kw + 15))
+        continue;
+      const bool edge = kw + 15 >= kv_end || qs + SUB > p.sq ||
+                        (p.causal && qs < kw + 15) ||
+                        (p.window > 0 && qs + SUB - 1 - p.window >= kw);
+
+      float st[NS][4];
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[n][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+        uint32_t af[4];
+        ldsm_x4(af, a_addr<D>(Ks, 16 * warp, 16 * kk, lane));
+#pragma unroll
+        for (int n = 0; n < NS; n += 2) {
+          uint32_t qf[4];
+          ldsm_x4(qf, bt_addr<D>(Qb, c0 + 8 * n, 16 * kk, lane));
+          mma(st[n], af, qf[0], qf[1]);
+          mma(st[n + 1], af, qf[2], qf[3]);
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = c0 + 8 * n + 2 * t + (e & 1);
+          bool ok = true;
+          if (edge) {
+            const int qi = q0 + col, key = keys[e >> 1];
+            ok = qi < p.sq && key < kv_end;
+            if (p.causal) ok = ok && key <= qi;
+            if (p.window > 0) ok = ok && key > qi - p.window;
+          }
+          st[n][e] = ok ? exp2f((st[n][e] * p.sm_scale - Lb[col]) * LOG2E)
+                        : 0.f;
+        }
+
+      // dV += P^T.dO
+      accumulate<D, NS>(dv, st, Ob, c0, lane);
+
+      // dp^T = V.dO^T, then ds^T in place
+      float dpt[NS][4];
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dpt[n][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+        uint32_t af[4];
+        ldsm_x4(af, a_addr<D>(Vs, 16 * warp, 16 * kk, lane));
+#pragma unroll
+        for (int n = 0; n < NS; n += 2) {
+          uint32_t of[4];
+          ldsm_x4(of, bt_addr<D>(Ob, c0 + 8 * n, 16 * kk, lane));
+          mma(dpt[n], af, of[0], of[1]);
+          mma(dpt[n + 1], af, of[2], of[3]);
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = c0 + 8 * n + 2 * t + (e & 1);
+          dpt[n][e] = st[n][e] * (dpt[n][e] - Db[col]) * p.sm_scale;
+        }
+
+      // dK += dS^T.Q
+      accumulate<D, NS>(dk, dpt, Qb, c0, lane);
+    }
+  }
+  cp_async_wait<0>();  // nothing left in flight (n_iter may be 0)
+
+  bf16* dkg = static_cast<bf16*>(p.dk) + b * p.dk_sb + hk * p.dk_sh;
+  bf16* dvg = static_cast<bf16*>(p.dv) + b * p.dv_sb + hk * p.dv_sh;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = keys[i];
+    if (r >= p.skv) continue;
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      *reinterpret_cast<__nv_bfloat162*>(
+          &dkg[(int64_t)r * p.dk_ss + 8 * n + 2 * t]) =
+          __floats2bfloat162_rn(dk[n][2 * i], dk[n][2 * i + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(
+          &dvg[(int64_t)r * p.dv_ss + 8 * n + 2 * t]) =
+          __floats2bfloat162_rn(dv[n][2 * i], dv[n][2 * i + 1]);
+    }
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(
+    mma_bf16::kTensorCores<T> ? THREADS_DKV : THREADS,
+    mma_bf16::kTensorCores<T> ? 2 : 1)  // two bf16 blocks an SM
+flash_bwd_dkv_kernel(const Params p) {
+  if constexpr (mma_bf16::kTensorCores<T>)
+    dkv_tc<D>(p);
+  else
+    dkv_fma<T, D>(p);
+}
+
 template <typename T, int D>
 cudaError_t launch(const Params& p, int batch, bool dkv, cudaStream_t stream) {
   // one flag per instantiation and kernel: the attribute is set once
   static bool configured[2] = {false, false};
-  const int bytes = dkv ? smem_dkv<D>() : smem_dq<D>();
+  constexpr bool tc = mma_bf16::kTensorCores<T>;
+  const int bytes =
+      !dkv ? smem_dq<D>() : tc ? smem_dkv_tc<D>() : smem_dkv<D>();
   const void* fn = dkv ? (const void*)flash_bwd_dkv_kernel<T, D>
                        : (const void*)flash_bwd_dq_kernel<T, D>;
   if (!configured[dkv]) {
@@ -369,8 +633,13 @@ cudaError_t launch(const Params& p, int batch, bool dkv, cudaStream_t stream) {
     if (e != cudaSuccess) return e;
     configured[dkv] = true;
   }
-  if (dkv) {
-    const dim3 grid((p.skv + BK - 1) / BK, batch * p.hkv);
+  const int nk = (p.skv + BK - 1) / BK;
+  if (dkv && tc) {
+    if (nk > 65535) return cudaErrorInvalidConfiguration;  // gridDim.y
+    const dim3 grid(batch * p.hkv, nk);
+    flash_bwd_dkv_kernel<T, D><<<grid, THREADS_DKV, bytes, stream>>>(p);
+  } else if (dkv) {
+    const dim3 grid(nk, batch * p.hkv);
     flash_bwd_dkv_kernel<T, D><<<grid, THREADS, bytes, stream>>>(p);
   } else {
     const dim3 grid((p.sq + BQ - 1) / BQ, batch * p.h);

@@ -2,8 +2,9 @@
 
 Each source is compiled at first use with ``nvcc`` for ``sm_90a`` (no
 PyTorch headers: seconds, not minutes), cached under ``build/`` at the
-repository root by a hash of the source and the flags, and loaded with
-``ctypes``. Nothing is built when a module is imported.
+repository root by a hash of the source, every header of ``csrc/`` and
+the flags, and loaded with ``ctypes``. Nothing is built when a module is
+imported.
 
 ``CudaLibrary.start()`` launches ``nvcc`` without waiting, so a caller that
 needs several libraries starts every build first and then ``load()``s each:
@@ -61,10 +62,13 @@ class CudaLibrary:
         self._t0 = 0.0
 
     def _target(self) -> Path:
-        digest = hashlib.sha256(self.source.read_bytes()
-                                + " ".join(NVCC_FLAGS).encode()
-                                ).hexdigest()[:16]
-        return BUILD_DIR / f"lib{self.stem}_{digest}.so"
+        """The library's path, keyed by the source, every ``csrc/*.cuh``
+        (a source may include any of them) and the flags."""
+        h = hashlib.sha256(self.source.read_bytes())
+        for header in sorted(self.source.parent.glob("*.cuh")):
+            h.update(header.name.encode() + header.read_bytes())
+        h.update(" ".join(NVCC_FLAGS).encode())
+        return BUILD_DIR / f"lib{self.stem}_{h.hexdigest()[:16]}.so"
 
     def start(self) -> "CudaLibrary":
         """Launch ``nvcc`` for this source unless it is built, building or

@@ -35,6 +35,8 @@ REPLACES = {NAME: "src/repro/kernels/flash_attention.py:29",
             DKV: "src/repro/kernels/flash_attention.py:167"}
 HEAD_DIMS = (32, 64, 80, 128)
 MAX_BATCH_HEADS = 65535          # gridDim.y: one block row per (b, h)
+MAX_SEQ = 64 * 65535             # gridDim.y of K7 (bf16): 64-key tiles
+ALIGN = 16                       # bytes of one cp.async copy (bf16 kernels)
 NEG_BIG = -0.7 * float(torch.finfo(torch.float32).max)
 LAUNCHES = {NAME: 0, DQ: 0, DKV: 0}
 
@@ -175,8 +177,10 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _check_card(*tensors: tuple[str, torch.Tensor]) -> None:
     """What the CUDA kernels take: float32 or bf16, a built head dim,
-    B*H block rows, int32 sequence lengths, one device, contiguous head
-    dims. ``tensors`` starts with ("q", q) and ("k", k)."""
+    B*H block rows, at most MAX_SEQ positions, one device, contiguous head
+    dims; for bf16, which the kernels copy in 16-byte pieces (cp.async),
+    16-byte aligned data and batch, head and row strides. ``tensors``
+    starts with ("q", q) and ("k", k)."""
     (_, q), (_, k) = tensors[:2]
     b, h, sq, d = q.shape
     if q.dtype not in _DTYPES:
@@ -185,13 +189,26 @@ def _check_card(*tensors: tuple[str, torch.Tensor]) -> None:
         raise ValueError(f"head dim {d} not supported; one of {HEAD_DIMS}")
     if b * h > MAX_BATCH_HEADS:
         raise ValueError(f"B*H = {b * h} > {MAX_BATCH_HEADS}")
-    if max(sq, k.shape[2]) >= 2 ** 31:
-        raise ValueError("sequence longer than 2**31 - 1")
+    if max(sq, k.shape[2]) > MAX_SEQ:
+        raise ValueError(f"sequence longer than {MAX_SEQ}")
     for name, t in tensors:
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if t.stride(3) != 1:
             raise ValueError(f"{name}'s head-dim axis must be contiguous")
+        if t.dtype == torch.bfloat16:
+            _check_aligned(name, t)
+
+
+def _check_aligned(name: str, t: torch.Tensor) -> None:
+    """Raise unless every row of ``t`` starts on ALIGN bytes: its data
+    pointer, and its batch, head and row strides (of axes longer than 1)."""
+    if t.data_ptr() % ALIGN:
+        raise ValueError(f"{name}'s data is not {ALIGN}-byte aligned")
+    for axis in range(3):
+        if t.shape[axis] > 1 and t.stride(axis) * t.element_size() % ALIGN:
+            raise ValueError(f"{name}'s stride {t.stride(axis)} along axis "
+                             f"{axis} is not a multiple of {ALIGN} bytes")
 
 
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -275,17 +275,35 @@ class FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None
 
 
+def padded_head_dim(d: int) -> int:
+    """The smallest head dim the flash kernels take that holds ``d``."""
+    for dp in _fc.HEAD_DIMS:
+        if dp >= d:
+            return dp
+    raise ValueError(f"head dim {d} > {_fc.HEAD_DIMS[-1]} is not supported "
+                     f"by the flash kernels")
+
+
 def flash_attention(q, k, v, *, causal: bool = True,
                     window: int | None = None, sm_scale: float | None = None,
                     device=None) -> torch.Tensor:
     """(B, H, S, D) GQA flash attention through K5, differentiable through
     K6 and K7 (``FlashAttention``); k and v are (B, Hkv, S, D).
-    ``sm_scale`` defaults to 1/sqrt(D). Returns ``out`` in q's dtype and
-    memory layout. The kernels mask their own ragged edges, so nothing is
-    padded."""
+    ``sm_scale`` defaults to 1/sqrt(D). Returns ``out`` in q's dtype. The
+    kernels mask their own ragged edges, so S is not padded; a head dim
+    the kernels do not take (any D <= 128, as the reference pads D to 128
+    lanes) is zero-padded to the next one they do, on every device, and
+    ``out`` (and through autograd dq, dk, dv) sliced back to D: zero
+    columns change neither q.k nor the kept columns of p.v. Otherwise
+    ``out`` has q's memory layout."""
     dev = _device_for(q, device)
     q, k, v = (_as_tensor(t, dev) for t in (q, k, v))
+    d = q.shape[-1]
     if sm_scale is None:
-        sm_scale = 1.0 / (q.shape[-1] ** 0.5)
-    return FlashAttention.apply(q, k, v, float(sm_scale), bool(causal),
-                                window)
+        sm_scale = 1.0 / (d ** 0.5)
+    dp = padded_head_dim(d)
+    if dp != d:
+        q, k, v = (F.pad(t, (0, dp - d)) for t in (q, k, v))
+    out = FlashAttention.apply(q, k, v, float(sm_scale), bool(causal),
+                               window)
+    return out if dp == d else out[..., :d]

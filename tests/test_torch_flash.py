@@ -176,6 +176,103 @@ def test_c_signature_matches_binding():
         assert f"case {d}: return launch<T, {d}>" in src
 
 
+# a head dim the kernels do not take, with and without a window
+PAD_CASES = [(d, w) for d in (8, 16, 48) for w in (None, 16)]
+
+
+def test_padded_head_dim():
+    """The smallest head dim the kernels take that holds D; above 128 none
+    does."""
+    assert [ops.padded_head_dim(d) for d in (1, 8, 32, 33, 48, 64, 72, 80,
+                                              100, 128)] == \
+        [32, 32, 32, 64, 64, 64, 80, 80, 128, 128]
+    with pytest.raises(ValueError, match="head dim 136 > 128"):
+        ops.padded_head_dim(136)
+    q = torch.zeros((1, 2, 8, 136))
+    with pytest.raises(ValueError, match="head dim 136 > 128"):
+        ops.flash_attention(q, q, q, device="cpu")
+
+
+@pytest.mark.parametrize("d,window", PAD_CASES)
+def test_padded_head_dim_equals_plain(d, window):
+    """ops.flash_attention zero-pads q, k, v along D to the next head dim
+    the kernels take (8, 16 -> 32; 48 -> 64) with sm_scale = 1/sqrt(D) of
+    the unpadded D, and slices out back: the plain version at D."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(d, 2, 4, 2, 70, d))
+    got = ops.flash_attention(q, k, v, causal=True, window=window,
+                              device="cpu")
+    want, _ = flash_cuda.flash_fwd_plain(q, k, v, sm_scale=d ** -0.5,
+                                         causal=True, window=window)
+    assert got.shape == q.shape and got.dtype == q.dtype
+    np.testing.assert_allclose(_np(got), _np(want), **F32_TOL)
+
+
+@pytest.mark.parametrize("d,window", PAD_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_padded_head_dim_matches_reference(jref, d, window, dtype):
+    """The padded path against the reference's own padding wrapper (it
+    pads D to 128 lanes), in interpret mode."""
+    jnp, rops = jref
+    arrays = _qkv(3 * d + 1, 1, 4, 2, 70, d)
+    (jq, jk, jv), (tq, tk, tv) = _both(jnp, arrays, dtype)
+    want = rops.flash_attention(jq, jk, jv, causal=True, window=window)
+    got = ops.flash_attention(tq, tk, tv, causal=True, window=window,
+                              device="cpu")
+    tol = BF16_TOL if dtype == "bfloat16" else F32_TOL
+    np.testing.assert_allclose(_np(got), _np(want), **tol)
+
+
+def _misaligned(bad, dtype, b=1, h=4, s=8, d=32, device="cpu"):
+    """A (b, h, s, d) view of standard normals whose data pointer
+    (``offset``), row stride (d + 1 elements) or head stride (s*d + 1) is
+    off 16 bytes in bf16."""
+    kw = dict(dtype=dtype, device=device)
+    if bad == "offset":
+        x = torch.zeros(b * h * s * d + 1, **kw)[1:].view(b, h, s, d)
+    elif bad == "row_stride":
+        x = torch.zeros((b, h, s, d + 1), **kw)[..., :d]
+    else:
+        x = torch.zeros((b, h, s * d + 1), **kw)[..., :s * d].view(b, h, s, d)
+    gen = torch.Generator().manual_seed(s * d)
+    return x.copy_(torch.randn((b, h, s, d), generator=gen))
+
+
+@pytest.mark.parametrize("bad", ["offset", "row_stride", "head_stride"])
+def test_card_checks_reject_misaligned_bf16(bad):
+    """The bf16 kernels copy 16-byte pieces with cp.async, so the card
+    checks (run here on CPU tensors) raise on bf16 data whose pointer or
+    batch, head or row stride is not a multiple of 16 bytes; float32 (the
+    FMA kernels) takes the same layouts."""
+    k = torch.zeros((1, 2, 8, 32))
+    flash_cuda._check_card(("q", _misaligned(bad, torch.float32)), ("k", k))
+    kb = k.to(torch.bfloat16)
+    with pytest.raises(ValueError, match="16"):
+        flash_cuda._check_card(("q", _misaligned(bad, torch.bfloat16)),
+                               ("k", kb))
+    flash_cuda._check_card(("q", torch.zeros((1, 4, 8, 32),
+                                             dtype=torch.bfloat16)), ("k", kb))
+
+
+def test_build_key_covers_headers(tmp_path):
+    """A library is keyed by its source, every csrc/*.cuh and the flags:
+    a changed header (one the source includes) gives another build
+    target, so a stale library is never loaded. Hashing needs no nvcc."""
+    from repro_torch.kernels import cubuild
+    lib = cubuild.CudaLibrary("flash_attention", flash_cuda.SIGNATURES)
+    lib.source = tmp_path / "flash_attention.cu"
+    lib.source.write_text('#include "mma_bf16.cuh"\n')
+    header = tmp_path / "mma_bf16.cuh"
+    header.write_text("// one\n")
+    first = lib._target()
+    assert lib._target() == first
+    header.write_text("// two\n")
+    assert lib._target() != first
+    header.write_text("// one\n")
+    assert lib._target() == first
+    (tmp_path / "other.cuh").write_text("// new header\n")
+    assert lib._target() != first
+
+
 # --- on the card ----------------------------------------------------------------
 @pytest.mark.gpu
 @pytest.mark.parametrize("causal,window,dtype,s", [
@@ -211,3 +308,68 @@ def test_cuda_flash_matches_plain(causal, window, dtype, s):
                                        **F32_TOL)
         np.testing.assert_allclose(lse.cpu().numpy(), plse.cpu().numpy(),
                                    **F32_TOL)
+
+
+def _agree(got, want, dtype):
+    """bf16: one ulp (2**-7 |want|, plus 1e-4 near 0) on at most 1% of
+    the elements; float32: 2e-5."""
+    g, w = _np(got.cpu()), _np(want.cpu())
+    if dtype == torch.bfloat16:
+        np.testing.assert_allclose(g, w, atol=1e-4, rtol=2 ** -7)
+        assert float(np.mean(g != w)) <= 1e-2
+    else:
+        np.testing.assert_allclose(g, w, **F32_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_flash_strided_view(dtype):
+    """A (B, S, H, D) tensor seen through transpose(1, 2), as the model
+    hands it over, for every head dim and a ragged S: the kernel reads the
+    strides in place, writes out in q's layout and agrees with the plain
+    version on the same view."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run with -m gpu on the card)")
+    dev = torch.device("cuda")
+    for d in flash_cuda.HEAD_DIMS:
+        rng = np.random.default_rng(d)
+        q, k, v = (torch.from_numpy(
+            rng.normal(size=(2, 300, n, d)).astype(np.float32) * sd).to(
+                dev, dtype).transpose(1, 2)
+            for n, sd in ((8, 2.0), (2, 1.0), (2, 1.0)))
+        kw = dict(sm_scale=d ** -0.5, causal=True, window=None)
+        out, lse = flash_cuda.flash_fwd(q, k, v, **kw)
+        pout, plse = flash_cuda.flash_fwd_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        assert out.stride() == q.stride()
+        _agree(out, pout, dtype)
+        np.testing.assert_allclose(lse.cpu().numpy(), plse.cpu().numpy(),
+                                   **F32_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bad", ["offset", "row_stride", "head_stride"])
+def test_cuda_flash_rejects_misaligned_bf16(bad):
+    """On the card a bf16 q, k or v that a 16-byte cp.async would read out
+    of line raises before the launch; float32 in the same layout runs the
+    FMA kernel and agrees with the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run with -m gpu on the card)")
+    dev = torch.device("cuda")
+    before = flash_cuda.LAUNCHES[flash_cuda.NAME]
+    kv = torch.zeros((1, 2, 8, 32), dtype=torch.bfloat16, device=dev)
+    good = dict(q=torch.zeros((1, 4, 8, 32), dtype=torch.bfloat16,
+                              device=dev), k=kv, v=kv.clone())
+    for name, heads in (("q", 4), ("k", 2), ("v", 2)):
+        args = {**good, name: _misaligned(bad, torch.bfloat16, h=heads,
+                                          device=dev)}
+        with pytest.raises(ValueError, match="16"):
+            flash_cuda.flash_fwd(args["q"], args["k"], args["v"],
+                                 sm_scale=0.2)
+    assert flash_cuda.LAUNCHES[flash_cuda.NAME] == before
+    q = _misaligned(bad, torch.float32, device=dev)
+    k, v = (_misaligned(bad, torch.float32, h=2, device=dev) for _ in range(2))
+    out, lse = flash_cuda.flash_fwd(q, k, v, sm_scale=0.2)
+    pout, plse = flash_cuda.flash_fwd_plain(q, k, v, sm_scale=0.2)
+    torch.cuda.synchronize()
+    _agree(out, pout, torch.float32)

@@ -245,6 +245,55 @@ def test_c_signatures_match_bindings(name):
         assert f"case {d}: return launch<T, {d}>" in src
 
 
+# a head dim the kernels do not take, with and without a window
+PAD_CASES = [(d, w) for d in (8, 16, 48) for w in (None, 16)]
+
+
+@pytest.mark.parametrize("d,window", PAD_CASES)
+def test_padded_head_dim_grads_equal_plain(d, window):
+    """Through ops.flash_attention's zero padding of D (8, 16 -> 32;
+    48 -> 64) and the slice back, autograd gives dq, dk and dv of shape D
+    equal to the plain backward at D (sm_scale 1/sqrt(D) of the unpadded
+    D)."""
+    q, k, v, do = (torch.from_numpy(a) for a in _arrays(d, 2, 4, 2, 70, d))
+    kw = dict(sm_scale=d ** -0.5, causal=True, window=window)
+    out, lse = flash_cuda.flash_fwd_plain(q, k, v, **kw)
+    want = flash_cuda.flash_bwd_plain(q, k, v, out, lse, do, **kw)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    got = ops.flash_attention(*leaves, causal=True, window=window,
+                              device="cpu")
+    torch.sum(got * do).backward()
+    for name, t, w in zip("qkv", leaves, want):
+        assert t.grad.shape == t.shape
+        np.testing.assert_allclose(_np(t.grad), _np(w), **F32_TOL,
+                                   err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("d,window", PAD_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_padded_head_dim_grads_match_jax_grad(jref, d, window, dtype):
+    """The same gradients against ``jax.grad`` through the reference's
+    padding wrapper (D padded to 128 lanes), in interpret mode."""
+    jax, jnp, _, rops = jref
+    arrays = _arrays(5 * d + 2, 1, 4, 2, 70, d)
+    (jq, jk, jv, jdo), (tq, tk, tv, tdo) = _both(jnp, arrays, dtype)
+
+    def loss(q, k, v):
+        out = rops.flash_attention(q, k, v, causal=True, window=window)
+        return jnp.sum(out.astype(jnp.float32) * jdo.astype(jnp.float32))
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(jq, jk, jv)
+    leaves = [t.clone().requires_grad_() for t in (tq, tk, tv)]
+    out = ops.flash_attention(*leaves, causal=True, window=window,
+                              device="cpu")
+    torch.sum(out.float() * tdo.float()).backward()
+    tol = BF16_TOL if dtype == "bfloat16" else F32_TOL
+    for name, t, w in zip("qkv", leaves, want):
+        assert t.grad.dtype == t.dtype
+        np.testing.assert_allclose(_np(t.grad), _np(w), **tol,
+                                   err_msg=f"d{name}")
+
+
 # --- on the card ----------------------------------------------------------------
 @pytest.mark.gpu
 @pytest.mark.parametrize("causal,window,dtype,s", [
@@ -280,3 +329,57 @@ def test_cuda_flash_bwd_matches_plain(causal, window, dtype, s):
             else:
                 np.testing.assert_allclose(
                     g, w, atol=1e-4 * float(np.abs(w).max()), rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_flash_bwd_strided_view(dtype):
+    """K6 and K7 on (B, S, H, D) tensors seen through transpose(1, 2), as
+    the model hands them over, for every head dim and a ragged S, against
+    the plain backward on the same views; dk and dv come out in k's
+    layout."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run with -m gpu on the card)")
+    dev = torch.device("cuda")
+    for d in flash_cuda.HEAD_DIMS:
+        rng = np.random.default_rng(d + 1)
+        q, k, v, do = (torch.from_numpy(
+            rng.normal(size=(1, 300, n, d)).astype(np.float32) * sd).to(
+                dev, dtype).transpose(1, 2)
+            for n, sd in ((8, 2.0), (2, 1.0), (2, 1.0), (8, 1.0)))
+        kw = dict(sm_scale=d ** -0.5, causal=True, window=None)
+        out, lse = flash_cuda.flash_fwd(q, k, v, **kw)
+        got = flash_cuda.flash_bwd(q, k, v, out, lse, do, **kw)
+        want = flash_cuda.flash_bwd_plain(q, k, v, out, lse, do, **kw)
+        torch.cuda.synchronize()
+        assert got[1].stride() == k.stride() and got[2].stride() == v.stride()
+        for g, w in zip(got, want):
+            g, w = g.float().cpu().numpy(), w.float().cpu().numpy()
+            if dtype == torch.bfloat16:
+                np.testing.assert_allclose(g, w, atol=1e-4, rtol=2 ** -7)
+                assert float(np.mean(g != w)) <= 1e-2
+            else:
+                np.testing.assert_allclose(
+                    g, w, atol=1e-4 * float(np.abs(w).max()), rtol=0)
+
+
+@pytest.mark.gpu
+def test_cuda_flash_bwd_rejects_misaligned_bf16():
+    """A bf16 do whose data pointer is off 16 bytes (a cp.async of K7
+    would read it out of line) raises before any launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run with -m gpu on the card)")
+    dev = torch.device("cuda")
+    q = torch.randn((1, 4, 8, 32), device=dev).to(torch.bfloat16)
+    k, v = (torch.randn((1, 2, 8, 32), device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    out, lse = flash_cuda.flash_fwd(q, k, v, sm_scale=0.2)
+    do = torch.zeros(q.numel() + 1, dtype=torch.bfloat16,
+                     device=dev)[1:].view(q.shape)
+    dd = torch.zeros(lse.shape, device=dev)
+    before = dict(flash_cuda.LAUNCHES)
+    with pytest.raises(ValueError, match="16"):
+        flash_cuda.flash_bwd_dkv(q, k, v, do, lse, dd, sm_scale=0.2)
+    with pytest.raises(ValueError, match="16"):
+        flash_cuda.flash_bwd(q, k, v, out, lse, do, sm_scale=0.2)
+    assert flash_cuda.LAUNCHES == before
