@@ -7,12 +7,13 @@ Run from the root of a checkout, on a machine with one CUDA card:
 
 It builds every CUDA kernel of the port from
 ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, all started
-together; the bf16 tensor-core instantiations of K5 and K7 at D = 128 must
-not spill) and holds each against its plain PyTorch version at main-path
-shapes, the flash-attention backward (K6, K7) included. The bf16 cases run
-K5's and K7's tensor-core instantiations (mma.sync with p and ds split
-into bf16 halves); the float32 cases and the float32 model runs below hold
-the float32 FMA instantiations. Then it drives the port's main paths on
+together; the bf16 tensor-core instantiations of K5, K6 and K7 at D = 128
+must not spill) and holds each against its plain PyTorch version at
+main-path shapes, the flash-attention backward (K6, K7) included, and K8
+at every width path. The bf16 cases run K5's, K6's and K7's tensor-core
+instantiations (mma.sync with p and ds split into bf16 halves); the
+float32 cases and the float32 model runs below hold the float32 FMA
+instantiations. Then it drives the port's main paths on
 the card:
 
 * the GreenPod scheduling path — a 15,000-node fleet taking eight bursts
@@ -40,8 +41,8 @@ the card:
 The kernel checks are shown to reject planted faults: K5 with p rounded to
 bf16 or a key tile dropped, K8 rounded before its gamma multiply, K6/K7
 with dk and dv from one head of each GQA group, ds without its dd term, dq
-without its diagonal key tile, or (bf16) p or ds rounded to bf16 before
-K7's products.
+without its diagonal key tile, or (bf16) ds rounded to bf16 before K6's
+product, p or ds rounded to bf16 before K7's.
 
 Phases print one line each; the line before the last JSON line is the
 kernel table; the last line is ``{"ok": true, "device": {...}}``. Any
@@ -118,6 +119,11 @@ K5_CASES = [("a", 4, 32, 8, 2048, 128, "bfloat16", None, 10),
             ("d", 4, 32, 8, 1000, 128, "bfloat16", None, 20)]
 K5_SMALL = (2, 8, 2, 333)
 K8_SHAPE = (4 * 2048, 4096)          # rows of a 4 x 2048 prefill, d_model
+# K8 at K8_ROWS rows of each width, in 16-byte vectors (8 bf16, 4 float32),
+# that picks one instantiation of its register path (1 to 16 vectors a
+# thread, 1 to 8 warps a row), then past it, then a width of no whole
+# vector (the other kernel).
+K8_ROWS, K8_VECTORS = 33, (1, 3, 64, 96, 256, 512, 1024, 2048, 4096, 8192)
 # K6/K7 cases: (tag, B, H, Hkv, S, D, dtype, window, timed reps): the
 # training shape (one 4096-token sequence, the model sees 4095), then
 # float32 with window 64. Every head dim is then checked at K5_SMALL.
@@ -282,6 +288,7 @@ def build_phase():
         for ln in ptxas:
             print(f"[build] ptxas {ln}", flush=True)
     for lib, kernel in ((flash_cuda.LIBRARY, "flash_fwd_kernel"),
+                        (flash_cuda.BWD_LIBRARY, "flash_bwd_dq_kernel"),
                         (flash_cuda.BWD_LIBRARY, "flash_bwd_dkv_kernel")):
         n = spill_stores(lib.ptxas_log, f"{kernel}I13__nv_bfloat16Li128E")
         check(n == 0, f"{kernel}<bf16, 128> spills {n} bytes")
@@ -554,20 +561,41 @@ def lm_kernel_phase(dev):
         plain_ms = cuda_ms(lambda: rc.rmsnorm_plain(x, g, 1e-6), 20)
         gl = g.to(dtype)
         library_ms = cuda_ms(lambda: F.rms_norm(x, (d,), gl, 1e-6), 100)
+        # the same bytes moved by a plain device copy: the memory rate the
+        # card reaches in practice, beside the data sheet's in the bound
+        dst = torch.empty_like(x)
+        copy_ms = cuda_ms(lambda: dst.copy_(x), 100)
+        del dst
         nbytes = 2 * x.numel() * x.element_size() + g.numel() * 4
         b_ms, b_by = bound(nbytes, 4 * rows * d)
         phase("kernels", kernel="rmsnorm_fwd", R=rows, D=d, dtype=dname,
               max_abs_err=f"{err:.3e}", differing_share=f"{share:.2e}",
               **fault, ms=f"{ms:.6f}",
               plain_ms=f"{plain_ms:.6f}", library_ms=f"{library_ms:.6f}",
-              bound_ms=f"{b_ms:.6f}", bound_by=b_by,
-              gb_per_s=f"{nbytes / ms / 1e6:.1f}")
+              copy_ms=f"{copy_ms:.6f}", bound_ms=f"{b_ms:.6f}",
+              bound_by=b_by, gb_per_s=f"{nbytes / ms / 1e6:.1f}")
         row = table.setdefault("rmsnorm_fwd", dict(
             name="rmsnorm_fwd", route="cuda", source=f"{CSRC}/rmsnorm.cu",
             replaces=rc.REPLACES, launches=0, max_abs_err=err, ms=ms,
             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
             library_ms=library_ms))
         row["max_abs_err"] = max(row["max_abs_err"], err)
+    # every path of K8 at a small row count
+    widths = []
+    for dtype in (torch.bfloat16, torch.float32):
+        n = 16 // torch.tensor([], dtype=dtype).element_size()
+        for d in [n * v for v in K8_VECTORS] + [3 * n + 1]:
+            x = torch.randn((K8_ROWS, d), generator=gen, device=dev).to(dtype)
+            g = torch.randn(d, generator=gen, device=dev)
+            ok, err, share = agreement(rc.rmsnorm(x, g, 1e-6),
+                                       rc.rmsnorm_plain(x, g, 1e-6))
+            check(ok, f"K8 {dtype} D={d}: err {err} (differing share "
+                  f"{share})")
+            table["rmsnorm_fwd"]["max_abs_err"] = max(
+                table["rmsnorm_fwd"]["max_abs_err"], err)
+            widths.append(d)
+    phase("kernels", kernel="rmsnorm_fwd", rows=K8_ROWS,
+          widths_checked=",".join(map(str, widths)))
     return table
 
 
@@ -578,9 +606,10 @@ def _bwd_fault(q, k, v, do, lse, dd, *, sm_scale, causal=True, window=None,
     fault: ``first_head`` sums dk and dv over the first query head of each
     GQA group only; ``no_dd`` leaves the dd term out of ds;
     ``diagonal_tile`` drops each query's own K5_TILE key tile from dq (K6
-    without its diagonal tile); ``p_bf16`` rounds p to bf16 before
-    P^T.dO and ``ds_bf16`` rounds ds to bf16 before dS^T.Q (K7 without the
-    hi/lo split of its tensor-core operands). Returns (dq, dk, dv)."""
+    without its diagonal tile); ``dsk_bf16`` rounds ds to bf16 before
+    dS.K (K6 without the hi/lo split of its tensor-core operand),
+    ``p_bf16`` rounds p to bf16 before P^T.dO and ``ds_bf16`` rounds ds to
+    bf16 before dS^T.Q (K7 without it). Returns (dq, dk, dv)."""
     import torch
 
     from repro_torch.kernels import flash_cuda as fc
@@ -614,7 +643,8 @@ def _bwd_fault(q, k, v, do, lse, dd, *, sm_scale, causal=True, window=None,
                 dp = dp - dd[bi, hs, :, None]
             ds = p * dp * sm_scale
             del dp
-            dq[bi, hs] = torch.matmul(torch.where(ok_dq, ds, 0.0), kf)
+            dq[bi, hs] = torch.matmul(
+                rounded(torch.where(ok_dq, ds, 0.0), "dsk_bf16"), kf)
             dk[bi, kh] = torch.einsum("gqt,gqd->td",
                                       rounded(ds[:n], "ds_bf16"), qf[:n])
             dv[bi, kh] = torch.einsum("gqt,gqd->td",
@@ -664,14 +694,19 @@ def bwd_kernel_phase(dev):
                   f"{share}) beyond the {dname} limit")
         faults, split = {}, {}
         controls = ("first_head", "no_dd", "diagonal_tile") \
-            + (("p_bf16", "ds_bf16") if dtype == torch.bfloat16 else ())
+            + (("dsk_bf16", "p_bf16", "ds_bf16") if dtype == torch.bfloat16
+               else ())
         for fault in controls:
             f_res = list(map(grad_agreement, _bwd_fault(
                 q, k, v, do, lse, dd, **kw, fault=fault), want))
             check(not all(r[0] for r in f_res), f"K6/K7 {tag}: the check "
                   f"passed planted fault {fault}")
             faults[fault] = "/".join(f"{r[1]:.3e}" for r in f_res)
-            if fault in ("p_bf16", "ds_bf16"):
+            if fault == "dsk_bf16":
+                # the share of dq elements that differ from plain, beside
+                # the kernel's (the split's control)
+                split[fault] = f"{f_res[0][2]:.4f}"
+            elif fault in ("p_bf16", "ds_bf16"):
                 # the share of dk / dv elements that differ from plain,
                 # beside the kernel's (the split's controls)
                 split[fault] = "/".join(f"{r[2]:.4f}" for r in f_res[1:])
@@ -735,6 +770,10 @@ def bwd_kernel_phase(dev):
               max_abs_grad="/".join(f"{float(w.float().abs().max()):.3f}"
                                     for w in want))
         if split:
+            phase("kernels", kernel="flash_attention_bwd_dq", case=tag,
+                  dq_differing_share=f"{res['dq'][2]:.4f}",
+                  control_dsk_bf16_dq_differing_share=split.pop("dsk_bf16"),
+                  flip_share_limit=BF16_FLIP_SHARE)
             phase("kernels", kernel="flash_attention_bwd_dkv", case=tag,
                   dk_dv_differing_share=f"{res['dk'][2]:.4f}/"
                   f"{res['dv'][2]:.4f}",

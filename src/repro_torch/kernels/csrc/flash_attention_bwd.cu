@@ -34,24 +34,25 @@
 // bf16 tensor-core peak, against ~35 us for the bytes: both are bound by
 // operations.
 //
-// K7 in bf16 (the main path) runs on the tensor cores: mma.sync m16n8k16
-// on bf16 tiles staged by cp.async, p and ds split into two bf16 halves in
-// registers to keep their float32 semantics (dkv_tc below; the building
-// blocks are in mma_bf16.cuh). With the split its tensor work is 12*D a
-// pair, 1.5x what the bound counts (417 us at the peak).
+// K6 and K7 in bf16 (the main path) run on the tensor cores: mma.sync
+// m16n8k16 on bf16 tiles staged by cp.async, p and ds split into two bf16
+// halves in registers to keep their float32 semantics (dq_tc and dkv_tc
+// below; the building blocks are in mma_bf16.cuh). With the split K6's
+// tensor work is 8*D a pair and K7's 12*D, 4/3x and 1.5x what the bound
+// counts (278 and 417 us at the peak).
 //
-// K6, and K7 in float32, are the FMA kernels of the first port (CUDA
-// cores, 67 TFLOP/s peak). Thread layout: 256 threads, (ty, tx) =
+// In float32 both are the FMA kernels of the first port (CUDA cores, 67
+// TFLOP/s peak). Thread layout: 256 threads, (ty, tx) =
 // (tid / 16, tid % 16). Thread (ty, tx) computes the 4x4 block of the
 // score tile at rows 4*ty.. (queries in K6, keys in K7) and columns 4*tx..
 // (keys in K6, queries in K7), and owns output columns tx + 16*c
 // (c < D/16) of rows 4*ty..4*ty+3. Q, dO, K and V tiles sit in shared
 // memory transposed (D x 68 floats), so the score products read broadcast
 // or conflict-free float4s; the output products read the transposed tiles
-// by column (a 2-way bank conflict) and ds / p by float4. K7's float32
-// instantiation is what chip_smoke's float32 checks (4 training layers in
-// float32, the f32_window case) hold; the bf16 one is held by the bf16
-// checks and their planted faults.
+// by column (a 2-way bank conflict) and ds / p by float4. The float32
+// instantiations are what chip_smoke's float32 checks (4 training layers
+// in float32, the f32_window case) hold; the bf16 ones are held by the
+// bf16 checks and their planted faults.
 //
 // Templated on the element type (float, __nv_bfloat16) and the head dim
 // (32, 64, 80, 128). C interface, loaded with ctypes by
@@ -153,9 +154,10 @@ constexpr int smem_dkv() {
 }
 
 // --- K6: dq --------------------------------------------------------------------
+// float32: the FMA layout above; one block per (query tile, batch * head),
+// blockIdx.x the query tile.
 template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dq_kernel(const Params p) {
+__device__ __forceinline__ void dq_fma(const Params& p) {
   constexpr int DN = D / 16;
   extern __shared__ float4 smem4[];
   float* Qt = reinterpret_cast<float*>(smem4);  // D x TP, q^T
@@ -389,13 +391,14 @@ constexpr int THREADS_DKV = 2 * BK;  // a warp per 16 keys
 constexpr int SUB = 16;
 constexpr float LOG2E = 1.4426950408889634f;
 
-// acc (16 key rows x D) += X^T.Y for X = the score-shaped x (16 keys x
-// NS*8 queries, float32, split hi/lo) and Y = rows c0.. of the pitched
-// tile Y (queries x D, read by ldmatrix.trans). Each 8-column tile's
-// products go into a fresh accumulator that one FADD adds to acc: the
-// tensor cores' float32 additions are not rounded to nearest, and a chain
-// of every query tile's products into acc drifts (by 1% of bf16 outputs
-// differing from the plain version at the training shape).
+// acc (the warp's 16 rows x D) += X.Y for X = x, 16 x NS*8 float32 in the
+// accumulator layout of a score product (K7's p^T or ds^T, K6's ds),
+// split hi/lo, and Y = rows c0..c0+NS*8-1 of the pitched tile Y (K7's q
+// or do, K6's k; read by ldmatrix.trans). Each 8-column tile's products
+// go into a fresh accumulator that one FADD adds to acc: the tensor cores'
+// float32 additions are not rounded to nearest, and a chain of every
+// query tile's products into acc drifts (by 1% of bf16 outputs differing
+// from the plain version at the training shape).
 template <int D, int NS>
 __device__ __forceinline__ void accumulate(float (&acc)[D / 8][4],
                                            const float (&x)[NS][4],
@@ -618,13 +621,193 @@ flash_bwd_dkv_kernel(const Params p) {
     dkv_fma<T, D>(p);
 }
 
+// --- K6, bf16: dq on the tensor cores ------------------------------------------
+// K5's loop with K7's products. One block per (query tile of BQ = 64 rows,
+// batch * head), blockIdx.x the query tile, longest (causal) tiles first.
+// Each of the 4 warps owns 16 query rows; the q and do tiles stay in
+// shared memory (bf16, pitched) and are re-read by ldmatrix (held in
+// registers they would take 64 of them a lane), K and V tiles (BK = 64
+// keys) are double-buffered by cp.async, the next tile's copy in flight
+// during the current one's products; lse and dd of the lane's two rows
+// sit in registers. The whole key tile is taken at once: at D = 128 the
+// dQ accumulator (64 floats a lane) and s and dp (32 each) fit without
+// spilling, and parts of 32 or 16 keys ran slower:
+//   s   = Q.K^T            (A: Q by ldmatrix, B: K by ldmatrix)
+//   dp  = dO.V^T           (A: dO by ldmatrix, B: V by ldmatrix)
+//   p   = exp(s * scale - lse), 0 off the mask
+//   ds  = p * (dp - dd) * scale
+//   dQ += dS.K             (A: ds split hi/lo, B: K by ldmatrix.trans)
+// ds never leaves the registers. The split costs 8*D tensor operations a
+// valid pair where the bound counts 6*D. About 104 KB of shared memory at
+// D = 128: two blocks an SM.
+constexpr int THREADS_DQ = 2 * BQ;  // a warp per 16 queries
+
+template <int D>
+constexpr int smem_dq_tc() {
+  return (int)sizeof(__nv_bfloat16) * (2 * BQ + 4 * BK) *
+         mma_bf16::Tile<D>::PITCH;
+}
+
+template <int D>
+__device__ __forceinline__ void dq_tc(const Params& p) {
+  using namespace mma_bf16;
+  using bf16 = __nv_bfloat16;
+  constexpr int PITCH = Tile<D>::PITCH;
+  constexpr int KD = D / 16;       // k-steps of the score products
+  constexpr int ND = D / 8;        // 8-column tiles of dQ
+  constexpr int NK = BK / 8;       // 8-column tiles of S
+  constexpr int NT = THREADS_DQ;
+  extern __shared__ float4 smem4[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem4);  // BQ x PITCH
+  bf16* Os = Qs + BQ * PITCH;                 // BQ x PITCH, do
+  bf16* Ks = Os + BQ * PITCH;                 // 2 x BK x PITCH
+  bf16* Vs = Ks + 2 * BK * PITCH;             // 2 x BK x PITCH
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int iq = gridDim.x - 1 - blockIdx.x;    // longest tiles first
+  const int b = blockIdx.y / p.h, h = blockIdx.y % p.h;
+  const int hk = h / (p.h / p.hkv);
+  const int q0 = iq * BQ;
+  const int qw = q0 + 16 * warp;                // the warp's first row
+  const bf16* qg = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const bf16* og =
+      static_cast<const bf16*>(p.dout) + b * p.o_sb + h * p.o_sh;
+  const bf16* kg = static_cast<const bf16*>(p.k) + b * p.k_sb + hk * p.k_sh;
+  const bf16* vg = static_cast<const bf16*>(p.v) + b * p.v_sb + hk * p.v_sh;
+
+  const int kv_end = min(p.kv_len, p.skv);
+  int k_end = kv_end;
+  if (p.causal) k_end = min(k_end, q0 + BQ);
+  int k_begin = 0;
+  if (p.window > 0) k_begin = max(0, q0 - p.window + 1) / BK * BK;
+  const int n_tiles = k_end > k_begin ? (k_end - k_begin + BK - 1) / BK : 0;
+
+  load_tile<BQ, D, NT, true>(Qs, qg, p.q_ss, q0, p.sq);
+  load_tile<BQ, D, NT, true>(Os, og, p.o_ss, q0, p.sq);
+  if (n_tiles > 0) {
+    load_tile<BK, D, NT, true>(Ks, kg, p.k_ss, k_begin, p.skv);
+    load_tile<BK, D, NT, true>(Vs, vg, p.v_ss, k_begin, p.skv);
+  }
+  cp_async_commit();
+
+  const int rows[2] = {qw + g, qw + g + 8};
+  const int64_t row = ((int64_t)b * p.h + h) * p.sq;
+  float lse[2], dd[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const bool in = rows[i] < p.sq;
+    lse[i] = in ? p.lse[row + rows[i]] : 0.f;
+    dd[i] = in ? p.dd[row + rows[i]] : 0.f;
+  }
+  float dq[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int k0 = k_begin + j * BK;
+    const int buf = j & 1;
+    cp_async_wait<0>();  // tile j has landed (this thread's copies)
+    __syncthreads();     // ... everyone's; tile j-1's buffer is free
+    if (j + 1 < n_tiles) {
+      // unrolled: K7 rolls its copy loops to save registers; here rolled
+      // ones ran slower and unrolled ones do not spill
+      load_tile<BK, D, NT>(Ks + (buf ^ 1) * BK * PITCH, kg, p.k_ss, k0 + BK,
+                           p.skv);
+      load_tile<BK, D, NT>(Vs + (buf ^ 1) * BK * PITCH, vg, p.v_ss, k0 + BK,
+                           p.skv);
+    }
+    cp_async_commit();
+    const bf16* Kb = Ks + buf * BK * PITCH;
+    const bf16* Vb = Vs + buf * BK * PITCH;
+
+    // warp-uniform: a tile with no valid pair for this warp's rows
+    if (qw >= p.sq || (p.causal && k0 > qw + 15) ||
+        (p.window > 0 && k0 + BK - 1 <= qw - p.window))
+      continue;
+    // mask only where the tile crosses kv_len, Sq, the diagonal or the
+    // window edge for some row of the warp
+    const bool edge = k0 + BK > kv_end || qw + 15 >= p.sq ||
+                      (p.causal && k0 + BK - 1 > qw) ||
+                      (p.window > 0 && k0 <= qw + 15 - p.window);
+
+    float s[NK][4], dp[NK][4];
+#pragma unroll
+    for (int n = 0; n < NK; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t qa[4], oa[4];
+      ldsm_x4(qa, a_addr<D>(Qs, 16 * warp, 16 * kk, lane));
+      ldsm_x4(oa, a_addr<D>(Os, 16 * warp, 16 * kk, lane));
+#pragma unroll
+      for (int n = 0; n < NK; n += 2) {
+        uint32_t kf[4], vf[4];
+        ldsm_x4(kf, bt_addr<D>(Kb, 8 * n, 16 * kk, lane));
+        ldsm_x4(vf, bt_addr<D>(Vb, 8 * n, 16 * kk, lane));
+        mma(s[n], qa, kf[0], kf[1]);
+        mma(s[n + 1], qa, kf[2], kf[3]);
+        mma(dp[n], oa, vf[0], vf[1]);
+        mma(dp[n + 1], oa, vf[2], vf[3]);
+      }
+    }
+    // ds in place of s
+#pragma unroll
+    for (int n = 0; n < NK; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        bool ok = true;
+        if (edge) {
+          const int key = k0 + 8 * n + 2 * t + (e & 1);
+          const int qi = rows[e >> 1];
+          ok = qi < p.sq && key < kv_end;
+          if (p.causal) ok = ok && key <= qi;
+          if (p.window > 0) ok = ok && key > qi - p.window;
+        }
+        const float pr =
+            ok ? exp2f((s[n][e] * p.sm_scale - lse[e >> 1]) * LOG2E) : 0.f;
+        s[n][e] = pr * (dp[n][e] - dd[e >> 1]) * p.sm_scale;
+      }
+
+    // dQ += dS.K
+    accumulate<D, NK>(dq, s, Kb, 0, lane);
+  }
+  cp_async_wait<0>();  // nothing left in flight (n_tiles may be 0)
+
+  bf16* dqg = static_cast<bf16*>(p.dq) + b * p.dq_sb + h * p.dq_sh;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = rows[i];
+    if (r >= p.sq) continue;
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(
+          &dqg[(int64_t)r * p.dq_ss + 8 * n + 2 * t]) =
+          __floats2bfloat162_rn(dq[n][2 * i], dq[n][2 * i + 1]);
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(
+    mma_bf16::kTensorCores<T> ? THREADS_DQ : THREADS,
+    mma_bf16::kTensorCores<T> ? 2 : 1)  // two bf16 blocks an SM
+flash_bwd_dq_kernel(const Params p) {
+  if constexpr (mma_bf16::kTensorCores<T>)
+    dq_tc<D>(p);
+  else
+    dq_fma<T, D>(p);
+}
+
 template <typename T, int D>
 cudaError_t launch(const Params& p, int batch, bool dkv, cudaStream_t stream) {
   // one flag per instantiation and kernel: the attribute is set once
   static bool configured[2] = {false, false};
   constexpr bool tc = mma_bf16::kTensorCores<T>;
-  const int bytes =
-      !dkv ? smem_dq<D>() : tc ? smem_dkv_tc<D>() : smem_dkv<D>();
+  const int bytes = dkv ? (tc ? smem_dkv_tc<D>() : smem_dkv<D>())
+                        : (tc ? smem_dq_tc<D>() : smem_dq<D>());
   const void* fn = dkv ? (const void*)flash_bwd_dkv_kernel<T, D>
                        : (const void*)flash_bwd_dq_kernel<T, D>;
   if (!configured[dkv]) {
@@ -643,7 +826,8 @@ cudaError_t launch(const Params& p, int batch, bool dkv, cudaStream_t stream) {
     flash_bwd_dkv_kernel<T, D><<<grid, THREADS, bytes, stream>>>(p);
   } else {
     const dim3 grid((p.sq + BQ - 1) / BQ, batch * p.h);
-    flash_bwd_dq_kernel<T, D><<<grid, THREADS, bytes, stream>>>(p);
+    flash_bwd_dq_kernel<T, D><<<grid, tc ? THREADS_DQ : THREADS, bytes,
+                                stream>>>(p);
   }
   return cudaGetLastError();
 }

@@ -1,25 +1,27 @@
-"""The numerics of the bf16 tensor-core flash kernels (K5 forward, K7
-dk/dv), emulated in plain torch on the CPU and held against the reference.
+"""The numerics of the bf16 tensor-core flash kernels (K5 forward, K6 dq,
+K7 dk/dv), emulated in plain torch on the CPU and held against the
+reference.
 
 On the card the bf16 kernels run their products on bf16 tensor cores with
 float32 sums. q.k^T and do.v^T take bf16 operands as they are (a product
 of two bf16 values is exact in float32) and scale s after the product;
-p (in P.V and P^T.dO) and ds (in dS^T.Q) are float32 results, so each is
-cut into hi = bf16(x) and lo = bf16(x - hi) and its product is taken as
-hi.B + lo.B. This file repeats that arithmetic in torch at a small size
-and holds out, lse, dk and dv to the reference (``ops.flash_attention``
-in interpret mode, which pads S, and ``jax.vjp`` through it) by the rule
-chip_smoke.py holds the kernels to on the card: bf16 results within one
-bf16 ulp (2**-7 |want|, plus 1e-4 near 0) on at most 1% of the elements,
-lse within 2e-5. The same arithmetic without the split (p or ds rounded to
-bf16 once) must fail that rule, so the rule sees the split. A split that
-fails here will fail on the card.
+p (in P.V and P^T.dO) and ds (in dS.K and dS^T.Q) are float32 results, so
+each is cut into hi = bf16(x) and lo = bf16(x - hi) and its product is
+taken as hi.B + lo.B. This file repeats that arithmetic in torch at a
+small size and holds out, lse, dq, dk and dv to the reference
+(``ops.flash_attention`` in interpret mode, which pads S, and ``jax.vjp``
+through it) by the rule chip_smoke.py holds the kernels to on the card:
+bf16 results within one bf16 ulp (2**-7 |want|, plus 1e-4 near 0) on at
+most 1% of the elements, lse within 2e-5. The same arithmetic without the
+split (p or ds rounded to bf16 once, in any one of the four products)
+must fail that rule, so the rule sees the split. A split that fails here
+will fail on the card.
 
 Sizes: B=1, H=4, Hkv=2, S=200, D=32, bf16, q drawn at standard deviation 2
 (chip_smoke's K5_Q_STD, so attention is peaked) and k, v, do at 1; causal,
-and causal with window 16. At this size the split leaves 0.1-0.3% of the
-elements one ulp off and every unsplit control already fails (24-40% of
-its elements differ), so S stays 200.
+and causal with window 16. At this size the split leaves 0.1-0.4% of the
+elements one ulp off (dq 0.3%) and every unsplit control already fails
+(24-41% of its elements differ; dq's 38-41%), so S stays 200.
 """
 import numpy as np
 import pytest
@@ -83,20 +85,24 @@ def emulate_fwd(q, k, v, *, window, split_pv=True):
     return out, (m + torch.log(lm))[..., 0]
 
 
-def emulate_bwd(q, k, v, do, out, lse, *, window, split_pdo=True,
-                split_dsq=True):
-    """K7's bf16 arithmetic from a forward's out and lse: (dk, dv) bf16,
-    summed over each GQA group, p split in P^T.dO and ds in dS^T.Q."""
-    qf, _, vf, ok, s = _operands(q, k, v, window)
+def emulate_bwd(q, k, v, do, out, lse, *, window, split_dsk=True,
+                split_pdo=True, split_dsq=True):
+    """K6's and K7's bf16 arithmetic from a forward's out and lse: dq, and
+    (dk, dv) summed over each GQA group, all bf16; s = (q.k) * scale
+    scaled after the product, ds split in dS.K (K6) and dS^T.Q (K7), p in
+    P^T.dO (K7)."""
+    qf, kf, vf, ok, s = _operands(q, k, v, window)
     dof = do.float()
     dd = torch.sum(dof * out.float(), -1, keepdim=True)
     p = torch.where(ok, torch.exp(s - lse[..., None]), 0.0)
     dp = torch.matmul(dof, vf.transpose(-1, -2))
     ds = p * (dp - dd) * D ** -0.5
+    dq = _product(ds, kf, split_dsk).to(torch.bfloat16)
     dv = _product(p.transpose(-1, -2), dof, split_pdo)
     dk = _product(ds.transpose(-1, -2), qf, split_dsq)
-    return tuple(t.reshape(B, HKV, H // HKV, S, D).sum(2).to(torch.bfloat16)
-                 for t in (dk, dv))
+    return (dq,) + tuple(
+        t.reshape(B, HKV, H // HKV, S, D).sum(2).to(torch.bfloat16)
+        for t in (dk, dv))
 
 
 def agreement(got, want):
@@ -116,7 +122,7 @@ def agreement(got, want):
 
 @pytest.fixture(scope="module")
 def reference():
-    """(inputs as torch bf16, {window: {out, lse, dk, dv}} of the
+    """(inputs as torch bf16, {window: {out, lse, dq, dk, dv}} of the
     reference), computed once."""
     import jax
     import jax.numpy as jnp
@@ -131,7 +137,7 @@ def reference():
         def f(q, k, v, window=window):
             return rops.flash_attention(q, k, v, causal=True, window=window)
         out, vjp = jax.vjp(f, jq, jk, jv)
-        _, dk, dv = vjp(jdo)
+        dq, dk, dv = vjp(jdo)
         # lse from the reference kernel itself, on S padded as the wrapper
         # pads it
         _, lse = rfa.flash_attention_blocks(
@@ -141,28 +147,30 @@ def reference():
         results[window] = {
             name: torch.from_numpy(np.array(x.astype(jnp.float32))).to(
                 torch.bfloat16 if x.dtype == jnp.bfloat16 else torch.float32)
-            for name, x in (("out", out), ("lse", lse[..., :S]), ("dk", dk),
-                            ("dv", dv))}
+            for name, x in (("out", out), ("lse", lse[..., :S]), ("dq", dq),
+                            ("dk", dk), ("dv", dv))}
     return tuple(_bf16(a) for a in arrays), results
 
 
 def _emulate(inputs, want, window, **split):
-    """{out, lse, dk, dv} of the emulation. The backward takes the
-    reference forward's out and lse, as on the card K7 and its plain
+    """{out, lse, dq, dk, dv} of the emulation. The backward takes the
+    reference forward's out and lse, as on the card K6, K7 and their plain
     version take the same ones: an out one ulp off moves dd =
     rowsum(do * out), and with it every ds of its row."""
     q, k, v, do = inputs
     fwd = {n: split[n] for n in ("split_pv",) if n in split}
-    bwd = {n: split[n] for n in ("split_pdo", "split_dsq") if n in split}
+    bwd = {n: split[n] for n in ("split_dsk", "split_pdo", "split_dsq")
+           if n in split}
     out, lse = emulate_fwd(q, k, v, window=window, **fwd)
-    dk, dv = emulate_bwd(q, k, v, do, want["out"], want["lse"],
-                         window=window, **bwd)
-    return dict(out=out, lse=lse, dk=dk, dv=dv)
+    dq, dk, dv = emulate_bwd(q, k, v, do, want["out"], want["lse"],
+                             window=window, **bwd)
+    return dict(out=out, lse=lse, dq=dq, dk=dk, dv=dv)
 
 
 @pytest.mark.parametrize("window", [None, 16])
 def test_split_matches_reference(reference, window):
-    """With p and ds split, out, lse, dk and dv pass the card's rule."""
+    """With p and ds split, out, lse, dq, dk and dv pass the card's
+    rule."""
     inputs, want = reference
     got = _emulate(inputs, want[window], window)
     for name, w in want[window].items():
@@ -173,6 +181,7 @@ def test_split_matches_reference(reference, window):
 @pytest.mark.parametrize("window", [None, 16])
 @pytest.mark.parametrize("control,which", [
     ("split_pv", "out"),      # p rounded to bf16 in P.V (K5)
+    ("split_dsk", "dq"),      # ds rounded to bf16 in dS.K (K6)
     ("split_pdo", "dv"),      # p rounded to bf16 in P^T.dO (K7)
     ("split_dsq", "dk")])     # ds rounded to bf16 in dS^T.Q (K7)
 def test_unsplit_control_fails(reference, window, control, which):

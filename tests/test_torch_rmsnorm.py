@@ -76,6 +76,30 @@ def test_wrapper_rejects_bad_shapes():
                              torch.zeros(4, device="meta"))
 
 
+def _offset(rows, d, dtype, elements, device="cpu"):
+    """A contiguous (rows, d) view starting ``elements`` into its storage."""
+    flat = torch.zeros(rows * d + elements, dtype=dtype, device=device)
+    return flat[elements:].view(rows, d)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_register_path_needs_aligned_data(dtype):
+    """Rows a multiple of 16 bytes wide take the kernel's 16-byte loads, so
+    x and gamma must be 16-byte aligned there; other widths take any
+    alignment."""
+    d = 64
+    rmsnorm_cuda._check_aligned(_offset(2, d, dtype, 0),
+                                _offset(1, d, torch.float32, 0)[0])
+    with pytest.raises(ValueError, match="x's data is not 16-byte"):
+        rmsnorm_cuda._check_aligned(_offset(2, d, dtype, 1),
+                                    _offset(1, d, torch.float32, 0)[0])
+    with pytest.raises(ValueError, match="gamma's data is not 16-byte"):
+        rmsnorm_cuda._check_aligned(_offset(2, d, dtype, 0),
+                                    _offset(1, d, torch.float32, 1)[0])
+    rmsnorm_cuda._check_aligned(_offset(2, 7, dtype, 1),
+                                _offset(1, 7, torch.float32, 1)[0])
+
+
 def test_c_signature_matches_binding():
     src = rmsnorm_cuda.LIBRARY.source.read_text()
     m = re.search(rf"int {rmsnorm_cuda.NAME}\(([^)]*)\)", src)
@@ -110,3 +134,33 @@ def test_cuda_rmsnorm_matches_plain(dtype):
                else TOL["float32"])
         np.testing.assert_allclose(got.float().cpu().numpy(),
                                    want.float().cpu().numpy(), **tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_rmsnorm_every_width_path(dtype):
+    """Widths that take each instantiation of the register path (1 to 16
+    vectors a thread, 1 to 8 warps a row), the widest beyond it, and the
+    other widths' kernel, against the plain version, by one ulp for bf16
+    and 2e-5 for f32; misaligned data on the register path raises."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run with -m gpu on the card)")
+    dev = torch.device("cuda")
+    n = 16 // torch.tensor([], dtype=dtype).element_size()
+    widths = [n * v for v in (1, 3, 64, 96, 256, 512, 1024, 2048, 4096,
+                              8192)] + [3 * n + 1]
+    for d in widths:
+        x, g = _inputs((33, d))
+        tx = torch.from_numpy(x).to(dev, dtype)
+        tg = torch.from_numpy(g).to(dev)
+        got = rmsnorm_cuda.rmsnorm(tx, tg)
+        want = rmsnorm_cuda.rmsnorm_plain(tx, tg)
+        torch.cuda.synchronize()
+        tol = (dict(atol=1e-4, rtol=2 ** -7) if dtype == torch.bfloat16
+               else TOL["float32"])
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   want.float().cpu().numpy(), **tol,
+                                   err_msg=f"D={d}")
+    with pytest.raises(ValueError, match="16-byte"):
+        rmsnorm_cuda.rmsnorm(_offset(2, 64, dtype, 1, dev),
+                             torch.ones(64, device=dev))
