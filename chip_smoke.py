@@ -8,9 +8,10 @@ Run from the root of a checkout, on a machine with one CUDA card:
 It builds every CUDA kernel of the port from
 ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, all started
 together; the bf16 tensor-core instantiations of K5, K6 and K7 at D = 128
-must not spill) and holds each against its plain PyTorch version at
-main-path shapes, the flash-attention backward (K6, K7) included, and K8
-at every width path. The bf16 cases run K5's, K6's and K7's tensor-core
+and D = 256 must not spill) and holds each against its plain PyTorch
+version at main-path shapes, the flash-attention backward (K6, K7)
+included, at llama3-8b's head dim (128) and gemma-7b's (256), and K8 at
+every width path. The bf16 cases run K5's, K6's and K7's tensor-core
 instantiations (mma.sync with p and ds split into bf16 halves); the
 float32 cases and the float32 model runs below hold the float32 FMA
 instantiations. Then it drives the port's main paths on
@@ -29,23 +30,31 @@ the card:
   probabilities rounded to bf16 must fail;
 * ``launch.serve --smoke`` through its own entry point, whose head dim
   (8) the flash wrapper pads to 32, through K5;
+* the gemma-7b serving path the same way (28 layers, 16 heads of head
+  dim 256, geglu, tied embeddings): K5 at D = 256;
 * the llama3-8b training path at full width and depth — 3 AdamW steps
   (int8 moments) on one 4096-token sequence through ``launch.train``'s
   functions, every layer's attention through K5 forward, K5 again in the
   per-layer recompute, K6 and K7 — checked against the same 3 steps with
   attention on the plain versions (and, for the spread, in float64); then
   4 layers in float32 at tight limits, which a control with a planted K7
-  fault must fail; then the checkpoint / restart round trip of the fault
+  fault must fail;
+* the gemma-7b training path the same way (K5, K6, K7 at D = 256), then 2
+  layers in float32, where a K7 writing only the first 128 columns of dK
+  and dV must fail; then the checkpoint / restart round trip of the fault
   Supervisor at the smoke size (head dim 8, padded).
 
 The kernel checks are shown to reject planted faults: K5 with p rounded to
 bf16 or a key tile dropped, K8 rounded before its gamma multiply, K6/K7
 with dk and dv from one head of each GQA group, ds without its dd term, dq
 without its diagonal key tile, or (bf16) ds rounded to bf16 before K6's
-product, p or ds rounded to bf16 before K7's.
+product, p or ds rounded to bf16 before K7's; at D = 256 also K5 and K7
+with only the first 128 columns of their outputs.
 
 Phases print one line each; the line before the last JSON line is the
-kernel table; the last line is ``{"ok": true, "device": {...}}``. Any
+kernel table (one row per kernel, and one more per flash kernel for its
+D = 256 instantiation, named ``<kernel>_d256``, whose launches are the
+gemma-7b paths'); the last line is ``{"ok": true, "device": {...}}``. Any
 failure exits non-zero before it. Without a CUDA device, or outside a
 checkout, it exits non-zero at once.
 """
@@ -113,11 +122,21 @@ PROFILE_STEPS = 8        # decode steps under the profiler
 # serving shape, (b) float32, (c) window 64, (d) a ragged S. Every head dim
 # the kernel is built for is then checked at K5_SMALL = (B, H, Hkv, S).
 # Planted faults are held to the check at (a) and (b).
+# (e) and (f) are gemma-7b's serving shape (H = Hkv = 16, D = 256) in bf16
+# and float32. Planted faults are held to the check at (a), (b), (e), (f).
 K5_CASES = [("a", 4, 32, 8, 2048, 128, "bfloat16", None, 10),
             ("b", 1, 32, 8, 2048, 128, "float32", None, 10),
             ("c", 4, 32, 8, 2048, 128, "bfloat16", 64, 20),
-            ("d", 4, 32, 8, 1000, 128, "bfloat16", None, 20)]
-K5_SMALL = (2, 8, 2, 333)
+            ("d", 4, 32, 8, 1000, 128, "bfloat16", None, 20),
+            ("e", 4, 16, 16, 2048, 256, "bfloat16", None, 10),
+            ("f", 1, 16, 16, 2048, 256, "float32", None, 10)]
+K5_FAULT_CASES = ("a", "b", "e", "f")
+K5_SMALL = (2, 8, 2, 333)            # a GQA group of 4, every head dim
+WIDE_D = 256                         # gemma-7b's head dim
+# the D = 256 controls: an output with only its first HALF_D columns
+# written (the rest zero), as from a kernel that split D between warps and
+# lost one half
+HALF_D = 128
 K8_SHAPE = (4 * 2048, 4096)          # rows of a 4 x 2048 prefill, d_model
 # K8 at K8_ROWS rows of each width, in 16-byte vectors (8 bf16, 4 float32),
 # that picks one instantiation of its register path (1 to 16 vectors a
@@ -126,17 +145,21 @@ K8_SHAPE = (4 * 2048, 4096)          # rows of a 4 x 2048 prefill, d_model
 K8_ROWS, K8_VECTORS = 33, (1, 3, 64, 96, 256, 512, 1024, 2048, 4096, 8192)
 # K6/K7 cases: (tag, B, H, Hkv, S, D, dtype, window, timed reps): the
 # training shape (one 4096-token sequence, the model sees 4095), then
-# float32 with window 64. Every head dim is then checked at K5_SMALL.
+# float32 with window 64, each at llama3-8b's and at gemma-7b's heads.
+# Every head dim is then checked at K5_SMALL.
 # bf16 gradients are held to agreement()'s one-ulp rule, float32 ones to
 # BWD_F32_REL of the largest |grad| (float32 sums in another order).
 BWD_CASES = [("train", 1, 32, 8, 4095, 128, "bfloat16", None, 5),
-             ("f32_window", 1, 32, 8, 1000, 128, "float32", 64, 10)]
+             ("f32_window", 1, 32, 8, 1000, 128, "float32", 64, 10),
+             ("gemma_train", 1, 16, 16, 4095, 256, "bfloat16", None, 5),
+             ("gemma_f32_window", 1, 16, 16, 1000, 256, "float32", 64, 10)]
 BWD_F32_REL = 1e-4
 # The training slice: launch.train's code path at full width and depth.
 TRAIN_STEPS = 3
-TRAIN_ARGV = ["--arch", "llama3-8b", "--seq-len", "4096",
-              "--global-batch", "1", "--n-micro", "1", "--lr", "3e-4",
-              "--steps", str(TRAIN_STEPS), "--device", "cuda"]
+TRAIN_ARGV = ["--seq-len", "4096", "--global-batch", "1", "--n-micro", "1",
+              "--lr", "3e-4", "--steps", str(TRAIN_STEPS), "--device",
+              "cuda"]
+GEMMA_ARCH = "gemma-7b"
 # bf16 at full depth, kernel run vs plain run (relative): step-1 loss,
 # step-1 grad norm, and the loss of every step. Both round to bf16 at the
 # same points; their float32 sums run in another order, and the one-ulp
@@ -145,10 +168,13 @@ TRAIN_ARGV = ["--arch", "llama3-8b", "--seq-len", "4096",
 # plain path and float64 attention (6.6e-6, 1.5e-4, 1.5e-3 on an H100;
 # PERF.md), which the script prints beside them.
 TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL, TRAIN_LOSSES_RTOL = 1e-4, 2e-3, 1e-2
-# float32 at full width, F32_TRAIN_LAYERS layers, float32 moments: step-1
-# gradients of every leaf within F32_GRAD_REL of its largest |g|, losses
-# of every step within F32_LOSS_RTOL; a K7 with a planted fault must fail.
+# float32 at full width, F32_TRAIN_LAYERS layers (gemma-7b:
+# GEMMA_F32_LAYERS; its 256000 x 3072 float32 embedding and its moments
+# take 12.6 GB), float32 moments: step-1 gradients of every leaf within
+# F32_GRAD_REL of its largest |g|, losses of every step within
+# F32_LOSS_RTOL; a K7 with a planted fault must fail.
 F32_TRAIN_LAYERS, F32_GRAD_REL, F32_LOSS_RTOL = 4, 1e-4, 1e-5
+GEMMA_F32_LAYERS = 2
 
 
 class SmokeFailure(AssertionError):
@@ -255,23 +281,26 @@ def device_phase():
     return smi, name, count
 
 
-def spill_stores(ptxas_log, kernel):
-    """Bytes of spill stores ptxas reports for the entry whose mangled
-    name contains ``kernel`` (None if there is no such entry)."""
+def ptxas_entry(ptxas_log, kernel):
+    """(bytes of spill stores, registers) ptxas reports for the entry
+    whose mangled name contains ``kernel`` (None where it reports none)."""
     import re
     lines = ptxas_log.splitlines()
+    spill = regs = None
     for i, ln in enumerate(lines):
         if "Compiling entry" in ln and kernel in ln:
-            for nxt in lines[i + 1:i + 3]:
+            for nxt in lines[i + 1:i + 4]:
                 m = re.search(r"(\d+) bytes spill stores", nxt)
-                if m:
-                    return int(m.group(1))
-    return None
+                spill = int(m.group(1)) if m else spill
+                m = re.search(r"Used (\d+) registers", nxt)
+                regs = int(m.group(1)) if m else regs
+            break
+    return spill, regs
 
 
 def build_phase():
     """Start one nvcc per source, then load each library; the tensor-core
-    kernels' D = 128 instantiations must not spill."""
+    kernels' D = 128 and D = 256 instantiations must not spill."""
     from repro_torch.kernels import flash_cuda, rmsnorm_cuda, topsis_cuda
     libs = [m.LIBRARY for m in (topsis_cuda, flash_cuda, rmsnorm_cuda)] \
         + [flash_cuda.BWD_LIBRARY]
@@ -287,12 +316,24 @@ def build_phase():
               library=lib.path.name)
         for ln in ptxas:
             print(f"[build] ptxas {ln}", flush=True)
-    for lib, kernel in ((flash_cuda.LIBRARY, "flash_fwd_kernel"),
-                        (flash_cuda.BWD_LIBRARY, "flash_bwd_dq_kernel"),
-                        (flash_cuda.BWD_LIBRARY, "flash_bwd_dkv_kernel")):
-        n = spill_stores(lib.ptxas_log, f"{kernel}I13__nv_bfloat16Li128E")
-        check(n == 0, f"{kernel}<bf16, 128> spills {n} bytes")
-        phase("build", kernel=f"{kernel}<bf16,128>", spill_store_bytes=n)
+    import torch
+    for lib, kernel, name in (
+            (flash_cuda.LIBRARY, "flash_fwd_kernel", flash_cuda.NAME),
+            (flash_cuda.BWD_LIBRARY, "flash_bwd_dq_kernel", flash_cuda.DQ),
+            (flash_cuda.BWD_LIBRARY, "flash_bwd_dkv_kernel",
+             flash_cuda.DKV)):
+        for d in (128, WIDE_D):
+            for dtype, mangled in ((torch.bfloat16, "I13__nv_bfloat16"),
+                                   (torch.float32, "If")):
+                n, regs = ptxas_entry(lib.ptxas_log,
+                                      f"{kernel}{mangled}Li{d}E")
+                tag = "bf16" if dtype == torch.bfloat16 else "f32"
+                if dtype == torch.bfloat16:
+                    check(n == 0, f"{kernel}<bf16, {d}> spills {n} bytes")
+                phase("build", kernel=f"{kernel}<{tag},{d}>",
+                      spill_store_bytes=n, registers=regs,
+                      dynamic_smem_bytes=flash_cuda.smem_bytes(name, dtype,
+                                                               d))
     phase("build", all_seconds=f"{time.perf_counter() - t0:.2f}")
 
 
@@ -416,7 +457,8 @@ def attention_fault(q, k, v, *, sm_scale, causal=True, window=None,
     """K5's function with a planted fault, in plain torch: ``p_bf16``
     rounds the normalised probabilities to bf16 before P.V (what ``_sdpa``
     does); ``diagonal_tile`` drops the keys of each query's own K5_TILE
-    tile. Returns (out, lse) as ``flash_fwd`` does."""
+    tile; ``half_d`` writes only out's first HALF_D columns (the rest 0).
+    Returns (out, lse) as ``flash_fwd`` does."""
     import torch
 
     from repro_torch.kernels import flash_cuda as fc
@@ -440,8 +482,16 @@ def attention_fault(q, k, v, *, sm_scale, causal=True, window=None,
                            (p / lm).to(torch.bfloat16).float(), v.float())
     else:
         acc = torch.einsum("bkgqt,bktd->bkgqd", p, v.float()) / lm
+    if fault == "half_d":
+        acc[..., HALF_D:] = 0
     out = acc.to(q.dtype).reshape(b, h, sq, d)
     return out, (m + torch.log(lm)).reshape(b, h, sq)
+
+
+def row_name(name, d):
+    """The kernel table's row of kernel ``name`` at head dim ``d``: the
+    D = 256 instantiations have rows of their own."""
+    return f"{name}_d{WIDE_D}" if d == WIDE_D else name
 
 
 def k5_agreement(out, lse, pout, plse):
@@ -474,8 +524,9 @@ def lm_kernel_phase(dev):
         check(ok, f"K5 {tag}: out err {err} (differing share {share}), "
               f"lse err {err_lse}, beyond the {dname} limits")
         faults = {}
-        if tag in ("a", "b"):
-            for fault in ("p_bf16", "diagonal_tile"):
+        if tag in K5_FAULT_CASES:
+            for fault in ("p_bf16", "diagonal_tile") + (
+                    ("half_d",) if d == WIDE_D else ()):
                 f_ok, f_err, f_lse, f_share = k5_agreement(
                     *attention_fault(q, k, v, **kw, fault=fault), pout, plse)
                 check(not f_ok, f"K5 {tag}: the check passed planted fault "
@@ -514,8 +565,9 @@ def lm_kernel_phase(dev):
             phase("kernels", kernel="flash_attention_fwd", case=tag,
                   planted_faults_rejected=",".join(faults),
                   **{f"{f}_err": r for f, r in faults.items()})
-        row = table.setdefault("flash_attention_fwd", dict(
-            name="flash_attention_fwd", route="cuda",
+        rname = row_name(fc.NAME, d)
+        row = table.setdefault(rname, dict(
+            name=rname, route="cuda",
             source=f"{CSRC}/flash_attention.cu", replaces=fc.REPLACES[fc.NAME],
             launches=0, max_abs_err=max(err, err_lse), ms=ms,
             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
@@ -535,9 +587,8 @@ def lm_kernel_phase(dev):
                 check(ok, f"K5 D={d} {dtype} causal={causal} "
                       f"window={window}: out err {err} (share {share}), "
                       f"lse err {err_lse}")
-                table["flash_attention_fwd"]["max_abs_err"] = max(
-                    table["flash_attention_fwd"]["max_abs_err"], err,
-                    err_lse)
+                row = table[row_name(fc.NAME, d)]
+                row["max_abs_err"] = max(row["max_abs_err"], err, err_lse)
     phase("kernels", kernel="flash_attention_fwd", head_dims_checked=str(
         fc.HEAD_DIMS).replace(" ", ""),
           shape="B={},H={},Hkv={},S={}".format(*K5_SMALL))
@@ -609,7 +660,8 @@ def _bwd_fault(q, k, v, do, lse, dd, *, sm_scale, causal=True, window=None,
     without its diagonal tile); ``dsk_bf16`` rounds ds to bf16 before
     dS.K (K6 without the hi/lo split of its tensor-core operand),
     ``p_bf16`` rounds p to bf16 before P^T.dO and ``ds_bf16`` rounds ds to
-    bf16 before dS^T.Q (K7 without it). Returns (dq, dk, dv)."""
+    bf16 before dS^T.Q (K7 without it); ``half_d`` writes only the first
+    HALF_D columns of dk and dv (the rest 0). Returns (dq, dk, dv)."""
     import torch
 
     from repro_torch.kernels import flash_cuda as fc
@@ -649,6 +701,9 @@ def _bwd_fault(q, k, v, do, lse, dd, *, sm_scale, causal=True, window=None,
                                       rounded(ds[:n], "ds_bf16"), qf[:n])
             dv[bi, kh] = torch.einsum("gqt,gqd->td",
                                       rounded(p[:n], "p_bf16"), dof[:n])
+    if fault == "half_d":
+        dk[..., HALF_D:] = 0
+        dv[..., HALF_D:] = 0
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -693,7 +748,12 @@ def bwd_kernel_phase(dev):
             check(ok, f"K6/K7 {tag} d{n}: err {err} (differing share "
                   f"{share}) beyond the {dname} limit")
         faults, split = {}, {}
-        controls = ("first_head", "no_dd", "diagonal_tile") \
+        # one head per group is no fault where the group is one head (MHA:
+        # gemma-7b); at D = 256 the half-D control takes its place here,
+        # and first_head is held at D = 256 at K5_SMALL (a group of 4)
+        controls = (("first_head",) if h > hkv else ()) \
+            + ("no_dd", "diagonal_tile") \
+            + (("half_d",) if d == WIDE_D else ()) \
             + (("dsk_bf16", "p_bf16", "ds_bf16") if dtype == torch.bfloat16
                else ())
         for fault in controls:
@@ -756,8 +816,9 @@ def bwd_kernel_phase(dev):
                                        else f"{lib_err:.3e}"),
                   bound_ms=f"{b_ms:.6f}", bound_by=b_by,
                   tflops=f"{flops / ms / 1e9:.2f}")
-            row = table.setdefault(name, dict(
-                name=name, route="cuda",
+            rname = row_name(name, d)
+            row = table.setdefault(rname, dict(
+                name=rname, route="cuda",
                 source=f"{CSRC}/flash_attention_bwd.cu",
                 replaces=fc.REPLACES[name], launches=0, max_abs_err=err,
                 ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
@@ -783,6 +844,7 @@ def bwd_kernel_phase(dev):
         del q, k, v, do, out, lse, dd, got, want
         torch.cuda.empty_cache()
     # every head dim the kernels are built for, at a small shape
+    small_faults = []
     for d in fc.HEAD_DIMS:
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = _attention_case(dev, gen, *K5_SMALL, d, dtype)
@@ -801,11 +863,24 @@ def bwd_kernel_phase(dev):
                     check(ok, f"K6/K7 D={d} {dtype} causal={causal} "
                           f"window={window} kv_len={kv_len} d{n}: err {err} "
                           f"(share {share})")
-                    table[name]["max_abs_err"] = max(
-                        table[name]["max_abs_err"], err)
+                    row = table[row_name(name, d)]
+                    row["max_abs_err"] = max(row["max_abs_err"], err)
+                if d == WIDE_D and causal and window is None:
+                    # D = 256 with a GQA group of 4: the controls that a
+                    # group of one cannot hold
+                    dd = torch.sum(do.float() * out.float(), dim=-1)
+                    for fault in ("first_head", "half_d"):
+                        f_res = list(map(grad_agreement, _bwd_fault(
+                            q, k, v, do, lse, dd, **kw, fault=fault), want))
+                        check(not all(r[0] for r in f_res),
+                              f"K6/K7 D={d} {dtype}: the check passed "
+                              f"planted fault {fault}")
+                    small_faults.append(str(dtype).split(".")[1])
     phase("kernels", kernel="flash_attention_bwd", head_dims_checked=str(
         fc.HEAD_DIMS).replace(" ", ""),
-          shape="B={},H={},Hkv={},S={}".format(*K5_SMALL))
+          shape="B={},H={},Hkv={},S={}".format(*K5_SMALL),
+          d256_planted_faults_rejected="first_head,half_d",
+          d256_fault_dtypes=",".join(small_faults))
     return table
 
 
@@ -1253,7 +1328,10 @@ def device_ms(fn):
     return split if sum(split.values()) > 0 else None
 
 
-def serve_phase(dev):
+def serve_phase(dev, arch=SERVE_ARCH):
+    """``arch`` at full width and depth, served through ``Engine`` with K5
+    on every prefill, against the plain path; then in float32 with the
+    p-rounding control. Returns its launch counts."""
     import numpy as np
     import torch
 
@@ -1262,7 +1340,7 @@ def serve_phase(dev):
     from repro_torch.models.lm import LM
     from repro_torch.serve.engine import Engine, Request
 
-    cfg = registry.config(SERVE_ARCH, attn_impl="flash")
+    cfg = registry.config(arch, attn_impl="flash")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = LM(cfg, device=dev, seed=0)
@@ -1338,10 +1416,11 @@ def serve_phase(dev):
                                            split_dec.items()},
              1e3 * float(np.median(decode_s)))):
         if split is None:
-            phase("serve", profile=tag, device_time="not recorded")
+            phase("serve", arch=arch, profile=tag,
+                  device_time="not recorded")
             continue
         busy = sum(split.values())
-        phase("serve", profile=tag, wall_ms=f"{wall_ms:.3f}",
+        phase("serve", arch=arch, profile=tag, wall_ms=f"{wall_ms:.3f}",
               device_ms=f"{busy:.3f}", k5_ms=f"{split['k5']:.3f}",
               gemm_ms=f"{split['gemm']:.3f}",
               other_ms=f"{split['other']:.3f}",
@@ -1349,7 +1428,7 @@ def serve_phase(dev):
     prefill_tok = sum(c["tokens"].size for c in rec.calls
                       if c["kind"] == "prefill")
     n_tok = sum(len(r.tokens) for r in results)
-    phase("serve", arch=SERVE_ARCH, n_layers=cfg.n_layers,
+    phase("serve", arch=arch, n_layers=cfg.n_layers,
           params=n_params, requests=SERVE_REQUESTS, slots=SERVE_SLOTS,
           waves=waves, prompt_lengths=",".join(map(str, lengths)),
           max_new_tokens=SERVE_NEW, max_len=max_len,
@@ -1362,7 +1441,7 @@ def serve_phase(dev):
           decode_ms_max=f"{1e3 * max(decode_s):.3f}",
           max_memory_allocated=peak,
           launches=json.dumps(launches, separators=(",", ":")))
-    phase("serve", compared_rows=stats["rows"],
+    phase("serve", arch=arch, compared_rows=stats["rows"],
           max_abs_logit=f"{max(float(x.abs().max()) for x in plain):.4f}",
           max_logit_err_vs_plain=f"{stats['max_err']:.4e}",
           logit_tol=LOGIT_TOL, near_ties=stats["near_ties"],
@@ -1384,7 +1463,7 @@ def serve_phase(dev):
     with attention_route(attention_fault):
         c32 = teacher_forced(model, rec.calls, max_len)
     control = max_diff(c32, p32)
-    phase("serve", dtype="float32",
+    phase("serve", arch=arch, dtype="float32",
           max_logit_err_vs_plain=f"{max_diff(k32, p32):.4e}",
           control_p_bf16_vs_plain=f"{control:.4e}",
           logit_tol=F32_LOGIT_TOL, seconds=f"{time.perf_counter() - t0:.1f}",
@@ -1392,9 +1471,12 @@ def serve_phase(dev):
     stats32 = compare_runs(k32, p32, F32_LOGIT_TOL)
     check(control > F32_LOGIT_TOL, f"the control (p rounded to bf16) lies "
           f"within {F32_LOGIT_TOL} of the plain path: {control}")
-    phase("serve", dtype="float32", compared_rows=stats32["rows"],
+    phase("serve", arch=arch, dtype="float32",
+          compared_rows=stats32["rows"],
           near_ties=stats32["near_ties"],
           max_near_tie_gap=f"{stats32['max_tie_gap']:.4e}")
+    del model, rec, eng, k32, p32, c32
+    _free()
     return launches
 
 
@@ -1450,11 +1532,11 @@ def _rel(a, b):
     return abs(a - b) / max(abs(b), 1e-30)
 
 
-def full_depth_run(tag, route, profile=False):
+def full_depth_run(tag, route, profile=False, arch=SERVE_ARCH):
     """TRAIN_STEPS steps of launch.train's code path (``build`` then
-    ``train_steps``) with the flash bindings routed by ``route``; the
-    launch counts of each step, the peak device memory and, with
-    ``profile``, the time split of one more step."""
+    ``train_steps``) for ``arch`` with the flash bindings routed by
+    ``route``; the launch counts of each step, the peak device memory and,
+    with ``profile``, the time split of one more step."""
     import torch
 
     from repro_torch.kernels import flash_cuda as fc
@@ -1462,7 +1544,7 @@ def full_depth_run(tag, route, profile=False):
     from repro_torch.optim import adamw
     from repro_torch.train import loop as tl
 
-    args = lt.parse(TRAIN_ARGV + ["--quantized-state"])
+    args = lt.parse(["--arch", arch] + TRAIN_ARGV + ["--quantized-state"])
     _free()
     torch.cuda.reset_peak_memory_stats()
     out = {}
@@ -1478,7 +1560,8 @@ def full_depth_run(tag, route, profile=False):
             h["launches"] = {k: n - last.get(k, 0)
                              for k, n in fc.LAUNCHES.items()}
             last.update(fc.LAUNCHES)
-            phase("train", run=tag, step=h["step"], loss=f"{h['loss']:.6f}",
+            phase("train", arch=arch, run=tag, step=h["step"],
+                  loss=f"{h['loss']:.6f}",
                   grad_norm=f"{h['grad_norm']:.6f}", lr=f"{h['lr']:.6e}",
                   time_s=f"{h['time_s']:.3f}",
                   launches=json.dumps(h["launches"], separators=(",", ":")))
@@ -1510,16 +1593,16 @@ def full_depth_run(tag, route, profile=False):
     return out
 
 
-def train_phase(dev):
-    """llama3-8b training at full width and depth, kernel run against the
+def train_phase(dev, arch=SERVE_ARCH):
+    """``arch`` training at full width and depth, kernel run against the
     plain run; returns the kernel run's launch counts."""
     import numpy as np
 
     from repro_torch.configs import registry
     from repro_torch.kernels import flash_cuda as fc
 
-    n_layers = registry.config("llama3-8b").n_layers
-    kern = full_depth_run("kernel", {}, profile=True)
+    n_layers = registry.config(arch).n_layers
+    kern = full_depth_run("kernel", {}, profile=True, arch=arch)
     for h in kern["hist"]:
         check(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"]),
               f"step {h['step']}: loss {h['loss']} grad_norm "
@@ -1530,11 +1613,13 @@ def train_phase(dev):
               f"(forward + recompute, dq, dk/dv per layer)")
     launches = kern["launches"]
     plain = full_depth_run("plain", dict(flash_fwd=fc.flash_fwd_plain,
-                                         flash_bwd=fc.flash_bwd_plain))
+                                         flash_bwd=fc.flash_bwd_plain),
+                           arch=arch)
     check(sum(plain["launches"].values()) == 0, "the plain run launched a "
           "flash kernel")
     spread = full_depth_run("plain_float64", dict(flash_fwd=_plain64_fwd,
-                                                  flash_bwd=_plain64_bwd))
+                                                  flash_bwd=_plain64_bwd),
+                            arch=arch)
     k1, p1, s1 = kern["hist"][0], plain["hist"][0], spread["hist"][0]
     cmp = dict(
         step1_loss_rel=_rel(k1["loss"], p1["loss"]),
@@ -1550,15 +1635,15 @@ def train_phase(dev):
     # is taken against the last unprofiled step's wall time
     split, wall = kern["split"], kern["hist"][-1]["time_s"]
     if split is None:
-        phase("train", profile="step", device_time="not recorded")
+        phase("train", arch=arch, profile="step", device_time="not recorded")
     else:
         busy = sum(split.values())
-        phase("train", profile="step", wall_ms=f"{1e3 * wall:.3f}",
+        phase("train", arch=arch, profile="step", wall_ms=f"{1e3 * wall:.3f}",
               profiled_wall_ms=f"{1e3 * kern['profiled_wall_s']:.3f}",
               device_ms=f"{busy:.3f}",
               **{f"{k}_ms": f"{v:.3f}" for k, v in split.items()},
               device_idle_share=f"{max(0.0, 1 - busy / (1e3 * wall)):.3f}")
-    phase("train", arch="llama3-8b", n_layers=n_layers, params=kern["params"],
+    phase("train", arch=arch, n_layers=n_layers, params=kern["params"],
           seq_len=4096, tokens_per_step=4095, steps=TRAIN_STEPS,
           quantized_state=True, init_s=f"{kern['init_s']:.3f}",
           step_s=",".join(f"{h['time_s']:.3f}" for h in kern["hist"]),
@@ -1568,10 +1653,10 @@ def train_phase(dev):
           max_memory_allocated=kern["peak"],
           plain_max_memory_allocated=plain["peak"],
           launches=json.dumps(launches, separators=(",", ":")))
-    phase("train", compare="kernel_vs_plain",
+    phase("train", arch=arch, compare="kernel_vs_plain",
           **{k: f"{v:.3e}" for k, v in cmp.items()},
           limits=f"{TRAIN_LOSS_RTOL}/{TRAIN_GNORM_RTOL}/{TRAIN_LOSSES_RTOL}")
-    phase("train", compare="plain_vs_float64_attention",
+    phase("train", arch=arch, compare="plain_vs_float64_attention",
           **{k: f"{v:.3e}" for k, v in spr.items()})
     check(cmp["step1_loss_rel"] <= TRAIN_LOSS_RTOL, f"step-1 loss: kernel "
           f"{k1['loss']} vs plain {p1['loss']}")
@@ -1582,8 +1667,8 @@ def train_phase(dev):
     return launches
 
 
-def f32_run(route, steps):
-    """``steps`` steps of the float32 F32_TRAIN_LAYERS-layer model from
+def f32_run(route, steps, arch=SERVE_ARCH, layers=F32_TRAIN_LAYERS):
+    """``steps`` steps of ``arch`` in float32 at ``layers`` layers from
     launch.train's ``build``: the step-1 gradients (through the loop's
     microbatch_grads and adamw.update, kept) and the losses of every
     step."""
@@ -1593,8 +1678,8 @@ def f32_run(route, steps):
     from repro_torch.optim import adamw
     from repro_torch.train import loop as tl
 
-    args = lt.parse(TRAIN_ARGV + ["--layers", str(F32_TRAIN_LAYERS),
-                                  "--dtype", "float32"])
+    args = lt.parse(["--arch", arch] + TRAIN_ARGV + [
+        "--layers", str(layers), "--dtype", "float32"])
     _free()
     with kernel_route(**route):
         r = lt.build(args)
@@ -1622,10 +1707,13 @@ def leaf_errors(got, want):
     return worst
 
 
-def f32_train_phase(dev):
-    """Full width, F32_TRAIN_LAYERS layers, float32 weights and moments:
-    the kernels against the plain versions at tight limits, and a control
-    with a planted K7 fault (dk, dv from one head per group) beyond them."""
+def f32_train_phase(dev, arch=SERVE_ARCH, layers=F32_TRAIN_LAYERS,
+                    control="first_head"):
+    """Full width, ``layers`` layers, float32 weights and moments: the
+    kernels against the plain versions at tight limits, and a control with
+    a planted K7 fault beyond them: ``first_head`` (dk, dv from one head
+    per group) where the GQA group has several heads, ``half_d`` (only the
+    first HALF_D columns of dk and dv) at D = 256."""
     import torch
 
     from repro_torch.kernels import flash_cuda as fc
@@ -1633,28 +1721,29 @@ def f32_train_phase(dev):
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     before = dict(fc.LAUNCHES)
-    g_k, l_k = f32_run({}, TRAIN_STEPS)
+    g_k, l_k = f32_run({}, TRAIN_STEPS, arch, layers)
     check(all(fc.LAUNCHES[k] > before[k] for k in before),
           "the float32 run did not launch K5, K6 and K7")
     g_p, l_p = f32_run(dict(flash_fwd=fc.flash_fwd_plain,
-                            flash_bwd=fc.flash_bwd_plain), TRAIN_STEPS)
+                            flash_bwd=fc.flash_bwd_plain), TRAIN_STEPS, arch,
+                       layers)
     grad_rel, grad_leaf = leaf_errors(g_k, g_p)
     loss_rel = max(_rel(a, b) for a, b in zip(l_k, l_p, strict=True))
     del g_k
     _free()
 
     def faulty_dkv(q, k, v, do, lse, dd, **kw):
-        return _bwd_fault(q, k, v, do, lse, dd, **kw, fault="first_head")[1:]
+        return _bwd_fault(q, k, v, do, lse, dd, **kw, fault=control)[1:]
 
-    g_c, _ = f32_run(dict(flash_bwd_dkv=faulty_dkv), 1)
+    g_c, _ = f32_run(dict(flash_bwd_dkv=faulty_dkv), 1, arch, layers)
     ctl_rel, ctl_leaf = leaf_errors(g_c, g_p)
     del g_c, g_p
     _free()
-    phase("train", dtype="float32", n_layers=F32_TRAIN_LAYERS,
+    phase("train", arch=arch, dtype="float32", n_layers=layers,
           steps=TRAIN_STEPS, losses=",".join(f"{x:.7f}" for x in l_k),
           step1_grad_rel_err=f"{grad_rel:.3e}", worst_leaf=grad_leaf,
           losses_rel_err=f"{loss_rel:.3e}",
-          control_k7_first_head_grad_rel_err=f"{ctl_rel:.3e}",
+          **{f"control_k7_{control}_grad_rel_err": f"{ctl_rel:.3e}"},
           control_worst_leaf=ctl_leaf,
           limits=f"{F32_GRAD_REL}/{F32_LOSS_RTOL}",
           seconds=f"{time.perf_counter() - t0:.1f}",
@@ -1662,8 +1751,8 @@ def f32_train_phase(dev):
     check(grad_rel <= F32_GRAD_REL, f"float32 step-1 gradient of "
           f"{grad_leaf} off by {grad_rel} of its largest value")
     check(loss_rel <= F32_LOSS_RTOL, f"float32 losses differ by {loss_rel}")
-    check(ctl_rel > F32_GRAD_REL, f"the control (K7 with one head per "
-          f"group) lies within {F32_GRAD_REL}: {ctl_rel}")
+    check(ctl_rel > F32_GRAD_REL, f"the control (K7 with {control}) lies "
+          f"within {F32_GRAD_REL}: {ctl_rel}")
 
 
 def supervisor_phase(dev):
@@ -1742,13 +1831,19 @@ def main() -> int:
     table.update(lm_kernel_phase(dev))
     table.update(bwd_kernel_phase(dev))
     # each main path's counts, summed: slice (K1-K4), serve (K5), the
-    # smoke-size serving launcher (K5), train (K5, K6, K7)
+    # smoke-size serving launcher (K5), train (K5, K6, K7), for llama3-8b
+    # (head dim 128) and gemma-7b (256); the D = 256 rows count gemma's
     launches = collections.Counter(slice_phase(dev))
     launches.update(serve_phase(dev))
     launches.update(serve_smoke_phase(dev))
+    wide = collections.Counter(serve_phase(dev, GEMMA_ARCH))
     launches.update(train_phase(dev))
     f32_train_phase(dev)
+    wide.update(train_phase(dev, GEMMA_ARCH))
+    f32_train_phase(dev, GEMMA_ARCH, GEMMA_F32_LAYERS, control="half_d")
     supervisor_phase(dev)
+    launches.update(wide)
+    launches.update({row_name(n, WIDE_D): c for n, c in wide.items()})
     for row in table.values():
         row["launches"] = launches[row["name"]]
     phase("done", seconds=f"{time.perf_counter() - t0:.1f}")

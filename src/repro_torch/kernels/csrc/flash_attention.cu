@@ -43,13 +43,27 @@
 // rescale. At D = 128 the block holds 85 KB of shared memory: two blocks
 // per SM.
 //
+// D = 256 (gemma-7b): a warp's whole O would be 128 floats a lane, and
+// beside S and p it spilled (348 bytes) whatever the key tile or unrolling.
+// So 8 warps share the block, two to each 16-row strip, each holding half
+// of O's columns (64 floats). Each computes q.k^T over its half of D; the
+// pair swaps the partial sums through shared memory (behind a barrier of
+// the two warps; the block barrier of the next key tile frees the slots),
+// and each adds the other's: s0 + s1 is the same bits in both, so both
+// hold the same S, m, l and p, and each takes P.V for its columns. 197 KB,
+// one block of 8 warps an SM. Each warp computing all of S itself (no
+// swap), and key tiles of 32 with the swap, ran slower in development
+// builds (not kept). The work a pair is twice D = 128's: at gemma's
+// serving shape (B=4, H=16, S=2048) the bound is llama's.
+//
 // float32: the FMA kernel of the first port (CUDA cores, q^T, k^T and p^T
 // transposed in shared memory as float32). On tensor cores float32 inputs
 // would need q, k and v split as well; it is the instantiation that
-// chip_smoke's tight float32 checks (serving in float32) hold.
+// chip_smoke's tight float32 checks (serving in float32) hold. At D = 256
+// its tiles take 217 KB: one block an SM.
 //
 // Templated on the element type (float, __nv_bfloat16) and the head dim
-// (32, 64, 80, 128). C interface, loaded with ctypes by
+// (32, 64, 80, 128, 256). C interface, loaded with ctypes by
 // repro_torch/kernels/flash_cuda.py; the entry point launches on the given
 // stream, does not synchronise, and returns cudaGetLastError().
 
@@ -236,37 +250,56 @@ __device__ __forceinline__ void fwd_fma(const Params& p) {
 
 
 // bf16: BQ / 16 warps, each 16 query rows of the tile; lane (g, t) =
-// (lane / 4, lane % 4) holds rows g and g + 8 of its warp's strip.
-constexpr int THREADS_TC = 2 * BQ;
+// (lane / 4, lane % 4) holds rows g and g + 8 of its warp's strip. At
+// D > 128 (FwdTc::SPLIT) two warps share each strip (8 warps), each
+// holding half of O's columns (the header).
 constexpr float LOG2E = 1.4426950408889634f;
+
+template <int D>
+struct FwdTc {
+  static constexpr bool SPLIT = D > 128;
+  static constexpr int WARPS = SPLIT ? 8 : 4;
+  static constexpr int THREADS = 32 * WARPS;
+  static constexpr int DH = SPLIT ? D / 2 : D;   // O columns a warp
+  static constexpr int MIN_BLOCKS = SPLIT ? 1 : 2;
+  // floats of the partial-S exchange: (strip, half) x a lane's BK / 8
+  // accumulator tiles x 32 lanes
+  static constexpr int XCH = SPLIT ? 4 * 2 * (BK / 2) * 32 : 0;
+};
 
 template <int D>
 constexpr int smem_tc() {
   return (int)sizeof(__nv_bfloat16) * (BQ + 4 * BK) *
-         mma_bf16::Tile<D>::PITCH;
+             mma_bf16::Tile<D>::PITCH +
+         (int)sizeof(float) * FwdTc<D>::XCH;
 }
 
 template <int D>
 __device__ __forceinline__ void fwd_tc(const Params& p) {
   using namespace mma_bf16;
   using bf16 = __nv_bfloat16;
+  using C = FwdTc<D>;
   constexpr int PITCH = Tile<D>::PITCH;
-  constexpr int KD = D / 16;   // k-steps of q.k^T
-  constexpr int ND = D / 8;    // 8-column tiles of O
-  constexpr int NK = BK / 8;   // 8-column tiles of S
-  constexpr int NT = THREADS_TC;
+  constexpr int KD = C::DH / 16;  // k-steps of q.k^T (a warp's half of D)
+  constexpr int ND = C::DH / 8;   // 8-column tiles of the warp's O
+  constexpr int NK = BK / 8;      // 8-column tiles of S
+  constexpr int NT = C::THREADS;
   extern __shared__ float4 smem4[];
   bf16* Qs = reinterpret_cast<bf16*>(smem4);  // BQ x PITCH
   bf16* Ks = Qs + BQ * PITCH;                 // 2 x BK x PITCH
   bf16* Vs = Ks + 2 * BK * PITCH;             // 2 x BK x PITCH
+  float* Xs = reinterpret_cast<float*>(Vs + 2 * BK * PITCH);  // C::XCH
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
+  const int strip = warp & 3;                 // the warp's 16 rows
+  const int half = C::SPLIT ? warp >> 2 : 0;  // its half of D
+  const int d0 = half * C::DH;
   const int iq = gridDim.x - 1 - blockIdx.x;    // longest tiles first
   const int b = blockIdx.y / p.h, h = blockIdx.y % p.h;
   const int hk = h / (p.h / p.hkv);
   const int q0 = iq * BQ;
-  const int qw = q0 + 16 * warp;                // the warp's first row
+  const int qw = q0 + 16 * strip;               // the warp's first row
   const bf16* qg = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
   const bf16* kg = static_cast<const bf16*>(p.k) + b * p.k_sb + hk * p.k_sh;
   const bf16* vg = static_cast<const bf16*>(p.v) + b * p.v_sb + hk * p.v_sh;
@@ -310,13 +343,15 @@ __device__ __forceinline__ void fwd_tc(const Params& p) {
                            k0 + BK, p.skv);
     }
     cp_async_commit();
-    // warp-uniform: a tile with no valid pair for this warp's rows
+    // warp-uniform (and the same for both warps of a strip): a tile with
+    // no valid pair for this warp's rows
     if (qw >= p.sq || (p.causal && k0 > qw + 15) ||
         (p.window > 0 && k0 + BK - 1 <= qw - p.window))
       continue;
     const bf16* Kb = Ks + buf * BK * PITCH;
     const bf16* Vb = Vs + buf * BK * PITCH;
 
+    // S (SPLIT: this warp's half of the sum over D)
     float s[NK][4];
 #pragma unroll
     for (int n = 0; n < NK; ++n)
@@ -325,14 +360,31 @@ __device__ __forceinline__ void fwd_tc(const Params& p) {
 #pragma unroll
     for (int kk = 0; kk < KD; ++kk) {
       uint32_t qa[4];  // re-read: held in registers, the q strip spills
-      ldsm_x4(qa, a_addr<D>(Qs, 16 * warp, 16 * kk, lane));
+      ldsm_x4(qa, a_addr<D>(Qs, 16 * strip, d0 + 16 * kk, lane));
 #pragma unroll
       for (int n = 0; n < NK; n += 2) {
         uint32_t kf[4];
-        ldsm_x4(kf, bt_addr<D>(Kb, 8 * n, 16 * kk, lane));
+        ldsm_x4(kf, bt_addr<D>(Kb, 8 * n, d0 + 16 * kk, lane));
         mma(s[n], qa, kf[0], kf[1]);
         mma(s[n + 1], qa, kf[2], kf[3]);
       }
+    }
+    if constexpr (C::SPLIT) {
+      // the pair swaps halves; s0 + s1 is the same sum in both warps
+      float* slot = Xs + (strip * 2 + half) * NK * 4 * 32;
+      const float* other = Xs + (strip * 2 + (half ^ 1)) * NK * 4 * 32;
+#pragma unroll
+      for (int n = 0; n < NK; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) slot[(4 * n + e) * 32 + lane] = s[n][e];
+      // both have written; the slots are written again only after the
+      // next tile's block barrier, which each warp reaches once it has
+      // read this tile's
+      bar_sync(1 + strip, 64);
+#pragma unroll
+      for (int n = 0; n < NK; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] += other[(4 * n + e) * 32 + lane];
     }
 
     // scale; mask only where the tile crosses kv_len, the diagonal or the
@@ -395,7 +447,7 @@ __device__ __forceinline__ void fwd_tc(const Params& p) {
 #pragma unroll
       for (int c = 0; c < NK / 2; ++c) {
         uint32_t vf[4];
-        ldsm_x4_t(vf, a_addr<D>(Vb, 16 * c, 8 * n, lane));
+        ldsm_x4_t(vf, a_addr<D>(Vb, 16 * c, d0 + 8 * n, lane));
         mma(pv[0], ph[c], vf[0], vf[1]);
         mma(pv[0], pl[c], vf[0], vf[1]);
         mma(pv[1], ph[c], vf[2], vf[3]);
@@ -409,7 +461,7 @@ __device__ __forceinline__ void fwd_tc(const Params& p) {
     }
   }
 
-  bf16* og = static_cast<bf16*>(p.o) + b * p.o_sb + h * p.o_sh;
+  bf16* og = static_cast<bf16*>(p.o) + b * p.o_sb + h * p.o_sh + d0;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
@@ -422,14 +474,15 @@ __device__ __forceinline__ void fwd_tc(const Params& p) {
       *reinterpret_cast<__nv_bfloat162*>(
           &og[(int64_t)r * p.o_ss + 8 * n + 2 * t]) =
           __floats2bfloat162_rn(o[n][2 * i] / lm, o[n][2 * i + 1] / lm);
-    if (t == 0) p.lse[((int64_t)b * p.h + h) * p.sq + r] = m[i] + logf(lm);
+    if (t == 0 && half == 0)
+      p.lse[((int64_t)b * p.h + h) * p.sq + r] = m[i] + logf(lm);
   }
 }
 
 template <typename T, int D>
 __global__ void __launch_bounds__(
-    mma_bf16::kTensorCores<T> ? THREADS_TC : THREADS,
-    mma_bf16::kTensorCores<T> ? 2 : 1)  // two bf16 blocks an SM
+    mma_bf16::kTensorCores<T> ? FwdTc<D>::THREADS : THREADS,
+    mma_bf16::kTensorCores<T> ? FwdTc<D>::MIN_BLOCKS : 1)
 flash_fwd_kernel(const Params p) {
   if constexpr (mma_bf16::kTensorCores<T>)
     fwd_tc<D>(p);
@@ -450,9 +503,23 @@ cudaError_t launch(const Params& p, int batch, cudaStream_t stream) {
     configured = true;
   }
   const dim3 grid((p.sq + BQ - 1) / BQ, batch * p.h);
-  flash_fwd_kernel<T, D><<<grid, tc ? THREADS_TC : THREADS, bytes, stream>>>(
-      p);
+  flash_fwd_kernel<T, D><<<grid, tc ? FwdTc<D>::THREADS : THREADS, bytes,
+                           stream>>>(p);
   return cudaGetLastError();
+}
+
+// Dynamic shared memory of a launch at head dim d (0: not built).
+template <typename T>
+int smem_bytes(int d) {
+  constexpr bool tc = mma_bf16::kTensorCores<T>;
+  switch (d) {
+    case 32: return tc ? smem_tc<32>() : smem_fma<32>();
+    case 64: return tc ? smem_tc<64>() : smem_fma<64>();
+    case 80: return tc ? smem_tc<80>() : smem_fma<80>();
+    case 128: return tc ? smem_tc<128>() : smem_fma<128>();
+    case 256: return tc ? smem_tc<256>() : smem_fma<256>();
+    default: return 0;
+  }
 }
 
 template <typename T>
@@ -462,6 +529,7 @@ cudaError_t dispatch(const Params& p, int batch, int d, cudaStream_t s) {
     case 64: return launch<T, 64>(p, batch, s);
     case 80: return launch<T, 80>(p, batch, s);
     case 128: return launch<T, 128>(p, batch, s);
+    case 256: return launch<T, 256>(p, batch, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -490,6 +558,13 @@ int flash_attention_fwd(int dtype, const void* q, const void* k,
       ? dispatch<__nv_bfloat16>(p, batch, d, s)
       : dtype == 0 ? dispatch<float>(p, batch, d, s) : cudaErrorInvalidValue;
   return (int)e;
+}
+
+// Dynamic shared memory (bytes) a launch at head dim d takes; 0 for a
+// head dim that is not built.
+int flash_attention_fwd_smem(int dtype, int d) {
+  return dtype == 1 ? smem_bytes<__nv_bfloat16>(d)
+                    : dtype == 0 ? smem_bytes<float>(d) : 0;
 }
 
 const char* flash_attention_error_string(int code) {

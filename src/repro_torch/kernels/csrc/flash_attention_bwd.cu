@@ -54,8 +54,29 @@
 // in float32, the f32_window case) hold; the bf16 ones are held by the
 // bf16 checks and their planted faults.
 //
+// D = 256 (gemma-7b; the work a pair is twice D = 128's, and at gemma's
+// training shape, H = 16, the bound is llama's). The D <= 128 tiles do not
+// fit: K6's dQ and K7's dK + dV accumulators would be 128 and 256 floats a
+// lane beside the score tiles, and the float32 kernels' four transposed
+// D x 68 tiles alone are 278 KB, over the 227 KB a block may hold. So:
+// - bf16 K6: 8 warps and 128 query rows a block, key tiles of 32 (s and
+//   dp 16 floats a lane beside dQ's 128), the score k-loop unrolled by 2
+//   (unrolled whole it spilled); 198 KB, one block an SM.
+// - bf16 K7: 8 warps, two to each 16-key strip, in two roles: one computes
+//   s^T, p^T and dV (all 256 columns), and hands p^T to the other through
+//   shared memory (double-buffered, behind a barrier of the two warps),
+//   which computes dp^T, ds^T and dK. Each holds one 128-float accumulator
+//   and runs one product chain a part; the tensor work is D = 128's design
+//   (12*D a pair), split evenly. The score k-loop is unrolled by 4. One
+//   block still owns each key tile: no atomics. 207 KB, one block an SM.
+// - float32 K6 and K7: the K and V tiles (K6) or the q and do tiles (K7)
+//   are staged DC columns at a time (DC = 128 and 64), once for the score
+//   products and again, last chunk first, for the output products; the
+//   other pair stays whole. 221 and 204 KB.
+// At D <= 128 every kernel keeps its shape above.
+//
 // Templated on the element type (float, __nv_bfloat16) and the head dim
-// (32, 64, 80, 128). C interface, loaded with ctypes by
+// (32, 64, 80, 128, 256). C interface, loaded with ctypes by
 // repro_torch/kernels/flash_cuda.py; each entry point launches on the
 // given stream, does not synchronise, and returns cudaGetLastError().
 
@@ -146,25 +167,40 @@ __device__ __forceinline__ bool valid_pair(const Params& p, int qi, int kj) {
   return ok;
 }
 
+// Columns of the staged pair of float32 tiles (K6: K and V; K7: q and
+// do) held at a time: all of D up to 128; at D = 256 a whole pair of
+// D x TP tiles more would not fit.
+template <int D, bool DKV>
+__host__ __device__ constexpr int fma_chunk() {
+  return D <= 128 ? D : DKV ? 64 : 128;
+}
+
 template <int D>
-constexpr int smem_dq() { return (int)sizeof(float) * (4 * D * TP + BK * TP); }
+constexpr int smem_dq() {
+  return (int)sizeof(float) *
+         (2 * D * TP + 2 * fma_chunk<D, false>() * TP + BK * TP);
+}
 template <int D>
 constexpr int smem_dkv() {
-  return (int)sizeof(float) * (4 * D * TP + 2 * BQ * TP);
+  return (int)sizeof(float) *
+         (2 * D * TP + 2 * fma_chunk<D, true>() * TP + 2 * BQ * TP);
 }
 
 // --- K6: dq --------------------------------------------------------------------
 // float32: the FMA layout above; one block per (query tile, batch * head),
-// blockIdx.x the query tile.
+// blockIdx.x the query tile. K and V come in DC columns at a time (all of
+// D up to 128).
 template <typename T, int D>
 __device__ __forceinline__ void dq_fma(const Params& p) {
-  constexpr int DN = D / 16;
+  constexpr int DC = fma_chunk<D, false>();
+  constexpr int NC = D / DC;    // column chunks of K and V
+  constexpr int CN = DC / 16;   // output columns per thread in a chunk
   extern __shared__ float4 smem4[];
   float* Qt = reinterpret_cast<float*>(smem4);  // D x TP, q^T
   float* Ot = Qt + D * TP;                      // D x TP, do^T
-  float* Kt = Ot + D * TP;                      // D x TP, k^T
-  float* Vt = Kt + D * TP;                      // D x TP, v^T
-  float* St = Vt + D * TP;                      // BK x TP, ds^T
+  float* Kt = Ot + D * TP;                      // DC x TP, a chunk of k^T
+  float* Vt = Kt + DC * TP;                     // DC x TP, a chunk of v^T
+  float* St = Vt + DC * TP;                     // BK x TP, ds^T
   __shared__ float lse_s[BQ], dd_s[BQ];
 
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
@@ -186,11 +222,11 @@ __device__ __forceinline__ void dq_fma(const Params& p) {
     dd_s[tid] = in ? p.dd[row + q0 + tid] : 0.f;
   }
 
-  float acc[4][DN];
+  float acc[4][NC * CN];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int c = 0; c < DN; ++c) acc[i][c] = 0.f;
+    for (int c = 0; c < NC * CN; ++c) acc[i][c] = 0.f;
 
   int k_end = min(p.kv_len, p.skv);
   if (p.causal) k_end = min(k_end, q0 + BQ);
@@ -198,17 +234,21 @@ __device__ __forceinline__ void dq_fma(const Params& p) {
   if (p.window > 0) k_begin = max(0, q0 - p.window + 1) / BK * BK;
 
   for (int k0 = k_begin; k0 < k_end; k0 += BK) {
-    __syncthreads();  // Q, dO staged; the previous tile's K, ds consumed
-    load_t<T, D>(Kt, kg, p.k_ss, k0, p.skv);
-    load_t<T, D>(Vt, vg, p.v_ss, k0, p.skv);
-    __syncthreads();
-
     float s[4][4], dp[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-    score_products<D>(s, dp, Qt, Kt, Ot, Vt, 4 * ty, 4 * tx);
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      __syncthreads();  // Q, dO staged; the previous chunk's K, V and the
+                        // previous tile's K, ds are consumed
+      load_t<T, DC>(Kt, kg + c * DC, p.k_ss, k0, p.skv);
+      load_t<T, DC>(Vt, vg + c * DC, p.v_ss, k0, p.skv);
+      __syncthreads();
+      score_products<DC>(s, dp, Qt + c * DC * TP, Kt, Ot + c * DC * TP, Vt,
+                         4 * ty, 4 * tx);
+    }
 
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -227,16 +267,26 @@ __device__ __forceinline__ void dq_fma(const Params& p) {
           make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
     __syncthreads();
 
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 g = *reinterpret_cast<const float4*>(&St[kk * TP + 4 * ty]);
+    // dq += ds . K, chunk by chunk from the last one staged
 #pragma unroll
-      for (int c = 0; c < DN; ++c) {
-        const float kv = Kt[(tx + 16 * c) * TP + kk];
-        acc[0][c] = fmaf(g.x, kv, acc[0][c]);
-        acc[1][c] = fmaf(g.y, kv, acc[1][c]);
-        acc[2][c] = fmaf(g.z, kv, acc[2][c]);
-        acc[3][c] = fmaf(g.w, kv, acc[3][c]);
+    for (int c = NC - 1; c >= 0; --c) {
+      if (c < NC - 1) {
+        __syncthreads();  // chunk c + 1 is consumed
+        load_t<T, DC>(Kt, kg + c * DC, p.k_ss, k0, p.skv);
+        __syncthreads();
+      }
+#pragma unroll 4
+      for (int kk = 0; kk < BK; ++kk) {
+        const float4 g =
+            *reinterpret_cast<const float4*>(&St[kk * TP + 4 * ty]);
+#pragma unroll
+        for (int u = 0; u < CN; ++u) {
+          const float kv = Kt[(tx + 16 * u) * TP + kk];
+          acc[0][c * CN + u] = fmaf(g.x, kv, acc[0][c * CN + u]);
+          acc[1][c * CN + u] = fmaf(g.y, kv, acc[1][c * CN + u]);
+          acc[2][c * CN + u] = fmaf(g.z, kv, acc[2][c * CN + u]);
+          acc[3][c * CN + u] = fmaf(g.w, kv, acc[3][c * CN + u]);
+        }
       }
     }
   }
@@ -247,23 +297,26 @@ __device__ __forceinline__ void dq_fma(const Params& p) {
     const int r = q0 + 4 * ty + i;
     if (r >= p.sq) continue;
 #pragma unroll
-    for (int c = 0; c < DN; ++c)
+    for (int c = 0; c < NC * CN; ++c)
       store(&dqg[(int64_t)r * p.dq_ss + tx + 16 * c], acc[i][c]);
   }
 }
 
 // --- K7: dk, dv ------------------------------------------------------------------
 // float32: the FMA layout above; one block per (key tile, batch * kv head)
-// with blockIdx.x the key tile.
+// with blockIdx.x the key tile. q and do come in DC columns at a time (all
+// of D up to 128).
 template <typename T, int D>
 __device__ __forceinline__ void dkv_fma(const Params& p) {
-  constexpr int DN = D / 16;
+  constexpr int DC = fma_chunk<D, true>();
+  constexpr int NC = D / DC;    // column chunks of q and do
+  constexpr int CN = DC / 16;   // output columns per thread in a chunk
   extern __shared__ float4 smem4[];
   float* Kt = reinterpret_cast<float*>(smem4);  // D x TP, k^T (resident)
   float* Vt = Kt + D * TP;                      // D x TP, v^T (resident)
-  float* Qt = Vt + D * TP;                      // D x TP, q^T
-  float* Ot = Qt + D * TP;                      // D x TP, do^T
-  float* Ps = Ot + D * TP;                      // BQ x TP, p[query][key]
+  float* Qt = Vt + D * TP;                      // DC x TP, a chunk of q^T
+  float* Ot = Qt + DC * TP;                     // DC x TP, a chunk of do^T
+  float* Ps = Ot + DC * TP;                     // BQ x TP, p[query][key]
   float* Ss = Ps + BQ * TP;                     // BQ x TP, ds[query][key]
   __shared__ float lse_s[BQ], dd_s[BQ];
 
@@ -278,11 +331,11 @@ __device__ __forceinline__ void dkv_fma(const Params& p) {
   load_t<T, D>(Kt, kg, p.k_ss, k0, p.skv);
   load_t<T, D>(Vt, vg, p.v_ss, k0, p.skv);
 
-  float dk[4][DN], dv[4][DN];
+  float dk[4][NC * CN], dv[4][NC * CN];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int c = 0; c < DN; ++c) dk[i][c] = dv[i][c] = 0.f;
+    for (int c = 0; c < NC * CN; ++c) dk[i][c] = dv[i][c] = 0.f;
 
   // query tiles that hold a valid pair with a key of this tile
   int iq_begin = 0, iq_end = (p.sq + BQ - 1) / BQ;
@@ -298,23 +351,27 @@ __device__ __forceinline__ void dkv_fma(const Params& p) {
     const int64_t row = ((int64_t)b * p.h + h) * p.sq;
     for (int iq = iq_begin; iq < iq_end; ++iq) {
       const int q0 = iq * BQ;
-      __syncthreads();  // the previous tile's Q, dO, p, ds are consumed
-      load_t<T, D>(Qt, qg, p.q_ss, q0, p.sq);
-      load_t<T, D>(Ot, og, p.o_ss, q0, p.sq);
-      if (tid < BQ) {
-        const bool in = q0 + tid < p.sq;
-        lse_s[tid] = in ? p.lse[row + q0 + tid] : 0.f;
-        dd_s[tid] = in ? p.dd[row + q0 + tid] : 0.f;
-      }
-      __syncthreads();
-
       // s^T and dp^T: rows are keys 4*ty.., columns queries 4*tx..
       float s[4][4], dp[4][4];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-      score_products<D>(s, dp, Kt, Qt, Vt, Ot, 4 * ty, 4 * tx);
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        __syncthreads();  // the previous chunk's Q, dO and the previous
+                          // tile's Q, dO, p, ds are consumed
+        load_t<T, DC>(Qt, qg + c * DC, p.q_ss, q0, p.sq);
+        load_t<T, DC>(Ot, og + c * DC, p.o_ss, q0, p.sq);
+        if (c == 0 && tid < BQ) {
+          const bool in = q0 + tid < p.sq;
+          lse_s[tid] = in ? p.lse[row + q0 + tid] : 0.f;
+          dd_s[tid] = in ? p.dd[row + q0 + tid] : 0.f;
+        }
+        __syncthreads();
+        score_products<DC>(s, dp, Kt + c * DC * TP, Qt, Vt + c * DC * TP,
+                           Ot, 4 * ty, 4 * tx);
+      }
 
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
@@ -334,22 +391,36 @@ __device__ __forceinline__ void dkv_fma(const Params& p) {
       }
       __syncthreads();
 
-#pragma unroll 2
-      for (int qq = 0; qq < BQ; ++qq) {
-        const float4 pp = *reinterpret_cast<const float4*>(&Ps[qq * TP + 4 * ty]);
-        const float4 gs = *reinterpret_cast<const float4*>(&Ss[qq * TP + 4 * ty]);
+      // dv += p^T . dO and dk += ds^T . Q, chunk by chunk from the last
+      // one staged
 #pragma unroll
-        for (int c = 0; c < DN; ++c) {
-          const float ov = Ot[(tx + 16 * c) * TP + qq];
-          const float qv = Qt[(tx + 16 * c) * TP + qq];
-          dv[0][c] = fmaf(pp.x, ov, dv[0][c]);
-          dv[1][c] = fmaf(pp.y, ov, dv[1][c]);
-          dv[2][c] = fmaf(pp.z, ov, dv[2][c]);
-          dv[3][c] = fmaf(pp.w, ov, dv[3][c]);
-          dk[0][c] = fmaf(gs.x, qv, dk[0][c]);
-          dk[1][c] = fmaf(gs.y, qv, dk[1][c]);
-          dk[2][c] = fmaf(gs.z, qv, dk[2][c]);
-          dk[3][c] = fmaf(gs.w, qv, dk[3][c]);
+      for (int c = NC - 1; c >= 0; --c) {
+        if (c < NC - 1) {
+          __syncthreads();  // chunk c + 1 is consumed
+          load_t<T, DC>(Qt, qg + c * DC, p.q_ss, q0, p.sq);
+          load_t<T, DC>(Ot, og + c * DC, p.o_ss, q0, p.sq);
+          __syncthreads();
+        }
+#pragma unroll 2
+        for (int qq = 0; qq < BQ; ++qq) {
+          const float4 pp =
+              *reinterpret_cast<const float4*>(&Ps[qq * TP + 4 * ty]);
+          const float4 gs =
+              *reinterpret_cast<const float4*>(&Ss[qq * TP + 4 * ty]);
+#pragma unroll
+          for (int u = 0; u < CN; ++u) {
+            const int n = c * CN + u;
+            const float ov = Ot[(tx + 16 * u) * TP + qq];
+            const float qv = Qt[(tx + 16 * u) * TP + qq];
+            dv[0][n] = fmaf(pp.x, ov, dv[0][n]);
+            dv[1][n] = fmaf(pp.y, ov, dv[1][n]);
+            dv[2][n] = fmaf(pp.z, ov, dv[2][n]);
+            dv[3][n] = fmaf(pp.w, ov, dv[3][n]);
+            dk[0][n] = fmaf(gs.x, qv, dk[0][n]);
+            dk[1][n] = fmaf(gs.y, qv, dk[1][n]);
+            dk[2][n] = fmaf(gs.z, qv, dk[2][n]);
+            dk[3][n] = fmaf(gs.w, qv, dk[3][n]);
+          }
         }
       }
     }
@@ -362,7 +433,7 @@ __device__ __forceinline__ void dkv_fma(const Params& p) {
     const int r = k0 + 4 * ty + i;
     if (r >= p.skv) continue;
 #pragma unroll
-    for (int c = 0; c < DN; ++c) {
+    for (int c = 0; c < NC * CN; ++c) {
       store(&dkg[(int64_t)r * p.dk_ss + tx + 16 * c], dk[i][c]);
       store(&dvg[(int64_t)r * p.dv_ss + tx + 16 * c], dv[i][c]);
     }
@@ -387,18 +458,34 @@ __device__ __forceinline__ void dkv_fma(const Params& p) {
 //   dK  += dS^T.Q          (A: ds^T split hi/lo, B: Q by ldmatrix.trans)
 // p and ds never leave the registers. The split costs 12*D tensor
 // operations a valid pair where the bound counts 8*D.
-constexpr int THREADS_DKV = 2 * BK;  // a warp per 16 keys
+//
+// At D > 128 (DkvTc::SPLIT) the block has 8 warps, two to each 16-key
+// strip w % 4: warp w < 4 computes s^T, p^T and dV, and hands p^T to warp
+// w + 4 through shared memory, which computes dp^T, ds^T and dK (the
+// file's header).
 constexpr int SUB = 16;
 constexpr float LOG2E = 1.4426950408889634f;
 
+template <int D>
+struct DkvTc {
+  static constexpr bool SPLIT = D > 128;
+  static constexpr int WARPS = SPLIT ? 8 : 4;
+  static constexpr int THREADS = 32 * WARPS;
+  static constexpr int MIN_BLOCKS = SPLIT ? 1 : 2;
+  // floats of the p^T hand-over: (strip, buffer) x a lane's SUB / 8
+  // accumulator tiles x 32 lanes
+  static constexpr int XCH = SPLIT ? 4 * 2 * (SUB / 2) * 32 : 0;
+};
+
 // acc (the warp's 16 rows x D) += X.Y for X = x, 16 x NS*8 float32 in the
-// accumulator layout of a score product (K7's p^T or ds^T, K6's ds),
-// split hi/lo, and Y = rows c0..c0+NS*8-1 of the pitched tile Y (K7's q
-// or do, K6's k; read by ldmatrix.trans). Each 8-column tile's products
-// go into a fresh accumulator that one FADD adds to acc: the tensor cores'
-// float32 additions are not rounded to nearest, and a chain of every
-// query tile's products into acc drifts (by 1% of bf16 outputs differing
-// from the plain version at the training shape).
+// accumulator layout of a score
+// product (K7's p^T or ds^T, K6's ds), split hi/lo, and Y = rows
+// c0..c0+NS*8-1 of the pitched tile Y (K7's q or do, K6's k; read by
+// ldmatrix.trans). Each 8-column tile's products go into a fresh
+// accumulator that one FADD adds to acc: the tensor cores' float32
+// additions are not rounded to nearest, and a chain of every query tile's
+// products into acc drifts (by 1% of bf16 outputs differing from the plain
+// version at the training shape).
 template <int D, int NS>
 __device__ __forceinline__ void accumulate(float (&acc)[D / 8][4],
                                            const float (&x)[NS][4],
@@ -428,22 +515,51 @@ __device__ __forceinline__ void accumulate(float (&acc)[D / 8][4],
   }
 }
 
+// x (16 rows of A x NS*8 columns, accumulator layout) = A.B^T over all of
+// D: A the warp's 16 rows from row a0 of a pitched tile, B rows c0.. of
+// another (one per output column); both read by ldmatrix.
+template <int D, int NS>
+__device__ __forceinline__ void score_tc(float (&x)[NS][4],
+                                         const __nv_bfloat16* A, int a0,
+                                         const __nv_bfloat16* B, int c0,
+                                         int lane) {
+  using namespace mma_bf16;
+#pragma unroll
+  for (int n = 0; n < NS; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[n][e] = 0.f;
+  // at D > 128 unrolled by 4 only: unrolled whole, K7 spilled 4 bytes
+#pragma unroll (D > 128 ? 4 : D / 16)
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t af[4];
+    ldsm_x4(af, a_addr<D>(A, a0, 16 * kk, lane));
+#pragma unroll
+    for (int n = 0; n < NS; n += 2) {
+      uint32_t bf[4];
+      ldsm_x4(bf, bt_addr<D>(B, c0 + 8 * n, 16 * kk, lane));
+      mma(x[n], af, bf[0], bf[1]);
+      mma(x[n + 1], af, bf[2], bf[3]);
+    }
+  }
+}
+
 template <int D>
 constexpr int smem_dkv_tc() {
   return (int)sizeof(__nv_bfloat16) * (2 * BK + 4 * BQ) *
              mma_bf16::Tile<D>::PITCH +
-         (int)sizeof(float) * 4 * BQ;
+         (int)sizeof(float) * (4 * BQ + DkvTc<D>::XCH);
 }
 
 template <int D>
 __device__ __forceinline__ void dkv_tc(const Params& p) {
   using namespace mma_bf16;
   using bf16 = __nv_bfloat16;
+  using C = DkvTc<D>;
   constexpr int PITCH = Tile<D>::PITCH;
-  constexpr int KD = D / 16;    // k-steps of the score products
   constexpr int ND = D / 8;     // 8-column tiles of dK, dV
   constexpr int NS = SUB / 8;   // 8-column tiles of a score part
-  constexpr int NT = THREADS_DKV;
+  constexpr int NA = C::SPLIT ? 1 : 2;  // dK and dV, or (SPLIT) one
+  constexpr int NT = C::THREADS;
   extern __shared__ float4 smem4[];
   bf16* Ks = reinterpret_cast<bf16*>(smem4);  // BK x PITCH (resident)
   bf16* Vs = Ks + BK * PITCH;                 // BK x PITCH (resident)
@@ -451,13 +567,16 @@ __device__ __forceinline__ void dkv_tc(const Params& p) {
   bf16* Os = Qs + 2 * BQ * PITCH;             // 2 x BQ x PITCH, do
   float* Ls = reinterpret_cast<float*>(Os + 2 * BQ * PITCH);  // 2 x BQ lse
   float* Ds = Ls + 2 * BQ;                                    // 2 x BQ dd
+  float* Xs = Ds + 2 * BQ;                    // C::XCH, p^T handed over
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
+  const int strip = warp & 3;                 // the warp's 16 keys
+  const int role = C::SPLIT ? warp >> 2 : 0;  // SPLIT: 0 dV, 1 dK
   const int b = blockIdx.x / p.hkv, hk = blockIdx.x % p.hkv;
   const int group = p.h / p.hkv;
   const int k0 = blockIdx.y * BK;
-  const int kw = k0 + 16 * warp;                // the warp's first key
+  const int kw = k0 + 16 * strip;               // the warp's first key
   const int kv_end = min(p.kv_len, p.skv);
   const bf16* kg = static_cast<const bf16*>(p.k) + b * p.k_sb + hk * p.k_sh;
   const bf16* vg = static_cast<const bf16*>(p.v) + b * p.v_sb + hk * p.v_sh;
@@ -481,11 +600,13 @@ __device__ __forceinline__ void dkv_tc(const Params& p) {
         static_cast<const bf16*>(p.dout) + b * p.o_sb + h * p.o_sh;
     load_tile<BQ, D, NT, true>(Qs + buf * BQ * PITCH, qg, p.q_ss, q0, p.sq);
     load_tile<BQ, D, NT, true>(Os + buf * BQ * PITCH, og, p.o_ss, q0, p.sq);
-    const int64_t row = ((int64_t)b * p.h + h) * p.sq;
-    const int r = tid & (BQ - 1);
-    const bool in = q0 + r < p.sq;
-    const float* src = (tid < BQ ? p.lse : p.dd) + row + (in ? q0 + r : 0);
-    cp_async4((tid < BQ ? Ls : Ds) + buf * BQ + r, src, in);
+    if (tid < 2 * BQ) {
+      const int64_t row = ((int64_t)b * p.h + h) * p.sq;
+      const int r = tid & (BQ - 1);
+      const bool in = q0 + r < p.sq;
+      const float* src = (tid < BQ ? p.lse : p.dd) + row + (in ? q0 + r : 0);
+      cp_async4((tid < BQ ? Ls : Ds) + buf * BQ + r, src, in);
+    }
   };
 
   load_tile<BK, D, NT, true>(Ks, kg, p.k_ss, k0, p.skv);
@@ -493,12 +614,15 @@ __device__ __forceinline__ void dkv_tc(const Params& p) {
   if (n_iter > 0) stage(0, 0);
   cp_async_commit();
 
-  float dk[ND][4], dv[ND][4];
+  float acc[NA][ND][4];   // dK, dV; SPLIT: the role's one
 #pragma unroll
-  for (int n = 0; n < ND; ++n)
+  for (int a = 0; a < NA; ++a)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+    for (int n = 0; n < ND; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[a][n][e] = 0.f;
   const int keys[2] = {kw + g, kw + g + 8};
+  int xb = 0;   // the hand-over buffer of the next part (SPLIT)
 
   for (int it = 0; it < n_iter; ++it) {
     const int buf = it & 1;
@@ -516,104 +640,115 @@ __device__ __forceinline__ void dkv_tc(const Params& p) {
     for (int part = 0; part < BQ / SUB; ++part) {
       const int c0 = part * SUB;   // first column (query) of the part
       const int qs = q0 + c0;
-      // warp-uniform: no valid pair between the warp's keys and the part
+      // warp-uniform (and the same for both warps of a strip): no valid
+      // pair between the warp's keys and the part
       if (kw >= kv_end || qs >= p.sq || (p.causal && qs + SUB - 1 < kw) ||
           (p.window > 0 && qs - p.window >= kw + 15))
         continue;
       const bool edge = kw + 15 >= kv_end || qs + SUB > p.sq ||
                         (p.causal && qs < kw + 15) ||
                         (p.window > 0 && qs + SUB - 1 - p.window >= kw);
-
-      float st[NS][4];
+      // s^T -> p^T in place: exp(s^T * scale - lse), 0 off the mask
+      auto probs = [&](float (&x)[NS][4]) {
 #pragma unroll
-      for (int n = 0; n < NS; ++n)
+        for (int n = 0; n < NS; ++n)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) st[n][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KD; ++kk) {
-        uint32_t af[4];
-        ldsm_x4(af, a_addr<D>(Ks, 16 * warp, 16 * kk, lane));
-#pragma unroll
-        for (int n = 0; n < NS; n += 2) {
-          uint32_t qf[4];
-          ldsm_x4(qf, bt_addr<D>(Qb, c0 + 8 * n, 16 * kk, lane));
-          mma(st[n], af, qf[0], qf[1]);
-          mma(st[n + 1], af, qf[2], qf[3]);
-        }
-      }
-#pragma unroll
-      for (int n = 0; n < NS; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = c0 + 8 * n + 2 * t + (e & 1);
-          bool ok = true;
-          if (edge) {
-            const int qi = q0 + col, key = keys[e >> 1];
-            ok = qi < p.sq && key < kv_end;
-            if (p.causal) ok = ok && key <= qi;
-            if (p.window > 0) ok = ok && key > qi - p.window;
+          for (int e = 0; e < 4; ++e) {
+            const int col = c0 + 8 * n + 2 * t + (e & 1);
+            bool ok = true;
+            if (edge) {
+              const int qi = q0 + col, key = keys[e >> 1];
+              ok = qi < p.sq && key < kv_end;
+              if (p.causal) ok = ok && key <= qi;
+              if (p.window > 0) ok = ok && key > qi - p.window;
+            }
+            x[n][e] = ok ? exp2f((x[n][e] * p.sm_scale - Lb[col]) * LOG2E)
+                         : 0.f;
           }
-          st[n][e] = ok ? exp2f((st[n][e] * p.sm_scale - Lb[col]) * LOG2E)
-                        : 0.f;
-        }
+      };
+      // dp^T -> ds^T in place: p^T * (dp^T - dd) * scale
+      auto dscores = [&](float (&x)[NS][4], const float (&pt)[NS][4]) {
+#pragma unroll
+        for (int n = 0; n < NS; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = c0 + 8 * n + 2 * t + (e & 1);
+            x[n][e] = pt[n][e] * (x[n][e] - Db[col]) * p.sm_scale;
+          }
+      };
 
-      // dV += P^T.dO
-      accumulate<D, NS>(dv, st, Ob, c0, lane);
-
-      // dp^T = V.dO^T, then ds^T in place
-      float dpt[NS][4];
+      if constexpr (C::SPLIT) {
+        // role 0: s^T, p^T (handed over), dV += P^T.dO;
+        // role 1: dp^T, ds^T with the p^T handed over, dK += dS^T.Q
+        float* xp = Xs + (strip * 2 + xb) * NS * 4 * 32;
+        float x[NS][4];
+        score_tc<D, NS>(x, role ? Vs : Ks, 16 * strip, role ? Ob : Qb, c0,
+                        lane);
+        if (role == 0) {
+          probs(x);
 #pragma unroll
-      for (int n = 0; n < NS; ++n)
+          for (int n = 0; n < NS; ++n)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) dpt[n][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KD; ++kk) {
-        uint32_t af[4];
-        ldsm_x4(af, a_addr<D>(Vs, 16 * warp, 16 * kk, lane));
-#pragma unroll
-        for (int n = 0; n < NS; n += 2) {
-          uint32_t of[4];
-          ldsm_x4(of, bt_addr<D>(Ob, c0 + 8 * n, 16 * kk, lane));
-          mma(dpt[n], af, of[0], of[1]);
-          mma(dpt[n + 1], af, of[2], of[3]);
+            for (int e = 0; e < 4; ++e) xp[(4 * n + e) * 32 + lane] = x[n][e];
         }
+        // p^T is written; a buffer is written again two parts on, after
+        // the next barrier, which role 1 reaches only once it has read
+        // this part's
+        bar_sync(1 + strip, 64);
+        xb ^= 1;
+        if (role == 1) {
+          float pt[NS][4];
+#pragma unroll
+          for (int n = 0; n < NS; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) pt[n][e] = xp[(4 * n + e) * 32 + lane];
+          dscores(x, pt);
+        }
+        accumulate<D, NS>(acc[0], x, role ? Qb : Ob, c0, lane);
+      } else {
+        float st[NS][4], dpt[NS][4];
+        score_tc<D, NS>(st, Ks, 16 * strip, Qb, c0, lane);
+        probs(st);
+        // dV += P^T.dO
+        accumulate<D, NS>(acc[NA - 1], st, Ob, c0, lane);
+        // dp^T = V.dO^T, ds^T in place; dK += dS^T.Q
+        score_tc<D, NS>(dpt, Vs, 16 * strip, Ob, c0, lane);
+        dscores(dpt, st);
+        accumulate<D, NS>(acc[0], dpt, Qb, c0, lane);
       }
-#pragma unroll
-      for (int n = 0; n < NS; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = c0 + 8 * n + 2 * t + (e & 1);
-          dpt[n][e] = st[n][e] * (dpt[n][e] - Db[col]) * p.sm_scale;
-        }
-
-      // dK += dS^T.Q
-      accumulate<D, NS>(dk, dpt, Qb, c0, lane);
     }
   }
   cp_async_wait<0>();  // nothing left in flight (n_iter may be 0)
 
   bf16* dkg = static_cast<bf16*>(p.dk) + b * p.dk_sb + hk * p.dk_sh;
   bf16* dvg = static_cast<bf16*>(p.dv) + b * p.dv_sb + hk * p.dv_sh;
+  bf16* dst[NA];
+  int64_t ss[NA];
+  if constexpr (C::SPLIT) {
+    dst[0] = role ? dkg : dvg;
+    ss[0] = role ? p.dk_ss : p.dv_ss;
+  } else {
+    dst[0] = dkg, dst[NA - 1] = dvg;
+    ss[0] = p.dk_ss, ss[NA - 1] = p.dv_ss;
+  }
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int r = keys[i];
     if (r >= p.skv) continue;
 #pragma unroll
-    for (int n = 0; n < ND; ++n) {
-      *reinterpret_cast<__nv_bfloat162*>(
-          &dkg[(int64_t)r * p.dk_ss + 8 * n + 2 * t]) =
-          __floats2bfloat162_rn(dk[n][2 * i], dk[n][2 * i + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(
-          &dvg[(int64_t)r * p.dv_ss + 8 * n + 2 * t]) =
-          __floats2bfloat162_rn(dv[n][2 * i], dv[n][2 * i + 1]);
-    }
+    for (int a = 0; a < NA; ++a)
+#pragma unroll
+      for (int n = 0; n < ND; ++n)
+        *reinterpret_cast<__nv_bfloat162*>(
+            &dst[a][(int64_t)r * ss[a] + 8 * n + 2 * t]) =
+            __floats2bfloat162_rn(acc[a][n][2 * i], acc[a][n][2 * i + 1]);
   }
 }
 
 template <typename T, int D>
 __global__ void __launch_bounds__(
-    mma_bf16::kTensorCores<T> ? THREADS_DKV : THREADS,
-    mma_bf16::kTensorCores<T> ? 2 : 1)  // two bf16 blocks an SM
+    mma_bf16::kTensorCores<T> ? DkvTc<D>::THREADS : THREADS,
+    mma_bf16::kTensorCores<T> ? DkvTc<D>::MIN_BLOCKS : 1)
 flash_bwd_dkv_kernel(const Params p) {
   if constexpr (mma_bf16::kTensorCores<T>)
     dkv_tc<D>(p);
@@ -639,12 +774,21 @@ flash_bwd_dkv_kernel(const Params p) {
 //   dQ += dS.K             (A: ds split hi/lo, B: K by ldmatrix.trans)
 // ds never leaves the registers. The split costs 8*D tensor operations a
 // valid pair where the bound counts 6*D. About 104 KB of shared memory at
-// D = 128: two blocks an SM.
-constexpr int THREADS_DQ = 2 * BQ;  // a warp per 16 queries
+// D = 128: two blocks an SM. At D > 128 (DqTc): 8 warps and 128 rows a
+// block, key tiles of 32.
+template <int D>
+struct DqTc {
+  static constexpr bool WIDE = D > 128;
+  static constexpr int WARPS = WIDE ? 8 : 4;
+  static constexpr int THREADS = 32 * WARPS;   // a warp per 16 queries
+  static constexpr int BQ = 16 * WARPS;
+  static constexpr int BK = WIDE ? 32 : 64;
+  static constexpr int MIN_BLOCKS = WIDE ? 1 : 2;
+};
 
 template <int D>
 constexpr int smem_dq_tc() {
-  return (int)sizeof(__nv_bfloat16) * (2 * BQ + 4 * BK) *
+  return (int)sizeof(__nv_bfloat16) * (2 * DqTc<D>::BQ + 4 * DqTc<D>::BK) *
          mma_bf16::Tile<D>::PITCH;
 }
 
@@ -653,10 +797,12 @@ __device__ __forceinline__ void dq_tc(const Params& p) {
   using namespace mma_bf16;
   using bf16 = __nv_bfloat16;
   constexpr int PITCH = Tile<D>::PITCH;
+  constexpr int BQ = DqTc<D>::BQ;
+  constexpr int BK = DqTc<D>::BK;
   constexpr int KD = D / 16;       // k-steps of the score products
   constexpr int ND = D / 8;        // 8-column tiles of dQ
   constexpr int NK = BK / 8;       // 8-column tiles of S
-  constexpr int NT = THREADS_DQ;
+  constexpr int NT = DqTc<D>::THREADS;
   extern __shared__ float4 smem4[];
   bf16* Qs = reinterpret_cast<bf16*>(smem4);  // BQ x PITCH
   bf16* Os = Qs + BQ * PITCH;                 // BQ x PITCH, do
@@ -738,7 +884,9 @@ __device__ __forceinline__ void dq_tc(const Params& p) {
     for (int n = 0; n < NK; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-#pragma unroll
+    // at D > 128 unrolled by 2 only: unrolled whole, its fragment loads
+    // are hoisted and spill
+#pragma unroll (DqTc<D>::WIDE ? 2 : KD)
     for (int kk = 0; kk < KD; ++kk) {
       uint32_t qa[4], oa[4];
       ldsm_x4(qa, a_addr<D>(Qs, 16 * warp, 16 * kk, lane));
@@ -792,8 +940,8 @@ __device__ __forceinline__ void dq_tc(const Params& p) {
 
 template <typename T, int D>
 __global__ void __launch_bounds__(
-    mma_bf16::kTensorCores<T> ? THREADS_DQ : THREADS,
-    mma_bf16::kTensorCores<T> ? 2 : 1)  // two bf16 blocks an SM
+    mma_bf16::kTensorCores<T> ? DqTc<D>::THREADS : THREADS,
+    mma_bf16::kTensorCores<T> ? DqTc<D>::MIN_BLOCKS : 1)
 flash_bwd_dq_kernel(const Params p) {
   if constexpr (mma_bf16::kTensorCores<T>)
     dq_tc<D>(p);
@@ -820,16 +968,39 @@ cudaError_t launch(const Params& p, int batch, bool dkv, cudaStream_t stream) {
   if (dkv && tc) {
     if (nk > 65535) return cudaErrorInvalidConfiguration;  // gridDim.y
     const dim3 grid(batch * p.hkv, nk);
-    flash_bwd_dkv_kernel<T, D><<<grid, THREADS_DKV, bytes, stream>>>(p);
+    flash_bwd_dkv_kernel<T, D><<<grid, DkvTc<D>::THREADS, bytes, stream>>>(
+        p);
   } else if (dkv) {
     const dim3 grid(nk, batch * p.hkv);
     flash_bwd_dkv_kernel<T, D><<<grid, THREADS, bytes, stream>>>(p);
   } else {
-    const dim3 grid((p.sq + BQ - 1) / BQ, batch * p.h);
-    flash_bwd_dq_kernel<T, D><<<grid, tc ? THREADS_DQ : THREADS, bytes,
-                                stream>>>(p);
+    const int bq = tc ? DqTc<D>::BQ : BQ;
+    const dim3 grid((p.sq + bq - 1) / bq, batch * p.h);
+    flash_bwd_dq_kernel<T, D><<<grid, tc ? DqTc<D>::THREADS : THREADS,
+                                bytes, stream>>>(p);
   }
   return cudaGetLastError();
+}
+
+// Dynamic shared memory of a K6 or (dkv) K7 launch at head dim d (0: not
+// built).
+template <typename T, int D>
+int smem_bytes(bool dkv) {
+  constexpr bool tc = mma_bf16::kTensorCores<T>;
+  return dkv ? (tc ? smem_dkv_tc<D>() : smem_dkv<D>())
+             : (tc ? smem_dq_tc<D>() : smem_dq<D>());
+}
+
+template <typename T>
+int smem_bytes(int d, bool dkv) {
+  switch (d) {
+    case 32: return smem_bytes<T, 32>(dkv);
+    case 64: return smem_bytes<T, 64>(dkv);
+    case 80: return smem_bytes<T, 80>(dkv);
+    case 128: return smem_bytes<T, 128>(dkv);
+    case 256: return smem_bytes<T, 256>(dkv);
+    default: return 0;
+  }
 }
 
 template <typename T>
@@ -840,6 +1011,7 @@ cudaError_t dispatch(const Params& p, int batch, int d, bool dkv,
     case 64: return launch<T, 64>(p, batch, dkv, s);
     case 80: return launch<T, 80>(p, batch, dkv, s);
     case 128: return launch<T, 128>(p, batch, dkv, s);
+    case 256: return launch<T, 256>(p, batch, dkv, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -898,6 +1070,13 @@ int flash_attention_bwd_dkv(int dtype, const void* q, const void* k,
            o_sb, o_sh, o_ss, 0, 0, 0, dk_sb, dk_sh, dk_ss,
            dv_sb, dv_sh, dv_ss};
   return run(dtype, p, batch, d, true, device, stream);
+}
+
+// Dynamic shared memory (bytes) a launch of K6 (dkv = 0) or K7 (dkv = 1)
+// at head dim d takes; 0 for a head dim that is not built.
+int flash_attention_bwd_smem(int dtype, int d, int dkv) {
+  return dtype == 1 ? smem_bytes<__nv_bfloat16>(d, dkv != 0)
+                    : dtype == 0 ? smem_bytes<float>(d, dkv != 0) : 0;
 }
 
 const char* flash_attention_bwd_error_string(int code) {

@@ -1,6 +1,6 @@
 // Tensor-core building blocks shared by the bf16 flash-attention kernels
-// (K5 in flash_attention.cu, K7 in flash_attention_bwd.cu): bf16 tiles
-// staged in shared memory by cp.async, fragments read by ldmatrix, the
+// (K5 in flash_attention.cu, K6 and K7 in flash_attention_bwd.cu): bf16
+// tiles staged in shared memory by cp.async, fragments read by ldmatrix, the
 // warp-level mma.sync.m16n8k16 (bf16 in, float32 accumulate), and the
 // split of a float32 operand into two bf16 halves.
 //
@@ -20,8 +20,10 @@
 // elements (D*2 + 16 bytes). Every row starts on 16 bytes (cp.async and
 // ldmatrix need that), and the 8 row addresses one ldmatrix phase reads
 // (8 consecutive rows, one 16-byte column chunk) fall in 8 distinct
-// 16-byte bank groups for D = 32, 64, 80 and 128 (pitches of 5, 9, 11 and
-// 17 chunks, all odd), so the reads are free of bank conflicts.
+// 16-byte bank groups for D = 32, 64, 80, 128 and 256 (pitches of 5, 9,
+// 11, 17 and 33 chunks, all odd), so the reads are free of bank conflicts.
+// Every loop over a row's D / 8 chunks takes any D that is a multiple of
+// 16.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -99,6 +101,12 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
 #pragma unroll
     for (int i = threadIdx.x; i < R * CH; i += NT) copy(i);
   }
+}
+
+// Barrier of the `count` threads of named barrier `id` (1..15; 0 is
+// __syncthreads): the two warps that share a strip at D = 256 (K5, K7).
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
 // Four 8x8 b16 matrices; lane l supplies the row address of matrix l / 8.

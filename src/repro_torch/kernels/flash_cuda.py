@@ -14,7 +14,8 @@
   float64 inputs, which only the CPU takes) and loop over (batch, kv head)
   so that no (B, H, Sq, Skv) tensor is ever whole.
 * ``LAUNCHES`` counts each wrapper's launches; ``REPLACES`` names each
-  Pallas kernel.
+  Pallas kernel; ``smem_bytes`` gives the dynamic shared memory a launch
+  takes (the build reports only static shared memory).
 
 Layout is the reference's: q and do (B, H, Sq, D), k and v (B, Hkv, Skv,
 D), any strides with a contiguous head-dim axis (a ``(B, S, H, D)`` tensor
@@ -30,10 +31,12 @@ from repro_torch.kernels import cubuild
 NAME = "flash_attention_fwd"
 DQ = "flash_attention_bwd_dq"
 DKV = "flash_attention_bwd_dkv"
+SMEM = "flash_attention_fwd_smem"
+BWD_SMEM = "flash_attention_bwd_smem"
 REPLACES = {NAME: "src/repro/kernels/flash_attention.py:29",
             DQ: "src/repro/kernels/flash_attention.py:135",
             DKV: "src/repro/kernels/flash_attention.py:167"}
-HEAD_DIMS = (32, 64, 80, 128)
+HEAD_DIMS = (32, 64, 80, 128, 256)
 MAX_BATCH_HEADS = 65535          # gridDim.y: one block row per (b, h)
 MAX_SEQ = 64 * 65535             # gridDim.y of K7 (bf16): 64-key tiles
 ALIGN = 16                       # bytes of one cp.async copy (bf16 kernels)
@@ -43,9 +46,11 @@ LAUNCHES = {NAME: 0, DQ: 0, DKV: 0}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _L = cubuild.PTR, cubuild.I32, cubuild.I64
 _TAIL = [cubuild.F32, _I, _I, _I, _I, _P]
-SIGNATURES = {NAME: [_I] + [_P] * 5 + [_I] * 6 + [_L] * 12 + _TAIL}
+SIGNATURES = {NAME: [_I] + [_P] * 5 + [_I] * 6 + [_L] * 12 + _TAIL,
+              SMEM: [_I, _I]}
 BWD_SIGNATURES = {DQ: [_I] + [_P] * 7 + [_I] * 6 + [_L] * 15 + _TAIL,
-                  DKV: [_I] + [_P] * 8 + [_I] * 6 + [_L] * 18 + _TAIL}
+                  DKV: [_I] + [_P] * 8 + [_I] * 6 + [_L] * 18 + _TAIL,
+                  BWD_SMEM: [_I, _I, _I]}
 LIBRARY = cubuild.CudaLibrary("flash_attention", SIGNATURES)
 BWD_LIBRARY = cubuild.CudaLibrary("flash_attention_bwd", BWD_SIGNATURES)
 
@@ -53,6 +58,16 @@ BWD_LIBRARY = cubuild.CudaLibrary("flash_attention_bwd", BWD_SIGNATURES)
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def smem_bytes(name: str, dtype: torch.dtype, d: int) -> int:
+    """Dynamic shared memory (bytes) a launch of kernel ``name`` (NAME,
+    DQ or DKV) at head dim ``d`` in ``dtype`` takes; 0 for a head dim that
+    is not built. Builds the library."""
+    if name == NAME:
+        return LIBRARY.load().lib.flash_attention_fwd_smem(_DTYPES[dtype], d)
+    return BWD_LIBRARY.load().lib.flash_attention_bwd_smem(
+        _DTYPES[dtype], d, int(name == DKV))
 
 
 def mask(sq: int, skv: int, *, causal: bool, window: int | None,

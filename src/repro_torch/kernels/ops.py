@@ -276,7 +276,10 @@ class FlashAttention(torch.autograd.Function):
 
 
 def padded_head_dim(d: int) -> int:
-    """The smallest head dim the flash kernels take that holds ``d``."""
+    """The smallest head dim the flash kernels take that holds ``d``: D
+    in (128, 256] pads to 256, as the reference pads to the next multiple
+    of 128 lanes. Above 256, where the reference would pad to 384, it
+    raises: no dense registry architecture has such a head dim."""
     for dp in _fc.HEAD_DIMS:
         if dp >= d:
             return dp
@@ -291,8 +294,9 @@ def flash_attention(q, k, v, *, causal: bool = True,
     K6 and K7 (``FlashAttention``); k and v are (B, Hkv, S, D).
     ``sm_scale`` defaults to 1/sqrt(D). Returns ``out`` in q's dtype. The
     kernels mask their own ragged edges, so S is not padded; a head dim
-    the kernels do not take (any D <= 128, as the reference pads D to 128
-    lanes) is zero-padded to the next one they do, on every device, and
+    the kernels do not take (any D <= 256, as the reference pads D to a
+    multiple of 128 lanes) is zero-padded to the next one they do, on
+    every device, and
     ``out`` (and through autograd dq, dk, dv) sliced back to D: zero
     columns change neither q.k nor the kept columns of p.v. Otherwise
     ``out`` has q's memory layout."""

@@ -41,8 +41,8 @@ def parse(argv=None) -> argparse.Namespace:
                     help="override the config's dtype")
     ap.add_argument("--head-dim", type=int, default=None,
                     help="override the config's head dim (on the card the "
-                         "flash kernels take 32, 64, 80 or 128; the SMOKE "
-                         "config's is 8)")
+                         "flash kernels take 32, 64, 80, 128 or 256; the "
+                         "SMOKE config's is 8)")
     ap.add_argument("--steps", type=int, default=200)
     ap.add_argument("--global-batch", type=int, default=16)
     ap.add_argument("--seq-len", type=int, default=128)

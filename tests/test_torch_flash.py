@@ -176,20 +176,38 @@ def test_c_signature_matches_binding():
         assert f"case {d}: return launch<T, {d}>" in src
 
 
+@pytest.mark.parametrize("name,params", [
+    (flash_cuda.SMEM, ["int dtype", "int d"]),
+    (flash_cuda.BWD_SMEM, ["int dtype", "int d", "int dkv"])])
+def test_smem_queries_match_bindings(name, params):
+    """The shared-memory queries take the (int) arguments the bindings
+    declare, and switch over every supported head dim."""
+    lib = flash_cuda.LIBRARY if name == flash_cuda.SMEM \
+        else flash_cuda.BWD_LIBRARY
+    src = lib.source.read_text()
+    m = re.search(rf"int {name}\(([^)]*)\)", src)
+    assert [p.strip() for p in m.group(1).split(",")] == params
+    assert lib.signatures[name] == [flash_cuda._I] * len(params)
+    for d in flash_cuda.HEAD_DIMS:
+        assert f"case {d}: return " in src
+
+
 # a head dim the kernels do not take, with and without a window
 PAD_CASES = [(d, w) for d in (8, 16, 48) for w in (None, 16)]
 
 
 def test_padded_head_dim():
-    """The smallest head dim the kernels take that holds D; above 128 none
-    does."""
+    """The smallest head dim the kernels take that holds D: D in (128, 256]
+    pads to 256, as the reference pads to a multiple of 128 lanes; above
+    256 (the reference would pad to 384) none does."""
     assert [ops.padded_head_dim(d) for d in (1, 8, 32, 33, 48, 64, 72, 80,
-                                              100, 128)] == \
-        [32, 32, 32, 64, 64, 64, 80, 80, 128, 128]
-    with pytest.raises(ValueError, match="head dim 136 > 128"):
-        ops.padded_head_dim(136)
-    q = torch.zeros((1, 2, 8, 136))
-    with pytest.raises(ValueError, match="head dim 136 > 128"):
+                                              100, 128, 129, 136, 192,
+                                              256)] == \
+        [32, 32, 32, 64, 64, 64, 80, 80, 128, 128, 256, 256, 256, 256]
+    with pytest.raises(ValueError, match="head dim 257 > 256"):
+        ops.padded_head_dim(257)
+    q = torch.zeros((1, 2, 8, 257))
+    with pytest.raises(ValueError, match="head dim 257 > 256"):
         ops.flash_attention(q, q, q, device="cpu")
 
 
@@ -220,6 +238,54 @@ def test_padded_head_dim_matches_reference(jref, d, window, dtype):
                               device="cpu")
     tol = BF16_TOL if dtype == "bfloat16" else F32_TOL
     np.testing.assert_allclose(_np(got), _np(want), **tol)
+
+
+# Head dims above 128: 256 (gemma-7b), and 136 and 192, which pad to 256.
+# S = 160 is ragged for both packages' tiles (the reference pads S to 256
+# in interpret mode); GQA groups of 1 (gemma's MHA) and 4.
+WIDE_CASES = [(d, g, w) for d in (256, 136, 192) for g in (1, 4)
+              for w in (None, 64)]
+
+
+@pytest.mark.parametrize("d,group,window", WIDE_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_wide_head_dim_matches_reference(jref, d, group, window, dtype):
+    """Head dims above 128 through ops.flash_attention (D = 256 as it is,
+    136 and 192 zero-padded to 256) against the reference's padding
+    wrapper in interpret mode."""
+    jnp, rops = jref
+    arrays = _qkv(d + 7 * group, 1, 4, 4 // group, 160, d)
+    (jq, jk, jv), (tq, tk, tv) = _both(jnp, arrays, dtype)
+    want = rops.flash_attention(jq, jk, jv, causal=True, window=window)
+    got = ops.flash_attention(tq, tk, tv, causal=True, window=window,
+                              device="cpu")
+    assert got.shape == tq.shape and got.dtype == tq.dtype
+    tol = BF16_TOL if dtype == "bfloat16" else F32_TOL
+    np.testing.assert_allclose(_np(got), _np(want), **tol)
+
+
+@pytest.mark.parametrize("group,window", [(1, None), (4, 64)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lse_at_head_dim_256_matches_reference(jref, group, window, dtype):
+    """K5's lse (and out) at D = 256, from the binding's plain version,
+    against the Pallas kernel's own lse in interpret mode, on S padded to
+    its tile as the reference's wrapper pads it (kv_len masks the pad)."""
+    from repro.kernels import flash_attention as rfa
+    jnp, _ = jref
+    s, d = 160, 256
+    arrays = _qkv(group + 31, 1, 4, 4 // group, s, d)
+    (jq, jk, jv), (tq, tk, tv) = _both(jnp, arrays, dtype)
+    pad = ((0, 0), (0, 0), (0, 256 - s), (0, 0))
+    want, wlse = rfa.flash_attention_blocks(
+        *(jnp.pad(t, pad) for t in (jq, jk, jv)), sm_scale=d ** -0.5,
+        causal=True, window=window, bq=128, bk=128, kv_len=s,
+        interpret=True)
+    got, lse = flash_cuda.flash_fwd(tq, tk, tv, sm_scale=d ** -0.5,
+                                    causal=True, window=window)
+    tol = BF16_TOL if dtype == "bfloat16" else F32_TOL
+    np.testing.assert_allclose(_np(got), _np(want[:, :, :s]), **tol)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(wlse)[..., :s],
+                               **F32_TOL)
 
 
 def _misaligned(bad, dtype, b=1, h=4, s=8, d=32, device="cpu"):

@@ -294,6 +294,60 @@ def test_padded_head_dim_grads_match_jax_grad(jref, d, window, dtype):
                                    err_msg=f"d{name}")
 
 
+# Head dims above 128: 256 (gemma-7b), and 136 and 192, which pad to 256.
+# S = 160 is ragged for both packages' tiles; GQA groups of 1 (gemma's MHA)
+# and 4.
+WIDE_CASES = [(d, g, w) for d in (256, 136, 192) for g in (1, 4)
+              for w in (None, 64)]
+
+
+@pytest.mark.parametrize("d,group,window", WIDE_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_wide_head_dim_grads_match_jax_grad(jref, d, group, window, dtype):
+    """dq, dk and dv through ops.flash_attention at head dims above 128
+    (D = 256 as it is, 136 and 192 zero-padded to 256) against
+    ``jax.grad`` through the reference's padding wrapper, in interpret
+    mode."""
+    jax, jnp, _, rops = jref
+    arrays = _arrays(3 * d + group, 1, 4, 4 // group, 160, d)
+    (jq, jk, jv, jdo), (tq, tk, tv, tdo) = _both(jnp, arrays, dtype)
+
+    def loss(q, k, v):
+        out = rops.flash_attention(q, k, v, causal=True, window=window)
+        return jnp.sum(out.astype(jnp.float32) * jdo.astype(jnp.float32))
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(jq, jk, jv)
+    leaves = [t.clone().requires_grad_() for t in (tq, tk, tv)]
+    out = ops.flash_attention(*leaves, causal=True, window=window,
+                              device="cpu")
+    torch.sum(out.float() * tdo.float()).backward()
+    tol = BF16_TOL if dtype == "bfloat16" else F32_TOL
+    for name, t, w in zip("qkv", leaves, want):
+        assert t.grad.dtype == t.dtype and t.grad.shape == t.shape
+        np.testing.assert_allclose(_np(t.grad), _np(w), **tol,
+                                   err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("group", [1, 4])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_bwd_at_head_dim_256_matches_pallas_bwd(jref, group, dtype):
+    """flash_bwd_plain at D = 256, on the reference forward's own out and
+    lse, equals the Pallas backward kernels in interpret mode."""
+    _, jnp, rfa, _ = jref
+    d = 256
+    arrays = _arrays(group + 5, 1, 4, 4 // group, 128, d)
+    (jq, jk, jv, jdo), (tq, tk, tv, tdo) = _both(jnp, arrays, dtype)
+    kw = dict(sm_scale=d ** -0.5, causal=True, bq=64, bk=64, interpret=True)
+    out, lse = rfa.flash_attention_blocks(jq, jk, jv, **kw)
+    want = rfa.flash_attention_bwd_blocks(jq, jk, jv, out, lse, jdo, **kw)
+    got = flash_cuda.flash_bwd_plain(
+        tq, tk, tv, _tensor(jnp, out), torch.from_numpy(np.asarray(lse)),
+        tdo, sm_scale=d ** -0.5, causal=True)
+    tol = BF16_TOL if dtype == "bfloat16" else F32_TOL
+    for name, g, w in zip("qkv", got, want):
+        np.testing.assert_allclose(_np(g), _np(w), **tol, err_msg=f"d{name}")
+
+
 # --- on the card ----------------------------------------------------------------
 @pytest.mark.gpu
 @pytest.mark.parametrize("causal,window,dtype,s", [

@@ -21,7 +21,10 @@ Sizes: B=1, H=4, Hkv=2, S=200, D=32, bf16, q drawn at standard deviation 2
 (chip_smoke's K5_Q_STD, so attention is peaked) and k, v, do at 1; causal,
 and causal with window 16. At this size the split leaves 0.1-0.4% of the
 elements one ulp off (dq 0.3%) and every unsplit control already fails
-(24-41% of its elements differ; dq's 38-41%), so S stays 200.
+(24-41% of its elements differ; dq's 38-41%), so S stays 200. The same
+holds at D = 256, gemma-7b's head dim, which the ``*_at_head_dim_256``
+tests check: there the kernels split D between warps, which moves no
+rounding point of this arithmetic.
 """
 import numpy as np
 import pytest
@@ -36,12 +39,12 @@ BF16_ATOL, BF16_RTOL, BF16_FLIP_SHARE = 1e-4, 2 ** -7, 1e-2
 F32_TOL = 2e-5
 
 
-def _inputs():
-    rng = np.random.default_rng(14)
-    q = rng.normal(size=(B, H, S, D)).astype(np.float32) * Q_STD
-    k, v = (rng.normal(size=(B, HKV, S, D)).astype(np.float32)
+def _inputs(d=D):
+    rng = np.random.default_rng(14 if d == D else d)
+    q = rng.normal(size=(B, H, S, d)).astype(np.float32) * Q_STD
+    k, v = (rng.normal(size=(B, HKV, S, d)).astype(np.float32)
             for _ in range(2))
-    do = rng.normal(size=(B, H, S, D)).astype(np.float32)
+    do = rng.normal(size=(B, H, S, d)).astype(np.float32)
     return q, k, v, do
 
 
@@ -71,7 +74,7 @@ def _operands(q, k, v, window):
     kf, vf = (t.float().repeat_interleave(g, dim=1) for t in (k, v))
     ok = flash_cuda.mask(S, S, causal=True, window=window, kv_len=S,
                          device="cpu")
-    s = torch.matmul(qf, kf.transpose(-1, -2)) * D ** -0.5
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * q.shape[-1] ** -0.5
     return qf, kf, vf, ok, s
 
 
@@ -92,16 +95,17 @@ def emulate_bwd(q, k, v, do, out, lse, *, window, split_dsk=True,
     scaled after the product, ds split in dS.K (K6) and dS^T.Q (K7), p in
     P^T.dO (K7)."""
     qf, kf, vf, ok, s = _operands(q, k, v, window)
+    d = q.shape[-1]
     dof = do.float()
     dd = torch.sum(dof * out.float(), -1, keepdim=True)
     p = torch.where(ok, torch.exp(s - lse[..., None]), 0.0)
     dp = torch.matmul(dof, vf.transpose(-1, -2))
-    ds = p * (dp - dd) * D ** -0.5
+    ds = p * (dp - dd) * d ** -0.5
     dq = _product(ds, kf, split_dsk).to(torch.bfloat16)
     dv = _product(p.transpose(-1, -2), dof, split_pdo)
     dk = _product(ds.transpose(-1, -2), qf, split_dsq)
     return (dq,) + tuple(
-        t.reshape(B, HKV, H // HKV, S, D).sum(2).to(torch.bfloat16)
+        t.reshape(B, HKV, H // HKV, S, d).sum(2).to(torch.bfloat16)
         for t in (dk, dv))
 
 
@@ -120,16 +124,15 @@ def agreement(got, want):
     return ok, float(err.max()), share
 
 
-@pytest.fixture(scope="module")
-def reference():
+def _reference(d):
     """(inputs as torch bf16, {window: {out, lse, dq, dk, dv}} of the
-    reference), computed once."""
+    reference) at head dim d."""
     import jax
     import jax.numpy as jnp
     from repro.kernels import flash_attention as rfa
     from repro.kernels import ops as rops
 
-    arrays = _inputs()
+    arrays = _inputs(d)
     jq, jk, jv, jdo = (jnp.asarray(a).astype(jnp.bfloat16) for a in arrays)
     pad = ((0, 0), (0, 0), (0, 256 - S), (0, 0))
     results = {}
@@ -141,7 +144,7 @@ def reference():
         # lse from the reference kernel itself, on S padded as the wrapper
         # pads it
         _, lse = rfa.flash_attention_blocks(
-            *(jnp.pad(t, pad) for t in (jq, jk, jv)), sm_scale=D ** -0.5,
+            *(jnp.pad(t, pad) for t in (jq, jk, jv)), sm_scale=d ** -0.5,
             causal=True, window=window, bq=128, bk=128, kv_len=S,
             interpret=True)
         results[window] = {
@@ -150,6 +153,18 @@ def reference():
             for name, x in (("out", out), ("lse", lse[..., :S]), ("dq", dq),
                             ("dk", dk), ("dv", dv))}
     return tuple(_bf16(a) for a in arrays), results
+
+
+@pytest.fixture(scope="module")
+def reference():
+    """The reference at D = 32, computed once."""
+    return _reference(D)
+
+
+@pytest.fixture(scope="module")
+def reference_256():
+    """The reference at D = 256 (gemma-7b's head dim), computed once."""
+    return _reference(256)
 
 
 def _emulate(inputs, want, window, **split):
@@ -188,6 +203,32 @@ def test_unsplit_control_fails(reference, window, control, which):
     """Each product taken with its float32 operand rounded to bf16 once
     fails the rule: the share of differing elements is far above 1%."""
     inputs, want = reference
+    got = _emulate(inputs, want[window], window, **{control: False})
+    ok, err, share = agreement(got[which], want[window][which])
+    assert not ok, f"{control} passed: err {err}, share {share}"
+    assert share > 10 * BF16_FLIP_SHARE
+
+
+@pytest.mark.parametrize("window", [None, 16])
+def test_split_matches_reference_at_head_dim_256(reference_256, window):
+    """At D = 256, with p and ds split, out, lse, dq, dk and dv pass the
+    card's rule."""
+    inputs, want = reference_256
+    got = _emulate(inputs, want[window], window)
+    for name, w in want[window].items():
+        ok, err, share = agreement(got[name], w)
+        assert ok, f"{name}: max err {err}, differing share {share}"
+
+
+@pytest.mark.parametrize("window", [None, 16])
+@pytest.mark.parametrize("control,which", [
+    ("split_pv", "out"), ("split_dsk", "dq"), ("split_pdo", "dv"),
+    ("split_dsq", "dk")])
+def test_unsplit_control_fails_at_head_dim_256(reference_256, window,
+                                               control, which):
+    """At D = 256 each product taken with its float32 operand rounded to
+    bf16 once still fails the rule."""
+    inputs, want = reference_256
     got = _emulate(inputs, want[window], window, **{control: False})
     ok, err, share = agreement(got[which], want[window][which])
     assert not ok, f"{control} passed: err {err}, share {share}"

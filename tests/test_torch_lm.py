@@ -62,6 +62,14 @@ def _cfgs(dtype, attn_impl="flash", **kw):
                                   attn_impl=attn_impl, **kw))
 
 
+def _gemma_cfgs(dtype, attn_impl="flash"):
+    """gemma's SMOKE (2 layers, d_model 64, 4 heads, geglu, tied
+    embeddings) at gemma-7b's head dim, 256: the flash path at D = 256."""
+    over = dict(head_dim=256, dtype=dtype, attn_impl=attn_impl)
+    return (rregistry.smoke_config("gemma-7b", **over),
+            registry.smoke_config("gemma-7b", **over))
+
+
 def _x(shape, dtype, seed=0, scale=1.0):
     a = np.random.default_rng(seed).normal(size=shape).astype(np.float32)
     a *= scale
@@ -270,6 +278,95 @@ def test_lm_one_layer_at_llama3_8b_attention_geometry():
     for what, want, got in _run_both(rcfg, pcfg, tokens, 16, 2):
         np.testing.assert_allclose(_np(got), _np(want), atol=1e-5, rtol=0,
                                    err_msg=what)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("attn_impl", ["flash", "einsum"])
+def test_gemma_prefill_decode_logits_match_reference(dtype, attn_impl):
+    """A gemma-shaped LM at head dim 256 (geglu, tied unembedding): prefill
+    through the flash path at D = 256 and decode through ``_sdpa``, against
+    the reference with converted weights."""
+    rcfg, pcfg = _gemma_cfgs(dtype, attn_impl)
+    assert (pcfg.hd, pcfg.ffn_kind, pcfg.tie_embeddings) == \
+        (256, "geglu", True)
+    tokens = np.random.default_rng(5).integers(
+        0, rcfg.vocab, (2, 11)).astype(np.int32)
+    for what, want, got in _run_both(rcfg, pcfg, tokens, 16, 3):
+        assert got.dtype == torch.float32 and got.shape == (2, rcfg.vocab)
+        np.testing.assert_allclose(_np(got), _np(want),
+                                   atol=LOGIT_ATOL[dtype], rtol=0,
+                                   err_msg=what)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gemma_attention_at_head_dim_256_matches_reference(dtype):
+    """The attention layer alone at head dim 256, flash prefill and two
+    ``_sdpa`` decode steps, against the reference's (Pallas in interpret
+    mode under the mesh)."""
+    rcfg, pcfg = _gemma_cfgs(dtype)
+    p = rlayers.attn_init(jax.random.PRNGKey(9), rcfg)
+    tp = {k: _t(v) for k, v in p.items()}
+    shape = (2, 16, rcfg.n_kv_heads, rcfg.hd)
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    rc = {"k": jnp.zeros(shape, jdt), "v": jnp.zeros(shape, jdt), "len": 0}
+    pc = {"k": torch.zeros(shape, dtype=getattr(torch, dtype)),
+          "v": torch.zeros(shape, dtype=getattr(torch, dtype)), "len": 0}
+    with mesh_1x1():
+        for step in range(3):
+            jx, tx = _x((2, 9 if step == 0 else 1, rcfg.d_model), dtype,
+                        seed=20 + step, scale=0.5)
+            pos = np.arange(pc["len"], pc["len"] + tx.shape[1])
+            want, rc = rlayers.attention(p, rcfg, jx,
+                                         positions=jnp.asarray(pos), cache=rc)
+            got, pc = layers.attention(tp, pcfg, tx,
+                                       positions=torch.from_numpy(pos),
+                                       cache=pc)
+            np.testing.assert_allclose(_np(got), _np(want),
+                                       **LAYER_TOL[dtype])
+
+
+def test_lm_one_layer_at_gemma_7b_attention_geometry():
+    """One block at gemma-7b's attention geometry (d_model 3072, 16 query
+    and 16 kv heads, head dim 256, geglu, tied embeddings) with a narrow
+    FFN and vocabulary, f32, flash prefill + two decode steps."""
+    full = rregistry.config("gemma-7b")
+    over = dict(n_layers=1, d_ff=256, vocab=512, dtype="float32",
+                attn_impl="flash")
+    rcfg = dataclasses.replace(full, **over)
+    pcfg = dataclasses.replace(registry.config("gemma-7b"), **over)
+    assert (pcfg.d_model, pcfg.n_heads, pcfg.n_kv_heads, pcfg.hd) == \
+        (3072, 16, 16, 256)
+    tokens = np.random.default_rng(3).integers(
+        0, rcfg.vocab, (2, 12)).astype(np.int32)
+    for what, want, got in _run_both(rcfg, pcfg, tokens, 16, 2):
+        np.testing.assert_allclose(_np(got), _np(want), atol=1e-5, rtol=0,
+                                   err_msg=what)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_converter_round_trips_gemma_tied_tree_bitwise(dtype):
+    """gemma's parameter tree (tied embeddings: no ``lm_head``) converts
+    into the port and back bit for bit (bf16 leaves come back as float32
+    holding the same values, ``tensor_to_numpy``'s contract)."""
+    from repro_torch.convert import lm_params_to_numpy
+    rcfg, pcfg = _gemma_cfgs(dtype)
+    tree = jax.tree.map(np.asarray,
+                        rlm.build(rcfg).init(jax.random.PRNGKey(4)))
+    assert "lm_head" not in tree
+    model = lm_params_from_numpy(pcfg, tree, device="cpu")
+    assert model.lm_head is None
+    back = lm_params_to_numpy(model, dict(model.named_parameters()))
+    assert set(back) == set(tree)
+
+    def same(a, b):
+        a, b = np.asarray(a), np.asarray(b)
+        assert a.shape == b.shape
+        if b.dtype == jnp.bfloat16:
+            assert a.dtype == np.float32
+            a = a.astype(b.dtype)
+        assert a.dtype == b.dtype
+        assert np.array_equal(a.view(np.uint8), b.view(np.uint8))
+    jax.tree.map(same, back, tree)
 
 
 def test_converter_checks_tree():

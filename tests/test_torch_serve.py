@@ -133,6 +133,20 @@ def test_launcher_serves_on_cpu(capsys):
     assert "served 3 requests, 12 tokens" in capsys.readouterr().out
 
 
+def test_launcher_serves_gemma_on_cpu(capsys):
+    """``launch.serve --arch gemma-7b --smoke`` on the CPU: geglu, tied
+    unembedding, the vocabulary's token range."""
+    res = serve_cli.main(["--arch", "gemma-7b", "--smoke", "--device",
+                          "cpu", "--requests", "3", "--slots", "2",
+                          "--max-new", "4"])
+    vocab = registry.smoke_config("gemma-7b").vocab
+    assert sorted(r.uid for r in res) == [0, 1, 2]
+    assert all(len(r.tokens) == 4 and bool(((r.tokens >= 0)
+                                            & (r.tokens < vocab)).all())
+               for r in res)
+    assert "served 3 requests, 12 tokens" in capsys.readouterr().out
+
+
 def test_launcher_prefill_takes_the_flash_path(monkeypatch):
     """The entry point builds its model with attn_impl="flash": every
     prefill reaches K5's binding once per layer (its plain version here)."""

@@ -117,6 +117,40 @@ def test_loss_and_grads_match_reference(ref_params, attn_impl):
     _close_tree(grads, wg, GRAD_REL)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gemma_loss_and_grads_match_reference(dtype):
+    """A gemma-shaped LM at head dim 256 (geglu, tied embeddings; the
+    embedding's gradient sums its lookup and the unembedding), through the
+    flash path at D = 256 (K5, K6 and K7's plain versions): the loss, and
+    in float32 every gradient leaf, against the reference's with converted
+    weights. bf16 gradients round at other points in the two frameworks'
+    backward passes, so in bf16 the loss is held, at the layers' bf16
+    tolerance."""
+    over = dict(head_dim=256, dtype=dtype, attn_impl="flash")
+    rcfg = rregistry.smoke_config("gemma-7b", **over)
+    pcfg = registry.smoke_config("gemma-7b", **over)
+    rmodel = rlm.build(rcfg)
+    params = rmodel.init(jax.random.PRNGKey(2))
+    model = lm_params_from_numpy(pcfg, jax.tree.map(np.asarray, params),
+                                 device="cpu").requires_grad_(True)
+    toks = _tokens(B=2, S=24, vocab=rcfg.vocab)
+    with _ctx("flash"):
+        (want, _), wg = jax.value_and_grad(rmodel.loss, has_aux=True)(
+            params, {"tokens": jnp.asarray(toks)})
+    loss, _ = model.loss(torch.from_numpy(toks))
+    loss.backward()
+    if dtype == "float32":
+        np.testing.assert_allclose(float(loss), float(want), rtol=1e-5)
+        grads = lm_params_to_numpy(model, {n: p.grad for n, p in
+                                           model.named_parameters()})
+        assert "lm_head" not in grads
+        _close_tree(grads, wg, GRAD_REL)
+    else:
+        np.testing.assert_allclose(float(loss), float(want), rtol=2e-2)
+        assert all(bool(torch.isfinite(p.grad).all())
+                   for p in model.parameters())
+
+
 def test_loss_runs_k5_under_autograd_and_remat_changes_nothing(ref_params):
     """With ``remat`` each block is recomputed in the backward; the loss
     and every gradient are the same as without it."""
@@ -414,6 +448,21 @@ def test_launch_train_smoke_on_cpu(capsys):
     losses = [h["loss"] for h in hist]
     assert np.mean(losses[-5:]) < np.mean(losses[:5]) - 0.2, losses
     assert all(np.isfinite(h["grad_norm"]) for h in hist)
+
+
+@pytest.mark.parametrize("head_dim", [None, 256])
+def test_launch_train_gemma_smoke_on_cpu(capsys, head_dim):
+    """``launch.train --arch gemma-7b --smoke`` on the CPU, at the SMOKE
+    head dim (32) and at gemma-7b's (256, ``--head-dim``)."""
+    argv = ["--arch", "gemma-7b", "--smoke", "--device", "cpu", "--steps",
+            "3", "--global-batch", "2", "--seq-len", "32"]
+    if head_dim is not None:
+        argv += ["--head-dim", str(head_dim)]
+    hist = launch_train.main(argv)
+    assert "steps=3" in capsys.readouterr().out
+    assert [h["step"] for h in hist] == [0, 1, 2]
+    assert all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])
+               for h in hist)
 
 
 def test_launch_train_with_checkpoints(tmp_path):
