@@ -44,7 +44,13 @@ the card:
   and dV must fail; then the checkpoint / restart round trip of the fault
   Supervisor at the smoke size (head dim 8, padded).
 
-The kernel checks are shown to reject planted faults: K5 with p rounded to
+K3 and K4 write the -inf over infeasible nodes themselves and sum only the
+real criteria: each is held against its plain version masked and
+unmasked, at C = 5 and 6 and at a ragged N (15,001 nodes), and timed
+masked and unmasked beside the unfused pair (the kernel, then the fill).
+
+The kernel checks are shown to reject planted faults: the K3 and K4 plain
+versions without their fill or over one criterion fewer, K5 with p rounded to
 bf16 or a key tile dropped, K8 rounded before its gamma multiply, K6/K7
 with dk and dv from one head of each GQA group, ds without its dd term, dq
 without its diagonal key tile, or (bf16) ds rounded to bf16 before K6's
@@ -218,18 +224,24 @@ def raw_launch(name, args, out):
     from repro_torch.kernels import topsis_cuda as tc
     fn = getattr(tc.build().lib, name)
     tail = (out.device.index, torch.cuda.current_stream().cuda_stream)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
     if name == "topsis_kinds":
-        kidx, x, *small = args
+        kidx, x, *small, valid, c = args
         raw = (kidx.data_ptr(), x.shape[0], x.data_ptr(),
-               *(t.data_ptr() for t in small), out.data_ptr(), x.shape[1],
-               kidx.shape[0]) + tail
+               *(t.data_ptr() for t in small), ptr(valid), out.data_ptr(),
+               x.shape[1], kidx.shape[0], c) + tail
+    elif name == "topsis_grid":
+        x, *small, valid, c = args
+        raw = (x.data_ptr(), *(t.data_ptr() for t in small), ptr(valid),
+               out.data_ptr(), x.shape[1], x.shape[0], small[1].shape[0],
+               c) + tail
     else:
         x, *small = args
         ptrs = (x.data_ptr(), *(t.data_ptr() for t in small), out.data_ptr())
         sizes = {"topsis_single": (x.shape[0],),
-                 "topsis_batched": (x.shape[1], x.shape[0]),
-                 "topsis_grid": (x.shape[1], x.shape[0],
-                                 args[2].shape[0])}[name]
+                 "topsis_batched": (x.shape[1], x.shape[0])}[name]
         raw = ptrs + sizes + tail
     return lambda: fn(*raw)
 
@@ -303,7 +315,7 @@ def build_phase():
     kernels' D = 128 and D = 256 instantiations must not spill."""
     from repro_torch.kernels import flash_cuda, rmsnorm_cuda, topsis_cuda
     libs = [m.LIBRARY for m in (topsis_cuda, flash_cuda, rmsnorm_cuda)] \
-        + [flash_cuda.BWD_LIBRARY]
+        + [flash_cuda.BWD_LIBRARY, topsis_cuda.MATH_CHECK]
     t0 = time.perf_counter()
     for lib in libs:
         lib.start()
@@ -338,7 +350,26 @@ def build_phase():
 
 
 # --- phase 3: kernels against their plain versions ---------------------------
+def control(got, want):
+    """How a planted-fault control's output compares with the kernel's:
+    "pattern" where the -inf pattern differs, else the max abs error."""
+    try:
+        return max_err(got, want)
+    except SmokeFailure as e:
+        if "-inf pattern" not in str(e):
+            raise
+        return "pattern"
+
+
 def kernel_phase(dev):
+    """K1-K4 against their plain versions at the slice's shapes. K3 and K4
+    take the mask (the -inf fill is theirs) and the number of real
+    criteria: each runs masked, as the main path does, and unmasked (the
+    function without the fill, timed beside the unfused pair: that launch,
+    then ``fill_invalid``), at C = 5 and 6, and at a ragged N (not a
+    multiple of 4: the kernels' scalar path).
+    Two controls must fail: the plain version without its fill (the -inf
+    pattern) and the plain version over C - 1 criteria (TOL)."""
     import numpy as np
     import torch
 
@@ -351,18 +382,29 @@ def kernel_phase(dev):
     from repro_torch.kernels import ops
     from repro_torch.kernels import topsis_cuda as tc
 
+    # K3's and K4's branch-free square root and division: the IEEE bits
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ieee = tc.math_check(dev)
+    phase("kernels", math_check=json.dumps(ieee, separators=(",", ":")),
+          seconds=f"{time.perf_counter() - t0:.3f}")
+    check(ieee["sqrt_mismatches"] == 0 and ieee["div_mismatches"] == 0,
+          f"branch-free sqrt / division differ from IEEE: {ieee}")
+
     rng = np.random.default_rng(0)
-    fleet = FleetState.from_nodes(make_scenario_cluster("mixed", N_NODES,
-                                                        seed=0))
-    n = len(fleet)
     specs = list(WORKLOADS.values())
-    inten = diurnal_fleet_signal().intensities(fleet.region, 3600.0)
-    kinds5 = np.stack([criteria_matrix(s.cpu_request, s.mem_request,
-                                       s.base_time_s, fleet) for s in specs])
-    kinds6 = np.stack([criteria_matrix(s.cpu_request, s.mem_request,
-                                       s.base_time_s, fleet,
-                                       carbon_intensity=inten)
-                       for s in specs])
+
+    def kind_tensor(nodes, carbon):
+        fleet = FleetState.from_nodes(make_scenario_cluster("mixed", nodes,
+                                                            seed=0))
+        inten = (diurnal_fleet_signal().intensities(fleet.region, 3600.0)
+                 if carbon else None)
+        return np.stack([criteria_matrix(s.cpu_request, s.mem_request,
+                                         s.base_time_s, fleet,
+                                         carbon_intensity=inten)
+                         for s in specs])
+    kinds5, kinds6 = kind_tensor(N_NODES, False), kind_tensor(N_NODES, True)
+    n = kinds5.shape[1]
     b5 = benefit_mask()
     b6 = benefit_mask(greenpod_criteria(carbon=True))
     w5, w6 = weights_for("energy_centric"), weights_for("energy_centric",
@@ -371,10 +413,28 @@ def kernel_phase(dev):
     valid = rng.random((BURST, n)) > 0.1          # ~10% invalid nodes
     grid_w = rng.dirichlet(np.ones(5), GRID_S)
     k = len(specs)
+    # one node more than N_NODES: N % 4 != 0, K3's and K4's scalar path
+    kinds5r = kind_tensor(N_NODES + 1, False)
+    valid_r = rng.random((BURST, n + 1)) > 0.1
+    grid_w6 = rng.dirichlet(np.ones(6), GRID_S)
 
     def f_row(c):       # operations per (pod, node) and scheme
         return 8 * c + 5
 
+    def kinds_bound(c, nn, masked):   # + one mask byte per (pod, node)
+        return bound(k * nn * c * 4 + BURST * 4 + 4 * BURST * c * 4
+                     + BURST * nn * (4 + masked), BURST * nn * f_row(c))
+
+    def grid_bound(c, nn, masked):
+        return bound(GRID_P * nn * c * 4 + GRID_P * c * 4
+                     + 3 * GRID_S * GRID_P * c * 4 + GRID_P * nn * masked
+                     + GRID_S * GRID_P * nn * 4,
+                     GRID_P * nn * c + GRID_S * GRID_P * nn * (f_row(c) - c))
+
+    def unmasked(args):
+        return args[:-2] + (None, args[-1])
+
+    # K1, K2: the kernel, then the wrapper's fill over its output
     cases = [
         ("topsis_single", tc.single, tc.single_plain,
          ops.single_operands(kinds5[0], w5, b5, valid=valid[0], device=dev),
@@ -385,23 +445,6 @@ def kernel_phase(dev):
          bound(BURST * n * 5 * 4 + 4 * BURST * 5 * 4 + BURST * n * 4,
                BURST * n * f_row(5)),
          dict(P=BURST, N=n, C=5), 100),
-        ("topsis_kinds", tc.kinds, tc.kinds_plain,
-         ops.kinds_operands(kinds5, kidx, w5, b5, valid=valid, device=dev),
-         bound(k * n * 5 * 4 + BURST * 4 + 4 * BURST * 5 * 4
-               + BURST * n * 4, BURST * n * f_row(5)),
-         dict(K=k, P=BURST, N=n, C=5), 200),
-        ("topsis_kinds", tc.kinds, tc.kinds_plain,
-         ops.kinds_operands(kinds6, kidx, w6, b6, valid=valid, device=dev),
-         bound(k * n * 6 * 4 + BURST * 4 + 4 * BURST * 6 * 4
-               + BURST * n * 4, BURST * n * f_row(6)),
-         dict(K=k, P=BURST, N=n, C=6), 200),
-        ("topsis_grid", tc.grid, tc.grid_plain,
-         ops.grid_operands(kinds5[kidx[:GRID_P]], grid_w, b5,
-                           valid=valid[:GRID_P], device=dev),
-         bound(GRID_P * n * 5 * 4 + GRID_P * 5 * 4
-               + 3 * GRID_S * GRID_P * 5 * 4 + GRID_S * GRID_P * n * 4,
-               GRID_P * n * 5 + GRID_S * GRID_P * n * (f_row(5) - 5)),
-         dict(S=GRID_S, P=GRID_P, N=n, C=5), 50),
     ]
     table = {}
     for name, kernel, plain, (args, vmask), (b_ms, b_by), shape, reps \
@@ -426,12 +469,98 @@ def kernel_phase(dev):
               plain_ms=f"{plain_ms:.6f}", bound_ms=f"{b_ms:.6f}",
               bound_us=f"{1e3 * b_ms:.3f}", bound_by=b_by,
               wrapper_launches=tc.LAUNCHES[name] - before)
+        table[name] = dict(
+            name=name, route="cuda", source=SOURCE,
+            replaces=tc.REPLACES[name], launches=0, max_abs_err=err, ms=ms,
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=None)
+
+    # K3, K4: the fill fused. (name, kernel, plain, args, the mask of the
+    # unfused pair (unmasked cases), bound, shape, timed reps, controls).
+    # Each kernel's first case is the main path's (masked, C = 5): its
+    # numbers make the kernel's row; every case's error counts.
+    k3 = ops.kinds_operands(kinds5, kidx, w5, b5, valid=valid, device=dev)
+    k3c6 = ops.kinds_operands(kinds6, kidx, w6, b6, valid=valid, device=dev)
+    k4 = ops.grid_operands(kinds5[kidx[:GRID_P]], grid_w, b5,
+                           valid=valid[:GRID_P], device=dev)
+    k4c6 = ops.grid_operands(kinds6[kidx[:GRID_P]], grid_w6, b6,
+                             valid=valid[:GRID_P], device=dev)
+    k3s = dict(K=k, P=BURST)
+    k4s = dict(S=GRID_S, P=GRID_P)
+    fused = [
+        ("topsis_kinds", k3, None, kinds_bound(5, n, 1),
+         dict(**k3s, N=n, C=5, mask=True), 200, True),
+        ("topsis_kinds", unmasked(k3), k3[-2], kinds_bound(5, n, 0),
+         dict(**k3s, N=n, C=5, mask=False), 200, False),
+        ("topsis_kinds", k3c6, None, kinds_bound(6, n, 1),
+         dict(**k3s, N=n, C=6, mask=True), 200, False),
+        ("topsis_kinds", unmasked(k3c6), k3c6[-2], kinds_bound(6, n, 0),
+         dict(**k3s, N=n, C=6, mask=False), 200, False),
+        ("topsis_kinds",
+         ops.kinds_operands(kinds5r, kidx, w5, b5, valid=valid_r, device=dev),
+         None, kinds_bound(5, n + 1, 1),
+         dict(**k3s, N=n + 1, C=5, mask=True), 200, False),
+        ("topsis_grid", k4, None, grid_bound(5, n, 1),
+         dict(**k4s, N=n, C=5, mask=True), 50, True),
+        ("topsis_grid", unmasked(k4), k4[-2], grid_bound(5, n, 0),
+         dict(**k4s, N=n, C=5, mask=False), 50, False),
+        ("topsis_grid", k4c6, None, grid_bound(6, n, 1),
+         dict(**k4s, N=n, C=6, mask=True), 50, False),
+        ("topsis_grid",
+         ops.grid_operands(kinds5r[kidx[:GRID_P]], grid_w, b5,
+                           valid=valid_r[:GRID_P], device=dev),
+         None, grid_bound(5, n + 1, 1),
+         dict(**k4s, N=n + 1, C=5, mask=True), 50, False),
+    ]
+    kernels = {"topsis_kinds": (tc.kinds, tc.kinds_plain),
+               "topsis_grid": (tc.grid, tc.grid_plain)}
+    for name, args, pair_mask, (b_ms, b_by), shape, reps, controls \
+            in fused:
+        kernel, plain = kernels[name]
+        before = tc.LAUNCHES[name]
+        got = kernel(*args)
+        want = plain(*args)
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        check(err <= TOL, f"{name} {shape}: max abs err {err} > {TOL}")
+        extra = {}
+        if controls:
+            nofill = control(got, plain(*unmasked(args)))
+            fewer = control(got, plain(*args[:-1], args[-1] - 1))
+            check(nofill == "pattern",
+                  f"{name}: the plain version without its fill passed")
+            check(fewer == "pattern" or fewer > TOL,
+                  f"{name}: the plain version over C - 1 criteria passed "
+                  f"({fewer})")
+            extra = dict(control_no_fill="rejected(-inf pattern)",
+                         control_c_minus_1=f"rejected({fewer:.3e})")
+        del want
+        out = torch.empty_like(got)
+        launch = raw_launch(name, args, out)
+        ms = cuda_ms(launch, reps)
+        check(launch() == 0, f"{name}: timed launch failed")
+        if pair_mask is not None:
+            def fill():
+                return ops.fill_invalid(out, pair_mask)
+            extra["fill_ms"] = f"{cuda_ms(fill, reps):.6f}"
+            extra["unfused_pair_ms"] = \
+                f"{cuda_ms(lambda: (launch(), fill()), reps):.6f}"
+        wrapper_ms = cuda_ms(lambda: kernel(*args), reps)
+        plain_ms = cuda_ms(lambda: plain(*args), max(reps // 10, 5))
+        phase("kernels", kernel=name, **shape, max_abs_err=f"{err:.3e}",
+              ms=f"{ms:.6f}", wrapper_ms=f"{wrapper_ms:.6f}",
+              plain_ms=f"{plain_ms:.6f}", bound_ms=f"{b_ms:.6f}",
+              bound_us=f"{1e3 * b_ms:.3f}", bound_by=b_by,
+              share_of_bound=f"{b_ms / ms:.3f}", **extra,
+              wrapper_launches=tc.LAUNCHES[name] - before)
         row = table.setdefault(name, dict(
             name=name, route="cuda", source=SOURCE,
             replaces=tc.REPLACES[name], launches=0, max_abs_err=err, ms=ms,
             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
             library_ms=None))
         row["max_abs_err"] = max(row["max_abs_err"], err)
+        del got, out
+        torch.cuda.empty_cache()
     return table
 
 
@@ -1046,16 +1175,15 @@ def make_timed_scheduler(dev, stats):
             ws = self.weights(nodes)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            args, vmask = ops.kinds_operands(self._dev, kind_idx, ws,
-                                             self._benefit, valid=valid,
-                                             device=dev)
+            args = ops.kinds_operands(self._dev, kind_idx, ws,
+                                      self._benefit, valid=valid, device=dev)
             torch.cuda.synchronize()
             stats["operands_s"] = time.perf_counter() - t0
+            # the round's launch: the mask in, the -inf fill fused
             out = tc.kinds(*args)
             launch = raw_launch("topsis_kinds", args, torch.empty_like(out))
             stats["kernel_s"] = cuda_ms(launch, 20) / 1e3
             stats["wrapper_s"] = cuda_ms(lambda: tc.kinds(*args), 20) / 1e3
-            out = ops.fill_invalid(out, vmask)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             host = out.cpu().numpy()
@@ -1814,8 +1942,10 @@ def main() -> int:
               "False); this script runs only on the card", file=sys.stderr)
         return 1
     if not all((ROOT / CSRC / f).is_file()
-               for f in ("topsis.cu", "flash_attention.cu", "rmsnorm.cu",
-                         "flash_attention_bwd.cu", "mma_bf16.cuh")):
+               for f in ("topsis.cu", "topsis_math.cuh",
+                         "topsis_math_check.cu", "flash_attention.cu",
+                         "rmsnorm.cu", "flash_attention_bwd.cu",
+                         "mma_bf16.cuh")):
         print(f"chip_smoke: {SRC / 'repro_torch'} not found; run from a "
               f"checkout of the repository", file=sys.stderr)
         return 1

@@ -7,33 +7,57 @@
 //   topsis_kinds_kernel    <- _topsis_kinds_kernel / topsis_closeness_kinds_blocks
 //   topsis_grid_kernel     <- _topsis_grid_kernel / topsis_closeness_grid_blocks
 //
-// Every kernel computes, per (pod, node) and over C_PAD = 8 criteria,
+// Every kernel computes, per (pod, node) and over the criteria,
 //   v   = x * inv_norm * w
 //   d+- = ||v - a+-||_2
-//   cc  = d- / max(d+ + d-, 1e-12), or 0.5 when d+ + d- <= 1e-12.
-// Column norms, weight normalisation and the masked ideal points a+- are
-// global reductions that the wrapper (repro_torch/kernels/ops.py) computes
-// in plain torch; it also writes -inf over infeasible nodes afterwards.
-// Padded criteria carry zeros in inv_norm, w and a+-, so they add nothing.
+//   cc  = d- / max(d+ + d-, 1e-12), or 0.5 when d+ + d- <= 1e-12,
+// with IEEE sqrtf and division (no fast-math), the criteria summed in
+// order. Column norms, weight normalisation and the masked ideal points
+// a+- are global reductions that the wrapper (repro_torch/kernels/ops.py)
+// computes in plain torch. Padded criteria carry zeros in inv_norm, w and
+// a+-, so they add exact zeros.
 //
 // Layout. The TPU kernels keep criteria on sublanes and nodes on lanes,
 // (8, N). Hopper has no lanes: here the criteria are row-major (..., N, 8)
-// float32, so one thread owns one (pod, node), reads its 32-byte row as two
-// float4 loads (neighbouring threads read neighbouring rows: coalesced),
-// keeps the row in registers, and writes one float.
+// float32, each row 32 bytes.
 //
-// Bound. Each kernel does ~50 flops per 36 bytes moved (a 32-byte row in,
-// a 4-byte closeness out), far below the card's flop:byte balance, so all
-// four are bound by device-memory bytes. The design moves each byte once:
-//   * the grid is (ceil(N / 256), P); a block's pod is blockIdx.y, so its
-//     small operands are loaded once per block into shared memory;
-//   * the kinds kernel reads kind_idx[blockIdx.y] and offsets the criteria
-//     pointer, so it streams the (K, N, 8) per-kind tensor instead of a
-//     (P, N, 8) per-pod copy (the TPU kernel's scalar prefetch);
-//   * the grid kernel loops over the S weight schemes inside the thread:
-//     the criteria row is read once and reused for every scheme (the TPU
-//     kernel's "scheme axis innermost"); only the (S, P, N) output grows
-//     with S.
+// K1 and K2: one thread owns one (pod, node), reads its row as two float4
+// loads (neighbouring threads read neighbouring rows: coalesced) and
+// writes one float; the grid is (ceil(N / 256), P) and a block's pod
+// operands go to shared memory once. The wrapper writes -inf over
+// infeasible nodes afterwards.
+//
+// K3 and K4 write 4 consecutive nodes a thread, as one float4 streaming
+// store, and sum only the C real criteria (a template on C, 1..8). Both
+// take the (P, N) feasibility mask, read as one 32-bit word per 4 nodes,
+// and write -inf where it is 0: the fill the wrappers of K1 and K2 run as
+// a second pass over the output is fused into the store. Bound: an
+// output is 4 bytes written against ~41 float32 instructions of its own
+// (5 a real criterion, two IEEE square roots and one IEEE division at
+// ~10 each) and ~20 of loads, tests and addressing, so both kernels are
+// bound by instruction issue, not by bytes (~64 an output in K3, ~55 in
+// K4). The designs keep the rest off that path:
+//   * the square roots and the division take the branch-free sequences of
+//     topsis_math.cuh, warp by warp, wherever they equal sqrtf and '/'
+//     bit for bit (finish_quad), which drops the slow-path branches;
+//   * K3 (the scheduling round): a block owns a tile of 128 nodes (a
+//     warp's width) and a chunk of 96 pods, split among its 8 warps. It
+//     stages the tile's rows of all K kinds, real criteria only,
+//     transposed to (kind, criterion, node) in shared memory, and the
+//     chunk's small operands and kind indices: each thread issues all of
+//     its staging loads before it waits on any, and no thread waits on
+//     more than that one round of loads before its first store. Each warp
+//     then loops over its pods reading 4 nodes of a criterion as one
+//     float4 (conflict-free). A kind tensor too large to stage is read
+//     from global memory instead (STAGED = false, slower). A pod
+//     whose kind is outside [0, K) gets NaN.
+//   * K4 (the weight grid): a block owns 512 nodes of one pod. Each thread
+//     reads and normalises its 4 rows and its 4 mask bytes once; the
+//     schemes' (w, a+, a-) go to shared memory in chunks of 64 and are
+//     read as broadcasts, each reused over the thread's 4 nodes.
+//   * Where N % 4 != 0 a pod's row of the output is not 16-byte aligned:
+//     VEC = false stores and reads the mask byte by byte; nodes past N are
+//     never stored.
 //
 // C interface, loaded with ctypes by repro_torch/kernels/topsis_cuda.py.
 // Each entry point launches on the given stream, does not synchronise, and
@@ -42,11 +66,35 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "topsis_math.cuh"
+
 namespace {
 
 constexpr int C_PAD = 8;
 constexpr int BLOCK = 256;
 constexpr float EPS = 1e-12f;
+constexpr int QUAD = 4;                       // K3, K4: nodes a thread
+// K3: K3_LANES threads side by side cover a tile of K3_TILE nodes; the
+// block's K3_GROUPS such groups share the tile and split the pod chunk.
+constexpr int K3_THREADS = 256;
+constexpr int K3_LANES = 32;
+constexpr int K3_TILE = QUAD * K3_LANES;
+constexpr int K3_GROUPS = K3_THREADS / K3_LANES;
+static_assert(K3_LANES % 32 == 0, "a pod group is whole warps");
+static_assert(K3_THREADS % K3_TILE == 0, "whole tile rows a staging pass");
+constexpr int POD_CHUNK = 96;                 // pods a block
+constexpr int SMALL_PIECES = (POD_CHUNK * 8 + K3_THREADS - 1) / K3_THREADS;
+constexpr int ROW_BATCH = 4;                  // kind rows in flight a thread
+constexpr size_t STAGE_MAX_BYTES = 96 * 1024;  // staged kind rows, at most
+// K4
+constexpr int K4_THREADS = 128;
+constexpr int K4_TILE = QUAD * K4_THREADS;
+constexpr int SCHEME_CHUNK = 64;              // schemes staged at a time
+
+__device__ __forceinline__ float nan_f() { return __int_as_float(0x7fc00000); }
+__device__ __forceinline__ float neg_inf_f() {
+  return __int_as_float(0xff800000);
+}
 
 __device__ __forceinline__ void load_row(const float* __restrict__ x,
                                          int64_t row, float (&r)[C_PAD]) {
@@ -57,8 +105,16 @@ __device__ __forceinline__ void load_row(const float* __restrict__ x,
   r[4] = hi.x; r[5] = hi.y; r[6] = hi.z; r[7] = hi.w;
 }
 
+// The closeness of summed squared distances: square roots, the 1e-12 rule.
+__device__ __forceinline__ float finish(float sp, float sn) {
+  const float d_pos = sqrtf(sp);
+  const float d_neg = sqrtf(sn);
+  const float denom = d_pos + d_neg;
+  return denom <= EPS ? 0.5f : d_neg / fmaxf(denom, EPS);
+}
+
 // u = x * inv_norm (the normalised row); weight, distances, closeness.
-// The one closeness routine every kernel shares.
+// K1 and K2's closeness routine, over all C_PAD criteria.
 __device__ __forceinline__ float closeness(const float (&u)[C_PAD],
                                            const float* w,
                                            const float* a_pos,
@@ -72,10 +128,95 @@ __device__ __forceinline__ float closeness(const float (&u)[C_PAD],
     sp += dp * dp;
     sn += dn * dn;
   }
-  const float d_pos = sqrtf(sp);
-  const float d_neg = sqrtf(sn);
-  const float denom = d_pos + d_neg;
-  return denom <= EPS ? 0.5f : d_neg / fmaxf(denom, EPS);
+  return finish(sp, sn);
+}
+
+// finish() of QUAD nodes' sums. Every lane of the warp calls it; where
+// every lane's sums are in sqrt_in's range (all but degenerate rows:
+// distance 0, or no valid node) the warp takes the branch-free sequences
+// of topsis_math.cuh, else finish() for the quad: the same bits either
+// way.
+__device__ __forceinline__ void finish_quad(const float (&sp)[QUAD],
+                                            const float (&sn)[QUAD],
+                                            float (&cc)[QUAD]) {
+  bool fast = true;
+#pragma unroll
+  for (int j = 0; j < QUAD; ++j)
+    fast &= sqrt_in_range(sp[j]) & sqrt_in_range(sn[j]);
+  if (__all_sync(0xffffffffu, fast)) {
+#pragma unroll
+    for (int j = 0; j < QUAD; ++j) {
+      const float d_pos = sqrt_in(sp[j]);
+      const float d_neg = sqrt_in(sn[j]);
+      const float denom = d_pos + d_neg;
+      cc[j] = denom <= EPS ? 0.5f : div_in(d_neg, denom);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < QUAD; ++j) cc[j] = finish(sp[j], sn[j]);
+  }
+}
+
+// K3 and K4's closeness routine: QUAD nodes' normalised rows u[c][j]
+// against one operand set, over the C real criteria in order.
+template <int C>
+__device__ __forceinline__ void score_quad(const float (&u)[C][QUAD],
+                                           const float* w,
+                                           const float* a_pos,
+                                           const float* a_neg,
+                                           float (&cc)[QUAD]) {
+  float sp[QUAD] = {}, sn[QUAD] = {};
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const float wc = w[c], ap = a_pos[c], an = a_neg[c];
+#pragma unroll
+    for (int j = 0; j < QUAD; ++j) {
+      const float v = u[c][j] * wc;
+      const float dp = v - ap;
+      const float dn = v - an;
+      sp[j] += dp * dp;
+      sn[j] += dn * dn;
+    }
+  }
+  finish_quad(sp, sn, cc);
+}
+
+// Mask bytes of nodes o .. o + 3 of a (P, N) row-major mask (null: all
+// valid), of the cnt nodes that exist: VEC reads them as one aligned
+// 32-bit word (cnt is then 0 or 4), else byte by byte.
+template <bool VEC>
+__device__ __forceinline__ uint32_t load_mask(const uint8_t* __restrict__ valid,
+                                              int64_t o, int cnt) {
+  if (valid == nullptr) return 0x01010101u;
+  if (VEC)
+    return cnt ? __ldg(reinterpret_cast<const unsigned int*>(valid + o)) : 0u;
+  uint32_t m = 0;
+#pragma unroll
+  for (int j = 0; j < QUAD; ++j)
+    if (j < cnt) m |= uint32_t(__ldg(valid + o + j)) << (8 * j);
+  return m;
+}
+
+// -inf where the mask byte is 0, then a streaming store of the cnt nodes
+// (the output is next read by the device-to-host copy, not by this
+// kernel).
+template <bool VEC>
+__device__ __forceinline__ void store_quad(float* __restrict__ out, int64_t o,
+                                           int cnt, uint32_t mask,
+                                           const float (&cc)[QUAD]) {
+  float r[QUAD];
+#pragma unroll
+  for (int j = 0; j < QUAD; ++j)
+    r[j] = (mask >> (8 * j)) & 0xffu ? cc[j] : neg_inf_f();
+  if (VEC) {
+    if (cnt)
+      __stcs(reinterpret_cast<float4*>(out + o),
+             make_float4(r[0], r[1], r[2], r[3]));
+  } else {
+#pragma unroll
+    for (int j = 0; j < QUAD; ++j)
+      if (j < cnt) __stcs(out + o + j, r[j]);
+  }
 }
 
 // Loads one pod's four (C_PAD,) small operands into shared memory:
@@ -135,58 +276,226 @@ topsis_batched_kernel(const float* __restrict__ x,
 
 // K3: a (K, N, 8) per-kind tensor plus kind_idx (P,) -> (P, N). Pod p
 // reads the criteria rows of kind kind_idx[p]; a kind outside [0, K)
-// writes NaN over the pod's row instead of reading out of bounds.
-__global__ void __launch_bounds__(BLOCK)
+// gives NaN over the pod's row instead of reading out of bounds. valid is
+// the (P, N) mask or null. Grid (ceil(N / K3_TILE), ceil(P / POD_CHUNK));
+// STAGED: dynamic shared memory of K * C * K3_TILE floats.
+template <int C, bool VEC, bool STAGED>
+__global__ void __launch_bounds__(K3_THREADS)
 topsis_kinds_kernel(const int32_t* __restrict__ kind_idx, int k,
                     const float* __restrict__ x,
                     const float* __restrict__ inv_norm,
                     const float* __restrict__ w,
                     const float* __restrict__ a_pos,
                     const float* __restrict__ a_neg,
-                    float* __restrict__ out, int n) {
-  __shared__ float s[4 * C_PAD];
-  const int64_t pod = blockIdx.y;
-  load_small(s, pod, inv_norm, w, a_pos, a_neg);
-  const int64_t i = int64_t(blockIdx.x) * BLOCK + threadIdx.x;
-  if (i >= n) return;
-  const int kind = __ldg(kind_idx + pod);
-  if (kind < 0 || kind >= k) {
-    out[pod * n + i] = __int_as_float(0x7fc00000);
-    return;
+                    const uint8_t* __restrict__ valid,
+                    float* __restrict__ out, int n, int p) {
+  extern __shared__ float4 staged4[];
+  __shared__ __align__(16) float small[POD_CHUNK][4 * C_PAD];
+  __shared__ int kinds[POD_CHUNK];
+  float* staged = reinterpret_cast<float*>(staged4);
+  const int t = threadIdx.x;
+  const int tile0 = blockIdx.x * K3_TILE;
+  const int pod0 = blockIdx.y * POD_CHUNK;
+  const int pods = min(POD_CHUNK, p - pod0);
+
+  // Staging: every load a thread makes is issued before any is waited on.
+  // The small operands as float4 pieces (8 a pod: 2 of each operand).
+#pragma unroll
+  for (int j = 0; j < SMALL_PIECES; ++j) {
+    const int i = t + j * K3_THREADS;
+    if (i < pods * 8) {
+      const int q = i / 8, part = i % 8, op = part / 2;
+      const float* src = op == 0 ? inv_norm : op == 1 ? w
+                       : op == 2 ? a_pos : a_neg;
+      *reinterpret_cast<float4*>(&small[q][4 * part]) = __ldg(
+          reinterpret_cast<const float4*>(src + int64_t(pod0 + q) * C_PAD)
+          + part % 2);
+    }
   }
-  out[pod * n + i] = score_row(x, int64_t(kind) * n + i, s);
+  for (int i = t; i < pods; i += K3_THREADS)
+    kinds[i] = __ldg(kind_idx + pod0 + i);
+  if (STAGED) {
+    // the tile's rows of every kind, ROW_BATCH kinds a thread at a time
+    constexpr int STRIDE = K3_THREADS / K3_TILE;
+    const int node = t % K3_TILE;
+    const bool in = tile0 + node < n;
+    for (int kind0 = t / K3_TILE; kind0 < k; kind0 += ROW_BATCH * STRIDE) {
+      float r[ROW_BATCH][C_PAD] = {};
+#pragma unroll
+      for (int b = 0; b < ROW_BATCH; ++b)
+        if (in && kind0 + b * STRIDE < k)
+          load_row(x, int64_t(kind0 + b * STRIDE) * n + tile0 + node, r[b]);
+#pragma unroll
+      for (int b = 0; b < ROW_BATCH; ++b)
+        if (kind0 + b * STRIDE < k)
+#pragma unroll
+          for (int c = 0; c < C; ++c)
+            staged[((kind0 + b * STRIDE) * C + c) * K3_TILE + node] = r[b][c];
+    }
+  }
+  __syncthreads();
+
+  // lanes past N run the loop on zero rows (finish_quad wants the whole
+  // warp) and store nothing
+  const int node0 = (t % K3_LANES) * QUAD;
+  const int64_t g0 = int64_t(tile0) + node0;
+  const int cnt = g0 < n ? min(QUAD, n - int(g0)) : 0;
+  for (int q = t / K3_LANES; q < pods; q += K3_GROUPS) {
+    const int64_t o = int64_t(pod0 + q) * n + g0;
+    const uint32_t mask = load_mask<VEC>(valid, o, cnt);
+    const int kind = kinds[q];
+    const float* s = small[q];
+    float cc[QUAD];
+    if (kind < 0 || kind >= k) {
+#pragma unroll
+      for (int j = 0; j < QUAD; ++j) cc[j] = nan_f();
+    } else {
+      float u[C][QUAD];
+      if (STAGED) {
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          const float4 xv = *reinterpret_cast<const float4*>(
+              staged + (kind * C + c) * K3_TILE + node0);
+          u[c][0] = xv.x * s[c]; u[c][1] = xv.y * s[c];
+          u[c][2] = xv.z * s[c]; u[c][3] = xv.w * s[c];
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < QUAD; ++j) {
+          float r[C_PAD] = {};
+          if (j < cnt) load_row(x, int64_t(kind) * n + g0 + j, r);
+#pragma unroll
+          for (int c = 0; c < C; ++c) u[c][j] = r[c] * s[c];
+        }
+      }
+      score_quad<C>(u, s + C_PAD, s + 2 * C_PAD, s + 3 * C_PAD, cc);
+    }
+    store_quad<VEC>(out, o, cnt, mask, cc);
+  }
 }
 
 // K4: a (P, N, 8) queue tensor under S weight schemes. inv_norm is per pod
-// (P, 8); w, a_pos and a_neg are per (scheme, pod), (S, P, 8). Output
-// (S, P, N). The row is read and normalised once, then scored S times.
-__global__ void __launch_bounds__(BLOCK)
+// (P, 8); w, a_pos and a_neg are per (scheme, pod), (S, P, 8); valid is
+// the (P, N) mask, shared by every scheme, or null. Output (S, P, N).
+// Grid (ceil(N / K4_TILE), P). The rows and mask are read and the rows
+// normalised once, then scored S times.
+template <int C, bool VEC>
+__global__ void __launch_bounds__(K4_THREADS)
 topsis_grid_kernel(const float* __restrict__ x,
                    const float* __restrict__ inv_norm,
                    const float* __restrict__ w,
                    const float* __restrict__ a_pos,
                    const float* __restrict__ a_neg,
+                   const uint8_t* __restrict__ valid,
                    float* __restrict__ out, int n, int p, int s_count) {
+  __shared__ __align__(16) float ops[SCHEME_CHUNK][3 * C_PAD];
   __shared__ float inv[C_PAD];
+  const int t = threadIdx.x;
   const int64_t pod = blockIdx.y;
-  if (threadIdx.x < C_PAD) inv[threadIdx.x] = inv_norm[pod * C_PAD + threadIdx.x];
-  __syncthreads();
-  const int64_t i = int64_t(blockIdx.x) * BLOCK + threadIdx.x;
-  if (i >= n) return;
-  float u[C_PAD];
-  load_row(x, pod * n + i, u);
+  const int64_t g0 = (int64_t(blockIdx.x) * K4_THREADS + t) * QUAD;
+  const int cnt = g0 < n ? min(QUAD, n - int(g0)) : 0;
+  const int64_t o = pod * n + g0;
+
+  float r[QUAD][C_PAD] = {};
 #pragma unroll
-  for (int c = 0; c < C_PAD; ++c) u[c] *= inv[c];
-  for (int s = 0; s < s_count; ++s) {
-    const int64_t sp = (int64_t(s) * p + pod) * C_PAD;
-    out[(int64_t(s) * p + pod) * n + i] =
-        closeness(u, w + sp, a_pos + sp, a_neg + sp);
+  for (int j = 0; j < QUAD; ++j)
+    if (j < cnt) load_row(x, o + j, r[j]);
+  const uint32_t mask = load_mask<VEC>(valid, o, cnt);
+  if (t < C_PAD) inv[t] = __ldg(inv_norm + pod * C_PAD + t);
+  __syncthreads();
+  float u[C][QUAD];
+#pragma unroll
+  for (int c = 0; c < C; ++c)
+#pragma unroll
+    for (int j = 0; j < QUAD; ++j) u[c][j] = r[j][c] * inv[c];
+
+  for (int s0 = 0; s0 < s_count; s0 += SCHEME_CHUNK) {
+    const int sc = min(SCHEME_CHUNK, s_count - s0);
+    __syncthreads();                  // every thread is done with ops
+    for (int i = t; i < sc * 3 * C_PAD; i += K4_THREADS) {
+      const int q = i / (3 * C_PAD), rr = i % (3 * C_PAD);
+      const float* src = rr < C_PAD ? w : rr < 2 * C_PAD ? a_pos : a_neg;
+      ops[q][rr] = __ldg(src + (int64_t(s0 + q) * p + pod) * C_PAD
+                         + rr % C_PAD);
+    }
+    __syncthreads();
+    for (int q = 0; q < sc; ++q) {
+      float cc[QUAD];
+      score_quad<C>(u, ops[q], ops[q] + C_PAD, ops[q] + 2 * C_PAD, cc);
+      store_quad<VEC>(out, (int64_t(s0 + q) * p) * n + o, cnt, mask, cc);
+    }
   }
 }
 
 inline dim3 grid_for(int n, int p) {
   return dim3((unsigned)((n + BLOCK - 1) / BLOCK), (unsigned)p);
 }
+
+inline unsigned tiles(int n, int tile) {
+  return (unsigned)((n + tile - 1) / tile);
+}
+
+struct KindsArgs {
+  const int32_t* kind_idx; int k; const float* x; const float* inv_norm;
+  const float* w; const float* a_pos; const float* a_neg;
+  const uint8_t* valid; float* out; int n; int p;
+};
+
+template <int C, bool VEC, bool STAGED>
+int launch_kinds(const KindsArgs& a, cudaStream_t st) {
+  const size_t smem = STAGED ? size_t(a.k) * C * K3_TILE * sizeof(float) : 0;
+  auto kernel = topsis_kinds_kernel<C, VEC, STAGED>;
+  if (smem)   // past the default limit of 48 KB less the static arrays
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)smem);
+  const dim3 grid(tiles(a.n, K3_TILE),
+                  (unsigned)((a.p + POD_CHUNK - 1) / POD_CHUNK));
+  kernel<<<grid, K3_THREADS, smem, st>>>(a.kind_idx, a.k, a.x, a.inv_norm,
+                                           a.w, a.a_pos, a.a_neg, a.valid,
+                                           a.out, a.n, a.p);
+  return (int)cudaGetLastError();
+}
+
+template <int C>
+int kinds_for_c(const KindsArgs& a, cudaStream_t st) {
+  const bool vec = a.n % QUAD == 0;
+  const bool staged =
+      size_t(a.k) * C * K3_TILE * sizeof(float) <= STAGE_MAX_BYTES;
+  if (vec)
+    return staged ? launch_kinds<C, true, true>(a, st)
+                  : launch_kinds<C, true, false>(a, st);
+  return staged ? launch_kinds<C, false, true>(a, st)
+                : launch_kinds<C, false, false>(a, st);
+}
+
+struct GridArgs {
+  const float* x; const float* inv_norm; const float* w; const float* a_pos;
+  const float* a_neg; const uint8_t* valid; float* out; int n; int p; int s;
+};
+
+template <int C>
+int grid_for_c(const GridArgs& a, cudaStream_t st) {
+  const dim3 grid(tiles(a.n, K4_TILE), (unsigned)a.p);
+  if (a.n % QUAD == 0)
+    topsis_grid_kernel<C, true><<<grid, K4_THREADS, 0, st>>>(
+        a.x, a.inv_norm, a.w, a.a_pos, a.a_neg, a.valid, a.out, a.n, a.p,
+        a.s);
+  else
+    topsis_grid_kernel<C, false><<<grid, K4_THREADS, 0, st>>>(
+        a.x, a.inv_norm, a.w, a.a_pos, a.a_neg, a.valid, a.out, a.n, a.p,
+        a.s);
+  return (int)cudaGetLastError();
+}
+
+// One instantiation per number of real criteria, indexed by C - 1.
+using KindsFn = int (*)(const KindsArgs&, cudaStream_t);
+using GridFn = int (*)(const GridArgs&, cudaStream_t);
+constexpr KindsFn KINDS_BY_C[C_PAD] = {
+    kinds_for_c<1>, kinds_for_c<2>, kinds_for_c<3>, kinds_for_c<4>,
+    kinds_for_c<5>, kinds_for_c<6>, kinds_for_c<7>, kinds_for_c<8>};
+constexpr GridFn GRID_BY_C[C_PAD] = {
+    grid_for_c<1>, grid_for_c<2>, grid_for_c<3>, grid_for_c<4>,
+    grid_for_c<5>, grid_for_c<6>, grid_for_c<7>, grid_for_c<8>};
 
 }  // namespace
 
@@ -210,23 +519,28 @@ int topsis_batched(const float* x, const float* inv_norm, const float* w,
   return (int)cudaGetLastError();
 }
 
+// c: the number of real criteria, 1..8 (the rows stay 8 wide); valid: the
+// (P, N) bool mask or null.
 int topsis_kinds(const int32_t* kind_idx, int k, const float* x,
                  const float* inv_norm, const float* w, const float* a_pos,
-                 const float* a_neg, float* out, int n, int p, int device,
-                 void* stream) {
+                 const float* a_neg, const uint8_t* valid, float* out, int n,
+                 int p, int c, int device, void* stream) {
+  if (c < 1 || c > C_PAD) return (int)cudaErrorInvalidValue;
   cudaSetDevice(device);
-  topsis_kinds_kernel<<<grid_for(n, p), BLOCK, 0, (cudaStream_t)stream>>>(
-      kind_idx, k, x, inv_norm, w, a_pos, a_neg, out, n);
-  return (int)cudaGetLastError();
+  return KINDS_BY_C[c - 1](
+      KindsArgs{kind_idx, k, x, inv_norm, w, a_pos, a_neg, valid, out, n, p},
+      (cudaStream_t)stream);
 }
 
 int topsis_grid(const float* x, const float* inv_norm, const float* w,
-                const float* a_pos, const float* a_neg, float* out, int n,
-                int p, int s, int device, void* stream) {
+                const float* a_pos, const float* a_neg, const uint8_t* valid,
+                float* out, int n, int p, int s, int c, int device,
+                void* stream) {
+  if (c < 1 || c > C_PAD) return (int)cudaErrorInvalidValue;
   cudaSetDevice(device);
-  topsis_grid_kernel<<<grid_for(n, p), BLOCK, 0, (cudaStream_t)stream>>>(
-      x, inv_norm, w, a_pos, a_neg, out, n, p, s);
-  return (int)cudaGetLastError();
+  return GRID_BY_C[c - 1](
+      GridArgs{x, inv_norm, w, a_pos, a_neg, valid, out, n, p, s},
+      (cudaStream_t)stream);
 }
 
 const char* topsis_error_string(int code) {

@@ -5,9 +5,10 @@ flash attention (K5 forward, K6 and K7 backward) follow them.
 
 Each wrapper computes in plain torch what XLA computed outside the Pallas
 call — weight normalisation, column norms, ``inv_norm``, the masked ideal
-points — pads the criteria axis to ``C_PAD = 8``, launches the kernel
-(``repro_torch.kernels.topsis_cuda``) and writes ``-inf`` over invalid
-rows. On CUDA tensors that is the hand-written kernel; on CPU tensors the
+points — pads the criteria axis to ``C_PAD = 8`` and launches the kernel
+(``repro_torch.kernels.topsis_cuda``); ``-inf`` goes over invalid rows,
+written by K3 and K4 themselves and after K1 and K2 by ``fill_invalid``.
+On CUDA tensors that is the hand-written kernel; on CPU tensors the
 kernel's plain PyTorch version (the path the CPU tests take). Inputs may be
 numpy arrays or tensors; ``device=None`` keeps a tensor input where it is
 and sends numpy input to the card.
@@ -84,16 +85,16 @@ def _inv_norm(m: torch.Tensor) -> torch.Tensor:
     return 1.0 / torch.clamp_min(norms, _EPS)
 
 
-def fill_invalid(cc: torch.Tensor, valid: torch.Tensor | None):
-    """-inf over the invalid entries of a kernel's closeness."""
-    return cc if valid is None else torch.where(valid, cc, -torch.inf)
+fill_invalid = _tc.fill_invalid
 
 
 # Each ``*_operands`` function prepares one kernel's arguments — the
-# global reductions and the C_PAD padding — and returns them with the
-# validity mask; the public wrapper below it launches the kernel on them
-# and writes -inf over invalid rows. chip_smoke.py feeds the same operands
-# to a kernel and to its plain version.
+# global reductions and the C_PAD padding. K1's and K2's return them with
+# the validity mask, and their public wrappers write -inf over invalid
+# rows after the kernel; K3's and K4's return the mask and the number of
+# real criteria among the kernel's arguments, and the kernel writes the
+# -inf itself. chip_smoke.py feeds the same operands to a kernel and to
+# its plain version.
 def single_operands(matrix, weights, benefit, *, valid=None, device=None):
     """K1 operands for an (N, C) matrix: ``((x, inv_norm, w, a_pos,
     a_neg), valid)``."""
@@ -150,8 +151,16 @@ def topsis_closeness_batched(mats, weights, benefit, *, valid=None,
 
 
 def grid_operands(mats, weights, benefit, *, valid=None, device=None):
-    """K4 operands for a (P, N, C) queue tensor under (S, C) weights; the
-    returned mask is (1, P, N), broadcasting over schemes."""
+    """K4 operands for a (P, N, C) queue tensor under (S, C) weights:
+    ``(x, inv_norm, w, a_pos, a_neg, valid, c)`` with ``valid`` the (P, N)
+    mask every scheme shares (or None).
+
+    The ideal points come without the (S, P, N, C) weighted tensor: for a
+    fixed weight, rounding ``u * w`` is monotone in ``u`` (non-decreasing
+    for w >= 0, non-increasing for w < 0), so the masked max and min of
+    ``v = u * w`` over a pod's nodes are ``w`` times the masked max or min
+    of ``u = x * inv_norm`` — the same floats as reducing v itself. A pod
+    with no valid node gets ``masked_ideal_points``' +-inf."""
     dev = _device_for(mats, device)
     benefit = np.asarray(benefit, dtype=bool)
     c = len(benefit)
@@ -163,34 +172,48 @@ def grid_operands(mats, weights, benefit, *, valid=None, device=None):
     s = ws.shape[0]
     ws = ws / torch.clamp_min(torch.sum(ws, dim=-1, keepdim=True), _EPS)
     valid = as_mask(valid, dev)
-    valid = None if valid is None else valid[None]
     inv_norm = _inv_norm(m[..., :c])                              # (P, C)
-    # (S, P, N, C) weighted normalized tensor — only for the ideal-point
-    # reductions; the kernel recomputes v rowwise from the (P, N, C) data
-    v = m[None, ..., :c] * inv_norm[None, :, None, :] * ws[:, None, None, :]
-    a_pos, a_neg = _topsis.masked_ideal_points(v, benefit, valid)  # (S, P, C)
-    wsp = torch.broadcast_to(ws[:, None, :], (s, p, c))
-    return tuple(map(_pad_c, (m, inv_norm, wsp, a_pos, a_neg))), valid
+    u = m[..., :c] * inv_norm[:, None, :]                         # (P, N, C)
+    if valid is None:
+        u_hi, u_lo = torch.amax(u, dim=1), torch.amin(u, dim=1)
+    else:
+        keep = valid[..., None]
+        u_hi = torch.amax(torch.where(keep, u, -torch.inf), dim=1)
+        u_lo = torch.amin(torch.where(keep, u, torch.inf), dim=1)
+    w3 = ws[:, None, :]                                           # (S, 1, C)
+    up = w3 >= 0
+    v_hi = torch.where(up, w3 * u_hi, w3 * u_lo)                  # (S, P, C)
+    v_lo = torch.where(up, w3 * u_lo, w3 * u_hi)
+    ben = torch.as_tensor(benefit, device=dev)
+    a_pos = torch.where(ben, v_hi, v_lo)
+    a_neg = torch.where(ben, v_lo, v_hi)
+    if valid is not None:
+        inf = torch.tensor(torch.inf, device=dev)
+        some = torch.any(valid, dim=1)[:, None]                   # (P, 1)
+        a_pos = torch.where(some, a_pos, torch.where(ben, -inf, inf))
+        a_neg = torch.where(some, a_neg, torch.where(ben, inf, -inf))
+    wsp = torch.broadcast_to(w3, (s, p, c))
+    return tuple(map(_pad_c, (m, inv_norm, wsp, a_pos, a_neg))) + (valid, c)
 
 
 def topsis_closeness_grid(mats, weights, benefit, *, valid=None,
                           device=None) -> torch.Tensor:
     """(S, P, N) closeness for a (P, N, C) queue tensor under an (S, C)
     weight-scheme grid; C <= 8. Column norms are scheme-independent and
-    computed once per pod; the per-(scheme, pod) ideal points are global
-    reductions in torch; the kernel reads each criteria row once and
-    scores it under all S schemes. ``valid`` is the usual (P, N)
-    feasibility mask, shared by every scheme. K4."""
-    args, valid = grid_operands(mats, weights, benefit, valid=valid,
-                                device=device)
-    return fill_invalid(_tc.grid(*args), valid)
+    computed once per pod, and so are the masked column extremes the
+    per-(scheme, pod) ideal points are read from; the kernel reads each
+    criteria row once and scores it under all S schemes. ``valid`` is the
+    usual (P, N) feasibility mask, shared by every scheme. K4."""
+    return _tc.grid(*grid_operands(mats, weights, benefit, valid=valid,
+                                   device=device))
 
 
 def kinds_operands(mats_kinds, kind_idx, weights, benefit, *, valid=None,
                    device=None):
-    """K3 operands: ``((kind_idx, x, inv_norm, w, a_pos, a_neg), valid)``
-    with ``kind_idx`` int32 on the device and ``x`` the (K, N, C_PAD)
-    kind tensor (an already padded contiguous one is used in place)."""
+    """K3 operands: ``(kind_idx, x, inv_norm, w, a_pos, a_neg, valid, c)``
+    with ``kind_idx`` int32 on the device, ``x`` the (K, N, C_PAD) kind
+    tensor (an already padded contiguous one is used in place) and
+    ``valid`` the (P, N) mask or None."""
     dev = _device_for(mats_kinds, device)
     benefit = np.asarray(benefit, dtype=bool)
     c = len(benefit)
@@ -207,8 +230,8 @@ def kinds_operands(mats_kinds, kind_idx, weights, benefit, *, valid=None,
     inv_norm = _inv_norm(m[..., :c])[kidx.long()]                 # (P, C)
     v = m[..., :c][kidx.long()] * inv_norm[:, None, :] * w[:, None, :]
     a_pos, a_neg = _topsis.masked_ideal_points(v, benefit, valid)  # (P, C)
-    return (kidx,) + tuple(map(_pad_c, (m, inv_norm, w, a_pos, a_neg))), \
-        valid
+    return (kidx,) + tuple(map(_pad_c, (m, inv_norm, w, a_pos, a_neg))) \
+        + (valid, c)
 
 
 def topsis_closeness_kinds(mats_kinds, kind_idx, weights, benefit, *,
@@ -224,9 +247,8 @@ def topsis_closeness_kinds(mats_kinds, kind_idx, weights, benefit, *,
     to the per-pod reduction because each pod's rows ARE its kind's rows.
     Ideal points stay per pod (``valid`` differs pod to pod); ``weights``
     is (C,) shared or (P, C) per pod; invalid -> -inf. K3."""
-    args, valid = kinds_operands(mats_kinds, kind_idx, weights, benefit,
-                                 valid=valid, device=device)
-    return fill_invalid(_tc.kinds(*args), valid)
+    return _tc.kinds(*kinds_operands(mats_kinds, kind_idx, weights, benefit,
+                                     valid=valid, device=device))
 
 
 # --- RMSNorm ----------------------------------------------------------------

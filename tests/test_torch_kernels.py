@@ -158,6 +158,20 @@ def test_ctypes_signatures_match_the_cuda_source():
     assert len(re.findall(r"__global__", src)) == 4
 
 
+def test_math_check_signature_matches_its_source():
+    """The card's check of K3's and K4's branch-free square root and
+    division: its one C entry point against its binding."""
+    src = Path(topsis_cuda.MATH_CHECK.source).read_text()
+    for name, argtypes in topsis_cuda.MATH_CHECK.signatures.items():
+        m = re.search(rf"int {name}\(([^)]*)\)", src)
+        assert m, name
+        params = [p.strip() for p in m.group(1).split(",")]
+        assert [("*" in p) for p in params] == \
+            [t is topsis_cuda._PTR for t in argtypes], name
+    with pytest.raises(ValueError, match="on the card"):
+        topsis_cuda.math_check(torch.device("cpu"))
+
+
 # --- on the card -------------------------------------------------------------
 @pytest.mark.gpu
 def test_cuda_kernels_match_plain_versions():
@@ -191,3 +205,59 @@ def test_cuda_kernels_match_plain_versions():
         torch.cuda.synchronize()
         assert topsis_cuda.LAUNCHES[name] == before + 1
         _same(got.cpu(), run("cpu"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c", [5, 6, 8])
+def test_cuda_kinds_and_grid_match_plain_at_ragged_shapes(c):
+    """K3 and K4 against their plain versions on the card, masked and
+    unmasked: N not a multiple of 4 (the scalar path), of the 512-node tile
+    and below one 4-node group; P = 37 and S = 70 past the pod (32) and
+    scheme (64) chunks; K = 3 kinds staged in shared memory and K = 40
+    read from global memory; a pod of kind -1 and one of kind K give NaN
+    (and -inf where masked). Tolerance 1e-5: float32 with fused
+    multiply-adds where the plain version rounds each product."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run with -m gpu on the card)")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(c)
+    benefit = rng.random(c) > 0.5
+    for n, k, p, s in ((1003, 3, 37, 70), (1024, 3, 37, 70), (3, 3, 5, 2),
+                       (1001, 40, 9, 3)):
+        kinds = rng.uniform(0.05, 10.0, (k, n, c))
+        kidx = rng.integers(0, k, p)
+        valid = rng.random((p, n)) > 0.1
+        ws = rng.dirichlet(np.ones(c), max(p, s))
+        k3 = ops.kinds_operands(kinds, kidx, ws[:p], benefit, valid=valid,
+                                device=dev)
+        bad = k3[0].clone()
+        bad[1], bad[2] = -1, k
+        k4 = ops.grid_operands(kinds[kidx], ws[:s], benefit, valid=valid,
+                               device=dev)
+        for name, kernel, plain, args in (
+                ("topsis_kinds", topsis_cuda.kinds, topsis_cuda.kinds_plain,
+                 (bad,) + k3[1:]),
+                ("topsis_grid", topsis_cuda.grid, topsis_cuda.grid_plain,
+                 k4)):
+            for mask in (args[-2], None):
+                run = args[:-2] + (mask, c)
+                before = topsis_cuda.LAUNCHES[name]
+                got = kernel(*run)
+                torch.cuda.synchronize()
+                assert topsis_cuda.LAUNCHES[name] == before + 1
+                want = plain(*run)
+                assert torch.equal(torch.isnan(got), torch.isnan(want))
+                if name == "topsis_kinds":
+                    assert torch.isnan(want[1:3]).any()
+                _same(got.cpu(), want.cpu())
+
+
+@pytest.mark.gpu
+def test_branch_free_sqrt_and_division_are_ieee_on_the_card():
+    """csrc/topsis_math.cuh's sqrt_in equals sqrtf on every float of its
+    range and div_in equals '/' on 2^32 sampled quotients, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run with -m gpu on the card)")
+    counts = topsis_cuda.math_check(torch.device("cuda"))
+    assert counts["sqrt_mismatches"] == 0 and counts["div_mismatches"] == 0
+    assert counts["sqrt_tried"] > 1.9e9 and counts["div_tried"] > 4e9
