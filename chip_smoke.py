@@ -21,6 +21,11 @@ the card:
   of 512 pods through ``run_scenario(..., batch=True)`` on the ``cuda``
   backend — checking every batch round against the ``torch`` and float64
   ``numpy`` backends and the whole run against a ``numpy`` run (K1-K4);
+* the per-pod GreenPod path on the same fleet — 64 pods decided one at a
+  time, each bound before the next, on ``cuda`` (one K1 launch a
+  decision, on the resident mirror), ``torch`` and ``numpy`` — each
+  decision held to numpy on the same fleet, timed per backend, and one
+  clean decision profiled: K1 must be its only kernel;
 * the llama3-8b serving path at full width and depth with seeded random
   weights — 8 requests of 1024-2048 prompt tokens in waves of 4 through
   ``serve.engine.Engine``, prefill through the flash-attention kernel (K5)
@@ -48,14 +53,20 @@ K3 and K4 write the -inf over infeasible nodes themselves and sum only the
 real criteria: each is held against its plain version masked and
 unmasked, at C = 5 and 6 and at a ragged N (15,001 nodes), and timed
 masked and unmasked beside the unfused pair (the kernel, then the fill).
+K1 does its own reductions and fill in one cluster launch: it is held to
+its plain version from 1 to 65,536 nodes (past what the cluster holds on
+chip), with one valid node and none, and timed beside its launch floor
+and the unfused launches it replaces.
 
-The kernel checks are shown to reject planted faults: the K3 and K4 plain
-versions without their fill or over one criterion fewer, K5 with p rounded to
-bf16 or a key tile dropped, K8 rounded before its gamma multiply, K6/K7
-with dk and dv from one head of each GQA group, ds without its dd term, dq
-without its diagonal key tile, or (bf16) ds rounded to bf16 before K6's
-product, p or ds rounded to bf16 before K7's; at D = 256 also K5 and K7
-with only the first 128 columns of their outputs.
+The kernel checks are shown to reject planted faults: the K1, K3 and K4
+plain versions without their fill or over one criterion fewer, K1's with
+its ideal points over all rows or its norms over the valid rows only, K5
+with p rounded to bf16 or a key tile dropped, K8 rounded before its gamma
+multiply, K6/K7 with dk and dv from one head of each GQA group, ds
+without its dd term, dq without its diagonal key tile, or (bf16) ds
+rounded to bf16 before K6's product, p or ds rounded to bf16 before K7's;
+at D = 256 also K5 and K7 with only the first 128 columns of their
+outputs.
 
 Phases print one line each; the line before the last JSON line is the
 kernel table (one row per kernel, and one more per flash kernel for its
@@ -63,6 +74,11 @@ D = 256 instantiation, named ``<kernel>_d256``, whose launches are the
 gemma-7b paths'); the last line is ``{"ok": true, "device": {...}}``. Any
 failure exits non-zero before it. Without a CUDA device, or outside a
 checkout, it exits non-zero at once.
+
+    python3 chip_smoke.py --perpod-only
+
+runs only the per-pod decisions, in a checkout that holds a copy of this
+script (another commit's, to compare its per-pod path with this one's).
 """
 from __future__ import annotations
 
@@ -70,6 +86,7 @@ import collections
 import contextlib
 import gc
 import json
+import math
 import shutil
 import subprocess
 import sys
@@ -227,7 +244,11 @@ def raw_launch(name, args, out):
 
     def ptr(t):
         return None if t is None else t.data_ptr()
-    if name == "topsis_kinds":
+    if name == "topsis_single":
+        x, w, benefit, valid, c = args
+        raw = (x.data_ptr(), ptr(valid), out.data_ptr(), x.shape[0],
+               tc.single_params(w, benefit, c), c) + tail
+    elif name == "topsis_kinds":
         kidx, x, *small, valid, c = args
         raw = (kidx.data_ptr(), x.shape[0], x.data_ptr(),
                *(t.data_ptr() for t in small), ptr(valid), out.data_ptr(),
@@ -240,9 +261,7 @@ def raw_launch(name, args, out):
     else:
         x, *small = args
         ptrs = (x.data_ptr(), *(t.data_ptr() for t in small), out.data_ptr())
-        sizes = {"topsis_single": (x.shape[0],),
-                 "topsis_batched": (x.shape[1], x.shape[0])}[name]
-        raw = ptrs + sizes + tail
+        raw = ptrs + (x.shape[1], x.shape[0]) + tail
     return lambda: fn(*raw)
 
 
@@ -346,6 +365,17 @@ def build_phase():
                       spill_store_bytes=n, registers=regs,
                       dynamic_smem_bytes=flash_cuda.smem_bytes(name, dtype,
                                                                d))
+    # K1: every <C, VEC> instantiation, none may spill
+    k1 = {}
+    for c in range(1, 9):
+        for vec in (1, 0):
+            n, regs = ptxas_entry(topsis_cuda.LIBRARY.ptxas_log,
+                                  f"topsis_single_kernelILi{c}ELb{vec}EE")
+            check(n == 0, f"topsis_single_kernel<{c},{vec}> spills {n} bytes")
+            k1[f"{c},{vec}"] = regs
+    phase("build", kernel="topsis_single_kernel<C,VEC>",
+          spill_store_bytes=0, registers_max=max(k1.values()),
+          registers=json.dumps(k1, separators=(",", ":")))
     phase("build", all_seconds=f"{time.perf_counter() - t0:.2f}")
 
 
@@ -361,8 +391,9 @@ def control(got, want):
         return "pattern"
 
 
-def kernel_phase(dev):
-    """K1-K4 against their plain versions at the slice's shapes. K3 and K4
+def kernel_phase(dev, smi):
+    """K1-K4 against their plain versions at the slice's shapes (K1:
+    ``k1_cases``). K3 and K4
     take the mask (the -inf fill is theirs) and the number of real
     criteria: each runs masked, as the main path does, and unmasked (the
     function without the fill, timed beside the unfused pair: that launch,
@@ -434,19 +465,17 @@ def kernel_phase(dev):
     def unmasked(args):
         return args[:-2] + (None, args[-1])
 
-    # K1, K2: the kernel, then the wrapper's fill over its output
+    table = {"topsis_single": k1_cases(dev, smi, kinds5, kinds6, kinds5r,
+                                       valid[0], valid_r[0], w5, w6, b5, b6)}
+
+    # K2: the kernel, then the wrapper's fill over its output
     cases = [
-        ("topsis_single", tc.single, tc.single_plain,
-         ops.single_operands(kinds5[0], w5, b5, valid=valid[0], device=dev),
-         bound(n * 5 * 4 + 4 * 5 * 4 + n * 4, n * f_row(5)),
-         dict(N=n, C=5), 400),
         ("topsis_batched", tc.batched, tc.batched_plain,
          ops.batched_operands(kinds5[kidx], w5, b5, valid=valid, device=dev),
          bound(BURST * n * 5 * 4 + 4 * BURST * 5 * 4 + BURST * n * 4,
                BURST * n * f_row(5)),
          dict(P=BURST, N=n, C=5), 100),
     ]
-    table = {}
     for name, kernel, plain, (args, vmask), (b_ms, b_by), shape, reps \
             in cases:
         before = tc.LAUNCHES[name]
@@ -562,6 +591,199 @@ def kernel_phase(dev):
         del got, out
         torch.cuda.empty_cache()
     return table
+
+
+# K1's cases: the main path's (the slice's fleet, one pod's mask), unmasked,
+# C = 6, a ragged N, N = 1, one valid node, none, the top of the reference
+# scheduling sweep (past the rows a cluster holds on chip), and OUTLIER, a
+# case whose invalid nodes hold values beyond every valid node's (as a full
+# node does), on which the four controls run.
+K1_BIG_N = 65536          # benchmarks/scheduling_time.py's largest N
+K1_REPS, K1_PLAIN_REPS = 2000, 100
+
+
+def k1_bound(n, c, masked):
+    """K1's least time: x's c real columns and the mask read once, the
+    output written once; pass A's 3 and pass B's 8 c + 5 operations a node
+    and criterion at the float32 peak."""
+    return bound(n * (4 * c + masked + 4), n * (11 * c + 5))
+
+
+def k1_cases(dev, smi, kinds5, kinds6, kinds5r, valid, valid_r, w5, w6, b5,
+             b6):
+    """The fused K1 against its plain version
+    (``single_reductions_plain``, ``closeness_plain``, ``fill_invalid``) on
+    the card, within TOL; four planted controls must be rejected. The main
+    case is timed: the kernel (CUDA events over K1_REPS back-to-back
+    launches), its launch floor (the empty kernel in the same cluster
+    shape, timed the same way), the plain version and the unfused launches
+    it replaces, and the device times of K1 and of the empty kernel by the
+    profiler. Returns the kernel table's row."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import topsis_cuda as tc
+
+    rng = np.random.default_rng(7)
+    n = kinds5.shape[1]
+
+    def on_card(mat, w, b, mask):
+        return ops.single_operands(mat, w, b, valid=mask, device=dev)
+
+    one = np.zeros(n, bool)
+    one[7777] = True
+    big = rng.uniform(0.05, 10.0, (K1_BIG_N, 5))
+    out_valid = rng.random(n) > 0.1
+    outlier = np.where(out_valid[:, None], rng.uniform(0.05, 10.0, (n, 5)),
+                       rng.uniform(10.0, 30.0, (n, 5)))
+    cases = [
+        ("main", on_card(kinds5[0], w5, b5, valid), True),
+        ("unmasked", on_card(kinds5[0], w5, b5, None), False),
+        ("c6", on_card(kinds6[0], w6, b6, valid), True),
+        ("ragged", on_card(kinds5r[0], w5, b5, valid_r), True),
+        ("n1", on_card(kinds5[0][:1], w5, b5, np.ones(1, bool)), True),
+        ("one_valid", on_card(kinds5[0], w5, b5, one), True),
+        ("no_valid", on_card(kinds5[0], w5, b5, np.zeros(n, bool)), True),
+        ("big", on_card(big, w5, b5, rng.random(K1_BIG_N) > 0.1), True),
+        ("outlier", on_card(outlier, w5, b5, out_valid), True),
+    ]
+    row = None
+    errs = {}
+    for tag, args, masked in cases:
+        x, w, b, mask, c = args
+        nn = x.shape[0]
+        before = tc.LAUNCHES["topsis_single"]
+        got = tc.single(*args)
+        want = tc.single_plain(*args)
+        torch.cuda.synchronize()
+        check(tc.LAUNCHES["topsis_single"] == before + 1,
+              f"K1 {tag}: not one launch")
+        if bool(torch.isfinite(want).any()):
+            err = max_err(got, want)
+        else:                                   # no valid node: all -inf
+            check(bool(torch.isneginf(got).all()), f"K1 {tag}: not all -inf")
+            err = 0.0
+        check(err <= TOL, f"K1 {tag}: max abs err {err} > {TOL}")
+        errs[tag] = err
+        b_ms, b_by = k1_bound(nn, c, masked)
+        out = torch.empty_like(got)
+        launch = raw_launch("topsis_single", args, out)
+        reps = K1_REPS if tag in ("main", "big", "ragged") else 200
+        ms = cuda_ms(launch, reps, warmup=20)
+        check(launch() == 0, f"K1 {tag}: timed launch failed")
+        torch.cuda.synchronize()
+        check(torch.equal(out, got), f"K1 {tag}: the timed launches differ")
+        extra = {}
+        if tag == "main":
+            extra = k1_timings(dev, args, out)
+            device_us = float(extra["device_us"])
+            extra["share_of_bound_device"] = f"{1e3 * b_ms / device_us:.4f}"
+        if tag == "outlier":
+            extra = k1_controls(args, got)
+        resident = nn <= tc.single_resident_rows()
+        phase("kernels", kernel="topsis_single", case=tag, N=nn, C=c,
+              mask=mask is not None, resident=resident,
+              max_abs_err=f"{err:.3e}", ms=f"{ms:.6f}",
+              bound_ms=f"{b_ms:.6f}", bound_us=f"{1e3 * b_ms:.3f}",
+              bound_by=b_by, share_of_bound=f"{b_ms / ms:.4f}", **extra,
+              card=repr(smi))
+        if tag == "main":
+            row = dict(name="topsis_single", route="cuda", source=SOURCE,
+                       replaces=tc.REPLACES["topsis_single"], launches=0,
+                       max_abs_err=0.0, ms=ms,
+                       plain_ms=float(extra["plain_ms"]), bound_ms=b_ms,
+                       bound_by=b_by, library_ms=None)
+        del got, want, out
+    row["max_abs_err"] = max(errs.values())
+    return row
+
+
+def kernel_device_us(fn, name, reps=200):
+    """Mean device time (us) of the kernels whose name holds ``name`` over
+    ``reps`` calls of ``fn``, by torch.profiler (NaN where it records
+    none)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = count = 0
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA \
+                and name in ev.key:
+            total += ev.self_device_time_total
+            count += ev.count
+    return total / count if count else float("nan")
+
+
+def k1_timings(dev, args, out):
+    """The main case's times beside the kernel's: launch floor, plain
+    version, the unfused launches, the wrapper, and the device times of K1
+    and of the empty kernel by the profiler. Back-to-back launches from
+    Python are bound by the host's launch rate at this size, so ``ms`` and
+    ``launch_floor_ms`` read the host; the device times read the kernel."""
+    import torch
+
+    from repro_torch.kernels import topsis_cuda as tc
+    x, w, b, mask, c = args
+    floor_fn = tc.LIBRARY.lib.topsis_cluster_floor
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def floor():
+        return floor_fn(dev.index, stream)
+
+    def unfused():
+        operands = tc.single_reductions_plain(x, w, b, mask, c)
+        return tc.fill_invalid(tc.closeness_plain(x, *operands, c), mask)
+    floor_ms = cuda_ms(floor, K1_REPS, warmup=20)
+    check(floor() == 0, "K1's launch floor did not launch")
+    device_us = kernel_device_us(raw_launch("topsis_single", args, out),
+                                 "topsis_single_kernel")
+    floor_us = kernel_device_us(floor, "cluster_floor")
+    check(math.isfinite(device_us) and math.isfinite(floor_us),
+          f"the profiler recorded no K1 ({device_us}) or floor ({floor_us}) "
+          f"device time")
+    wrapper_ms = cuda_ms(lambda: tc.single(*args), 1000)
+    plain_ms = cuda_ms(lambda: tc.single_plain(*args), K1_PLAIN_REPS)
+    return dict(cluster=tc.SINGLE_CLUSTER, launch_floor_ms=f"{floor_ms:.6f}",
+                device_us=f"{device_us:.3f}",
+                floor_device_us=f"{floor_us:.3f}",
+                wrapper_ms=f"{wrapper_ms:.6f}", plain_ms=f"{plain_ms:.6f}",
+                unfused_ms=f"{cuda_ms(unfused, K1_PLAIN_REPS):.6f}")
+
+
+def k1_controls(args, got):
+    """Four planted faults in plain torch, each of which must be rejected
+    (the -inf pattern, or an error beyond TOL): no -inf fill, the ideal
+    points over all rows, the norms over the valid rows only, C - 1
+    criteria."""
+    from repro_torch.kernels import topsis_cuda as tc
+    x, w, b, mask, c = args
+    ops_ok = tc.single_reductions_plain(x, w, b, mask, c)
+    ops_all_rows = tc.single_reductions_plain(x, w, b, None, c)
+    # norms (and the ideal points built on them) over the valid rows only
+    ops_valid_rows = tc.single_reductions_plain(x[mask], w, b, None, c)
+    controls = {
+        "no_fill": tc.closeness_plain(x, *ops_ok, c),
+        "ideal_all_rows": tc.fill_invalid(
+            tc.closeness_plain(x, *ops_all_rows, c), mask),
+        "norms_valid_rows": tc.fill_invalid(
+            tc.closeness_plain(x, *ops_valid_rows, c), mask),
+        "c_minus_1": tc.single_plain(x, w[:c - 1], b[:c - 1], mask, c - 1),
+    }
+    fields = {}
+    for name, want in controls.items():
+        res = control(got, want)
+        check(res == "pattern" or res > TOL,
+              f"K1 control {name} passed ({res})")
+        fields[f"control_{name}"] = ("rejected(-inf pattern)"
+                                     if res == "pattern"
+                                     else f"rejected({res:.3e})")
+    return fields
 
 
 # --- phase 3b: K5 and K8 against their plain versions ---------------------------
@@ -1325,6 +1547,231 @@ def slice_phase(dev):
     return launches
 
 
+# --- phase 4b: the per-pod decisions ------------------------------------------
+PERPOD_PODS = 64
+
+
+def perpod_phase(dev, smi, compare=False):
+    """The per-pod GreenPod path (the paper's scheduler, §III, and the
+    scheduling time of §IV.C): the first PERPOD_PODS pods of the slice's
+    arrival process decided one at a time on the slice's 15,000-node
+    fleet, each bound before the next (the rescore after every bind), for
+    the cuda and torch backends (attached, on the card: K1 on the resident
+    mirror, or plain torch) and numpy, each on its own copy of the fleet.
+    Every cuda and torch decision is held to a numpy scheduler attached to
+    the same fleet: closeness within TOL, the same node or a near-tie.
+    Prints each backend's decision wall times (host clock; each decision
+    ends in its device-to-host copy), the device kernels of clean-fleet
+    cuda decisions by ``torch.profiler`` (``profile_clean_decisions``, in
+    a child process) and the steps of a decision (``decision_parts``).
+    Returns the cuda run's launch counts.
+
+    ``compare`` (``--perpod-only``: this script copied into another
+    checkout, such as the parent commit's, to time its per-pod path) warms
+    each device backend up with one untimed run first, reports the
+    profiled decisions' kernels without requiring K1 alone, and leaves out
+    the step-by-step breakdown, which reads this package's internals."""
+    import numpy as np
+    import torch
+
+    from repro_torch.cluster.node import FleetState, make_scenario_cluster
+    from repro_torch.cluster.workload import PoissonArrivals
+    from repro_torch.core import scheduler as S
+    from repro_torch.kernels import topsis_cuda as tc
+
+    arrivals = PoissonArrivals(rate_per_s=0.2, n_bursts=N_BURSTS,
+                               burst_size=BURST, topsis_share=1.0, seed=0)
+    pods = [p for _, burst in arrivals.events() for p in burst]
+    pods = pods[:PERPOD_PODS]
+
+    def run(backend):
+        fleet = FleetState.from_nodes(make_scenario_cluster("mixed", N_NODES,
+                                                            seed=0))
+        sched = S.GreenPodScheduler("energy_centric", backend=backend,
+                                    device=None if backend == "numpy"
+                                    else dev)
+        sched.attach(fleet)
+        ref = None
+        if backend != "numpy":
+            ref = S.GreenPodScheduler("energy_centric", backend="numpy")
+            ref.attach(fleet)
+        res = dict(walls=[], picks=[], err=0.0, ties=0, gap=0.0)
+        tc.reset_launches()
+        for pod in pods:
+            t0 = time.perf_counter()
+            idx, diag = sched.select(pod, fleet)
+            res["walls"].append(time.perf_counter() - t0)
+            if ref is not None:
+                ridx, rdiag = ref.select(pod, fleet)
+                cc = rdiag["closeness"]
+                res["err"] = max(res["err"],
+                                 max_err_np(diag["closeness"], cc))
+                if idx != ridx:
+                    gap = abs(cc[ridx] - cc[idx])
+                    check(gap <= TOL, f"perpod {backend}: pod {pod.uid} "
+                          f"node {idx} vs {ridx}, gap {gap} > {TOL}")
+                    res["ties"] += 1
+                    res["gap"] = max(res["gap"], float(gap))
+            check(idx is not None, f"perpod {backend}: pod {pod.uid} "
+                  f"unschedulable")
+            fleet.bind(idx, pod.cpu, pod.mem)
+            res["picks"].append(idx)
+        res["launches"] = dict(tc.LAUNCHES)
+        res.update(sched=sched, fleet=fleet)
+        return res
+
+    if compare:                    # the build and the first launches
+        run("cuda")
+        run("torch")
+    runs = {b: run(b) for b in ("cuda", "torch", "numpy")}
+    for backend, res in runs.items():
+        k1 = res["launches"]["topsis_single"]
+        check(k1 == (PERPOD_PODS if backend == "cuda" else 0),
+              f"perpod {backend}: K1 launched {k1} times")
+        check(sum(res["launches"].values()) == k1,
+              f"perpod {backend}: other kernels launched {res['launches']}")
+        same = res["picks"] == runs["numpy"]["picks"]
+        if res["ties"] == 0:
+            check(same, f"perpod {backend}: placements differ from numpy "
+                  f"with no near-tie")
+        walls = 1e3 * np.asarray(res["walls"])
+        phase("perpod", backend=backend, nodes=N_NODES, decisions=len(walls),
+              k1_launches=k1, wall_ms_median=f"{np.median(walls):.6f}",
+              wall_ms_p90=f"{np.percentile(walls, 90):.6f}",
+              wall_ms_min=f"{walls.min():.6f}",
+              wall_ms_max=f"{walls.max():.6f}",
+              max_err_vs_numpy=f"{res['err']:.3e}", near_ties=res["ties"],
+              max_near_tie_gap=f"{res['gap']:.3e}",
+              placements_equal_numpy=same, card=repr(smi))
+
+    # clean-fleet cuda decisions under the profiler, in a fresh process:
+    # in this one, after the phases before, torch.profiler has recorded no
+    # device activity at all (H100, torch 2.11)
+    prof = None
+    for _ in range(PROFILE_ATTEMPTS):
+        proc = subprocess.run(
+            [sys.executable, str(ROOT / "chip_smoke.py"), PROFILE_FLAG],
+            capture_output=True, text=True, timeout=600, cwd=ROOT)
+        lines = proc.stdout.strip().splitlines()
+        if proc.returncode == 0 and lines:
+            prof = json.loads(lines[-1])
+            if prof["kernels"] or prof["copies"]:
+                break
+    check(prof is not None, f"the profiling process failed: {proc.stderr}")
+    kernels = prof["kernels"]
+    check(compare or (sum(kernels.values()) == PERPOD_PROFILED
+                      and all("topsis_single_kernel" in k for k in kernels)),
+          f"{PERPOD_PROFILED} clean cuda decisions ran {kernels} "
+          f"(and {prof['copies']} copies), not one K1 each")
+    phase("perpod", clean_decisions_profiled=PERPOD_PROFILED,
+          kernels_per_decision=sum(kernels.values()) / PERPOD_PROFILED,
+          copies_per_decision=prof["copies"] / PERPOD_PROFILED,
+          k1_device_us=f"{prof['k1_device_us']:.3f}",
+          device_us_per_decision=f"{prof['device_us'] / PERPOD_PROFILED:.3f}",
+          kernel_names=json.dumps(list(kernels)), card=repr(smi))
+    if compare:
+        return runs["cuda"]["launches"]
+    sched, fleet = runs["cuda"]["sched"], runs["cuda"]["fleet"]
+    parts = decision_parts(dev, sched, fleet, pods[:PERPOD_PARTS])
+    phase("perpod", breakdown_decisions=PERPOD_PARTS,
+          **{f"{k}_ms_median": f"{1e3 * float(np.median(v)):.6f}"
+             for k, v in parts.items()}, card=repr(smi))
+    return runs["cuda"]["launches"]
+
+
+PERPOD_PARTS = 16
+PERPOD_PROFILED = 4
+PROFILE_FLAG = "--profile-clean-decisions"
+PERPOD_FLAG = "--perpod-only"
+PROFILE_ATTEMPTS = 2
+
+
+def profile_clean_decisions():
+    """The child process of ``perpod_phase``: on the slice's fleet, an
+    attached cuda GreenPod scheduler decides and binds a few pods, then
+    one more decision consumes the last bind's dirty column, and the next
+    PERPOD_PROFILED (no bind between: a clean fleet) run under
+    torch.profiler. Prints the device kernels by name with their counts,
+    the copies, K1's mean device time and the device time of every kernel
+    and copy together as one JSON line."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.cluster.node import FleetState, make_scenario_cluster
+    from repro_torch.cluster.workload import PoissonArrivals
+    from repro_torch.core import scheduler as S
+    dev = torch.device("cuda", 0)
+    pods = PoissonArrivals(rate_per_s=0.2, n_bursts=1, burst_size=8,
+                           topsis_share=1.0, seed=0).events()[0][1]
+    fleet = FleetState.from_nodes(make_scenario_cluster("mixed", N_NODES,
+                                                        seed=0))
+    sched = S.GreenPodScheduler("energy_centric", backend="cuda", device=dev)
+    sched.attach(fleet)
+    for pod in pods:
+        idx, _ = sched.select(pod, fleet)
+        fleet.bind(idx, pod.cpu, pod.mem)
+    sched.select(pods[0], fleet)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(PERPOD_PROFILED):
+            sched.select(pods[0], fleet)
+        torch.cuda.synchronize()
+    kernels, copies, k1_us, device_us = {}, 0, 0.0, 0.0
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        device_us += ev.self_device_time_total
+        if ev.key.startswith(("Memcpy", "Memset")):
+            copies += ev.count
+            continue
+        kernels[ev.key] = kernels.get(ev.key, 0) + ev.count
+        if "topsis_single_kernel" in ev.key:
+            k1_us += ev.self_device_time_total / ev.count
+    print(json.dumps(dict(kernels=kernels, copies=copies,
+                          k1_device_us=k1_us, device_us=device_us)))
+
+
+def decision_parts(dev, sched, fleet, pods):
+    """The steps of ``GreenPodScheduler.select`` on the cuda backend, each
+    timed on the host clock (synchronised after device work), over a few
+    decisions, each bound before the next, as in the run: the feasibility
+    mask, the cache sync (the bound node's column), the mirror update,
+    the weights, K1's arguments (the mask's upload), K1, the copy back,
+    the argmax."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import scheduler as S
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import topsis_cuda as tc
+    parts = collections.defaultdict(list)
+
+    def step(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        parts[name].append(time.perf_counter() - t0)
+        return res
+    for pod in pods:
+        valid = step("fits", lambda: fleet.fits(pod.cpu, pod.mem))
+        kind_idx, dirty, moved, grew = step(
+            "cache_sync", lambda: sched._cache.sync([pod], 0.0))
+        sched._dev = step("mirror", lambda: S._sync_mirror(
+            sched._dev, sched._cache, dirty, moved, grew, sched.device))
+        w = step("weights", lambda: sched.weights(fleet))
+        args = step("operands", lambda: ops.single_operands(
+            sched._dev[int(kind_idx[0])], w, sched._benefit, valid=valid,
+            device=dev))
+        out = step("k1", lambda: tc.single(*args))
+        host = step("d2h", lambda: out.cpu().numpy())
+        idx = step("argmax", lambda: int(np.argmax(host)))
+        fleet.bind(idx, pod.cpu, pod.mem)
+    parts["sum"] = [sum(v) for v in zip(*parts.values())]
+    return parts
+
+
 # --- phase 5: the serving slice ----------------------------------------------------
 class RecordingLM:
     """The LM as ``Engine`` sees it, recording each call's input tokens,
@@ -1950,6 +2397,14 @@ def main() -> int:
               f"checkout of the repository", file=sys.stderr)
         return 1
     sys.path.insert(0, str(SRC))
+    if sys.argv[1:] == [PROFILE_FLAG]:       # perpod_phase's child
+        profile_clean_decisions()
+        return 0
+    if sys.argv[1:] == [PERPOD_FLAG]:        # the per-pod path alone
+        smi, _, _ = device_phase()
+        perpod_phase(torch.device("cuda", 0), smi, compare=True)
+        phase("done", perpod_only=True)
+        return 0
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
@@ -1957,13 +2412,15 @@ def main() -> int:
     t0 = time.perf_counter()
     smi, name, count = device_phase()
     build_phase()
-    table = kernel_phase(dev)
+    table = kernel_phase(dev, smi)
     table.update(lm_kernel_phase(dev))
     table.update(bwd_kernel_phase(dev))
-    # each main path's counts, summed: slice (K1-K4), serve (K5), the
-    # smoke-size serving launcher (K5), train (K5, K6, K7), for llama3-8b
-    # (head dim 128) and gemma-7b (256); the D = 256 rows count gemma's
+    # each main path's counts, summed: slice (K1-K4), the per-pod
+    # decisions (K1), serve (K5), the smoke-size serving launcher (K5),
+    # train (K5, K6, K7), for llama3-8b (head dim 128) and gemma-7b (256);
+    # the D = 256 rows count gemma's
     launches = collections.Counter(slice_phase(dev))
+    launches.update(perpod_phase(dev, smi))
     launches.update(serve_phase(dev))
     launches.update(serve_smoke_phase(dev))
     wide = collections.Counter(serve_phase(dev, GEMMA_ARCH))

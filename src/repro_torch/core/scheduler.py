@@ -20,6 +20,11 @@ Backends (scoring engines, identical semantics — tests assert equivalence):
           the incremental round the engine runs, K4 for the weight grid.
           On ``device="cpu"`` the kernels' plain versions run instead.
 
+On an attached fleet the torch and cuda backends of both GreenPod and
+the batch scheduler keep a resident (K, N, C_PAD) float32 device mirror of
+the criteria cache (``_sync_mirror``): a per-pod decision scores its
+kind's (N, C_PAD) row of it in place, a round gathers from it.
+
 ``device=None`` means the card (``repro_torch.device.resolve_device``); the
 numpy backend ignores the device.
 """
@@ -126,17 +131,18 @@ def decision_matrix_batch(pods: Sequence[Pod], nodes,
                                  table, carbon_intensity=carbon_intensity)
 
 
-def _score(mat: np.ndarray, weights: np.ndarray, valid: np.ndarray,
-           backend: str, benefit: np.ndarray = _BENEFIT,
-           device=None) -> np.ndarray:
+def _score(mat, weights: np.ndarray, valid: np.ndarray, backend: str,
+           benefit: np.ndarray = _BENEFIT, device=None) -> np.ndarray:
     """(N,) closeness for one decision matrix on the given backend
-    (invalid rows are -inf)."""
+    (invalid rows are -inf). ``mat`` is the host (N, C) float64 matrix for
+    numpy; for torch and cuda, a float32 tensor on the device, (N, C) or
+    padded to (N, C_PAD) (a row of the resident mirror, read in place)."""
     if backend == "numpy":
         return np.asarray(topsis.closeness_np(mat, weights, benefit,
                                               valid).closeness)
     if backend == "torch":
-        return _host(topsis.closeness(ops.as_f32(mat, device),
-                                      ops.as_f32(weights, device),
+        m = ops.as_f32(mat, device)[:, :len(benefit)]
+        return _host(topsis.closeness(m, ops.as_f32(weights, device),
                                       ops.as_mask(benefit, device),
                                       ops.as_mask(valid, device)).closeness)
     if backend == "cuda":
@@ -292,6 +298,32 @@ class FleetCriteriaCache:
         return kind_idx, dirty, carbon_moved, grew
 
 
+def _sync_mirror(mirror: "torch.Tensor | None", cache: FleetCriteriaCache,
+                 dirty: np.ndarray, carbon_moved: bool, grew: bool,
+                 device) -> torch.Tensor:
+    """Mirror one ``cache.sync`` delta onto the resident (K, N, C_PAD)
+    float32 device tensor ``mirror`` (None before the first sync), in
+    place, and return it. Growth (a kind first seen — at most once per
+    workload kind per run) re-uploads the whole tensor; otherwise the dirty
+    node columns are written with ``index_copy_``, and the carbon column is
+    rewritten only when decision time moved. GreenPod and the batch
+    scheduler each keep one."""
+    tel = telemetry.active()
+    if mirror is None or grew:
+        tel.inc("cache_device_reuploads",
+                reason="growth" if mirror is not None else "first")
+        return _upload_padded(cache.mats, device)
+    if dirty.size:
+        tel.inc("cache_device_scatters")
+        mirror.index_copy_(1, torch.as_tensor(dirty, device=device),
+                           _upload_padded(cache.mats[:, dirty, :], device))
+    if carbon_moved and cache.signal is not None:
+        tel.inc("cache_device_carbon_updates")
+        mirror[:, :, cache.n_criteria - 1] = ops.as_f32(cache.mats[:, :, -1],
+                                                        device)
+    return mirror
+
+
 
 class GreenPodScheduler:
     """TOPSIS-based multi-criteria scheduler (paper §III).
@@ -321,13 +353,18 @@ class GreenPodScheduler:
         self.explain = explain
         self.explanations: list[dict] = []
         self._cache: FleetCriteriaCache | None = None
+        # device-resident (K, N, C_PAD) float32 mirror of the cache
+        self._dev: torch.Tensor | None = None
 
     def attach(self, fleet: FleetState) -> None:
         """Adopt ``fleet`` as a live, delta-maintained snapshot: subsequent
         ``select`` calls that receive this exact object reuse the
         incrementally synced decision-matrix cache instead of rebuilding
-        the pod's (N, C) matrix from scratch."""
+        the pod's (N, C) matrix from scratch; on the torch and cuda
+        backends the pod's kind row of the resident device mirror is
+        scored in place (dirty columns written into it after binds)."""
         self._cache = FleetCriteriaCache(fleet, self.carbon_signal)
+        self._dev = None
 
     def weights(self, nodes) -> np.ndarray:
         carbon = self.carbon_signal is not None
@@ -363,17 +400,26 @@ class GreenPodScheduler:
                 valid = valid & ~np.asarray(exclude, dtype=bool)
             if not valid.any():
                 return None, {"reason": "unschedulable"}
+            scored = None
             if self._cache is not None and table is self._cache.fleet:
-                kind_idx, _, _, _ = self._cache.sync([pod], now)
+                kind_idx, dirty, carbon_moved, grew = self._cache.sync(
+                    [pod], now)
                 mat = self._cache.mats[kind_idx[0]]
+                if self.backend != "numpy":
+                    self._dev = _sync_mirror(self._dev, self._cache, dirty,
+                                             carbon_moved, grew, self.device)
+                    scored = self._dev[int(kind_idx[0])]
             else:
                 inten = (self.carbon_signal.intensities(table.region, now)
                          if self.carbon_signal is not None else None)
                 mat = decision_matrix_table(pod.cpu, pod.mem,
                                             pod.workload.base_time_s, table,
                                             carbon_intensity=inten)
+            if scored is None:
+                scored = (mat if self.backend == "numpy"
+                          else _upload_padded(mat, self.device))
             w = self.weights(table)
-            cc = _score(mat, w, valid, self.backend, benefit=self._benefit,
+            cc = _score(scored, w, valid, self.backend, benefit=self._benefit,
                         device=self.device)
             idx = int(np.argmax(cc))   # first max — same tie-break as a
             #                            stable sort
@@ -509,7 +555,8 @@ class BatchScheduler:
                                                self._benefit,
                                                valid[i]).closeness)
                 for i, k in enumerate(kind_idx)])
-        self._sync_device(cache, dirty, carbon_moved, grew)
+        self._dev = _sync_mirror(self._dev, cache, dirty, carbon_moved, grew,
+                                 self.device)
         dev = self.device
         telemetry.active().inc("cache_fused_dispatches", backend=self.backend)
         if self.backend == "torch":
@@ -520,29 +567,6 @@ class BatchScheduler:
                 ops.as_mask(valid, dev)).closeness)
         return _host(ops.topsis_closeness_kinds(
             self._dev, kind_idx, ws, self._benefit, valid=valid, device=dev))
-
-    def _sync_device(self, cache: FleetCriteriaCache, dirty: np.ndarray,
-                     carbon_moved: bool, grew: bool) -> None:
-        """Mirror this round's cache delta onto the device tensor, in
-        place. Growth (a kind first seen — at most once per workload kind
-        per run) re-uploads the whole (K, N, C_PAD) tensor; otherwise the
-        dirty node columns are written with ``index_copy_``, and the carbon
-        column is rewritten only when decision time moved."""
-        tel = telemetry.active()
-        if self._dev is None or grew:
-            tel.inc("cache_device_reuploads",
-                    reason="growth" if self._dev is not None else "first")
-            self._dev = _upload_padded(cache.mats, self.device)
-            return
-        if dirty.size:
-            tel.inc("cache_device_scatters")
-            self._dev.index_copy_(
-                1, torch.as_tensor(dirty, device=self.device),
-                _upload_padded(cache.mats[:, dirty, :], self.device))
-        if carbon_moved and self.carbon_signal is not None:
-            tel.inc("cache_device_carbon_updates")
-            self._dev[:, :, cache.n_criteria - 1] = ops.as_f32(
-                cache.mats[:, :, -1], self.device)
 
     def _weight_grid(self, schemes) -> np.ndarray:
         """Resolve ``schemes`` — a sequence of scheme names or an (S, C)
@@ -627,7 +651,8 @@ class BatchScheduler:
                                                    valid[i]).closeness)
                     for i, k in enumerate(kind_idx)])
                 for w in ws])
-        self._sync_device(cache, dirty, carbon_moved, grew)
+        self._dev = _sync_mirror(self._dev, cache, dirty, carbon_moved, grew,
+                                 self.device)
         dev = self.device
         telemetry.active().inc("cache_fused_dispatches", backend=self.backend)
         mats = self._dev[torch.as_tensor(kind_idx, device=dev)]

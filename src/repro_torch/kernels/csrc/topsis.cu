@@ -12,26 +12,63 @@
 //   d+- = ||v - a+-||_2
 //   cc  = d- / max(d+ + d-, 1e-12), or 0.5 when d+ + d- <= 1e-12,
 // with IEEE sqrtf and division (no fast-math), the criteria summed in
-// order. Column norms, weight normalisation and the masked ideal points
-// a+- are global reductions that the wrapper (repro_torch/kernels/ops.py)
-// computes in plain torch. Padded criteria carry zeros in inv_norm, w and
-// a+-, so they add exact zeros.
+// order. For K2-K4, column norms, weight normalisation and the masked
+// ideal points a+- are global reductions that the wrapper
+// (repro_torch/kernels/ops.py) computes in plain torch; padded criteria
+// carry zeros in inv_norm, w and a+-, so they add exact zeros. K1 does its
+// own reductions and its own -inf fill (below).
 //
 // Layout. The TPU kernels keep criteria on sublanes and nodes on lanes,
 // (8, N). Hopper has no lanes: here the criteria are row-major (..., N, 8)
 // float32, each row 32 bytes.
 //
-// K1 and K2: one thread owns one (pod, node), reads its row as two float4
-// loads (neighbouring threads read neighbouring rows: coalesced) and
-// writes one float; the grid is (ceil(N / 256), P) and a block's pod
-// operands go to shared memory once. The wrapper writes -inf over
-// infeasible nodes afterwards.
+// K1 (one per-pod GreenPod decision) is one launch of one thread block
+// cluster of 16 CTAs of 512 threads (a compile-time size: of 8 and 16,
+// 16 was the faster on an H100, PERF.md §6). The TPU design left the column
+// norms and the masked ideal points to XLA because a Pallas grid cannot
+// reduce across its blocks; a cluster can, through distributed shared
+// memory. It takes the raw weights and the benefit bits
+// by value (no upload), the (N,) mask or null and the number c of real
+// criteria (a template on C, 1..8), and writes the (N,) closeness with -inf
+// on invalid nodes. Each CTA owns a contiguous share of the rows, 4 nodes
+// a thread.
+//   * Pass A: each thread loads its 4 rows (real criteria only) and mask
+//     bytes into registers and accumulates, per criterion, the sum of
+//     squares over all rows and the max and min of x over valid rows, and
+//     the count of valid rows; warp shuffles, then shared memory, reduce
+//     them within the CTA, and every CTA reads the partials of all ranks
+//     in rank order through distributed shared memory, so all derive the
+//     same bits.
+//   * Then inv_norm = 1 / max(sqrt(ss), 1e-12), w normalised by its sum
+//     (in order), and a+- = fl(fl(x_ext * inv_norm) * w) from the extremes
+//     of x: for inv_norm >= 0 rounding x * inv_norm is non-decreasing in x,
+//     and rounding u * w monotone in u with w's sign, so these are the
+//     floats masked_ideal_points gives on v (a zero's sign aside). No
+//     valid row: a+- = -+inf and every output -inf.
+//   * Pass B scores the rows still in registers (finish_quad, below) and
+//     writes -inf where the mask is 0, 4 nodes a float4 streaming store
+//     where N % 4 == 0. Past the rows the cluster holds on chip
+//     (16 x 512 x 4: a share of more than one quad a thread) each CTA
+//     loops over its share in both passes, re-reading its rows in pass B
+//     (from L2).
+//   Warps with no rows of the share skip both passes. Bound: ~25 bytes a
+//   node, 0.11 us at N = 15,000 at 3.35 TB/s; on an H100 the kernel takes
+//   ~5.6 us of device time at 16 CTAs (~6.9 at 8) against ~0.85 us for
+//   an empty launch of the same cluster: a chain of latencies (the loads,
+//   the reductions, the cluster barrier and the remote reads, pass B), not
+//   bytes or instruction throughput, sets it.
+//
+// K2: one thread owns one (pod, node), reads its row as two float4 loads
+// (neighbouring threads read neighbouring rows: coalesced) and writes one
+// float; the grid is (ceil(N / 256), P) and a block's pod operands go to
+// shared memory once. The wrapper writes -inf over infeasible nodes
+// afterwards.
 //
 // K3 and K4 write 4 consecutive nodes a thread, as one float4 streaming
 // store, and sum only the C real criteria (a template on C, 1..8). Both
 // take the (P, N) feasibility mask, read as one 32-bit word per 4 nodes,
-// and write -inf where it is 0: the fill the wrappers of K1 and K2 run as
-// a second pass over the output is fused into the store. Bound: an
+// and write -inf where it is 0: the fill K2's wrapper runs as a second
+// pass over the output is fused into the store. Bound: an
 // output is 4 bytes written against ~41 float32 instructions of its own
 // (5 a real criterion, two IEEE square roots and one IEEE division at
 // ~10 each) and ~20 of loads, tests and addressing, so both kernels are
@@ -63,10 +100,23 @@
 // Each entry point launches on the given stream, does not synchronise, and
 // returns cudaGetLastError() (0 on a good launch).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 #include "topsis_math.cuh"
+
+namespace cg = cooperative_groups;
+
+// K1's weights and benefit bits, passed by value (no upload): w holds the
+// raw weights of the c real criteria (the rest ignored), bit j of benefit
+// is set when criterion j is a benefit (higher is better).
+struct SingleWeights {
+  float w[8];
+  unsigned int benefit;
+};
 
 namespace {
 
@@ -86,6 +136,12 @@ constexpr int POD_CHUNK = 96;                 // pods a block
 constexpr int SMALL_PIECES = (POD_CHUNK * 8 + K3_THREADS - 1) / K3_THREADS;
 constexpr int ROW_BATCH = 4;                  // kind rows in flight a thread
 constexpr size_t STAGE_MAX_BYTES = 96 * 1024;  // staged kind rows, at most
+// K1: one cluster of K1_CLUSTER CTAs of K1_THREADS threads, QUAD nodes a
+// thread.
+constexpr int K1_THREADS = 512;
+constexpr int K1_WARPS = K1_THREADS / 32;
+constexpr int K1_CLUSTER = 16;                // past 8: non-portable
+static_assert(K1_CLUSTER <= 16, "the largest cluster Hopper launches");
 // K4
 constexpr int K4_THREADS = 128;
 constexpr int K4_TILE = QUAD * K4_THREADS;
@@ -114,7 +170,7 @@ __device__ __forceinline__ float finish(float sp, float sn) {
 }
 
 // u = x * inv_norm (the normalised row); weight, distances, closeness.
-// K1 and K2's closeness routine, over all C_PAD criteria.
+// K2's closeness routine, over all C_PAD criteria.
 __device__ __forceinline__ float closeness(const float (&u)[C_PAD],
                                            const float* w,
                                            const float* a_pos,
@@ -157,7 +213,7 @@ __device__ __forceinline__ void finish_quad(const float (&sp)[QUAD],
   }
 }
 
-// K3 and K4's closeness routine: QUAD nodes' normalised rows u[c][j]
+// K1, K3 and K4's closeness routine: QUAD nodes' normalised rows u[c][j]
 // against one operand set, over the C real criteria in order.
 template <int C>
 __device__ __forceinline__ void score_quad(const float (&u)[C][QUAD],
@@ -245,19 +301,245 @@ __device__ __forceinline__ float score_row(const float* __restrict__ x,
   return closeness(u, s + C_PAD, s + 2 * C_PAD, s + 3 * C_PAD);
 }
 
-// K1: one (N, 8) matrix, small operands (8,) -> (N,).
-__global__ void __launch_bounds__(BLOCK)
-topsis_single_kernel(const float* __restrict__ x,
-                     const float* __restrict__ inv_norm,
-                     const float* __restrict__ w,
-                     const float* __restrict__ a_pos,
-                     const float* __restrict__ a_neg,
-                     float* __restrict__ out, int n) {
-  __shared__ float s[4 * C_PAD];
-  load_small(s, 0, inv_norm, w, a_pos, a_neg);
-  const int64_t i = int64_t(blockIdx.x) * BLOCK + threadIdx.x;
-  if (i < n) out[i] = score_row(x, i, s);
+// --- K1 ------------------------------------------------------------------------
+// The cluster barrier, split: arrive releases this thread's writes to
+// shared memory (and marks it done reading the others'), wait acquires
+// every CTA's.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
 }
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+__device__ __forceinline__ int warp_sum(int v) {
+#pragma unroll
+  for (int o = 16; o; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+__device__ __forceinline__ float warp_min(float v) {
+#pragma unroll
+  for (int o = 16; o; o >>= 1) v = fminf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// The C real criteria of the cnt rows row0 .. row0 + cnt - 1 (zeros past
+// cnt): one float4 a row, two where C > 4.
+template <int C>
+__device__ __forceinline__ void load_quad_rows(const float* __restrict__ x,
+                                               int64_t row0, int cnt,
+                                               float (&r)[QUAD][C]) {
+#pragma unroll
+  for (int j = 0; j < QUAD; ++j) {
+    float4 lo = make_float4(0.f, 0.f, 0.f, 0.f), hi = lo;
+    if (j < cnt) {
+      const float4* p = reinterpret_cast<const float4*>(x + (row0 + j) * C_PAD);
+      lo = __ldg(p);
+      if (C > 4) hi = __ldg(p + 1);
+    }
+    const float v[C_PAD] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+    for (int c = 0; c < C; ++c) r[j][c] = v[c];
+  }
+}
+
+// Pass A over one quad: the sums of squares over every row that exists
+// (rows past cnt are zeros and add 0), the extremes and the count over
+// the valid ones.
+template <int C>
+__device__ __forceinline__ void accumulate_quad(const float (&r)[QUAD][C],
+                                                int cnt, uint32_t mask,
+                                                float (&ss)[C], float (&hi)[C],
+                                                float (&lo)[C], int& nvalid) {
+#pragma unroll
+  for (int j = 0; j < QUAD; ++j) {
+    const bool ok = j < cnt && ((mask >> (8 * j)) & 0xffu);
+    nvalid += ok;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      ss[c] += r[j][c] * r[j][c];
+      if (ok) {
+        hi[c] = fmaxf(hi[c], r[j][c]);
+        lo[c] = fminf(lo[c], r[j][c]);
+      }
+    }
+  }
+}
+
+// K1: one (N, 8) matrix -> (N,) closeness, the reductions and the -inf
+// fill fused; launched as one cluster (grid = cluster). valid: the (N,)
+// mask or null.
+template <int C, bool VEC>
+__global__ void __launch_bounds__(K1_THREADS, 1)
+topsis_single_kernel(const float* __restrict__ x,
+                     const uint8_t* __restrict__ valid,
+                     float* __restrict__ out, int n, SingleWeights wts) {
+  // partials: per criterion the sum of squares, the max, the min (3 C),
+  // then the count of valid rows (as a float: exact to 2^24, and only
+  // whether it is 0 is read)
+  constexpr int NP = 3 * C + 1;
+  __shared__ float part[K1_WARPS][NP];      // one row a warp
+  __shared__ float cta[NP];                 // this CTA's, read cluster-wide
+  __shared__ float all[K1_CLUSTER][NP];     // every rank's, copied here
+  __shared__ float ops[4][C];               // inv_norm, w, a_pos, a_neg
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  constexpr int ranks = K1_CLUSTER;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int quads = (n + QUAD - 1) / QUAD;
+  const int per = (quads + ranks - 1) / ranks;
+  const int64_t start = int64_t(rank) * per;
+  const int q0 = start < quads ? int(start) : quads;
+  const int q1 = min(quads, q0 + per);
+  // every CTA's share is at most one quad a thread: its rows stay in
+  // registers between the passes
+  const bool resident = per <= K1_THREADS;
+
+  // --- pass A: per-thread partials
+  float ss[C], hi[C], lo[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    ss[c] = 0.f;
+    hi[c] = neg_inf_f();
+    lo[c] = -neg_inf_f();
+  }
+  int nvalid = 0;
+  float r[QUAD][C];
+  uint32_t mask = 0;
+  int cnt = 0;
+  // A warp whose first quad is past the share has nothing in either pass
+  // and skips both (it keeps the identities above). The loop runs the same
+  // number of times in every lane of a warp (finish_quad's warp vote);
+  // resident, it runs at most once and leaves r, mask, cnt for pass B.
+  const bool idle = q0 + warp * 32 >= q1;
+  if (!idle)
+    for (int base = q0; base < q1; base += K1_THREADS) {
+      const int q = base + t;
+      cnt = q < q1 ? min(QUAD, n - q * QUAD) : 0;
+      load_quad_rows<C>(x, int64_t(q) * QUAD, cnt, r);
+      mask = load_mask<VEC>(valid, int64_t(q) * QUAD, cnt);
+      accumulate_quad<C>(r, cnt, mask, ss, hi, lo, nvalid);
+    }
+
+  // within the CTA: each warp by shuffles, then each partial over the
+  // K1_WARPS warps by a half-warp of shuffles (a tree: any fixed order
+  // will do, since every CTA reads this CTA's result, not its own)
+  static_assert(K1_WARPS == 16, "one half-warp a partial");
+  static_assert(NP * K1_WARPS <= K1_THREADS, "a thread a warp's partial");
+  float cnt_f = 0.f;
+  if (!idle) {
+    cnt_f = (float)warp_sum(nvalid);
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      ss[c] = warp_sum(ss[c]);
+      hi[c] = warp_max(hi[c]);
+      lo[c] = warp_min(lo[c]);
+    }
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      part[warp][c] = ss[c];
+      part[warp][C + c] = hi[c];
+      part[warp][2 * C + c] = lo[c];
+    }
+    part[warp][3 * C] = cnt_f;
+  }
+  __syncthreads();
+  {
+    const int v = t / K1_WARPS, w = t % K1_WARPS;   // a half-warp a v
+    float a = v < NP ? part[w][v] : 0.f;
+#pragma unroll
+    for (int o = K1_WARPS / 2; o; o >>= 1) {
+      const float b = __shfl_xor_sync(0xffffffffu, a, o);
+      a = v < C ? a + b : v < 2 * C ? fmaxf(a, b)
+        : v < 3 * C ? fminf(a, b) : a + b;
+    }
+    if (v < NP && w == 0) cta[v] = a;
+  }
+  cluster_arrive();
+  cluster_wait();
+
+  // across the cluster: one remote read a thread, every rank's partials
+  // into this CTA's shared memory at once; then every CTA combines the
+  // ranks in rank order, so every CTA derives the same inv_norm, w, a+-
+  if (t < ranks * NP)
+    all[t / NP][t % NP] = cluster.map_shared_rank(cta, t / NP)[t % NP];
+  __syncthreads();
+  // done with the cluster's shared memory; no CTA exits before every CTA
+  // has arrived (the wait at the end)
+  cluster_arrive();
+  if (t < C) {
+    float s = 0.f, h = neg_inf_f(), l = -neg_inf_f(), nv = 0.f;
+#pragma unroll
+    for (int q = 0; q < ranks; ++q) {
+      s += all[q][t];
+      h = fmaxf(h, all[q][C + t]);
+      l = fminf(l, all[q][2 * C + t]);
+      nv += all[q][3 * C];
+    }
+    float wsum = 0.f, wt = 0.f;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {   // constant indices: wts stays in params
+      wsum += wts.w[c];
+      if (c == t) wt = wts.w[c];
+    }
+    const float w = wt / fmaxf(wsum, EPS);
+    const float inv = 1.f / fmaxf(sqrtf(s), EPS);
+    const bool ben = (wts.benefit >> t) & 1u;
+    float a_pos, a_neg;
+    if (nv == 0.f) {
+      a_pos = ben ? neg_inf_f() : -neg_inf_f();
+      a_neg = -a_pos;
+    } else {
+      const float u_hi = h * inv, u_lo = l * inv;
+      const float v_hi = w >= 0.f ? u_hi * w : u_lo * w;
+      const float v_lo = w >= 0.f ? u_lo * w : u_hi * w;
+      a_pos = ben ? v_hi : v_lo;
+      a_neg = ben ? v_lo : v_hi;
+    }
+    ops[0][t] = inv;
+    ops[1][t] = w;
+    ops[2][t] = a_pos;
+    ops[3][t] = a_neg;
+  }
+  __syncthreads();
+
+  // --- pass B: score the rows, -inf where invalid
+  for (int base = q0; !idle && base < q1; base += K1_THREADS) {
+    const int q = base + t;
+    if (!resident) {
+      cnt = q < q1 ? min(QUAD, n - q * QUAD) : 0;
+      load_quad_rows<C>(x, int64_t(q) * QUAD, cnt, r);
+      mask = load_mask<VEC>(valid, int64_t(q) * QUAD, cnt);
+    }
+    float u[C][QUAD];
+#pragma unroll
+    for (int c = 0; c < C; ++c)
+#pragma unroll
+      for (int j = 0; j < QUAD; ++j) u[c][j] = r[j][c] * ops[0][c];
+    float cc[QUAD];
+    score_quad<C>(u, ops[1], ops[2], ops[3], cc);
+    store_quad<VEC>(out, int64_t(q) * QUAD, cnt, mask, cc);
+  }
+  cluster_wait();
+}
+
+// The launch floor of K1's shape: an empty kernel, one cluster (one unused
+// parameter: a launch takes at least one).
+__global__ void __launch_bounds__(K1_THREADS, 1)
+topsis_cluster_floor_kernel(int) {}
 
 // K2: a (P, N, 8) queue tensor, per-pod small operands (P, 8) -> (P, N).
 __global__ void __launch_bounds__(BLOCK)
@@ -435,6 +717,49 @@ inline unsigned tiles(int n, int tile) {
   return (unsigned)((n + tile - 1) / tile);
 }
 
+// One cluster of K1_CLUSTER CTAs (grid = cluster). Past 8 CTAs a kernel
+// must be allowed a non-portable cluster size: once per kernel and device.
+template <auto Kernel, typename... Args>
+int launch_cluster(int device, cudaStream_t st, Args... args) {
+  static std::atomic<uint64_t> allowed{0};
+  const uint64_t bit = uint64_t(1) << (device & 63);
+  if (K1_CLUSTER > 8 && !(allowed.load(std::memory_order_relaxed) & bit)) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        Kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return (int)e;
+    allowed.fetch_or(bit, std::memory_order_relaxed);
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)K1_CLUSTER);
+  cfg.blockDim = dim3(K1_THREADS);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)K1_CLUSTER;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, Kernel, args...);
+  const cudaError_t last = cudaGetLastError();
+  return (int)(e != cudaSuccess ? e : last);
+}
+
+struct SingleArgs {
+  const float* x; const uint8_t* valid; float* out; int n; SingleWeights wts;
+  int device;
+};
+
+template <int C>
+int single_for_c(const SingleArgs& a, cudaStream_t st) {
+  if (a.n % QUAD == 0)
+    return launch_cluster<topsis_single_kernel<C, true>>(
+        a.device, st, a.x, a.valid, a.out, a.n, a.wts);
+  return launch_cluster<topsis_single_kernel<C, false>>(
+      a.device, st, a.x, a.valid, a.out, a.n, a.wts);
+}
+
 struct KindsArgs {
   const int32_t* kind_idx; int k; const float* x; const float* inv_norm;
   const float* w; const float* a_pos; const float* a_neg;
@@ -488,8 +813,12 @@ int grid_for_c(const GridArgs& a, cudaStream_t st) {
 }
 
 // One instantiation per number of real criteria, indexed by C - 1.
+using SingleFn = int (*)(const SingleArgs&, cudaStream_t);
 using KindsFn = int (*)(const KindsArgs&, cudaStream_t);
 using GridFn = int (*)(const GridArgs&, cudaStream_t);
+constexpr SingleFn SINGLE_BY_C[C_PAD] = {
+    single_for_c<1>, single_for_c<2>, single_for_c<3>, single_for_c<4>,
+    single_for_c<5>, single_for_c<6>, single_for_c<7>, single_for_c<8>};
 constexpr KindsFn KINDS_BY_C[C_PAD] = {
     kinds_for_c<1>, kinds_for_c<2>, kinds_for_c<3>, kinds_for_c<4>,
     kinds_for_c<5>, kinds_for_c<6>, kinds_for_c<7>, kinds_for_c<8>};
@@ -501,13 +830,21 @@ constexpr GridFn GRID_BY_C[C_PAD] = {
 
 extern "C" {
 
-int topsis_single(const float* x, const float* inv_norm, const float* w,
-                  const float* a_pos, const float* a_neg, float* out, int n,
-                  int device, void* stream) {
+// K1: x (N, 8), valid (N,) or null, out (N,); wts by value; c real
+// criteria (1..8).
+int topsis_single(const float* x, const uint8_t* valid, float* out, int n,
+                  SingleWeights wts, int c, int device, void* stream) {
+  if (c < 1 || c > C_PAD) return (int)cudaErrorInvalidValue;
   cudaSetDevice(device);
-  topsis_single_kernel<<<grid_for(n, 1), BLOCK, 0, (cudaStream_t)stream>>>(
-      x, inv_norm, w, a_pos, a_neg, out, n);
-  return (int)cudaGetLastError();
+  return SINGLE_BY_C[c - 1](SingleArgs{x, valid, out, n, wts, device},
+                            (cudaStream_t)stream);
+}
+
+// K1's launch floor: the empty kernel in K1's cluster shape.
+int topsis_cluster_floor(int device, void* stream) {
+  cudaSetDevice(device);
+  return launch_cluster<topsis_cluster_floor_kernel>(
+      device, (cudaStream_t)stream, 0);
 }
 
 int topsis_batched(const float* x, const float* inv_norm, const float* w,

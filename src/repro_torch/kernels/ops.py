@@ -3,11 +3,13 @@
 kernels consume. The TOPSIS wrappers (K1-K4) come first; RMSNorm (K8) and
 flash attention (K5 forward, K6 and K7 backward) follow them.
 
-Each wrapper computes in plain torch what XLA computed outside the Pallas
-call — weight normalisation, column norms, ``inv_norm``, the masked ideal
-points — pads the criteria axis to ``C_PAD = 8`` and launches the kernel
-(``repro_torch.kernels.topsis_cuda``); ``-inf`` goes over invalid rows,
-written by K3 and K4 themselves and after K1 and K2 by ``fill_invalid``.
+K1's wrapper pads the criteria axis to ``C_PAD = 8`` and launches the
+kernel, which computes what XLA computed outside the Pallas call — weight
+normalisation, column norms, the masked ideal points — and the -inf
+itself. K2-K4's wrappers compute those reductions in plain torch, pad and
+launch the kernel (``repro_torch.kernels.topsis_cuda``); ``-inf`` goes over
+invalid rows, written by K3 and K4 themselves and after K2 by
+``fill_invalid``.
 On CUDA tensors that is the hand-written kernel; on CPU tensors the
 kernel's plain PyTorch version (the path the CPU tests take). Inputs may be
 numpy arrays or tensors; ``device=None`` keeps a tensor input where it is
@@ -88,39 +90,41 @@ def _inv_norm(m: torch.Tensor) -> torch.Tensor:
 fill_invalid = _tc.fill_invalid
 
 
-# Each ``*_operands`` function prepares one kernel's arguments — the
-# global reductions and the C_PAD padding. K1's and K2's return them with
-# the validity mask, and their public wrappers write -inf over invalid
-# rows after the kernel; K3's and K4's return the mask and the number of
-# real criteria among the kernel's arguments, and the kernel writes the
-# -inf itself. chip_smoke.py feeds the same operands to a kernel and to
-# its plain version.
+# Each ``*_operands`` function prepares one kernel's arguments — for K2-K4
+# the global reductions — and the C_PAD padding. K1's, K3's and K4's
+# return the kernel's arguments, the mask and the number of real criteria
+# among them, and the kernel writes the -inf itself; K2's return them with
+# the validity mask, and its public wrapper writes -inf over invalid rows
+# after the kernel. chip_smoke.py feeds the same operands to a kernel and
+# to its plain version.
 def single_operands(matrix, weights, benefit, *, valid=None, device=None):
-    """K1 operands for an (N, C) matrix: ``((x, inv_norm, w, a_pos,
-    a_neg), valid)``."""
+    """K1's arguments for an (N, C) matrix: ``(x, weights, benefit, valid,
+    c)`` with ``x`` the (N, C_PAD) float32 criteria on the device (an
+    already padded contiguous tensor — a row of the scheduler's resident
+    mirror — is used in place), the raw (C,) weights and the benefit mask
+    as host arrays (the kernel takes them by value), ``valid`` the (N,)
+    mask or None and ``c = C``."""
     dev = _device_for(matrix, device)
     benefit = np.asarray(benefit, dtype=bool)
     c = len(benefit)
-    m = _criteria(matrix, c, dev)
-    valid = as_mask(valid, dev)
-    w = _norm_weights(weights, (c,), dev)
-    inv_norm = _inv_norm(m[:, :c])
-    v = m[:, :c] * inv_norm * w
-    a_pos, a_neg = _topsis.masked_ideal_points(v, benefit, valid)
-    return tuple(map(_pad_c, (m, inv_norm, w, a_pos, a_neg))), valid
+    x = _pad_c(_criteria(matrix, c, dev))
+    if isinstance(weights, torch.Tensor):
+        weights = weights.detach().cpu().numpy()
+    return x, np.asarray(weights, dtype=np.float32), benefit, \
+        as_mask(valid, dev), c
 
 
 def topsis_closeness(matrix, weights, benefit, *, valid=None,
                      device=None) -> torch.Tensor:
     """(N,) closeness for an (N, C) decision matrix; C <= 8 (both the
     paper's 5-criteria matrix and the carbon-extended 6-criteria one fit
-    the kernel's C_PAD = 8 padding — padded criteria carry zero weight and
-    contribute nothing). ``valid`` is an optional (N,) feasibility mask:
-    invalid rows are excluded from the ideal points and returned as -inf —
-    identical semantics to ``repro_torch.core.topsis.closeness``. K1."""
-    args, valid = single_operands(matrix, weights, benefit, valid=valid,
-                                  device=device)
-    return fill_invalid(_tc.single(*args), valid)
+    the kernel's C_PAD = 8 padding). ``valid`` is an optional (N,)
+    feasibility mask: invalid rows are excluded from the ideal points and
+    returned as -inf — identical semantics to
+    ``repro_torch.core.topsis.closeness``. One launch of K1, which does the
+    reductions and the fill itself."""
+    return _tc.single(*single_operands(matrix, weights, benefit, valid=valid,
+                                       device=device))
 
 
 def batched_operands(mats, weights, benefit, *, valid=None, device=None):

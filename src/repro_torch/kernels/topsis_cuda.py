@@ -10,10 +10,17 @@ Each of the four kernels has here:
 * a plain PyTorch version (``*_plain``) of the same function. A wrapper
   runs it only when its tensors lie on the CPU; for CUDA tensors it
   launches the kernel or raises.
+* K1 (``single``) takes an (N, C_PAD) matrix with the raw weights and
+  the benefit mask (host values, passed to the kernel by value), the (N,)
+  mask ``valid`` (or None) and the number ``c`` of real criteria, and does
+  the whole decision in one launch of one thread block cluster: the
+  weight normalisation, the column norms, the masked ideal points, the
+  closeness and the -inf. Its plain version (``single_plain``) is
+  ``single_reductions_plain`` + ``closeness_plain`` + ``fill_invalid``.
 * K3 and K4 (``kinds``, ``grid``) also take the (P, N) feasibility mask
   ``valid`` (or None) and write -inf where it is False, and the number
-  ``c`` of real criteria, which is all they sum; K1 and K2 sum all
-  ``C_PAD`` and leave the fill to their caller (``fill_invalid``).
+  ``c`` of real criteria, which is all they sum; K2 sums all ``C_PAD`` and
+  leaves the fill to its caller (``fill_invalid``).
 * a launch count (``LAUNCHES[name]``), raised by one where the wrapper
   launches its kernel and nowhere else.
 
@@ -24,6 +31,9 @@ module is imported.
 """
 from __future__ import annotations
 
+import ctypes
+
+import numpy as np
 import torch
 
 from repro_torch.kernels import cubuild
@@ -31,6 +41,26 @@ from repro_torch.kernels import cubuild
 C_PAD = 8
 MAX_PODS = 65535          # gridDim.y limit: one block row per pod
 _EPS = 1e-12
+# K1's cluster (csrc/topsis.cu: K1_CLUSTER, K1_THREADS, QUAD): SINGLE_CLUSTER
+# CTAs of SINGLE_THREADS threads, 4 nodes a thread.
+SINGLE_THREADS = 512
+SINGLE_CLUSTER = 16
+_QUAD = 4
+
+
+def single_resident_rows() -> int:
+    """The largest N whose rows K1's cluster holds in registers between
+    its two passes; above it each CTA reads its rows again in the scoring
+    pass."""
+    return SINGLE_CLUSTER * SINGLE_THREADS * _QUAD
+
+
+class SingleWeights(ctypes.Structure):
+    """K1's by-value weights (``struct SingleWeights`` of csrc/topsis.cu):
+    the raw weights of the real criteria, and bit j of ``benefit`` set
+    when criterion j is a benefit."""
+    _fields_ = [("w", ctypes.c_float * C_PAD), ("benefit", ctypes.c_uint)]
+
 
 # The Pallas kernel each CUDA kernel replaces (file:line of its body).
 REPLACES = {
@@ -43,15 +73,19 @@ LAUNCHES: dict[str, int] = {name: 0 for name in REPLACES}
 
 _PTR, _I32 = cubuild.PTR, cubuild.I32
 SIGNATURES = {
-    "topsis_single": [_PTR] * 6 + [_I32, _I32, _PTR],
+    "topsis_single": [_PTR] * 3 + [_I32, SingleWeights] + [_I32] * 2
+    + [_PTR],
+    # K1's launch floor: the empty kernel in K1's cluster shape (timed by
+    # chip_smoke.py, never launched by the port)
+    "topsis_cluster_floor": [_I32, _PTR],
     "topsis_batched": [_PTR] * 6 + [_I32, _I32, _I32, _PTR],
     "topsis_kinds": [_PTR, _I32] + [_PTR] * 7 + [_I32] * 4 + [_PTR],
     "topsis_grid": [_PTR] * 7 + [_I32] * 5 + [_PTR],
 }
 LIBRARY = cubuild.CudaLibrary("topsis", SIGNATURES)
 SOURCE = LIBRARY.source
-# csrc/topsis_math_check.cu: K3's and K4's branch-free square root and
-# division (csrc/topsis_math.cuh) against IEEE sqrtf and '/' on the card.
+# csrc/topsis_math_check.cu: K1's, K3's and K4's branch-free square root
+# and division (csrc/topsis_math.cuh) against IEEE sqrtf and '/' on the card.
 MATH_CHECK = cubuild.CudaLibrary("topsis_math_check",
                                  {"topsis_math_check": [_PTR, _I32, _PTR]})
 
@@ -155,9 +189,87 @@ def closeness_plain(x: torch.Tensor, inv_norm: torch.Tensor, w: torch.Tensor,
     return torch.where(denom <= _EPS, 0.5, cc)
 
 
-def single_plain(x, inv_norm, w, a_pos, a_neg) -> torch.Tensor:
-    """K1: (N, 8), four (8,) -> (N,)."""
-    return closeness_plain(x, inv_norm, w, a_pos, a_neg)
+def _host_weights(weights, benefit, c: int) -> tuple[np.ndarray, np.ndarray]:
+    """K1's raw weights (float32) and benefit mask as (c,) host arrays."""
+    if isinstance(weights, torch.Tensor):
+        weights = weights.detach().cpu().numpy()
+    if isinstance(benefit, torch.Tensor):
+        benefit = benefit.detach().cpu().numpy()
+    w = np.asarray(weights, dtype=np.float32).reshape(-1)
+    ben = np.asarray(benefit, dtype=bool).reshape(-1)
+    if w.shape != (c,) or ben.shape != (c,):
+        raise ValueError(f"K1 takes {c} weights and {c} benefit flags, got "
+                         f"{w.shape[0]} and {ben.shape[0]}")
+    return w, ben
+
+
+def normalized_weights(weights) -> np.ndarray:
+    """w / max(sum(w), 1e-12) in float32, the sum taken in order: K1's
+    normalisation, bit for bit."""
+    w = np.asarray(weights, dtype=np.float32)
+    total = np.float32(0.0)
+    for v in w:
+        total = np.float32(total + v)
+    return w / np.maximum(total, np.float32(_EPS))
+
+
+def single_params(weights, benefit, c: int) -> SingleWeights:
+    """The by-value struct K1 takes (checks that there are ``c`` of
+    each)."""
+    w, ben = _host_weights(weights, benefit, c)
+    bits = sum(1 << int(j) for j in np.flatnonzero(ben))
+    return SingleWeights((ctypes.c_float * C_PAD)(*w.tolist()), bits)
+
+
+def single_reductions_plain(x, weights, benefit, valid=None, c=C_PAD):
+    """K1's global reductions in plain torch on x's device — what the TPU
+    design left to XLA and the kernel now computes itself: the normalised
+    weights, the reciprocal column norms over all N rows and the masked
+    ideal points, each (C_PAD,), zero past ``c``. The ideal points come from
+    the masked column extremes of x, as in the kernel: for inv_norm >= 0
+    rounding ``x * inv_norm`` is non-decreasing in x and rounding ``u * w``
+    monotone in u with w's sign, so they are the floats
+    ``masked_ideal_points`` gives on v = x * inv_norm * w, a zero's sign
+    aside. No valid row: a+ = -inf / +inf and a- = +inf / -inf by
+    ``benefit``."""
+    w_np, ben_np = _host_weights(weights, benefit, c)
+    dev = x.device
+    xc = x[:, :c]
+    w = torch.as_tensor(normalized_weights(w_np), device=dev)
+    inv_norm = 1.0 / torch.clamp_min(torch.sqrt(torch.sum(xc * xc, dim=0)),
+                                     _EPS)
+    if valid is None:
+        x_hi, x_lo = torch.amax(xc, dim=0), torch.amin(xc, dim=0)
+    else:
+        keep = valid[:, None]
+        x_hi = torch.amax(torch.where(keep, xc, -torch.inf), dim=0)
+        x_lo = torch.amin(torch.where(keep, xc, torch.inf), dim=0)
+    u_hi, u_lo = x_hi * inv_norm, x_lo * inv_norm
+    up = w >= 0
+    v_hi = torch.where(up, u_hi * w, u_lo * w)
+    v_lo = torch.where(up, u_lo * w, u_hi * w)
+    ben = torch.as_tensor(ben_np, device=dev)
+    a_pos = torch.where(ben, v_hi, v_lo)
+    a_neg = torch.where(ben, v_lo, v_hi)
+    if valid is not None:
+        some = torch.any(valid)
+        inf = torch.tensor(torch.inf, device=dev)
+        a_pos = torch.where(some, a_pos, torch.where(ben, -inf, inf))
+        a_neg = torch.where(some, a_neg, torch.where(ben, inf, -inf))
+    pad = (0, C_PAD - c)
+    return tuple(torch.nn.functional.pad(t, pad)
+                 for t in (inv_norm, w, a_pos, a_neg))
+
+
+def single_plain(x, weights, benefit, valid=None, c=C_PAD) -> torch.Tensor:
+    """K1: (N, 8) rows, (c,) raw weights and benefit flags, (N,) mask or
+    None -> (N,) closeness over the first ``c`` criteria, -inf where
+    ``valid`` is False: ``single_reductions_plain``, ``closeness_plain``,
+    ``fill_invalid``."""
+    if x.shape[0] == 0:
+        return x.new_empty((0,))
+    operands = single_reductions_plain(x, weights, benefit, valid, c)
+    return fill_invalid(closeness_plain(x, *operands, c), valid)
 
 
 def batched_plain(x, inv_norm, w, a_pos, a_neg) -> torch.Tensor:
@@ -188,22 +300,25 @@ def grid_plain(x, inv_norm, w, a_pos, a_neg, valid=None,
 
 
 # --- the wrappers -------------------------------------------------------------------
-def single(x: torch.Tensor, inv_norm: torch.Tensor, w: torch.Tensor,
-           a_pos: torch.Tensor, a_neg: torch.Tensor) -> torch.Tensor:
-    """K1 (replaces ``_topsis_kernel``): (N, 8) -> (N,) closeness."""
+def single(x: torch.Tensor, weights, benefit,
+           valid: torch.Tensor | None = None, c: int = C_PAD) -> torch.Tensor:
+    """K1 (replaces ``_topsis_kernel`` and the reductions around it): an
+    (N, 8) matrix whose first ``c`` criteria are real, with ``c`` raw
+    weights and benefit flags (host values, or tensors read back to the
+    host), -> (N,) closeness, -inf where the (N,) bool ``valid`` is False.
+    One launch of one cluster of SINGLE_CLUSTER CTAs."""
     _check_x(x, 2)
+    _check_c(c)
+    params = single_params(weights, benefit, c)
     if not cubuild.on_card(x):
-        return single_plain(x, inv_norm, w, a_pos, a_neg)
+        return single_plain(x, weights, benefit, valid, c)
     n = x.shape[0]
     _check("x", x, (n, C_PAD), x.device)
-    for nm, t in (("inv_norm", inv_norm), ("w", w), ("a_pos", a_pos),
-                  ("a_neg", a_neg)):
-        _check(nm, t, (C_PAD,), x.device)
+    valid_ptr = _valid_ptr(valid, (n,), x.device)
     out = torch.empty(n, dtype=torch.float32, device=x.device)
     if n:
-        _launch("topsis_single", x.data_ptr(), inv_norm.data_ptr(),
-                w.data_ptr(), a_pos.data_ptr(), a_neg.data_ptr(),
-                out.data_ptr(), n, *cubuild.stream(x.device))
+        _launch("topsis_single", x.data_ptr(), valid_ptr, out.data_ptr(), n,
+                params, c, *cubuild.stream(x.device))
     return out
 
 

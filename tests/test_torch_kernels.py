@@ -5,11 +5,13 @@ CPU, as tests/test_kernels.py runs them) and the pure oracles, at atol 1e-5.
 Here the port runs with ``device="cpu"``: each wrapper computes its global
 reductions, pads to C_PAD = 8 and calls the kernel binding, which takes the
 kernel's plain PyTorch version because the tensors lie on the CPU. The
-K3/K4 sweeps are in tests/test_torch_kernels_indexed.py. The one
-``gpu``-marked test compares each CUDA kernel with its plain version on
-the card and skips where there is none. The card's machine has no JAX, so
-the reference is imported by a fixture rather than at the top: the file
-collects there, and ``-m gpu`` selects the card test alone.
+K3/K4 sweeps are in tests/test_torch_kernels_indexed.py. K1's plain
+version (the fused kernel's function: its own reductions and -inf fill)
+is swept here too. The ``gpu``-marked tests compare each CUDA kernel with
+its plain version on the card and skip where there is none. The card's
+machine has no JAX, so the reference is imported by a fixture rather
+than at the top: the file collects there, and ``-m gpu`` selects the card
+tests alone.
 """
 import re
 from pathlib import Path
@@ -66,6 +68,84 @@ def test_single_sweep(n, c, reference):
                                              torch.from_numpy(w), benefit))
     got_v = ops.topsis_closeness(mat, w, benefit, valid=valid, device="cpu")
     _same(got_v, ref_ops.topsis_closeness(mat, w, benefit, valid=valid))
+
+
+# K1's plain version as the fused kernel computes it: the reductions, the
+# closeness over the real criteria and the -inf, from the padded rows.
+FUSED_NS = [1, 7, 128, 1000, 4097]
+FUSED_CS = [1, 5, 6, 8]
+
+
+def _fused_plain(mat, w, benefit, valid):
+    x = ops._pad_c(torch.from_numpy(mat))
+    return topsis_cuda.single_plain(
+        x, w, benefit, None if valid is None else torch.from_numpy(valid),
+        len(benefit))
+
+
+def _against_float64(got, mat, w, benefit, valid):
+    """Within ATOL of the float64 numpy reference, -inf where it is."""
+    from repro_torch.core.topsis import closeness_np
+    _same(got, closeness_np(mat.astype(np.float64), w.astype(np.float64),
+                            benefit, valid).closeness)
+
+
+@pytest.mark.parametrize("n", FUSED_NS)
+@pytest.mark.parametrize("c", FUSED_CS)
+def test_single_fused_plain_sweep(n, c, reference):
+    """K1's plain version, masked and unmasked, against the reference's
+    Pallas wrapper (interpret mode) and the float64 numpy reference."""
+    ref_ops, _ = reference
+    mat, w, benefit, valid = _single_inputs(n, c, seed=n * 17 + c)
+    for mask in (valid, None):
+        got = _fused_plain(mat, w, benefit, mask)
+        _same(got, ref_ops.topsis_closeness(mat, w, benefit, valid=mask))
+        _against_float64(got, mat, w, benefit, mask)
+        _same(ops.topsis_closeness(mat, w, benefit, valid=mask,
+                                   device="cpu"), got, atol=0)
+
+
+@pytest.mark.parametrize("case", ["one_valid", "no_valid", "negative_weight",
+                                  "negative_weight_masked"])
+def test_single_fused_plain_edge_cases(case, reference):
+    """One valid node (closeness 0.5 there, -inf elsewhere), no valid node
+    (all -inf) and a negative weight, against the reference's Pallas
+    wrapper and float64 numpy."""
+    ref_ops, _ = reference
+    mat, w, benefit, valid = _single_inputs(301, 5, seed=11)
+    if case == "one_valid":
+        valid = np.zeros(301, bool)
+        valid[137] = True
+    elif case == "no_valid":
+        valid = np.zeros(301, bool)
+    else:
+        w = np.array([0.5, -0.2, 0.4, 0.3, 0.1], np.float32)
+        if case == "negative_weight":
+            valid = None
+    got = _fused_plain(mat, w, benefit, valid)
+    _same(got, ref_ops.topsis_closeness(mat, w, benefit, valid=valid))
+    _against_float64(got, mat, w, benefit, valid)
+    if case == "one_valid":
+        assert float(got[137]) == 0.5
+        assert int(torch.isneginf(got).sum()) == 300
+    if case == "no_valid":
+        assert bool(torch.isneginf(got).all())
+
+
+def test_single_weights_are_normalised_in_order():
+    """K1's weight normalisation (the kernel sums the weights left to
+    right): w / max(sum, 1e-12) in float32 from a sequential sum."""
+    w = np.array([0.1, 0.7, 1e-8, 0.2, 3.0], np.float32)
+    total = np.float32(0.0)
+    for v in w:
+        total = np.float32(total + v)
+    assert np.array_equal(topsis_cuda.normalized_weights(w), w / total)
+    assert np.array_equal(topsis_cuda.normalized_weights(np.zeros(3)),
+                          np.zeros(3, np.float32))
+    params = topsis_cuda.single_params(w, [True, False, True, True, False],
+                                       5)
+    assert list(params.w)[:5] == [float(v) for v in w]
+    assert params.benefit == 0b01101
 
 
 # --- K2: per-pod batch ------------------------------------------------------
@@ -133,10 +213,11 @@ def test_wrappers_reject_what_the_kernels_do_not_take(bad):
                                  np.ones(9, bool), device="cpu")
     elif bad == "wrong_width":
         with pytest.raises(ValueError, match="last axis 8"):
-            topsis_cuda.single(torch.zeros(4, 5), small, small, small, small)
+            topsis_cuda.single(torch.zeros(4, 5), np.ones(5), np.ones(5, bool),
+                               None, 5)
     elif bad == "meta_device":
         with pytest.raises(ValueError, match="not supported"):
-            topsis_cuda.single(x.to("meta"), small, small, small, small)
+            topsis_cuda.single(x.to("meta"), np.ones(8), np.ones(8, bool))
     else:
         with pytest.raises(ValueError, match="criteria tensor"):
             topsis_cuda.batched(np.zeros((1, 4, 8)), small, small, small,
@@ -155,7 +236,29 @@ def test_ctypes_signatures_match_the_cuda_source():
         for p, t in zip(params, argtypes):
             is_ptr = "*" in p
             assert is_ptr == (t is topsis_cuda._PTR), (name, p)
-    assert len(re.findall(r"__global__", src)) == 4
+    # K1-K4 and K1's launch-floor kernel
+    assert len(re.findall(r"__global__", src)) == 5
+    # K1's by-value struct: the same fields as its ctypes mirror
+    m = re.search(r"struct SingleWeights \{([^}]*)\}", src)
+    assert m and re.findall(r"(\w+)(?:\[\d+\])?;", m.group(1)) == \
+        [f for f, _ in topsis_cuda.SingleWeights._fields_]
+
+
+def test_single_cluster_constants_match_the_cuda_source():
+    """K1's on-chip capacity (the boundary between its resident and
+    re-reading paths) and cluster size, as the wrapper and the tests take
+    them, are the source's."""
+    src = Path(topsis_cuda.SOURCE).read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+    assert const("K1_THREADS") == topsis_cuda.SINGLE_THREADS
+    assert const("K1_CLUSTER") == topsis_cuda.SINGLE_CLUSTER
+    assert const("QUAD") == topsis_cuda._QUAD
+    assert topsis_cuda.single_resident_rows() == 16 * 512 * 4
+    with pytest.raises(ValueError, match="weights"):
+        topsis_cuda.single(torch.zeros(4, 8), np.ones(4), np.ones(5, bool),
+                           None, 5)
 
 
 def test_math_check_signature_matches_its_source():
@@ -250,6 +353,40 @@ def test_cuda_kinds_and_grid_match_plain_at_ragged_shapes(c):
                 if name == "topsis_kinds":
                     assert torch.isnan(want[1:3]).any()
                 _same(got.cpu(), want.cpu())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c", range(1, 9))
+def test_cuda_single_matches_plain_at_ragged_and_boundary_n(c):
+    """The fused K1 against its plain version on the card, masked and
+    unmasked, at ragged N (the scalar path), N below one CTA's share, and
+    at the on-chip capacity and one node past it (the re-reading path); one
+    valid node and none. Tolerance 1e-5: the sum of squares is summed as a
+    tree, not in torch's order."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run with -m gpu on the card)")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(100 + c)
+    benefit = rng.random(c) > 0.5
+    w = rng.uniform(-0.2, 1.0, c).astype(np.float32)
+    cap = topsis_cuda.single_resident_rows()
+    for n in (1, 3, 1003, 1024, 15001, 16384, 16385, cap, cap + 1):
+        x = torch.zeros((n, topsis_cuda.C_PAD), device=dev)
+        x[:, :c] = torch.as_tensor(rng.uniform(0.05, 10.0, (n, c)),
+                                   dtype=torch.float32, device=dev)
+        valid = torch.as_tensor(rng.random(n) > 0.1, device=dev)
+        masks = [valid, None]
+        if n == 1003:
+            one = torch.zeros(n, dtype=torch.bool, device=dev)
+            one[500] = True
+            masks += [one, torch.zeros_like(one)]
+        for mask in masks:
+            before = topsis_cuda.LAUNCHES["topsis_single"]
+            got = topsis_cuda.single(x, w, benefit, mask, c)
+            torch.cuda.synchronize()
+            assert topsis_cuda.LAUNCHES["topsis_single"] == before + 1
+            want = topsis_cuda.single_plain(x, w, benefit, mask, c)
+            _same(got.cpu(), want.cpu())
 
 
 @pytest.mark.gpu

@@ -225,6 +225,46 @@ def test_grid_ideal_points_equal_the_weighted_tensor_construction(seed):
     assert torch.equal(_bits(topsis_cuda.grid_plain(*args)), _bits(before))
 
 
+@pytest.mark.parametrize("seed", range(8))
+def test_single_ideal_points_equal_the_weighted_tensor_construction(seed):
+    """K1's a+- (the fused kernel's rule, mirrored by its plain version):
+    the masked column extremes of x, times inv_norm, times w, against
+    ``masked_ideal_points`` on v = x * inv_norm * w from the same inv_norm
+    and w — the same floats bit for bit wherever they are not zero, with
+    zero and negative weights, negative criteria, invalid nodes and (seed 3)
+    no valid node. A zero's sign may differ; the closeness is bitwise
+    equal."""
+    rng = np.random.default_rng(seed)
+    n, c = 57, int(rng.integers(1, 9))
+    x = torch.zeros((n, ops.C_PAD))
+    x[:, :c] = torch.as_tensor(rng.normal(0.0, 3.0, (n, c)),
+                               dtype=torch.float32)
+    w = rng.normal(0.0, 1.0, c).astype(np.float32)
+    w[rng.random(c) < 0.3] = 0.0
+    benefit = rng.random(c) > 0.5
+    valid = None
+    if seed % 4:
+        valid = torch.as_tensor(rng.random(n) > 0.3)
+        if seed == 3:
+            valid[:] = False
+    inv_norm, wn, a_pos, a_neg = topsis_cuda.single_reductions_plain(
+        x, w, benefit, valid, c)
+    for t in (inv_norm, wn, a_pos, a_neg):
+        assert torch.all(t[c:] == 0)         # the padded criteria
+    v = x[:, :c] * inv_norm[:c] * wn[:c]
+    old = port_topsis.masked_ideal_points(v, benefit, valid)
+    for new, want in zip((a_pos, a_neg), old):
+        new = new[:c]
+        assert torch.equal(new, want)
+        nonzero = want != 0
+        assert torch.equal(_bits(new)[nonzero], _bits(want)[nonzero])
+    got = topsis_cuda.fill_invalid(topsis_cuda.closeness_plain(
+        x, inv_norm, wn, a_pos, a_neg, c), valid)
+    before = topsis_cuda.fill_invalid(topsis_cuda.closeness_plain(
+        x, inv_norm, wn, *(ops._pad_c(a) for a in old), c), valid)
+    assert torch.equal(_bits(got), _bits(before))
+
+
 @pytest.mark.parametrize("wrapper", ["kinds", "grid"])
 @pytest.mark.parametrize("bad_c", [0, 9, 5.0, True])
 def test_kinds_and_grid_reject_a_bad_criteria_count(wrapper, bad_c):

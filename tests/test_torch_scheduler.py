@@ -145,6 +145,69 @@ def test_greenpod_select_matches_reference(backend, carbon):
         same_scores(d_a["closeness"], d_r["closeness"], backend == "numpy")
 
 
+@pytest.mark.parametrize("backend", ["torch", "cuda"])
+@pytest.mark.parametrize("carbon", [False, True])
+def test_attached_greenpod_matches_reference_through_binds(backend, carbon):
+    """The per-pod path on the resident mirror: an attached port scheduler
+    against the reference's (float64 numpy) one, decision after decision,
+    each bound on both fleets before the next — so every decision scores a
+    row with freshly written dirty columns — and, with a carbon signal,
+    ``now`` moving so the carbon column is rewritten. Same picks, scores
+    within 1e-5."""
+    ref = ref_fleet(48, seed=5, util=0.2)
+    port = to_port(ref)
+    r_sig = R_carbon.diurnal_fleet_signal(period_s=3600.0) if carbon else None
+    p_sig = P_carbon.diurnal_fleet_signal(period_s=3600.0) if carbon else None
+    r_s = R.GreenPodScheduler("energy_centric", carbon_signal=r_sig)
+    p_s = P.GreenPodScheduler("energy_centric", backend=backend,
+                              carbon_signal=p_sig, device="cpu")
+    p_s.attach(port)
+    times = (0.0, 0.0, 450.0, 450.0, 1200.0, 1900.0, 1900.0, 2600.0)
+    for now, rp, pp in zip(times, ref_queue(8, seed=12),
+                           to_port_pods(ref_queue(8, seed=12))):
+        idx_r, d_r = r_s.select(rp, ref, now=now)
+        idx_p, d_p = p_s.select(pp, port, now=now)
+        assert idx_p == idx_r
+        same_scores(d_p["closeness"], d_r["closeness"], False)
+        ref.bind(idx_r, rp.cpu, rp.mem)
+        port.bind(idx_p, pp.cpu, pp.mem)
+
+
+@pytest.mark.parametrize("backend", ["torch", "cuda"])
+def test_greenpod_mirror_writes_only_dirty_columns_in_place(backend):
+    """After a bind, the per-pod path writes the bound node's column into
+    the same mirror storage and leaves every other column alone (a value
+    planted in a clean column survives the next decision)."""
+    fs = to_port(ref_fleet(16, seed=1))
+    s = P.GreenPodScheduler("energy_centric", backend=backend, device="cpu")
+    s.attach(fs)
+    pod = to_port_pods(ref_queue(1))[0]
+    s.select(pod, fs)
+    mirror = s._dev
+    assert mirror.shape == (1, 16, P.C_PAD) and mirror.dtype == torch.float32
+    assert torch.all(mirror[..., 5:] == 0)
+    mirror[0, 9, 0] = 1234.5                 # a clean column, planted
+    fs.bind(3, 0.5, 1.0)
+    s.select(pod, fs)
+    assert s._dev is mirror
+    np.testing.assert_array_equal(mirror[0, 3, :5].numpy(),
+                                  s._cache.mats[0, 3, :].astype(np.float32))
+    assert float(mirror[0, 9, 0]) == 1234.5
+
+
+def test_cpu_greenpod_launches_no_kernel():
+    before = dict(topsis_cuda.LAUNCHES)
+    fs = to_port(ref_fleet(16))
+    s = P.GreenPodScheduler("energy_centric", backend="cuda", device="cpu")
+    s.attach(fs)
+    for pod in to_port_pods(ref_queue(3)):
+        idx, _ = s.select(pod, fs)
+        fs.bind(idx, pod.cpu, pod.mem)
+    P.GreenPodScheduler("energy_centric", backend="cuda",
+                        device="cpu").select(pod, fs)
+    assert topsis_cuda.LAUNCHES == before
+
+
 def test_greenpod_explain_matches_reference():
     ref = ref_fleet(churn_seed=5)
     port = to_port(ref)
