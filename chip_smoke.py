@@ -26,6 +26,19 @@ the card:
   decision, on the resident mirror), ``torch`` and ``numpy`` — each
   decision held to numpy on the same fleet, timed per backend, and one
   clean decision profiled: K1 must be its only kernel;
+* the scheduling round with the carbon and autoscale policies on the same
+  fleet and arrivals (half of the pods deferrable, ``carbon_centric``):
+  ``run_scenario(batch=True)`` on ``cuda`` — K3 at C = 6 with an exclude
+  mask, once a round and once a queue-pressure wake's scoring — then on
+  ``numpy``, which must reach the same placements, event log, counters,
+  energy and carbon once it follows the cuda run's float64 near-tie
+  breaks (each shown to be one); every policy mechanism must act, and the
+  cuda run once more with telemetry (after the timed runs) must record the
+  run's counters and export them to Prometheus text and an HTML report;
+* the Pareto frontier layer: ``placement_metrics`` for 64 pods under 64
+  weight schemes of six criteria on the same fleet (one K4 launch; the
+  frontier equal to numpy's), and ``scenario_metrics`` for three schemes
+  through the engine (K3), equal to numpy's;
 * the llama3-8b serving path at full width and depth with seeded random
   weights — 8 requests of 1024-2048 prompt tokens in waves of 4 through
   ``serve.engine.Engine``, prefill through the flash-attention kernel (K5)
@@ -51,8 +64,9 @@ the card:
 
 K3 and K4 write the -inf over infeasible nodes themselves and sum only the
 real criteria: each is held against its plain version masked and
-unmasked, at C = 5 and 6 and at a ragged N (15,001 nodes), and timed
-masked and unmasked beside the unfused pair (the kernel, then the fill).
+unmasked, at C = 5 and 6 and at a ragged N (15,001 nodes), K3 also for
+one pod at C = 6 (a wake's scoring), and timed masked and unmasked beside
+the unfused pair (the kernel, then the fill).
 K1 does its own reductions and fill in one cluster launch: it is held to
 its plain version from 1 to 65,536 nodes (past what the cluster holds on
 chip), with one valid node and none, and timed beside its launch floor
@@ -452,9 +466,10 @@ def kernel_phase(dev, smi):
     def f_row(c):       # operations per (pod, node) and scheme
         return 8 * c + 5
 
-    def kinds_bound(c, nn, masked):   # + one mask byte per (pod, node)
-        return bound(k * nn * c * 4 + BURST * 4 + 4 * BURST * c * 4
-                     + BURST * nn * (4 + masked), BURST * nn * f_row(c))
+    def kinds_bound(c, nn, masked, p=BURST):  # + a mask byte a (pod, node)
+        used = len(set(kidx[:p].tolist()))   # only the pods' kinds are read
+        return bound(used * nn * c * 4 + p * 4 + 4 * p * c * 4
+                     + p * nn * (4 + masked), p * nn * f_row(c))
 
     def grid_bound(c, nn, masked):
         return bound(GRID_P * nn * c * 4 + GRID_P * c * 4
@@ -525,6 +540,12 @@ def kernel_phase(dev, smi):
          dict(**k3s, N=n, C=6, mask=True), 200, False),
         ("topsis_kinds", unmasked(k3c6), k3c6[-2], kinds_bound(6, n, 0),
          dict(**k3s, N=n, C=6, mask=False), 200, False),
+        # a queue-pressure wake's scoring: one pod, C = 6, masked
+        ("topsis_kinds",
+         ops.kinds_operands(kinds6, kidx[:1], w6, b6, valid=valid[:1],
+                            device=dev),
+         None, kinds_bound(6, n, 1, p=1), dict(K=k, P=1, N=n, C=6, mask=True),
+         200, False),
         ("topsis_kinds",
          ops.kinds_operands(kinds5r, kidx, w5, b5, valid=valid_r, device=dev),
          None, kinds_bound(5, n + 1, 1),
@@ -1236,43 +1257,14 @@ def bwd_kernel_phase(dev):
 
 
 # --- phase 4: the slice ---------------------------------------------------------
-def near_tie_walk(cc_ref, got, pods, table, blocked):
-    """Walk the queue with the ledger of the assignment ``got``. At each
-    pod, the float64 reference's pick under that same ledger must be
-    ``got``'s pick, or a node whose float64 closeness is within TOL of it
-    (a near-tie). Returns the number of near-ties and the largest float64
-    closeness gap among them."""
-    import numpy as np
-    order = np.argsort(-cc_ref, kind="stable", axis=-1)
-    free_cpu, free_mem = table.free_cpu.copy(), table.free_mem.copy()
-    ties, max_gap = 0, 0.0
-    for i, pod in enumerate(pods):
-        forbid = blocked[i] if blocked is not None else None
-        want = None
-        for j in order[i]:
-            if np.isneginf(cc_ref[i, j]):
-                break
-            if forbid is not None and int(j) == forbid:
-                continue
-            if free_cpu[j] >= pod.cpu - 1e-9 and free_mem[j] >= pod.mem - 1e-9:
-                want = int(j)
-                break
-        pick = got[i]
-        if pick != want:
-            check(pick is not None and want is not None,
-                  f"pod {pod.uid}: placed {pick}, reference {want}")
-            check(free_cpu[pick] >= pod.cpu - 1e-9
-                  and free_mem[pick] >= pod.mem - 1e-9 and pick != forbid,
-                  f"pod {pod.uid}: node {pick} does not fit")
-            gap = abs(cc_ref[i, want] - cc_ref[i, pick])
-            check(gap <= TOL, f"pod {pod.uid}: node {pick} vs reference "
-                  f"{want}, float64 closeness gap {gap} > {TOL}")
-            ties += 1
-            max_gap = max(max_gap, float(gap))
-        if pick is not None:
-            free_cpu[pick] -= pod.cpu
-            free_mem[pick] -= pod.mem
-    return ties, max_gap
+def scenario_fleet():
+    """The slice's fleet: GKE's documented per-cluster node limit."""
+    from repro_torch.cluster.node import make_scenario_cluster
+    return make_scenario_cluster("mixed", N_NODES, seed=0)
+
+
+def placements(res):
+    return [(r.pod.uid, r.node, r.start_s) for r in res.records]
 
 
 def make_checked_scheduler(dev, stats):
@@ -1283,6 +1275,7 @@ def make_checked_scheduler(dev, stats):
     the live fleet."""
     import numpy as np
 
+    from repro_torch.cluster.parity import max_err_np, near_tie_walk
     from repro_torch.cluster.node import NodeTable
     from repro_torch.core import scheduler as S
 
@@ -1417,34 +1410,11 @@ def make_timed_scheduler(dev, stats):
     return TimedBatchScheduler
 
 
-def max_err_np(got, want):
-    import numpy as np
-    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
-    check(got.shape == want.shape, f"shape {got.shape} vs {want.shape}")
-    check(np.array_equal(np.isneginf(got), np.isneginf(want)),
-          "-inf pattern differs")
-    fin = np.isfinite(want)
-    check(bool(np.isfinite(got[fin]).all()), "non-finite closeness")
-    return float(np.abs(got[fin] - want[fin]).max()) if fin.any() else 0.0
-
-
-@contextlib.contextmanager
-def engine_scheduler(cls):
-    """Route ``simulate``'s BatchScheduler through ``cls`` for one run."""
-    from repro_torch.cluster import engine
-    saved = engine.BatchScheduler
-    engine.BatchScheduler = cls
-    try:
-        yield
-    finally:
-        engine.BatchScheduler = saved
-
-
 def slice_phase(dev):
     import numpy as np
     import torch
 
-    from repro_torch.cluster.node import make_scenario_cluster
+    from repro_torch.cluster.parity import engine_scheduler
     from repro_torch.cluster.simulator import run_scenario
     from repro_torch.cluster.workload import PoissonArrivals
     from repro_torch.kernels import topsis_cuda as tc
@@ -1456,8 +1426,7 @@ def slice_phase(dev):
         t0 = time.perf_counter()
         res = run_scenario(
             arrivals, "energy_centric",
-            cluster_factory=lambda: make_scenario_cluster("mixed", N_NODES,
-                                                          seed=0),
+            cluster_factory=scenario_fleet,
             batch=True, batch_backend=backend, **kw)
         if backend != "numpy":
             torch.cuda.synchronize()
@@ -1486,9 +1455,6 @@ def slice_phase(dev):
     with engine_scheduler(make_timed_scheduler(dev, timed)):
         res_timed, wall_cuda = run("cuda", device=dev)
     check(len(timed["rounds"]) == len(rounds), "timed run rounds differ")
-
-    def placements(res):
-        return [(r.pod.uid, r.node, r.start_s) for r in res.records]
 
     same = placements(res_cuda) == placements(res_np)
     e_cuda, e_np = (res_cuda.mean_energy_kj("topsis"),
@@ -1574,7 +1540,8 @@ def perpod_phase(dev, smi, compare=False):
     import numpy as np
     import torch
 
-    from repro_torch.cluster.node import FleetState, make_scenario_cluster
+    from repro_torch.cluster.node import FleetState
+    from repro_torch.cluster.parity import max_err_np
     from repro_torch.cluster.workload import PoissonArrivals
     from repro_torch.core import scheduler as S
     from repro_torch.kernels import topsis_cuda as tc
@@ -1585,8 +1552,7 @@ def perpod_phase(dev, smi, compare=False):
     pods = pods[:PERPOD_PODS]
 
     def run(backend):
-        fleet = FleetState.from_nodes(make_scenario_cluster("mixed", N_NODES,
-                                                            seed=0))
+        fleet = FleetState.from_nodes(scenario_fleet())
         sched = S.GreenPodScheduler("energy_centric", backend=backend,
                                     device=None if backend == "numpy"
                                     else dev)
@@ -1697,14 +1663,13 @@ def profile_clean_decisions():
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.cluster.node import FleetState, make_scenario_cluster
+    from repro_torch.cluster.node import FleetState
     from repro_torch.cluster.workload import PoissonArrivals
     from repro_torch.core import scheduler as S
     dev = torch.device("cuda", 0)
     pods = PoissonArrivals(rate_per_s=0.2, n_bursts=1, burst_size=8,
                            topsis_share=1.0, seed=0).events()[0][1]
-    fleet = FleetState.from_nodes(make_scenario_cluster("mixed", N_NODES,
-                                                        seed=0))
+    fleet = FleetState.from_nodes(scenario_fleet())
     sched = S.GreenPodScheduler("energy_centric", backend="cuda", device=dev)
     sched.attach(fleet)
     for pod in pods:
@@ -1770,6 +1735,384 @@ def decision_parts(dev, sched, fleet, pods):
         fleet.bind(idx, pod.cpu, pod.mem)
     parts["sum"] = [sum(v) for v in zip(*parts.values())]
     return parts
+
+
+# --- phase 4c: the scheduling round under both policies ----------------------
+# The policies of tests/engine_golden_spec.py at fleet scale
+# (``repro_torch.cluster.parity.policy_knobs``). Half of the slice's pods
+# are deferrable, with a 300 s deadline.
+POLICY_SCHEME = "carbon_centric"
+ELASTIC_TIMED = ("states", "advance_to", "write_states",
+                 "exclude_for_deadline")
+# the policies' engine hooks, timed for their share of a run's wall time
+# (AutoscaleScheduling's on_round_end holds the wake scorings' time)
+HOOKS_TIMED = {"AutoscaleScheduling": ("on_clock", "on_round_start",
+                                       "exclude_mask", "exclude_for",
+                                       "on_round_end", "next_wake_time"),
+               "CarbonScheduling": ("on_round_start", "filter_pending",
+                                    "next_wake_time")}
+# [pareto]: the first PARETO_P pods of the slice's first burst under the
+# first PARETO_S points of the 6-criteria weight lattice; then three named
+# schemes (one carbon-blind) through the engine over PARETO_BURSTS bursts
+PARETO_S, PARETO_P, PARETO_BURSTS = 64, 64, 2
+PARETO_SCHEMES = ("energy_centric", "carbon_centric",
+                  "carbon_energy_balanced")
+
+
+def policy_arrivals(n_bursts=N_BURSTS):
+    from repro_torch.cluster.workload import PoissonArrivals
+    return PoissonArrivals(rate_per_s=0.2, n_bursts=n_bursts,
+                           burst_size=BURST, topsis_share=1.0, seed=0,
+                           deferrable_share=0.5, deadline_s=300.0)
+
+
+@contextlib.contextmanager
+def timed_methods(cls, names, totals):
+    """Add each call's host seconds of ``cls.<name>`` to ``totals[name]``
+    and count it in ``totals[name + "_calls"]`` for one block (a nested
+    call counts in both)."""
+    from repro_torch.cluster.parity import patched
+
+    def timer(name, fn):
+        def timed(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                totals[name] += time.perf_counter() - t0
+                totals[name + "_calls"] += 1
+        return timed
+    with contextlib.ExitStack() as stack:
+        for name in names:
+            stack.enter_context(patched(cls, name,
+                                        timer(name, getattr(cls, name))))
+        yield
+
+
+def policy_run(dev, backend, replay=None):
+    """The [policy] scenario through ``run_scenario`` on ``backend``, with
+    every scoring call recorded (``make_policy_scheduler``, which takes
+    ``replay``) and the policies' hooks and the ElasticFleet's per-node
+    loops timed. Returns the result and the record; ``wall`` leaves out
+    the replay check's time."""
+    import torch
+
+    from repro_torch.cluster import parity as Q
+    from repro_torch.cluster.simulator import run_scenario
+    from repro_torch.core import carbon as C
+    from repro_torch.core import elastic as E
+    stats = dict(Q.policy_stats(), elastic=collections.Counter(),
+                 **{cls: collections.Counter() for cls in HOOKS_TIMED})
+    carbon, autoscale = Q.policy_knobs()
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(Q.engine_scheduler(
+            Q.make_policy_scheduler(stats, replay)))
+        stack.enter_context(Q.wake_scoring(stats))
+        stack.enter_context(timed_methods(E.ElasticFleet, ELASTIC_TIMED,
+                                          stats["elastic"]))
+        for cls, hooks in HOOKS_TIMED.items():
+            owner = getattr(C if cls.startswith("Carbon") else E, cls)
+            stack.enter_context(timed_methods(owner, hooks, stats[cls]))
+        res = run_scenario(policy_arrivals(), POLICY_SCHEME,
+                           cluster_factory=scenario_fleet, batch=True,
+                           batch_backend=backend, carbon=carbon,
+                           autoscale=autoscale, device=dev)
+    if backend != "numpy":
+        torch.cuda.synchronize()
+    stats["wall"] = time.perf_counter() - t0 - stats["check_s"]
+    return res, stats
+
+
+def policy_phase(dev, smi):
+    """The scheduling round with both policies at full size: the slice's
+    fleet and arrivals (half of the pods deferrable) under
+    ``carbon_centric`` with the carbon and autoscale policies, through
+    ``run_scenario(batch=True)`` on cuda, then on numpy following the cuda
+    run's near-tie breaks (``parity.make_policy_scheduler``): the two runs
+    must then end equal — placements, start times, event log, counters,
+    energy and carbon — then, after both timed runs, on cuda again with
+    telemetry recording. K3 runs at C = 6 with an exclude mask on every
+    call: once a round and once a wake scoring. Returns the first cuda
+    run's launch counts."""
+    import torch
+
+    from repro_torch.kernels import topsis_cuda as tc
+
+    torch.cuda.reset_peak_memory_stats()
+    tc.reset_launches()
+    res_cuda, cu = policy_run(dev, "cuda")
+    launches = dict(tc.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    res_np, nps = policy_run(dev, "numpy", replay=cu["calls"])
+    tel = policy_telemetry_run(dev)
+    return policy_checks(smi, tel, res_cuda, cu, launches, peak, res_np, nps)
+
+
+def policy_checks(smi, tel, res_cuda, cu, launches, peak, res_np, nps):
+    """[policy]'s checks and lines (see ``policy_phase``); returns the cuda
+    run's launch counts."""
+    import numpy as np
+
+    rounds = [c for c in cu["calls"] if not c["wake"]]
+    wakes = [c for c in cu["calls"] if c["wake"]]
+    check(cu["criteria"] == {6}, f"criteria per call {cu['criteria']}")
+    check(all(c["mask"] for c in cu["calls"]),
+          "a policy call scored without an exclude mask")
+    check(all(c["pods"] == 1 for c in wakes), "a wake scored several pods")
+    check(launches["topsis_kinds"] == len(rounds) + len(wakes),
+          f"K3 launches {launches['topsis_kinds']} != rounds {len(rounds)} "
+          f"+ wake scorings {len(wakes)}")
+    check(sum(launches.values()) == launches["topsis_kinds"],
+          f"other kernels launched in the policy run: {launches}")
+
+    def counters(r):
+        return dict(unschedulable=r.unschedulable, preemptions=r.preemptions,
+                    migrations=r.migrations, wakes=r.wakes, sleeps=r.sleeps)
+
+    def energies(r):
+        return dict(topsis_carbon_g=r.total_carbon_g("topsis"),
+                    fleet_energy_kj=r.fleet_energy_kj(),
+                    fleet_carbon_g=r.fleet_carbon_g())
+    check(len(nps["calls"]) == len(cu["calls"]),
+          f"numpy scored {len(nps['calls'])} times, cuda {len(cu['calls'])}")
+    ties = sum(c["ties"] for c in nps["calls"])
+    check(placements(res_cuda) == placements(res_np)
+          and res_cuda.events == res_np.events,
+          "cuda placements or events differ from numpy's beyond near-ties")
+    check(counters(res_cuda) == counters(res_np),
+          f"counters {counters(res_cuda)} vs {counters(res_np)}")
+    e_cu, e_np = energies(res_cuda), energies(res_np)
+    for key, want in e_np.items():
+        check(abs(e_cu[key] - want) <= 1e-9 * abs(want),
+              f"{key}: {e_cu[key]} vs {want}")
+
+    check(tel["placements"] == placements(res_cuda)
+          and tel["events"] == res_cuda.events,
+          "recording telemetry changed the cuda run")
+    fired = dict(counters(res_cuda), deferred_pods=tel["deferred_pods"],
+                 drained_tasks=tel["drained_tasks"])
+    for key in ("deferred_pods", "preemptions", "wakes", "sleeps",
+                "drained_tasks"):
+        check(fired[key] > 0, f"the policies never acted: {key} = 0")
+
+    def med(calls):
+        return float(np.median([c["s"] for c in calls])) if calls else 0.0
+    np_rounds = [c for c in nps["calls"] if not c["wake"]]
+    np_wakes = [c for c in nps["calls"] if c["wake"]]
+    engine_rounds = cu["AutoscaleScheduling"]["on_clock_calls"]
+    phase("policy", nodes=N_NODES, scheme=POLICY_SCHEME, criteria=6,
+          engine_rounds=engine_rounds, scoring_rounds=len(rounds),
+          per_pod_mask_rounds=sum(c["mask"] == 2 for c in rounds),
+          round_pods_median=float(np.median([c["pods"] for c in rounds])),
+          wake_scorings=len(wakes), k3_launches=launches["topsis_kinds"],
+          records=len(res_cuda.records), **fired,
+          placements_and_events_equal_numpy=True, near_ties=ties,
+          near_tie_calls=sum(c["ties"] > 0 for c in nps["calls"]),
+          near_ties_in_wakes=sum(c["ties"] for c in nps["calls"]
+                                 if c["wake"]),
+          max_near_tie_gap=f"{max(c['gap'] for c in nps['calls']):.3e}",
+          max_err_vs_numpy=f"{max(c['err'] for c in nps['calls']):.3e}",
+          topsis_carbon_g=repr(e_cu["topsis_carbon_g"]),
+          fleet_energy_kj=repr(e_cu["fleet_energy_kj"]),
+          fleet_carbon_g=repr(e_cu["fleet_carbon_g"]),
+          max_memory_allocated=peak, card=repr(smi))
+    phase("policy", wall_s_cuda=f"{cu['wall']:.3f}",
+          wall_s_numpy=f"{nps['wall']:.3f}",
+          wall_s_cuda_telemetry=f"{tel['wall_s']:.3f}",
+          replay_check_s=f"{nps['check_s']:.3f}",
+          round_s_median_cuda=f"{med(rounds):.6f}",
+          round_s_median_numpy=f"{med(np_rounds):.6f}",
+          wake_scorings_s_cuda=f"{sum(c['s'] for c in wakes):.6f}",
+          wake_scorings_s_numpy=f"{sum(c['s'] for c in np_wakes):.6f}",
+          wake_s_median_cuda=f"{med(wakes):.6f}",
+          wake_s_median_numpy=f"{med(np_wakes):.6f}",
+          dirty_columns_median=float(np.median(cu["dirty"])),
+          dirty_columns_max=int(max(cu["dirty"])),
+          dirty_columns_total=int(sum(cu["dirty"])), card=repr(smi))
+    for tag, st in (("cuda", cu), ("numpy", nps)):
+        el = st["elastic"]
+        wake_s = sum(c["s"] + c["check_s"] for c in st["calls"]
+                     if c["wake"])
+        hooks = {cls: sum(st[cls][h] for h in names)
+                 for cls, names in HOOKS_TIMED.items()}
+        hooks["AutoscaleScheduling"] -= wake_s
+        phase("policy", backend=tag, elastic_fleet_host=True,
+              **{f"{k}_s": f"{el[k]:.3f}" for k in ELASTIC_TIMED},
+              **{f"{k}_ms_per_round": f"{1e3 * el[k] / engine_rounds:.3f}"
+                 for k in ELASTIC_TIMED},
+              **{f"{k}_calls": el[f"{k}_calls"] for k in ELASTIC_TIMED},
+              **{f"{cls}_hooks_s": f"{s:.3f}" for cls, s in hooks.items()},
+              **{f"{cls}_share_of_wall": f"{s / st['wall']:.3f}"
+                 for cls, s in hooks.items()},
+              scoring_s=f"{sum(c['s'] for c in st['calls']):.3f}",
+              wall_s=f"{st['wall']:.3f}")
+    phase("policy", telemetry_counters=tel["counters"],
+          telemetry_gauges=tel["gauges"],
+          prometheus_samples=tel["prometheus_samples"],
+          prometheus_round_trip=True, html_report_bytes=tel["html_bytes"])
+    return launches
+
+
+def policy_telemetry_run(dev):
+    """The [policy] cuda run once more with telemetry recording: the
+    registry's ``policy_preemptions`` and ``policy_node_sleeps`` must equal
+    the run's counters, its Prometheus text must parse back to every
+    counter and gauge, and ``html_report`` must render the run. Returns
+    the placements and the event log (``policy_checks`` holds them to the
+    first cuda run), what the policies did by the registry, and the run's
+    wall time."""
+    import torch
+
+    from repro_torch.cluster.parity import policy_knobs
+    from repro_torch.cluster.simulator import run_scenario
+    from repro_torch.core import telemetry
+    from repro_torch.telemetry import (html_report, parse_prometheus,
+                                       prometheus_text)
+    carbon, autoscale = policy_knobs()
+    with telemetry.enabled() as tel:
+        t0 = time.perf_counter()
+        res = run_scenario(policy_arrivals(), POLICY_SCHEME,
+                           cluster_factory=scenario_fleet, batch=True,
+                           batch_backend="cuda", carbon=carbon,
+                           autoscale=autoscale, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    check(tel.counter_value("policy_preemptions", policy="CarbonScheduling")
+          == res.preemptions, "policy_preemptions != preemptions")
+    check(tel.counter_value("policy_node_sleeps",
+                            policy="AutoscaleScheduling") == res.sleeps,
+          "policy_node_sleeps != sleeps")
+    parsed = parse_prometheus(prometheus_text(tel))
+    want = {(n, tuple(sorted(lb.items()))): v
+            for n, lb, v in tel.counters.values()}
+    want.update({(g.name, tuple(sorted(g.labels.items()))): g.value
+                 for g in tel.gauges.values()})
+    lost = [k for k, v in want.items() if parsed.get(k) != v]
+    check(not lost, f"Prometheus round trip lost {lost[:3]}")
+    html = html_report(tel, res)
+    check(html.startswith("<html>") and html.endswith("</html>")
+          and "<svg" in html, "html_report did not render the run's charts")
+    return dict(placements=placements(res), events=res.events, wall_s=wall,
+                deferred_pods=tel.counter_value("policy_deferred_pods",
+                                                policy="CarbonScheduling"),
+                drained_tasks=tel.counter_value("policy_drained_tasks",
+                                                policy="AutoscaleScheduling"),
+                counters=len(tel.counters), gauges=len(tel.gauges),
+                prometheus_samples=len(parsed), html_bytes=len(html))
+
+
+def pareto_phase(dev, smi):
+    """The frontier layer on K4, then on the engine: ``placement_metrics``
+    for the first PARETO_P pods of the slice's first burst on the slice's
+    fleet under the first PARETO_S points of the 6-criteria weight lattice
+    with the [policy] signal, on cuda (one K4 launch) and on numpy; then
+    ``scenario_metrics`` for PARETO_SCHEMES with the carbon policy over
+    PARETO_BURSTS bursts of the [policy] arrivals, on cuda and on numpy
+    (following the cuda runs' near-tie breaks, as in [policy]). The
+    frontiers must be equal: the first up to float64 near-ties that a
+    greedy walk shows, the second exactly, with its metrics. Returns the
+    cuda calls' launch counts."""
+    import numpy as np
+
+    from repro_torch.cluster.node import NodeTable
+    from repro_torch.cluster import parity as Q
+    from repro_torch.cluster.workload import PoissonArrivals
+    from repro_torch.core import pareto
+    from repro_torch.core import scheduler as S
+    from repro_torch.kernels import topsis_cuda as tc
+
+    pods = PoissonArrivals(rate_per_s=0.2, n_bursts=1, burst_size=BURST,
+                           topsis_share=1.0, seed=0).events()[0][1]
+    pods = pods[:PARETO_P]
+    nodes = scenario_fleet()
+    grid = pareto.weight_grid_upto(PARETO_S, criteria=6)
+    carbon, _ = Q.policy_knobs()
+    seen = {}
+
+    class RecordingBatchScheduler(S.BatchScheduler):
+        def select_many_grid(self, pods, nodes, schemes, now=0.0,
+                             exclude=None):
+            assign, diag = super().select_many_grid(pods, nodes, schemes,
+                                                    now=now, exclude=exclude)
+            seen[self.backend] = (assign, diag["closeness"])
+            return assign, diag
+
+    walls, points, launches = {}, {}, collections.Counter()
+    with Q.patched(S, "BatchScheduler", RecordingBatchScheduler):
+        for backend in ("cuda", "numpy"):
+            tc.reset_launches()
+            t0 = time.perf_counter()
+            points[backend] = pareto.placement_metrics(
+                pods, nodes, grid, backend=backend,
+                carbon_signal=carbon.signal, device=dev)
+            walls[backend] = time.perf_counter() - t0
+            if backend == "cuda":
+                launches.update(tc.LAUNCHES)
+    check(launches["topsis_grid"] == 1 and sum(launches.values()) == 1,
+          f"placement_metrics launched {dict(launches)}, not K4 once")
+    (a_cu, cc_cu), (a_np, cc_np) = seen["cuda"], seen["numpy"]
+    err = Q.max_err_np(cc_cu, cc_np)
+    check(err <= TOL, f"placement_metrics closeness: cuda vs numpy {err}")
+    table = NodeTable.from_nodes(nodes)
+    ties, schemes_differ = 0, 0
+    for s in range(len(grid)):
+        if a_cu[s] != a_np[s]:
+            schemes_differ += 1
+            ties += Q.near_tie_walk(cc_np[s], a_cu[s], pods, table, None)[0]
+    fronts = {b: pareto.frontier_for(p) for b, p in points.items()}
+    for b, p in points.items():
+        check(all(np.isfinite(v) for pt in p for v in pt.metrics.values()),
+              f"placement_metrics {b}: a metric is not finite")
+    same = bool(np.array_equal(fronts["cuda"].mask, fronts["numpy"].mask))
+    check(same or ties > 0, "placement_metrics frontiers differ with no "
+          "near-tie")
+    phase("pareto", call="placement_metrics", S=len(grid), P=len(pods),
+          N=N_NODES, C=6, k4_launches=launches["topsis_grid"],
+          max_err_vs_numpy=f"{err:.3e}", schemes_placed_differently=
+          schemes_differ, near_ties=ties, frontier_masks_equal=same,
+          frontier_cuda=int(fronts["cuda"].mask.sum()),
+          frontier_numpy=int(fronts["numpy"].mask.sum()),
+          wall_s_cuda=f"{walls['cuda']:.3f}",
+          wall_s_numpy=f"{walls['numpy']:.3f}", card=repr(smi))
+
+    # the named schemes through the engine: numpy follows the cuda runs'
+    # near-tie breaks, so the metrics and the frontiers must be equal
+    runs = {}
+    for backend in ("cuda", "numpy"):
+        stats = Q.policy_stats()
+        replay = runs["cuda"][3]["calls"] if backend == "numpy" else None
+        tc.reset_launches()
+        t0 = time.perf_counter()
+        with Q.engine_scheduler(Q.make_policy_scheduler(stats, replay)):
+            pts = pareto.scenario_metrics(
+                PARETO_SCHEMES, lambda: policy_arrivals(PARETO_BURSTS),
+                cluster_factory=scenario_fleet, carbon=carbon, batch=True,
+                batch_backend=backend, device=dev)
+        wall = time.perf_counter() - t0 - stats["check_s"]
+        runs[backend] = (pts, wall, dict(tc.LAUNCHES), stats)
+    (p_cu, wall_cu, l_cu, s_cu), (p_np, wall_np, _, s_np) = (runs["cuda"],
+                                                             runs["numpy"])
+    check(l_cu["topsis_kinds"] == len(s_cu["calls"])
+          and sum(l_cu.values()) == l_cu["topsis_kinds"],
+          f"scenario_metrics launched {l_cu} for {len(s_cu['calls'])} rounds")
+    check(len(s_np["calls"]) == len(s_cu["calls"]),
+          "scenario_metrics: numpy scored another number of rounds")
+    check([p.metrics for p in p_cu] == [p.metrics for p in p_np],
+          "scenario_metrics: metrics differ beyond near-ties")
+    launches.update(l_cu)
+    f_cu, f_np = pareto.frontier_for(p_cu), pareto.frontier_for(p_np)
+    check(np.array_equal(f_cu.mask, f_np.mask),
+          f"scenario_metrics frontiers differ: {f_cu.mask} vs {f_np.mask}")
+    phase("pareto", call="scenario_metrics", schemes=",".join(PARETO_SCHEMES),
+          bursts=PARETO_BURSTS, k3_launches=l_cu["topsis_kinds"],
+          near_ties=sum(c["ties"] for c in s_np["calls"]),
+          max_err_vs_numpy=f"{max(c['err'] for c in s_np['calls']):.3e}",
+          frontier=int(f_cu.mask.sum()), metrics_equal_numpy=True,
+          metrics=json.dumps([p.metrics for p in p_cu]),
+          wall_s_cuda=f"{wall_cu:.3f}", wall_s_numpy=f"{wall_np:.3f}",
+          card=repr(smi))
+    return launches
 
 
 # --- phase 5: the serving slice ----------------------------------------------------
@@ -2416,11 +2759,14 @@ def main() -> int:
     table.update(lm_kernel_phase(dev))
     table.update(bwd_kernel_phase(dev))
     # each main path's counts, summed: slice (K1-K4), the per-pod
-    # decisions (K1), serve (K5), the smoke-size serving launcher (K5),
-    # train (K5, K6, K7), for llama3-8b (head dim 128) and gemma-7b (256);
-    # the D = 256 rows count gemma's
+    # decisions (K1), the policy round (K3), the frontier layer (K4, K3),
+    # serve (K5), the smoke-size serving launcher (K5), train (K5, K6,
+    # K7), for llama3-8b (head dim 128) and gemma-7b (256); the D = 256
+    # rows count gemma's
     launches = collections.Counter(slice_phase(dev))
     launches.update(perpod_phase(dev, smi))
+    launches.update(policy_phase(dev, smi))
+    launches.update(pareto_phase(dev, smi))
     launches.update(serve_phase(dev))
     launches.update(serve_smoke_phase(dev))
     wide = collections.Counter(serve_phase(dev, GEMMA_ARCH))

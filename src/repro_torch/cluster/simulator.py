@@ -3,10 +3,10 @@
 
 The event loop lives in ``repro_torch.cluster.engine``; this module is the
 thin driver. :func:`run_scenario` keeps the reference's signature (plus a
-``device``) and hands the run to :func:`repro_torch.cluster.engine.
-simulate`. The carbon and autoscale policies are not ported yet (ROADMAP
-Queue 1, "carbon and autoscale policies"): ``carbon`` and ``autoscale``
-must stay ``None``.
+``device``), maps the ``carbon=`` / ``autoscale=`` knob dataclasses onto
+the ordered policy list ``[CarbonScheduling, AutoscaleScheduling]``
+(``repro_torch.core.carbon``, ``repro_torch.core.elastic``), and hands the
+run to :func:`repro_torch.cluster.engine.simulate`.
 
 The paper's factorial experiment (§IV) is one point in the input space:
 every pod arriving at t=0 (``PaperArrivals``) on the 4-node Table-I
@@ -18,6 +18,8 @@ from __future__ import annotations
 
 from typing import Callable
 
+from repro_torch.core.carbon import CarbonPolicy, CarbonScheduling
+from repro_torch.core.elastic import AutoscalePolicy, AutoscaleScheduling
 from repro_torch.cluster.engine import (PodRecord, SimResult,  # noqa: F401
                                         simulate)              # (re-exported)
 from repro_torch.cluster.node import Node, make_paper_cluster
@@ -28,7 +30,8 @@ def run_scenario(arrivals: ArrivalProcess, scheme: str,
                  cluster_factory: Callable[[], list[Node]] = make_paper_cluster,
                  adaptive: bool = False, batch: bool = False,
                  batch_backend: str = "cuda",
-                 carbon=None, autoscale=None,
+                 carbon: CarbonPolicy | None = None,
+                 autoscale: AutoscalePolicy | None = None,
                  explain: bool = False, device=None) -> SimResult:
     """Drive one scenario through the event-driven kernel.
 
@@ -40,17 +43,25 @@ def run_scenario(arrivals: ArrivalProcess, scheme: str,
     ``batch_backend`` (the fleet-scale path; ``cuda`` by default, on
     ``device`` — ``None`` is the card).
 
+    ``carbon`` (a :class:`~repro_torch.core.carbon.CarbonPolicy`) attaches
+    the signal to the TOPSIS schedulers (sixth carbon-rate criterion) and
+    the power timeline, and enables deferral/preemption temporal shifting;
+    ``autoscale`` (an :class:`~repro_torch.core.elastic.AutoscalePolicy`)
+    gives nodes the sleep/wake/drain lifecycle. Each maps onto one
+    ``SchedulingPolicy``, composed in the fixed order ``[carbon,
+    autoscale]``; with both at ``None`` the run is policy-free.
+
     ``explain=True`` records per-decision TOPSIS attributions
     (``SimResult.explanations``; numpy scoring only).
     """
-    if carbon is not None or autoscale is not None:
-        raise NotImplementedError(
-            "carbon and autoscale policies are not ported yet (ROADMAP "
-            "Queue 1: the carbon and autoscale policies); pass "
-            "carbon=None, autoscale=None")
+    policies = []
+    if carbon is not None:
+        policies.append(CarbonScheduling(carbon))
+    if autoscale is not None:
+        policies.append(AutoscaleScheduling(autoscale))
     return simulate(arrivals, scheme, cluster_factory=cluster_factory,
                     adaptive=adaptive, batch=batch,
-                    batch_backend=batch_backend, policies=(),
+                    batch_backend=batch_backend, policies=policies,
                     explain=explain, device=device)
 
 

@@ -7,8 +7,8 @@ carbon went over time. This module is the substrate: a :class:`Telemetry`
 registry of counters, gauges, histograms (fixed log-spaced buckets for
 latencies), and nestable timed spans, consumed by the instrumented hot
 layers (``cluster/engine.py``, ``core/scheduler.py``, ``core/energy.py``)
-and exported by the reference's ``repro.telemetry.export`` (JSON snapshot,
-Prometheus text exposition, Perfetto trace; not yet ported).
+and exported by ``repro_torch.telemetry.export`` (JSON snapshot,
+Prometheus text exposition, Perfetto trace).
 
 Design constraints (the pure-observer invariant):
 

@@ -1,13 +1,16 @@
 """The port's engine and simulator (``repro_torch.cluster``) against the
 live reference engine, in-process.
 
-The ``policy_free`` cell of tests/engine_golden_spec.py is re-created with
-the port's classes and run on each port backend (numpy, torch, cuda; the
-last two on the CPU here). Placements, uids, start and run times, energies,
+Every cell of tests/engine_golden_spec.py (``policy_free``, ``carbon_only``,
+``autoscale_only``, ``carbon_autoscale``) is re-created with the port's
+classes and run on each port backend (numpy, torch, cuda; the last two on
+the CPU here). Placements, uids, start and run times, energies, carbon,
 counters and the event log must equal the live reference
-``run_cell("policy_free", ...)`` exactly — never the JSON golden, which was
+``run_cell(name, ...)`` exactly — never the JSON golden, which was
 recorded on another stack. ``table6()`` must equal the reference's.
 """
+import dataclasses
+
 import jax  # noqa: F401
 import numpy as np
 import pytest
@@ -15,29 +18,55 @@ import torch
 
 import engine_golden_spec as spec
 from repro.cluster import simulator as R_sim
+from repro_torch.cluster import parity
 from repro_torch.cluster.node import make_scenario_cluster
 from repro_torch.cluster.simulator import (run_experiment, run_scenario,
                                            table6)
 from repro_torch.cluster.workload import PoissonArrivals
+from repro_torch.core.carbon import CarbonPolicy, diurnal_fleet_signal
+from repro_torch.core.elastic import AutoscalePolicy
+
+POLICY_CELLS = ("carbon_only", "autoscale_only", "carbon_autoscale")
 
 _REF_CACHE: dict = {}
 
 
-def _ref_cell(backend):
-    if backend not in _REF_CACHE:
-        _REF_CACHE[backend] = spec.run_cell("policy_free", backend)
-    return _REF_CACHE[backend]
+def _ref_cell(backend, name="policy_free"):
+    if (name, backend) not in _REF_CACHE:
+        _REF_CACHE[name, backend] = spec.run_cell(name, backend)
+    return _REF_CACHE[name, backend]
 
 
-def _port_cell(backend):
-    """``spec.run_cell("policy_free", ...)`` rebuilt from port classes."""
+def port_policies(name):
+    """The carbon and autoscale knobs of ``spec.SCENARIOS[name]``, built
+    from port classes with ``spec``'s constants."""
+    cell = spec.SCENARIOS[name]
+    period = spec.PERIOD_S
+    carbon = CarbonPolicy(
+        diurnal_fleet_signal(base=300.0, amplitude=200.0, period_s=period,
+                             phase_s=period / 4.0, stagger_s=period / 16.0),
+        defer_threshold=300.0, preempt_threshold=450.0,
+        check_interval_s=30.0) if cell["carbon"] else None
+    autoscale = AutoscalePolicy(
+        idle_timeout_s=20.0, min_awake=1, consolidate_interval_s=60.0,
+        consolidate_util_below=0.3) if cell["autoscale"] else None
+    return carbon, autoscale
+
+
+def _port_cell(backend, name="policy_free", device="cpu"):
+    """``spec.run_cell(name, ...)`` rebuilt from port classes."""
+    cell = spec.SCENARIOS[name]
     arrivals = PoissonArrivals(rate_per_s=0.3, n_bursts=3, burst_size=4,
-                               seed=7, deferrable_share=0.0,
+                               seed=7,
+                               deferrable_share=(0.5 if cell["deferrable"]
+                                                 else 0.0),
                                deadline_s=300.0)
+    carbon, autoscale = port_policies(name)
     return run_scenario(
         arrivals, "energy_centric",
         cluster_factory=lambda: make_scenario_cluster("mixed", 8, seed=3),
-        batch=True, batch_backend=backend, device="cpu")
+        batch=True, batch_backend=backend, carbon=carbon,
+        autoscale=autoscale, device=device)
 
 
 def _records(res):
@@ -59,7 +88,15 @@ def _metrics(res):
         "fleet_idle_energy_kj": res.fleet_idle_energy_kj(),
         "fleet_energy_kj": res.fleet_energy_kj(),
         "allocation": res.allocation("topsis"),
+        "total_carbon_g": _carbon(res, lambda r: r.total_carbon_g("topsis")),
+        "fleet_carbon_g": _carbon(res, lambda r: r.fleet_carbon_g()),
     }
+
+
+def _carbon(res, read):
+    """A carbon total, or None for a run without a carbon signal (which
+    raises on the read)."""
+    return read(res) if res.timeline.carbon_signal is not None else None
 
 
 @pytest.mark.parametrize("ref_backend", ["numpy", "jax"])
@@ -70,6 +107,34 @@ def test_policy_free_cell_matches_live_reference(backend, ref_backend):
     assert _records(got) == _records(ref)
     assert _metrics(got) == _metrics(ref)
     assert got.events == ref.events
+
+
+@pytest.mark.parametrize("ref_backend", ["numpy", "jax"])
+@pytest.mark.parametrize("backend", ["numpy", "torch", "cuda"])
+@pytest.mark.parametrize("name", POLICY_CELLS)
+def test_policy_cell_matches_live_reference(name, backend, ref_backend):
+    """The carbon and autoscale policies through ``run_scenario``: records,
+    event logs, counters, energies and carbon exactly as the reference's."""
+    ref, got = _ref_cell(ref_backend, name), _port_cell(backend, name)
+    assert len(got.records) == len(ref.records) > 0
+    assert _records(got) == _records(ref)
+    assert _metrics(got) == _metrics(ref)
+    assert got.events == ref.events
+
+
+
+def test_parity_policy_knobs_are_the_carbon_autoscale_cell():
+    """chip_smoke.py's [policy] phase and tests/test_torch_policies.py take
+    their policies from ``parity.policy_knobs``: they are this cell's."""
+    (carbon, autoscale) = parity.policy_knobs()
+    want_carbon, want_autoscale = port_policies("carbon_autoscale")
+    assert autoscale == want_autoscale
+    assert vars(carbon.signal) == vars(want_carbon.signal)
+    assert ({f.name: getattr(carbon, f.name)
+             for f in dataclasses.fields(carbon) if f.name != "signal"}
+            == {f.name: getattr(want_carbon, f.name)
+                for f in dataclasses.fields(want_carbon)
+                if f.name != "signal"})
 
 
 @pytest.mark.parametrize("level", ["low", "medium", "high"])
@@ -85,13 +150,6 @@ def test_batch_experiment_matches_reference(backend):
                          batch_backend=backend, device="cpu")
     assert _records(got) == _records(ref)
     assert _metrics(got) == _metrics(ref)
-
-
-@pytest.mark.parametrize("knob", ["carbon", "autoscale"])
-def test_unported_policies_raise(knob):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_scenario(PoissonArrivals(n_bursts=1), "energy_centric",
-                     **{knob: object()})
 
 
 def test_batch_run_needs_a_card_by_default():

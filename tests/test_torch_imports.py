@@ -2,6 +2,7 @@
 and without anything of the reference package ``repro``, and without
 ``triton`` or ``nvcc`` (kernels are built at first use, never on import)."""
 import ast
+import json
 import os
 import pathlib
 import subprocess
@@ -21,9 +22,13 @@ EXPECTED = {
     "repro_torch.core.carbon", "repro_torch.core.elastic",
     "repro_torch.core.criteria", "repro_torch.core.weighting",
     "repro_torch.core.topsis", "repro_torch.core.scheduler",
+    "repro_torch.core.pareto", "repro_torch.telemetry",
+    "repro_torch.telemetry.export", "repro_torch.telemetry.baseline",
+    "repro_torch.telemetry.report",
     "repro_torch.cluster", "repro_torch.cluster.node",
     "repro_torch.cluster.workload", "repro_torch.cluster.engine",
-    "repro_torch.cluster.simulator", "repro_torch.kernels",
+    "repro_torch.cluster.simulator", "repro_torch.cluster.parity",
+    "repro_torch.kernels",
     "repro_torch.kernels.ops", "repro_torch.kernels.ref",
     "repro_torch.kernels.topsis_cuda", "repro_torch.kernels.cubuild",
     "repro_torch.kernels.flash_cuda", "repro_torch.kernels.rmsnorm_cuda",
@@ -79,6 +84,25 @@ def test_no_forbidden_module_loaded(probe, forbidden):
     hits = [m for m in probe["loaded"]
             if m == forbidden or m.startswith(forbidden + ".")]
     assert not hits, hits
+
+
+@pytest.mark.parametrize("module", [
+    "repro_torch.telemetry", "repro_torch.telemetry.export",
+    "repro_torch.telemetry.baseline", "repro_torch.telemetry.report",
+    "repro_torch.core.pareto"])
+def test_report_modules_stand_alone(module):
+    """The exporters, the report and the frontier layer, each imported
+    alone in a fresh process, load nothing of JAX or of ``repro`` (the
+    reference's ``repro.telemetry`` is plain Python: the port keeps its own
+    copy, ``_labels_str`` included)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run(
+        [sys.executable, "-c", f"import json, sys, {module}; "
+         "print(json.dumps(sorted(sys.modules)))"],
+        env=env, capture_output=True, text=True, timeout=120, check=True)
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert not [m for m in loaded
+                if m.split(".")[0] in ("jax", "jaxlib", "repro")]
 
 
 @pytest.mark.parametrize("path", sorted(
