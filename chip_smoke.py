@@ -59,8 +59,20 @@ the card:
   fault must fail;
 * the gemma-7b training path the same way (K5, K6, K7 at D = 256), then 2
   layers in float32, where a K7 writing only the first 128 columns of dK
-  and dV must fail; then the checkpoint / restart round trip of the fault
-  Supervisor at the smoke size (head dim 8, padded).
+  and dV must fail;
+* ``[moe]``, the MoE family at published widths: mixtral-8x7b served at 16
+  of its 32 layers (8 requests of 4096-8192 prompt tokens in 2 waves of
+  4, 32 new tokens; K5 with its 4096-key window cutting, ``_sdpa`` with
+  the window in decode) against the plain path, whose routing follows the
+  kernel run's where each difference is a near-tie (``RoutingRecorder``),
+  then 2 layers in float32 with a no-window control; mixtral-8x7b trained
+  at 4 layers on one 8192-token sequence (K5, K6, K7 with the window) the
+  same way; deepseek-v3-671b served at its 3 ``mla_dense`` layers and 1
+  ``mla_moe`` layer (256 experts, top-8, a shared expert; MLA takes no
+  kernel), and its absorbed MLA decode held to the prefill and to the
+  full form in float32;
+* then the checkpoint / restart round trip of the fault Supervisor at the
+  smoke size (head dim 8, padded).
 
 K3 and K4 write the -inf over infeasible nodes themselves and sum only the
 real criteria: each is held against its plain version masked and
@@ -85,7 +97,9 @@ outputs.
 Phases print one line each; the line before the last JSON line is the
 kernel table (one row per kernel, and one more per flash kernel for its
 D = 256 instantiation, named ``<kernel>_d256``, whose launches are the
-gemma-7b paths'); the last line is ``{"ok": true, "device": {...}}``. Any
+gemma-7b paths', and one for mixtral-8x7b's windowed shapes,
+``<kernel>_w4096``, whose launches are the mixtral paths'); the last line
+is ``{"ok": true, "device": {...}}``. Any
 failure exits non-zero before it. Without a CUDA device, or outside a
 checkout, it exits non-zero at once.
 
@@ -93,6 +107,11 @@ checkout, it exits non-zero at once.
 
 runs only the per-pod decisions, in a checkout that holds a copy of this
 script (another commit's, to compare its per-pod path with this one's).
+
+    python3 chip_smoke.py --moe-only
+
+runs the build, the windowed K5/K6/K7 cases (mixtral's shapes, rows
+``<kernel>_w4096``) and the ``[moe]`` phases alone.
 """
 from __future__ import annotations
 
@@ -167,6 +186,9 @@ K5_CASES = [("a", 4, 32, 8, 2048, 128, "bfloat16", None, 10),
             ("d", 4, 32, 8, 1000, 128, "bfloat16", None, 20),
             ("e", 4, 16, 16, 2048, 256, "bfloat16", None, 10),
             ("f", 1, 16, 16, 2048, 256, "float32", None, 10)]
+# (w) is mixtral-8x7b's prefill: a 4096-key sliding window that cuts, 8192
+# tokens deep; its rows in the kernel table are ``<kernel>_w4096``.
+K5_CASES.append(("w", 4, 32, 8, 8192, 128, "bfloat16", 4096, 5))
 K5_FAULT_CASES = ("a", "b", "e", "f")
 K5_SMALL = (2, 8, 2, 333)            # a GQA group of 4, every head dim
 WIDE_D = 256                         # gemma-7b's head dim
@@ -190,6 +212,10 @@ BWD_CASES = [("train", 1, 32, 8, 4095, 128, "bfloat16", None, 5),
              ("f32_window", 1, 32, 8, 1000, 128, "float32", 64, 10),
              ("gemma_train", 1, 16, 16, 4095, 256, "bfloat16", None, 5),
              ("gemma_f32_window", 1, 16, 16, 1000, 256, "float32", 64, 10)]
+# (window) is mixtral-8x7b's training shape: one 8192-token sequence (the
+# model sees 8191), window 4096.
+BWD_CASES.append(("window", 1, 32, 8, 8191, 128, "bfloat16", 4096, 3))
+WINDOW_ROW = 4096        # mixtral-8x7b's attn_window: the windowed rows
 BWD_F32_REL = 1e-4
 # The training slice: launch.train's code path at full width and depth.
 TRAIN_STEPS = 3
@@ -212,6 +238,42 @@ TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL, TRAIN_LOSSES_RTOL = 1e-4, 2e-3, 1e-2
 # F32_LOSS_RTOL; a K7 with a planted fault must fail.
 F32_TRAIN_LAYERS, F32_GRAD_REL, F32_LOSS_RTOL = 4, 1e-4, 1e-5
 GEMMA_F32_LAYERS = 2
+# The MoE slice. mixtral-8x7b served at MIXTRAL_SERVE_LAYERS of its 32
+# layers (23.5e9 parameters, ~47 GB of bf16 weights; one 80 GB card), 8
+# requests in 2 waves of 4 with prompts of MIXTRAL_PROMPT tokens, so every
+# wave's prefill crosses the 4096-key window, and MIXTRAL_NEW new tokens;
+# a float32 rerun at MIXTRAL_F32_LAYERS layers; trained at
+# MIXTRAL_TRAIN_LAYERS layers on one 8192-token sequence.
+MOE_FLAG = "--moe-only"
+MIXTRAL_ARCH = "mixtral-8x7b"
+MIXTRAL_SERVE_LAYERS, MIXTRAL_F32_LAYERS = 16, 2
+MIXTRAL_PROMPT, MIXTRAL_NEW = (4096, 8192), 32
+MIXTRAL_TRAIN_LAYERS, MIXTRAL_SEQ = 4, 8192
+# A routing flip: a (layer, token) whose set of top-k experts differs
+# between the kernel run and the plain run. One flip changes its token's
+# output and, through attention and capacity slots, every later layer's
+# routing (at 16 layers, 2.7% of the selections differ without following,
+# gaps up to 0.33; PERF.md). So the plain run takes the kernel
+# run's choices (``RoutingRecorder(lead=...)``, as ``cluster/parity.py``
+# has numpy follow cuda's near-tie breaks) and each place where its own
+# choice differs must be a near-tie: the kernel's worst choice at most
+# ROUTE_TIE_TOL below the plain run's own k-th best selection score
+# (softmax gates, in [0, 1]). Every request's logits are then held to
+# LOGIT_TOL.
+ROUTE_TIE_TOL = 0.05
+# deepseek-v3-671b served at its 3 mla_dense layers and 1 mla_moe layer
+# (256 experts, top-8, a shared expert; ~15e9 parameters), 8 requests of
+# DEEPSEEK_PROMPT tokens in 2 waves of 4, DEEPSEEK_NEW new tokens. Then
+# the reference's decode invariant (tests/test_archs.py:84-106) in
+# float32 at 2 layers (n_dense_layers 1) and capacity factor 16 (no
+# drops), B = 2, s = 64: the absorbed decode of token s after a prefill of
+# s tokens against the prefill of s + 1 tokens, and against the full
+# (training) form, within MLA_TOL.
+DEEPSEEK_ARCH = "deepseek-v3-671b"
+DEEPSEEK_SERVE_LAYERS, DEEPSEEK_PROMPT, DEEPSEEK_NEW = 4, (512, 1024), 16
+MLA_CHECK = dict(n_layers=2, n_dense_layers=1, capacity_factor=16.0,
+                 dtype="float32")
+MLA_B, MLA_S, MLA_TOL = 2, 64, 1e-3
 
 
 class SmokeFailure(AssertionError):
@@ -860,9 +922,12 @@ def attention_fault(q, k, v, *, sm_scale, causal=True, window=None,
     return out, (m + torch.log(lm)).reshape(b, h, sq)
 
 
-def row_name(name, d):
+def row_name(name, d, window=None):
     """The kernel table's row of kernel ``name`` at head dim ``d``: the
-    D = 256 instantiations have rows of their own."""
+    D = 256 instantiations have rows of their own, and so have mixtral's
+    windowed shapes."""
+    if window == WINDOW_ROW:
+        return f"{name}_w{WINDOW_ROW}"
     return f"{name}_d{WIDE_D}" if d == WIDE_D else name
 
 
@@ -874,7 +939,34 @@ def k5_agreement(out, lse, pout, plse):
     return ok_o and ok_l, err, err_lse, share
 
 
-def lm_kernel_phase(dev):
+def sdpa_backend(fn):
+    """(backend, its longest device kernel) of the SDPA call ``fn``, read
+    from the kernel names torch.profiler records: ``cudnn``, ``flash``,
+    ``efficient`` (CUTLASS ``fmha``) or ``math`` (anything else)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not evs:
+        return "not_recorded", None
+    top = max(evs, key=lambda e: e.self_device_time_total).key
+    name = top.lower()
+    backend = ("cudnn" if "cudnn" in name else
+               "flash" if "flash" in name else
+               "efficient" if "fmha" in name or "efficient" in name else
+               "math")
+    return backend, top.replace(" ", "")[:72]
+
+
+def lm_kernel_phase(dev, cases=K5_CASES, small=True):
+    """K5 at ``cases`` against its plain version, with planted faults at
+    K5_FAULT_CASES and, where a window cuts, a control without it; then,
+    with ``small``, every head dim at K5_SMALL and K8 at every width."""
     import torch
     import torch.nn.functional as F
 
@@ -884,7 +976,7 @@ def lm_kernel_phase(dev):
 
     gen = torch.Generator(device=dev).manual_seed(0)
     table = {}
-    for tag, b, h, hkv, s, d, dname, window, reps in K5_CASES:
+    for tag, b, h, hkv, s, d, dname, window, reps in cases:
         dtype = getattr(torch, dname)
         q, k, v = _attention_case(dev, gen, b, h, hkv, s, d, dtype)
         scale = d ** -0.5
@@ -904,6 +996,14 @@ def lm_kernel_phase(dev):
                 check(not f_ok, f"K5 {tag}: the check passed planted fault "
                       f"{fault} (out err {f_err}, share {f_share})")
                 faults[fault] = f"{f_err:.3e}/{f_lse:.3e}/{f_share:.4f}"
+        if window is not None:
+            # the control: every causal key attended, the window dropped
+            f_ok, f_err, f_lse, f_share = k5_agreement(
+                *fc.flash_fwd_plain(q, k, v, **dict(kw, window=None)),
+                pout, plse)
+            check(not f_ok, f"K5 {tag}: the check passed the control "
+                  f"without the window (out err {f_err})")
+            faults["no_window"] = f"{f_err:.3e}/{f_lse:.3e}/{f_share:.4f}"
         ms = cuda_ms(lambda: fc.flash_fwd(q, k, v, **kw), reps)
         plain_ms = cuda_ms(lambda: fc.flash_fwd_plain(q, k, v, **kw), 3,
                            warmup=1)
@@ -917,6 +1017,7 @@ def lm_kernel_phase(dev):
                 q, k, v, attn_mask=allowed, scale=scale, enable_gqa=True)
         lib_err = float((lib().float() - pout.float()).abs().max())
         library_ms = cuda_ms(lib, reps)
+        backend, lib_kernel = sdpa_backend(lib)
         elt = q.element_size()
         nbytes = (q.numel() + k.numel() + v.numel() + out.numel()) * elt \
             + lse.numel() * 4
@@ -930,6 +1031,7 @@ def lm_kernel_phase(dev):
               max_abs_out=f"{float(pout.float().abs().max()):.3f}",
               library_max_abs_err=f"{lib_err:.3e}", ms=f"{ms:.6f}",
               plain_ms=f"{plain_ms:.6f}", library_ms=f"{library_ms:.6f}",
+              library_backend=backend, library_kernel=lib_kernel,
               bound_ms=f"{b_ms:.6f}", bound_by=b_by,
               tflops=f"{flops / ms / 1e9:.2f}")
         if faults:
@@ -937,7 +1039,7 @@ def lm_kernel_phase(dev):
             phase("kernels", kernel="flash_attention_fwd", case=tag,
                   planted_faults_rejected=",".join(faults),
                   **{f"{f}_err": r for f, r in faults.items()})
-        rname = row_name(fc.NAME, d)
+        rname = row_name(fc.NAME, d, window)
         row = table.setdefault(rname, dict(
             name=rname, route="cuda",
             source=f"{CSRC}/flash_attention.cu", replaces=fc.REPLACES[fc.NAME],
@@ -947,6 +1049,8 @@ def lm_kernel_phase(dev):
         row["max_abs_err"] = max(row["max_abs_err"], err, err_lse)
         del q, k, v, out, lse, pout, plse
         torch.cuda.empty_cache()
+    if not small:
+        return table
     # every other head dim the kernel is built for, at a small shape
     for d in fc.HEAD_DIMS:
         for dtype in (torch.float32, torch.bfloat16):
@@ -1094,7 +1198,10 @@ def grad_agreement(got, want):
             float((got != want).double().mean()))
 
 
-def bwd_kernel_phase(dev):
+def bwd_kernel_phase(dev, cases=BWD_CASES, small=True):
+    """K6 and K7 at ``cases`` against their plain version, with planted
+    faults and, where a window cuts, a control without it; then, with
+    ``small``, every head dim at K5_SMALL."""
     import torch
     import torch.nn.functional as F
 
@@ -1103,7 +1210,7 @@ def bwd_kernel_phase(dev):
     gen = torch.Generator(device=dev).manual_seed(1)
     table = {}
     names = ("dq", "dk", "dv")
-    for tag, b, h, hkv, s, d, dname, window, reps in BWD_CASES:
+    for tag, b, h, hkv, s, d, dname, window, reps in cases:
         dtype = getattr(torch, dname)
         q, k, v = _attention_case(dev, gen, b, h, hkv, s, d, dtype)
         do = torch.randn(q.shape, generator=gen, device=dev).to(dtype)
@@ -1142,25 +1249,37 @@ def bwd_kernel_phase(dev):
                 # the share of dk / dv elements that differ from plain,
                 # beside the kernel's (the split's controls)
                 split[fault] = "/".join(f"{r[2]:.4f}" for r in f_res[1:])
+        if window is not None:
+            # the control: every causal key attended, the window dropped
+            f_res = list(map(grad_agreement, fc.flash_bwd_plain(
+                q, k, v, out, lse, do, **dict(kw, window=None)), want))
+            check(not all(r[0] for r in f_res), f"K6/K7 {tag}: the check "
+                  f"passed the control without the window")
+            faults["no_window"] = "/".join(f"{r[1]:.3e}" for r in f_res)
         dq_ms = cuda_ms(lambda: fc.flash_bwd_dq(q, k, v, do, lse, dd, **kw),
                         reps)
         dkv_ms = cuda_ms(lambda: fc.flash_bwd_dkv(q, k, v, do, lse, dd, **kw),
                          reps)
         plain_ms = cuda_ms(lambda: fc.flash_bwd_plain(q, k, v, out, lse, do,
                                                       **kw), 3, warmup=1)
-        library_ms, lib_err = None, None
+        # the yardstick: autograd's backward of SDPA, dq, dk and dv
+        # together (never called by the port); a window as a boolean mask
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
         if window is None:
-            # the yardstick: autograd's backward of SDPA, dq, dk and dv
-            # together (never called by the port)
-            leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
             o = F.scaled_dot_product_attention(*leaves, is_causal=True,
                                                scale=scale, enable_gqa=True)
-            lib = lambda: torch.autograd.grad(      # noqa: E731
-                o, leaves, do, retain_graph=True)
-            lib_err = max(float((x.float() - w.float()).abs().max())
-                          for x, w in zip(lib(), want))
-            library_ms = cuda_ms(lib, reps)
-            del o, leaves
+        else:
+            allowed = fc.mask(s, s, causal=True, window=window, kv_len=s,
+                              device=dev)
+            o = F.scaled_dot_product_attention(*leaves, attn_mask=allowed,
+                                               scale=scale, enable_gqa=True)
+        lib = lambda: torch.autograd.grad(      # noqa: E731
+            o, leaves, do, retain_graph=True)
+        lib_err = max(float((x.float() - w.float()).abs().max())
+                      for x, w in zip(lib(), want))
+        library_ms = cuda_ms(lib, reps)
+        backend, lib_kernel = sdpa_backend(lib)
+        del o, leaves
         elt = q.element_size()
         pairs = attention_pairs(s, window)
         # inputs q, do, k, v (elt) and lse, dd (float32); outputs
@@ -1182,13 +1301,12 @@ def bwd_kernel_phase(dev):
                   **{f"d{n[1:]}_differing_share": f"{res[n][2]:.2e}"
                      for n in outs},
                   ms=f"{ms:.6f}", plain_ms_dq_dk_dv=f"{plain_ms:.6f}",
-                  library_ms_dq_dk_dv=(None if library_ms is None
-                                       else f"{library_ms:.6f}"),
-                  library_max_abs_err=(None if lib_err is None
-                                       else f"{lib_err:.3e}"),
+                  library_ms_dq_dk_dv=f"{library_ms:.6f}",
+                  library_max_abs_err=f"{lib_err:.3e}",
+                  library_backend=backend, library_kernel=lib_kernel,
                   bound_ms=f"{b_ms:.6f}", bound_by=b_by,
                   tflops=f"{flops / ms / 1e9:.2f}")
-            rname = row_name(name, d)
+            rname = row_name(name, d, window)
             row = table.setdefault(rname, dict(
                 name=rname, route="cuda",
                 source=f"{CSRC}/flash_attention_bwd.cu",
@@ -1215,6 +1333,8 @@ def bwd_kernel_phase(dev):
                   flip_share_limit=BF16_FLIP_SHARE)
         del q, k, v, do, out, lse, dd, got, want
         torch.cuda.empty_cache()
+    if not small:
+        return table
     # every head dim the kernels are built for, at a small shape
     small_faults = []
     for d in fc.HEAD_DIMS:
@@ -2119,14 +2239,17 @@ def pareto_phase(dev, smi):
 class RecordingLM:
     """The LM as ``Engine`` sees it, recording each call's input tokens,
     logits and wall time (the host clock around work that ends in a
-    synchronise)."""
+    synchronise); ``on_call`` runs before each call."""
 
-    def __init__(self, model):
+    def __init__(self, model, on_call=None):
         self.model = model
         self.calls = []
+        self.on_call = on_call
 
     def _record(self, kind, tokens, fn):
         import torch
+        if self.on_call is not None:
+            self.on_call()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         logits, cache = fn()
@@ -2142,6 +2265,59 @@ class RecordingLM:
     def decode(self, cache, tokens):
         return self._record("decode", tokens.clone(),
                             lambda: self.model.decode(cache, tokens))
+
+
+class RoutingRecorder:
+    """Every ``moe.route`` call of a run, grouped by model call (a prefill
+    or a decode step; ``mark`` opens the next): per route call, the
+    (G, S, K) chosen experts. With ``lead`` (another run's recorder over
+    the same calls) the run takes the lead's choices instead of its own,
+    as ``cluster/parity.py`` has numpy follow cuda's near-tie breaks, and
+    counts, per model call, the (layer, token) selections where its own
+    set differs (``flips``) and how far below its own k-th best score
+    (under its own scores) the lead's worst choice lies at most
+    (``gaps``)."""
+
+    def __init__(self, lead=None):
+        self.calls, self.flips, self.gaps = [], [], []
+        self.lead = lead
+        self.compared = 0
+
+    def mark(self):
+        self.calls.append([])
+        self.flips.append(0)
+        self.gaps.append(0.0)
+
+    @contextlib.contextmanager
+    def hook(self):
+        import torch
+
+        from repro_torch.models import moe
+        route = moe.route
+
+        def recording(p, cfg, x_flat):
+            own = route(p, cfg, x_flat)
+            if self.lead is None:
+                self.calls[-1].append(own.idx)
+                return own
+            lead = self.lead.calls[len(self.calls) - 1][len(self.calls[-1])]
+            self.calls[-1].append(lead)
+            differ = (torch.sort(own.idx, dim=-1)[0]
+                      != torch.sort(lead, dim=-1)[0]).any(-1)
+            self.compared += differ.numel()
+            self.flips[-1] += int(differ.sum())
+            if bool(differ.any()):
+                _, sel = moe.selection_scores(p, x_flat)
+                kth = torch.gather(sel, -1, own.idx[..., -1:])
+                gap = (kth - torch.gather(sel, -1, lead)).amax(-1)
+                self.gaps[-1] = max(self.gaps[-1], float(gap[differ].max()))
+            return route(p, cfg, x_flat, choices=lead)
+
+        moe.route = recording
+        try:
+            yield self
+        finally:
+            moe.route = route
 
 
 @contextlib.contextmanager
@@ -2162,21 +2338,35 @@ def kernel_route(**fns):
 
 
 def attention_route(fn):
-    """Route K5's binding to ``fn`` for one run."""
-    return kernel_route(flash_fwd=fn)
+    """Route K5's binding to ``fn`` for one run (None: the kernel)."""
+    return kernel_route(flash_fwd=fn) if fn else contextlib.nullcontext()
 
 
-def teacher_forced(model, calls, max_len):
+def teacher_forced(model, calls, max_len, on_call=None):
     """The logits of every recorded call, replayed on ``model`` with the
-    recorded input tokens."""
+    recorded input tokens; ``on_call`` runs before each."""
     out, cache = [], None
     for call in calls:
+        if on_call is not None:
+            on_call()
         if call["kind"] == "prefill":
             logits, cache = model.prefill(call["tokens"], max_len)
         else:
             logits, cache = model.decode(cache, call["tokens"])
         out.append(logits)
     return out
+
+
+def replay(model, calls, max_len, fwd=None, lead=None):
+    """``teacher_forced`` with K5's binding routed to ``fwd`` (None: the
+    kernel); an MoE model's routing recorded, following ``lead``'s
+    choices where given. Returns (logits, recorder or None)."""
+    rec = RoutingRecorder(lead) if model.cfg.is_moe else None
+    with attention_route(fwd), (rec.hook() if rec
+                                else contextlib.nullcontext()):
+        logits = teacher_forced(model, calls, max_len,
+                                rec.mark if rec else None)
+    return logits, rec
 
 
 def max_diff(a, b):
@@ -2210,6 +2400,23 @@ def compare_runs(got, want, tol):
     return stats
 
 
+def follow_check(rec, tag, arch, what, held=None):
+    """Print and check a following run's routing differences: those of
+    its first ``held`` model calls (default: all) each a near-tie within
+    ROUTE_TIE_TOL; the rest's largest gap is printed beside."""
+    if rec is None:
+        return
+    held = len(rec.gaps) if held is None else held
+    gap = max(rec.gaps[:held], default=0.0)
+    phase(tag, arch=arch, routing=what, selections_compared=rec.compared,
+          selections_differing=sum(rec.flips),
+          held_calls=held, max_flip_score_gap=f"{gap:.4e}",
+          later_max_flip_score_gap=f"{max(rec.gaps[held:], default=0.0):.4e}",
+          flip_gap_limit=ROUTE_TIE_TOL)
+    check(gap <= ROUTE_TIE_TOL, f"{what}: a routing difference {gap} below "
+          f"the k-th score, beyond {ROUTE_TIE_TOL}")
+
+
 def float32_model(model):
     """``model`` with its weights upcast to float32 in place: the same
     function with every bf16 rounding point a no-op."""
@@ -2219,11 +2426,13 @@ def float32_model(model):
     return model
 
 
-def device_ms(fn):
+def device_ms(fn, top=None):
     """Device time (ms) of everything ``fn`` launches, by torch.profiler,
     split into K5, K6, K7, matrix products (cuBLAS's gemm / gemv / nvjet
-    kernels, CUTLASS) and the rest; None
-    where the profiler records no device time."""
+    kernels, CUTLASS), gathers, scatters, sorts and scans (``dispatch``:
+    the MoE's routing, dispatch and combine, and the embedding lookup) and
+    the rest; None where the profiler records no device time. With a list
+    ``top``, the 8 longest kernels (name, ms) are put in it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -2231,7 +2440,8 @@ def device_ms(fn):
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    split = {"k5": 0.0, "k6": 0.0, "k7": 0.0, "gemm": 0.0, "other": 0.0}
+    split = {"k5": 0.0, "k6": 0.0, "k7": 0.0, "gemm": 0.0, "dispatch": 0.0,
+             "other": 0.0}
     for ev in prof.key_averages():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
@@ -2241,15 +2451,40 @@ def device_ms(fn):
                  "k7" if "flash_bwd_dkv_kernel" in name else
                  "gemm" if any(t in name for t in ("gemm", "gemv", "xmma",
                                                    "cutlass", "nvjet"))
+                 else "dispatch" if any(t in name for t in (
+                     "index", "scatter", "gather", "sort", "scan"))
                  else "other")
         split[group] += ev.self_device_time_total / 1e3
+    if top is not None:
+        evs = sorted((ev for ev in prof.key_averages()
+                      if ev.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda e: -e.self_device_time_total)[:8]
+        top.extend((ev.key.replace(" ", "")[:60],
+                    round(ev.self_device_time_total / 1e3, 3)) for ev in evs)
     return split if sum(split.values()) > 0 else None
 
 
-def serve_phase(dev, arch=SERVE_ARCH):
-    """``arch`` at full width and depth, served through ``Engine`` with K5
-    on every prefill, against the plain path; then in float32 with the
-    p-rounding control. Returns its launch counts."""
+def no_window_fwd(q, k, v, **kw):
+    """K5's plain version with the window dropped (every causal key): the
+    windowed model's float32 control."""
+    from repro_torch.kernels import flash_cuda as fc
+    return fc.flash_fwd_plain(q, k, v, **dict(kw, window=None))
+
+
+def serve_phase(dev, arch=SERVE_ARCH, *, layers=None, prompt=SERVE_PROMPT,
+                new=SERVE_NEW, f32_layers=None,
+                control=("p_bf16", attention_fault), tag="serve"):
+    """``arch`` at full width (at ``layers`` layers; default all), served
+    through ``Engine`` with K5 on every GQA layer's prefill, against the
+    plain path teacher-forced on the kernel run's tokens (an MoE model's
+    plain run following the kernel run's routing, each difference a
+    near-tie); then in float32 (the model upcast in place, or a fresh one
+    at ``f32_layers`` layers) against the plain path, with ``control``
+    ((name, a K5 binding) that must lie beyond the limit). An MLA model
+    (no K5 launch) is checked for finite logits only. Returns its launch
+    counts."""
+    import dataclasses
+
     import numpy as np
     import torch
 
@@ -2258,56 +2493,53 @@ def serve_phase(dev, arch=SERVE_ARCH):
     from repro_torch.models.lm import LM
     from repro_torch.serve.engine import Engine, Request
 
-    cfg = registry.config(arch, attn_impl="flash")
+    cfg = registry.config(arch, attn_impl="flash",
+                          **({"n_layers": layers} if layers else {}))
+    _free()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = LM(cfg, device=dev, seed=0)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in model.parameters())
+    n_gqa = sum(not b.kind.startswith("mla") for b in model.blocks)
     rng = np.random.default_rng(0)
-    lengths = rng.integers(SERVE_PROMPT[0], SERVE_PROMPT[1] + 1,
-                           SERVE_REQUESTS)
+    lengths = rng.integers(prompt[0], prompt[1] + 1, SERVE_REQUESTS)
     reqs = [Request(i, rng.integers(2, cfg.vocab, n).astype(np.int32),
-                    max_new_tokens=SERVE_NEW, eos_id=-1)
+                    max_new_tokens=new, eos_id=-1)
             for i, n in enumerate(lengths)]
-    max_len = int(lengths.max()) + SERVE_NEW
-    rec = RecordingLM(model)
+    max_len = int(lengths.max()) + new
+    routes = RoutingRecorder() if cfg.is_moe else None
+    rec = RecordingLM(model, routes.mark if routes else None)
     eng = Engine(rec, batch_slots=SERVE_SLOTS, max_len=max_len)
 
     # the main path: counts set to 0 just before, read just after
-    flash_cuda.reset_launches()
-    rmsnorm_cuda.reset_launches()
-    t0 = time.perf_counter()
-    results = eng.serve(reqs)
-    torch.cuda.synchronize()
-    serve_s = time.perf_counter() - t0
-    launches = {**flash_cuda.LAUNCHES, **rmsnorm_cuda.LAUNCHES}
+    with routes.hook() if routes else contextlib.nullcontext():
+        flash_cuda.reset_launches()
+        rmsnorm_cuda.reset_launches()
+        t0 = time.perf_counter()
+        results = eng.serve(reqs)
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        launches = {**flash_cuda.LAUNCHES, **rmsnorm_cuda.LAUNCHES}
     peak = torch.cuda.max_memory_allocated()
 
     waves = -(-SERVE_REQUESTS // SERVE_SLOTS)
-    check(launches[flash_cuda.NAME] == cfg.n_layers * waves,
-          f"K5 launches {launches[flash_cuda.NAME]} != n_layers x waves "
-          f"{cfg.n_layers * waves}")
+    check(launches[flash_cuda.NAME] == n_gqa * waves,
+          f"K5 launches {launches[flash_cuda.NAME]} != GQA layers x waves "
+          f"{n_gqa * waves}")
     check(launches[rmsnorm_cuda.NAME] == 0, "K8 ran on the serving path")
     check(launches[flash_cuda.DQ] == launches[flash_cuda.DKV] == 0,
           "K6/K7 ran on the serving path")
     check(sorted(r.uid for r in results) == list(range(SERVE_REQUESTS)),
           "requests lost")
     for r in results:
-        check(len(r.tokens) == SERVE_NEW, f"request {r.uid}: "
+        check(len(r.tokens) == new, f"request {r.uid}: "
               f"{len(r.tokens)} tokens")
         check(bool(((r.tokens >= 0) & (r.tokens < cfg.vocab)).all()),
               f"request {r.uid}: token out of range")
-
-    # the same requests on K5's plain version, teacher-forced on the
-    # kernel run's tokens
-    kernel_logits = [c["logits"] for c in rec.calls]
-    with attention_route(flash_cuda.flash_fwd_plain):
-        plain = teacher_forced(model, rec.calls, max_len)
-    check(flash_cuda.LAUNCHES[flash_cuda.NAME] == cfg.n_layers * waves,
-          "a comparison run launched K5")
-    stats = compare_runs(kernel_logits, plain, LOGIT_TOL)
+    for c in rec.calls:
+        check(bool(torch.isfinite(c["logits"]).all()), "non-finite logits")
 
     prefill_s = [c["seconds"] for c in rec.calls if c["kind"] == "prefill"]
     decode_s = [c["seconds"] for c in rec.calls if c["kind"] == "decode"]
@@ -2327,29 +2559,36 @@ def serve_phase(dev, arch=SERVE_ARCH):
             logits, state["cache"] = model.decode(state["cache"], tok)
             tok = torch.argmax(logits, dim=-1)
 
-    split_pre, split_dec = device_ms(prefill), device_ms(decode)
-    for tag, split, wall_ms in (
+    top = []
+    split_pre, split_dec = device_ms(prefill, top), device_ms(decode)
+    del state
+    if top:
+        phase(tag, arch=arch, profile="prefill_longest_kernels_ms",
+              kernels=json.dumps(top, separators=(",", ":")))
+    for what, split, wall_ms in (
             ("prefill", split_pre, 1e3 * prefill_s[-1]),
             ("decode_step", split_dec and {k: v / PROFILE_STEPS for k, v in
                                            split_dec.items()},
              1e3 * float(np.median(decode_s)))):
         if split is None:
-            phase("serve", arch=arch, profile=tag,
+            phase(tag, arch=arch, profile=what,
                   device_time="not recorded")
             continue
         busy = sum(split.values())
-        phase("serve", arch=arch, profile=tag, wall_ms=f"{wall_ms:.3f}",
+        phase(tag, arch=arch, profile=what, wall_ms=f"{wall_ms:.3f}",
               device_ms=f"{busy:.3f}", k5_ms=f"{split['k5']:.3f}",
               gemm_ms=f"{split['gemm']:.3f}",
+              dispatch_ms=f"{split['dispatch']:.3f}",
               other_ms=f"{split['other']:.3f}",
               device_idle_share=f"{max(0.0, 1 - busy / wall_ms):.3f}")
     prefill_tok = sum(c["tokens"].size for c in rec.calls
                       if c["kind"] == "prefill")
     n_tok = sum(len(r.tokens) for r in results)
-    phase("serve", arch=arch, n_layers=cfg.n_layers,
+    phase(tag, arch=arch, n_layers=cfg.n_layers,
           params=n_params, requests=SERVE_REQUESTS, slots=SERVE_SLOTS,
           waves=waves, prompt_lengths=",".join(map(str, lengths)),
-          max_new_tokens=SERVE_NEW, max_len=max_len,
+          max_new_tokens=new, max_len=max_len, window=cfg.attn_window,
+          capacity_factor=cfg.capacity_factor if cfg.is_moe else None,
           init_s=f"{init_s:.3f}", serve_s=f"{serve_s:.3f}",
           tokens=n_tok, tokens_per_s=f"{n_tok / serve_s:.2f}",
           prefill_s_per_wave=",".join(f"{x:.4f}" for x in prefill_s),
@@ -2359,37 +2598,63 @@ def serve_phase(dev, arch=SERVE_ARCH):
           decode_ms_max=f"{1e3 * max(decode_s):.3f}",
           max_memory_allocated=peak,
           launches=json.dumps(launches, separators=(",", ":")))
-    phase("serve", arch=arch, compared_rows=stats["rows"],
+    if n_gqa == 0:
+        # no kernel on this path: the plain path is the same computation
+        del model, rec, eng
+        _free()
+        return launches
+
+    # the same requests on K5's plain version, teacher-forced on the
+    # kernel run's tokens (an MoE model following the kernel run's
+    # routing, each difference a near-tie)
+    kernel_logits = [c["logits"] for c in rec.calls]
+    before = flash_cuda.LAUNCHES[flash_cuda.NAME]
+    plain, plain_routes = replay(model, rec.calls, max_len,
+                                 flash_cuda.flash_fwd_plain, lead=routes)
+    check(flash_cuda.LAUNCHES[flash_cuda.NAME] == before,
+          "a comparison run launched K5")
+    follow_check(plain_routes, tag, arch, "plain_follows_kernel")
+    stats = compare_runs(kernel_logits, plain, LOGIT_TOL)
+    phase(tag, arch=arch, compared_rows=stats["rows"],
           max_abs_logit=f"{max(float(x.abs().max()) for x in plain):.4f}",
           max_logit_err_vs_plain=f"{stats['max_err']:.4e}",
           logit_tol=LOGIT_TOL, near_ties=stats["near_ties"],
           max_near_tie_gap=f"{stats['max_tie_gap']:.4e}")
 
-    # the same weights in float32: K5's float32 instantiation against its
-    # plain version, and the control (p rounded to bf16) beyond the limit
-    del plain, kernel_logits, state
+    # the same weights in float32 (upcast in place, or a fresh model at
+    # f32_layers layers): K5's float32 instantiation against its plain
+    # version, and the control (routing on its own) beyond the limit
+    del plain, kernel_logits, plain_routes
     t0 = time.perf_counter()
-    float32_model(model)
-    torch.cuda.empty_cache()
+    if f32_layers is None:
+        float32_model(model)
+    else:
+        rec.model = eng.model = None
+        del model
+        _free()
+        torch.cuda.reset_peak_memory_stats()
+        model = LM(dataclasses.replace(cfg, n_layers=f32_layers,
+                                       dtype="float32"), device=dev, seed=0)
+    _free()
+    n32 = sum(not b.kind.startswith("mla") for b in model.blocks)
     before = flash_cuda.LAUNCHES[flash_cuda.NAME]
-    k32 = teacher_forced(model, rec.calls, max_len)
-    check(flash_cuda.LAUNCHES[flash_cuda.NAME] - before
-          == cfg.n_layers * waves, "the float32 run did not launch K5 "
-          "once per layer and prefill")
-    with attention_route(flash_cuda.flash_fwd_plain):
-        p32 = teacher_forced(model, rec.calls, max_len)
-    with attention_route(attention_fault):
-        c32 = teacher_forced(model, rec.calls, max_len)
-    control = max_diff(c32, p32)
-    phase("serve", arch=arch, dtype="float32",
+    k32, k32_routes = replay(model, rec.calls, max_len)
+    check(flash_cuda.LAUNCHES[flash_cuda.NAME] - before == n32 * waves,
+          "the float32 run did not launch K5 once per layer and prefill")
+    p32, p32_routes = replay(model, rec.calls, max_len,
+                             flash_cuda.flash_fwd_plain, lead=k32_routes)
+    c32, _ = replay(model, rec.calls, max_len, control[1])
+    ctl = max_diff(c32, p32)
+    phase(tag, arch=arch, dtype="float32", n_layers=model.cfg.n_layers,
           max_logit_err_vs_plain=f"{max_diff(k32, p32):.4e}",
-          control_p_bf16_vs_plain=f"{control:.4e}",
+          **{f"control_{control[0]}_vs_plain": f"{ctl:.4e}"},
           logit_tol=F32_LOGIT_TOL, seconds=f"{time.perf_counter() - t0:.1f}",
           max_memory_allocated=torch.cuda.max_memory_allocated())
+    follow_check(p32_routes, tag, arch, "float32_plain_follows_kernel")
     stats32 = compare_runs(k32, p32, F32_LOGIT_TOL)
-    check(control > F32_LOGIT_TOL, f"the control (p rounded to bf16) lies "
-          f"within {F32_LOGIT_TOL} of the plain path: {control}")
-    phase("serve", arch=arch, dtype="float32",
+    check(ctl > F32_LOGIT_TOL, f"the control ({control[0]}) lies "
+          f"within {F32_LOGIT_TOL} of the plain path: {ctl}")
+    phase(tag, arch=arch, dtype="float32",
           compared_rows=stats32["rows"],
           near_ties=stats32["near_ties"],
           max_near_tie_gap=f"{stats32['max_tie_gap']:.4e}")
@@ -2450,11 +2715,23 @@ def _rel(a, b):
     return abs(a - b) / max(abs(b), 1e-30)
 
 
-def full_depth_run(tag, route, profile=False, arch=SERVE_ARCH):
+def train_argv(arch, layers=None, seq_len=4096):
+    """launch.train's arguments for ``arch``'s training slice: one
+    ``seq_len``-token sequence, at ``layers`` layers (default: all)."""
+    argv = ["--arch", arch] + TRAIN_ARGV
+    argv[argv.index("--seq-len") + 1] = str(seq_len)
+    return argv + (["--layers", str(layers)] if layers else [])
+
+
+def full_depth_run(tag, route, profile=False, arch=SERVE_ARCH, argv=None,
+                   line="train", lead=None):
     """TRAIN_STEPS steps of launch.train's code path (``build`` then
-    ``train_steps``) for ``arch`` with the flash bindings routed by
-    ``route``; the launch counts of each step, the peak device memory and,
-    with ``profile``, the time split of one more step."""
+    ``train_steps``) for ``arch`` (with ``argv``, default
+    ``train_argv(arch)``) with the flash bindings routed by ``route``;
+    the launch counts of each step, the peak device memory and, with
+    ``profile``, the time split of one more step. An MoE model's routing
+    over the steps is recorded (``routes``), following ``lead``'s (another
+    run's ``routes``) where given."""
     import torch
 
     from repro_torch.kernels import flash_cuda as fc
@@ -2462,7 +2739,7 @@ def full_depth_run(tag, route, profile=False, arch=SERVE_ARCH):
     from repro_torch.optim import adamw
     from repro_torch.train import loop as tl
 
-    args = lt.parse(["--arch", arch] + TRAIN_ARGV + ["--quantized-state"])
+    args = lt.parse((argv or train_argv(arch)) + ["--quantized-state"])
     _free()
     torch.cuda.reset_peak_memory_stats()
     out = {}
@@ -2474,20 +2751,28 @@ def full_depth_run(tag, route, profile=False, arch=SERVE_ARCH):
         out["params"] = sum(p.numel() for p in r.model.parameters())
         last = {}
 
+        routes = RoutingRecorder(lead) if r.cfg.is_moe else None
+
         def on_step(h):
+            if routes:
+                routes.mark()                   # the next step's calls
             h["launches"] = {k: n - last.get(k, 0)
                              for k, n in fc.LAUNCHES.items()}
             last.update(fc.LAUNCHES)
-            phase("train", arch=arch, run=tag, step=h["step"],
-                  loss=f"{h['loss']:.6f}",
+            phase(line, arch=arch, run=tag, step=h["step"],
+                  loss=f"{h['loss']:.6f}", aux=f"{h['aux']:.6f}",
                   grad_norm=f"{h['grad_norm']:.6f}", lr=f"{h['lr']:.6e}",
                   time_s=f"{h['time_s']:.3f}",
                   launches=json.dumps(h["launches"], separators=(",", ":")))
 
         # the main path: counts set to 0 just before, read just after
-        fc.reset_launches()
-        out["hist"] = lt.train_steps(r, 0, TRAIN_STEPS, on_step=on_step)
-        out["launches"] = dict(fc.LAUNCHES)
+        with routes.hook() if routes else contextlib.nullcontext():
+            if routes:
+                routes.mark()
+            fc.reset_launches()
+            out["hist"] = lt.train_steps(r, 0, TRAIN_STEPS, on_step=on_step)
+            out["launches"] = dict(fc.LAUNCHES)
+        out["routes"] = routes
         out["peak"] = torch.cuda.max_memory_allocated()
         if profile:
             n = TRAIN_STEPS
@@ -2511,16 +2796,23 @@ def full_depth_run(tag, route, profile=False, arch=SERVE_ARCH):
     return out
 
 
-def train_phase(dev, arch=SERVE_ARCH):
-    """``arch`` training at full width and depth, kernel run against the
-    plain run; returns the kernel run's launch counts."""
+def train_phase(dev, arch=SERVE_ARCH, layers=None, seq_len=4096,
+                tag="train"):
+    """``arch`` training at full width and depth (or ``layers`` layers) on
+    one ``seq_len``-token sequence, kernel run against the plain run (an
+    MoE model's following the kernel run's routing); returns the kernel
+    run's launch counts."""
     import numpy as np
 
     from repro_torch.configs import registry
     from repro_torch.kernels import flash_cuda as fc
 
-    n_layers = registry.config(arch).n_layers
-    kern = full_depth_run("kernel", {}, profile=True, arch=arch)
+    cfg = registry.config(arch)
+    n_layers = layers or cfg.n_layers
+    argv = train_argv(arch, layers, seq_len)
+    t0 = time.perf_counter()
+    kern = full_depth_run("kernel", {}, profile=True, arch=arch, argv=argv,
+                          line=tag)
     for h in kern["hist"]:
         check(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"]),
               f"step {h['step']}: loss {h['loss']} grad_norm "
@@ -2530,14 +2822,24 @@ def train_phase(dev, arch=SERVE_ARCH):
         check(got == want, f"step {h['step']}: launches {got} != {want} "
               f"(forward + recompute, dq, dk/dv per layer)")
     launches = kern["launches"]
+    # an MoE model's plain runs follow the kernel run's routing; each
+    # difference in step 1, where both runs have the same weights, a
+    # near-tie (ROUTE_TIE_TOL). After it, Adam's sign-like first updates
+    # have moved the two runs' weights apart by up to a step an element,
+    # so later differences are not attention's alone: printed, not held.
     plain = full_depth_run("plain", dict(flash_fwd=fc.flash_fwd_plain,
                                          flash_bwd=fc.flash_bwd_plain),
-                           arch=arch)
+                           arch=arch, argv=argv, line=tag,
+                           lead=kern["routes"])
+    follow_check(plain["routes"], tag, arch, "plain_follows_kernel", held=1)
     check(sum(plain["launches"].values()) == 0, "the plain run launched a "
           "flash kernel")
     spread = full_depth_run("plain_float64", dict(flash_fwd=_plain64_fwd,
                                                   flash_bwd=_plain64_bwd),
-                            arch=arch)
+                            arch=arch, argv=argv, line=tag,
+                            lead=kern["routes"])
+    follow_check(spread["routes"], tag, arch, "float64_follows_kernel",
+                 held=1)
     k1, p1, s1 = kern["hist"][0], plain["hist"][0], spread["hist"][0]
     cmp = dict(
         step1_loss_rel=_rel(k1["loss"], p1["loss"]),
@@ -2553,31 +2855,33 @@ def train_phase(dev, arch=SERVE_ARCH):
     # is taken against the last unprofiled step's wall time
     split, wall = kern["split"], kern["hist"][-1]["time_s"]
     if split is None:
-        phase("train", arch=arch, profile="step", device_time="not recorded")
+        phase(tag, arch=arch, profile="step", device_time="not recorded")
     else:
         busy = sum(split.values())
-        phase("train", arch=arch, profile="step", wall_ms=f"{1e3 * wall:.3f}",
+        phase(tag, arch=arch, profile="step", wall_ms=f"{1e3 * wall:.3f}",
               profiled_wall_ms=f"{1e3 * kern['profiled_wall_s']:.3f}",
               device_ms=f"{busy:.3f}",
               **{f"{k}_ms": f"{v:.3f}" for k, v in split.items()},
               device_idle_share=f"{max(0.0, 1 - busy / (1e3 * wall)):.3f}")
-    phase("train", arch=arch, n_layers=n_layers, params=kern["params"],
-          seq_len=4096, tokens_per_step=4095, steps=TRAIN_STEPS,
-          quantized_state=True, init_s=f"{kern['init_s']:.3f}",
+    phase(tag, arch=arch, n_layers=n_layers, params=kern["params"],
+          seq_len=seq_len, tokens_per_step=seq_len - 1, steps=TRAIN_STEPS,
+          window=cfg.attn_window, quantized_state=True,
+          init_s=f"{kern['init_s']:.3f}",
           step_s=",".join(f"{h['time_s']:.3f}" for h in kern["hist"]),
           plain_step_s=",".join(f"{h['time_s']:.3f}" for h in plain["hist"]),
-          tokens_per_s=f"{4095 / kern['hist'][-1]['time_s']:.1f}",
+          tokens_per_s=f"{(seq_len - 1) / kern['hist'][-1]['time_s']:.1f}",
           grads_s=f"{kern['grads_s']:.3f}", update_s=f"{kern['update_s']:.3f}",
           max_memory_allocated=kern["peak"],
           plain_max_memory_allocated=plain["peak"],
           launches=json.dumps(launches, separators=(",", ":")))
-    phase("train", arch=arch, compare="kernel_vs_plain",
+    phase(tag, arch=arch, compare="kernel_vs_plain",
           **{k: f"{v:.3e}" for k, v in cmp.items()},
           limits=f"{TRAIN_LOSS_RTOL}/{TRAIN_GNORM_RTOL}/{TRAIN_LOSSES_RTOL}")
-    phase("train", arch=arch, compare="plain_vs_float64_attention",
-          **{k: f"{v:.3e}" for k, v in spr.items()})
-    check(cmp["step1_loss_rel"] <= TRAIN_LOSS_RTOL, f"step-1 loss: kernel "
-          f"{k1['loss']} vs plain {p1['loss']}")
+    phase(tag, arch=arch, compare="plain_vs_float64_attention",
+          **{k: f"{v:.3e}" for k, v in spr.items()},
+          seconds=f"{time.perf_counter() - t0:.1f}")
+    check(cmp["step1_loss_rel"] <= TRAIN_LOSS_RTOL, f"step-1 loss: "
+          f"kernel {k1['loss']} vs plain {p1['loss']}")
     check(cmp["step1_grad_norm_rel"] <= TRAIN_GNORM_RTOL, f"step-1 grad "
           f"norm: kernel {k1['grad_norm']} vs plain {p1['grad_norm']}")
     check(cmp["losses_rel"] <= TRAIN_LOSSES_RTOL, f"losses differ by "
@@ -2673,6 +2977,92 @@ def f32_train_phase(dev, arch=SERVE_ARCH, layers=F32_TRAIN_LAYERS,
           f"within {F32_GRAD_REL}: {ctl_rel}")
 
 
+def mla_phase(dev):
+    """deepseek-v3-671b's MLA in float32 at MLA_CHECK's size: the
+    reference's decode invariant (the absorbed decode of token s after a
+    prefill of s tokens against the prefill of s + 1 tokens, itself
+    absorbed) and the same logits from the full form (the training path,
+    through ``_sdpa``), each within MLA_TOL; a control decoding another
+    token must lie beyond it. No flash kernel runs."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.kernels import flash_cuda
+    from repro_torch.models.lm import LM
+
+    cfg = registry.config(DEEPSEEK_ARCH, attn_impl="flash", **MLA_CHECK)
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = LM(cfg, device=dev, seed=0)
+    n_params = sum(p.numel() for p in model.parameters())
+    toks = torch.as_tensor(np.random.default_rng(1).integers(
+        1, cfg.vocab, (MLA_B, MLA_S + 1)), device=dev)
+    flash_cuda.reset_launches()
+    _, cache = model.prefill(toks[:, :MLA_S], MLA_S + 4)
+    inc, _ = model.decode(cache, toks[:, MLA_S])
+    _, cache = model.prefill(toks[:, :MLA_S], MLA_S + 4)
+    other, _ = model.decode(cache, (toks[:, MLA_S] + 1) % cfg.vocab)
+    full, _ = model.prefill(toks, MLA_S + 4)
+    with torch.no_grad():
+        hidden, _ = model.hidden(toks)
+        form = model._unembed(hidden[:, -1:])[:, 0]
+    torch.cuda.synchronize()
+    check(sum(flash_cuda.LAUNCHES.values()) == 0, "MLA launched a flash "
+          "kernel")
+    err = float((inc - full).abs().max())
+    err_form = float((inc - form).abs().max())
+    ctl = float((other - full).abs().max())
+    phase("moe", arch=DEEPSEEK_ARCH, check="mla_decode", dtype="float32",
+          n_layers=cfg.n_layers, n_dense_layers=cfg.n_dense_layers,
+          capacity_factor=cfg.capacity_factor, params=n_params, B=MLA_B,
+          s=MLA_S, max_abs_logit=f"{float(full.abs().max()):.4f}",
+          decode_vs_prefill=f"{err:.4e}",
+          decode_vs_full_form=f"{err_form:.4e}",
+          control_other_token=f"{ctl:.4e}", tol=MLA_TOL,
+          seconds=f"{time.perf_counter() - t0:.1f}",
+          max_memory_allocated=torch.cuda.max_memory_allocated())
+    check(bool(torch.isfinite(inc).all() & torch.isfinite(form).all()),
+          "non-finite MLA logits")
+    check(err <= MLA_TOL, f"absorbed decode vs prefill: {err} > {MLA_TOL}")
+    check(err_form <= MLA_TOL, f"absorbed decode vs the full form: "
+          f"{err_form} > {MLA_TOL}")
+    check(ctl > MLA_TOL, f"the control (another token) lies within "
+          f"{MLA_TOL}: {ctl}")
+    del model, cache
+    _free()
+
+
+def moe_phases(dev):
+    """The MoE slice on the card: mixtral-8x7b served (K5 with the window
+    cutting) and trained (K5-K7), deepseek-v3-671b served (MLA, no
+    kernel) and its MLA decode checked. Returns mixtral's launch
+    counts."""
+    from repro_torch.kernels import flash_cuda
+
+    t0 = time.perf_counter()
+    launches = collections.Counter(serve_phase(
+        dev, MIXTRAL_ARCH, layers=MIXTRAL_SERVE_LAYERS, prompt=MIXTRAL_PROMPT,
+        new=MIXTRAL_NEW, f32_layers=MIXTRAL_F32_LAYERS,
+        control=("no_window", no_window_fwd), tag="moe"))
+    phase("moe", arch=MIXTRAL_ARCH, path="serve",
+          seconds=f"{time.perf_counter() - t0:.1f}")
+    t0 = time.perf_counter()
+    launches.update(train_phase(dev, MIXTRAL_ARCH, MIXTRAL_TRAIN_LAYERS,
+                                MIXTRAL_SEQ, tag="moe"))
+    phase("moe", arch=MIXTRAL_ARCH, path="train",
+          seconds=f"{time.perf_counter() - t0:.1f}")
+    t0 = time.perf_counter()
+    ds = serve_phase(dev, DEEPSEEK_ARCH, layers=DEEPSEEK_SERVE_LAYERS,
+                     prompt=DEEPSEEK_PROMPT, new=DEEPSEEK_NEW, tag="moe")
+    check(ds[flash_cuda.NAME] == 0, "deepseek-v3's MLA launched K5")
+    mla_phase(dev)
+    phase("moe", arch=DEEPSEEK_ARCH, path="serve",
+          seconds=f"{time.perf_counter() - t0:.1f}")
+    return launches
+
+
 def supervisor_phase(dev):
     """The fault Supervisor on the card at the smoke size: a fault at step
     3 restarts from the step-2 checkpoint, and the run ends where an
@@ -2755,14 +3145,28 @@ def main() -> int:
     t0 = time.perf_counter()
     smi, name, count = device_phase()
     build_phase()
+    if sys.argv[1:] == [MOE_FLAG]:           # the MoE slice alone
+        windowed = [c for c in K5_CASES if c[7] == WINDOW_ROW]
+        table = lm_kernel_phase(dev, windowed, small=False)
+        table.update(bwd_kernel_phase(
+            dev, [c for c in BWD_CASES if c[7] == WINDOW_ROW], small=False))
+        moe = moe_phases(dev)
+        for row in table.values():
+            row["launches"] = moe[row["name"].rsplit("_w", 1)[0]]
+        phase("done", moe_only=True,
+              seconds=f"{time.perf_counter() - t0:.1f}")
+        print(smi)
+        print(json.dumps({"kernels": list(table.values())}))
+        return 0
     table = kernel_phase(dev, smi)
     table.update(lm_kernel_phase(dev))
     table.update(bwd_kernel_phase(dev))
     # each main path's counts, summed: slice (K1-K4), the per-pod
     # decisions (K1), the policy round (K3), the frontier layer (K4, K3),
     # serve (K5), the smoke-size serving launcher (K5), train (K5, K6,
-    # K7), for llama3-8b (head dim 128) and gemma-7b (256); the D = 256
-    # rows count gemma's
+    # K7), for llama3-8b (head dim 128), gemma-7b (256) and mixtral-8x7b
+    # (128, window 4096); the D = 256 rows count gemma's, the _w4096 rows
+    # mixtral's
     launches = collections.Counter(slice_phase(dev))
     launches.update(perpod_phase(dev, smi))
     launches.update(policy_phase(dev, smi))
@@ -2774,9 +3178,12 @@ def main() -> int:
     f32_train_phase(dev)
     wide.update(train_phase(dev, GEMMA_ARCH))
     f32_train_phase(dev, GEMMA_ARCH, GEMMA_F32_LAYERS, control="half_d")
+    moe = moe_phases(dev)
     supervisor_phase(dev)
     launches.update(wide)
     launches.update({row_name(n, WIDE_D): c for n, c in wide.items()})
+    launches.update(moe)
+    launches.update({row_name(n, 128, WINDOW_ROW): c for n, c in moe.items()})
     for row in table.values():
         row["launches"] = launches[row["name"]]
     phase("done", seconds=f"{time.perf_counter() - t0:.1f}")

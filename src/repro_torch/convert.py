@@ -18,11 +18,11 @@ from typing import Iterable, Mapping
 
 import numpy as np
 import torch
+from torch import nn
 
 from repro_torch.cluster.node import FleetState, Node
 from repro_torch.cluster.workload import WORKLOADS, Pod, WorkloadSpec
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import attn_shapes, dtype_of, ffn_shapes
 from repro_torch.models.lm import LM
 
 # NodeTable fields, in declaration order. The first eight (and the two
@@ -104,45 +104,51 @@ def lm_params_from_numpy(cfg: ModelConfig, tree: Mapping, *,
                          device=None):
     """The port's ``LM`` with the reference's parameters: ``tree`` is
     ``repro.models.lm.build(cfg).init(key)`` as nested dicts of numpy
-    arrays, the dense segment's leaves stacked on axis 0. Weights keep the
-    reference's (d_in, d_out) layout; shapes and dtypes are checked."""
+    arrays, each segment's leaves stacked on axis 0 (``dense``;
+    mixtral's ``moe``; deepseek's ``dense_prefix`` and ``moe``, with the
+    expert, router and shared-expert leaves and the MLA weights). Weights
+    keep the reference's layout; key sets, shapes and dtypes are
+    checked."""
     model = LM(cfg, device=device, seed=None)
-    dt, D, L = dtype_of(cfg), cfg.d_model, cfg.n_layers
 
-    def put(dst: torch.Tensor, a, name: str, dtype: torch.dtype) -> None:
+    def put(dst: torch.Tensor, a, name: str) -> None:
         t = tensor_from_numpy(np.asarray(a))
-        if tuple(t.shape) != tuple(dst.shape) or t.dtype != dtype:
+        if tuple(t.shape) != tuple(dst.shape) or t.dtype != dst.dtype:
             raise ValueError(f"{name}: {tuple(t.shape)} {t.dtype}, expected "
-                             f"{tuple(dst.shape)} {dtype}")
+                             f"{tuple(dst.shape)} {dst.dtype}")
         dst.copy_(t)
 
-    expected = {"embed", "final_ln", "dense"} | (
+    def fill(module: nn.Module, node: Mapping, j: int, n: int,
+             name: str) -> None:
+        """Block leaves of ``module`` from slice j of the stacked
+        (n, ...) leaves of ``node``."""
+        own = dict(module.named_parameters(recurse=False))
+        kids = dict(module.named_children())
+        if set(node) != set(own) | set(kids):
+            raise KeyError(f"{name} has {sorted(node)}, expected "
+                           f"{sorted(set(own) | set(kids))}")
+        for k, dst in own.items():
+            if np.shape(node[k])[:1] != (n,):
+                raise ValueError(f"{name}.{k}: {np.shape(node[k])}, "
+                                 f"expected {n} stacked blocks")
+            put(dst, node[k][j], f"{name}.{k}[{j}]")
+        for k, kid in kids.items():
+            fill(kid, node[k], j, n, f"{name}.{k}")
+
+    expected = {"embed", "final_ln"} | {s.name for s in model.segments} | (
         set() if cfg.tie_embeddings else {"lm_head"})
     if set(tree) != expected:
         raise KeyError(f"parameter tree has {sorted(tree)}, expected "
                        f"{sorted(expected)}")
-    seg = tree["dense"]
     with torch.no_grad():
-        put(model.embed, tree["embed"], "embed", dt)
-        put(model.final_ln, tree["final_ln"], "final_ln", torch.float32)
+        put(model.embed, tree["embed"], "embed")
+        put(model.final_ln, tree["final_ln"], "final_ln")
         if model.lm_head is not None:
-            put(model.lm_head, tree["lm_head"], "lm_head", dt)
-        for name, shapes in (("attn", attn_shapes(cfg)),
-                             ("ffn", ffn_shapes(cfg))):
-            if set(seg[name]) != set(shapes):
-                raise KeyError(f"dense.{name} has {sorted(seg[name])}")
-        for i, blk in enumerate(model.blocks):
-            for ln in ("ln1", "ln2"):
-                if np.shape(seg[ln]) != (L, D):
-                    raise ValueError(f"dense.{ln}: {np.shape(seg[ln])}")
-                put(getattr(blk, ln), seg[ln][i], f"dense.{ln}[{i}]",
-                    torch.float32)
-            for name in ("attn", "ffn"):
-                for k, w in getattr(blk, name).items():
-                    a = seg[name][k]
-                    if np.shape(a)[0] != L:
-                        raise ValueError(f"dense.{name}.{k}: {np.shape(a)}")
-                    put(w, a[i], f"dense.{name}.{k}[{i}]", dt)
+            put(model.lm_head, tree["lm_head"], "lm_head")
+        for seg, idx in model.segment_blocks():
+            for j, i in enumerate(idx):
+                fill(model.blocks[i], tree[seg.name], j, seg.n_blocks,
+                     seg.name)
     return model
 
 
@@ -158,26 +164,27 @@ def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
 def lm_params_to_numpy(model: LM, tensors: Mapping[str, torch.Tensor]
                        | None = None) -> dict:
     """The inverse of ``lm_params_from_numpy``: the reference's parameter
-    pytree as nested dicts of numpy arrays, with the blocks' leaves stacked
-    on axis 0. ``tensors`` maps the LM's parameter names (``"embed"``,
-    ``"blocks.3.attn.wq"``, ...) to tensors of their shapes, such as the
-    gradients of a training step; default: the parameters themselves."""
+    pytree as nested dicts of numpy arrays, with each segment's block
+    leaves stacked on axis 0. ``tensors`` maps the LM's parameter names
+    (``"embed"``, ``"blocks.3.attn.wq"``, ``"blocks.1.moe.shared.w1"``,
+    ...) to tensors of their shapes, such as the gradients of a training
+    step; default: the parameters themselves."""
     if tensors is None:
         tensors = dict(model.named_parameters())
     names = [n for n, _ in model.named_parameters()]
     if set(tensors) != set(names):
         raise KeyError(f"tensors name {sorted(set(tensors) ^ set(names))} "
                        f"differently from the model's parameters")
-    L = model.cfg.n_layers
     tree = {k: tensor_to_numpy(tensors[k])
             for k in ("embed", "final_ln", "lm_head") if k in tensors}
-
-    def stack(suffix: str) -> np.ndarray:
-        return np.stack([tensor_to_numpy(tensors[f"blocks.{i}.{suffix}"])
-                         for i in range(L)])
-
-    blk = model.blocks[0]
-    tree["dense"] = {"ln1": stack("ln1"), "ln2": stack("ln2"),
-                     "attn": {k: stack(f"attn.{k}") for k in blk.attn},
-                     "ffn": {k: stack(f"ffn.{k}") for k in blk.ffn}}
+    for seg, idx in model.segment_blocks():
+        node: dict = {}
+        for leaf, _ in model.blocks[idx[0]].named_parameters():
+            *path, last = leaf.split(".")
+            d = node
+            for k in path:
+                d = d.setdefault(k, {})
+            d[last] = np.stack([tensor_to_numpy(tensors[f"blocks.{i}.{leaf}"])
+                                for i in idx])
+        tree[seg.name] = node
     return tree

@@ -1,7 +1,9 @@
 """Serving entry point of the port: wave-batched prefill + decode engine —
 counterpart of ``repro.launch.serve``, with ``--device`` (default: the card).
 The model runs with ``attn_impl="flash"``, so prefill attention goes through
-the flash-attention kernel (K5) on the card and its plain version on the CPU.
+the flash-attention kernel (K5) on the card and its plain version on the CPU
+(mixtral-8x7b with its 4096-token sliding window); deepseek-v3-671b's MLA
+takes no kernel (the reference's MLA calls ``_sdpa``).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b --smoke \\

@@ -8,6 +8,10 @@ under the fault ``Supervisor`` (checkpoints every ``--ckpt-every`` steps and
 at the end, restart from the latest on a fault); without it they run
 directly through the train step and nothing is written.
 
+``--arch`` takes the dense (llama3-8b, gemma-7b, ...) and MoE
+(mixtral-8x7b, deepseek-v3-671b) architectures; a step's line shows the
+MoE load-balancing loss (``aux``; 0 for a dense model).
+
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3-8b --smoke \\
       --steps 20 --device cpu
@@ -114,9 +118,9 @@ def train_steps(r: types.SimpleNamespace, first: int, last: int, *,
 
 def run(args: argparse.Namespace, *, on_step=None) -> list[dict]:
     """Train as the arguments say; returns the per-step history
-    (``step``, ``time_s``, ``loss``, ``grad_norm``, ``lr``). ``on_step``
-    is called with each history entry (under the Supervisor, after the
-    run)."""
+    (``step``, ``time_s``, ``loss``, ``aux``, ``grad_norm``, ``lr``).
+    ``on_step`` is called with each history entry (under the Supervisor,
+    after the run)."""
     r = build(args)
     if not args.ckpt_dir:
         return train_steps(r, 0, args.steps, on_step=on_step)
@@ -133,7 +137,7 @@ def main(argv=None) -> list[dict]:
     args = parse(argv)
 
     def show(h):
-        print(f"step {h['step']} loss={h['loss']:.6f} "
+        print(f"step {h['step']} loss={h['loss']:.6f} aux={h['aux']:.6f} "
               f"grad_norm={h['grad_norm']:.6f} lr={h['lr']:.6e} "
               f"time_s={h['time_s']:.3f}", flush=True)
 

@@ -1,5 +1,5 @@
-"""Dense neural layers of the port: norms, rope, GQA attention with a decode
-cache, FFNs — port of the dense subset of ``repro.models.layers``.
+"""Neural layers of the port: norms, rope, GQA attention with a decode
+cache, MLA, FFNs — port of ``repro.models.layers`` but cross-attention.
 
 Plain functions over parameter mappings (a dict of tensors or an
 ``nn.ParameterDict``), with the reference's ``(d_in, d_out)`` weight layout
@@ -18,7 +18,8 @@ Self-attention over a whole sequence (prefill, training) goes through K5
 its gradient through K6 and K7: one card is a model axis of 1, so no mesh
 condition applies. Decode uses ``_sdpa``, plain torch as the reference's
 is plain XLA. The decode cache is updated in place. Every function here is
-differentiable with ``torch.autograd``.
+differentiable with ``torch.autograd``. MLA (``mla_attention``) never
+takes K5: the reference's calls ``_sdpa`` (layers.py:299).
 """
 from __future__ import annotations
 
@@ -258,6 +259,85 @@ def attention(p: Params, cfg: ModelConfig, x: torch.Tensor, *, kv_src=None,
     else:
         out = _sdpa(q, k, v, causal=causal, window=cfg.attn_window)
     return dot(out.reshape(B, S, cfg.n_heads * hd), p["wo"]), None
+
+
+# --- MLA (deepseek multi-head latent attention) -----------------------------
+def mla_shapes(cfg: ModelConfig) -> dict:
+    D, H, R = cfg.d_model, cfg.n_heads, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    return {"wdq": (D, cfg.q_lora_rank), "wuq": (cfg.q_lora_rank,
+                                                 H * (dn + dr)),
+            "wdkv": (D, R), "wkr": (D, dr), "wuk": (R, H * dn),
+            "wuv": (R, H * dv), "wo": (H * dv, D)}
+
+
+def _einsum_f32(eq: str, *xs: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum`` of the operands in float32 (exact for bf16), the
+    result float32: the reference's ``preferred_element_type`` einsums."""
+    return torch.einsum(eq, *(x.float() for x in xs))
+
+
+def mla_attention(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
+                  positions: torch.Tensor | None = None,
+                  cache: dict | None = None):
+    """Multi-head latent attention (reference layers.py:251-325). x:
+    (B, S, D). Returns (out, cache').
+
+    Without a cache (training) the full form: nope and rope concatenated
+    into one head dim of dn + dr, through ``_sdpa`` (never K5, as in the
+    reference), v's head dim dv. With a cache {kv_c (B, T, R), k_rope
+    (B, T, dr), len} (prefill and decode) the absorbed form: q is taken
+    into the latent space through wuk and scored against the cached
+    kv_c and k_rope, which this call's are written into in place at
+    ``len``; the output comes back through wuv.
+    """
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    R = cfg.kv_lora_rank
+    if positions is None:
+        positions = torch.arange(S, device=x.device)
+    q = dot(dot(x, p["wdq"]), p["wuq"]).reshape(B, S, H, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    kv_c = dot(x, p["wdkv"])                                  # (B, S, R)
+    k_rope = apply_rope(dot(x, p["wkr"])[:, :, None, :], positions,
+                        cfg.rope_theta)                       # (B, S, 1, dr)
+    scale = (dn + dr) ** -0.5
+
+    if cache is None:
+        k_nope = dot(kv_c, p["wuk"]).reshape(B, S, H, dn)
+        v = dot(kv_c, p["wuv"]).reshape(B, S, H, dv)
+        # q'.k' = nope.nope + rope.rope, and _sdpa's scale (dn+dr)^-0.5
+        # is ``scale``
+        q_full = torch.cat([q_nope, q_rope], dim=-1)
+        k_full = torch.cat([k_nope, k_rope.to(k_nope.dtype).expand(
+            B, S, H, dr)], dim=-1)
+        out = _sdpa(q_full, k_full, v, causal=True, window=None)
+        return dot(out.reshape(B, S, H * dv), p["wo"]), None
+
+    idx = int(cache["len"])
+    ckv, ckr = cache["kv_c"], cache["k_rope"]
+    if idx + S > ckv.shape[1]:
+        raise ValueError(f"cache of length {ckv.shape[1]} cannot take "
+                         f"{S} more entries at position {idx}")
+    ckv[:, idx:idx + S] = kv_c
+    ckr[:, idx:idx + S] = k_rope[:, :, 0, :]
+    wuk = p["wuk"].reshape(R, H, dn)
+    q_c = _einsum_f32("bshd,rhd->bshr", q_nope, wuk).to(x.dtype)
+    logits = (_einsum_f32("bshr,btr->bhst", q_c, ckv)
+              + _einsum_f32("bshd,btd->bhst", q_rope, ckr)) * scale
+    t = ckv.shape[1]
+    ki = torch.arange(t, device=x.device)[None, None, None, :]
+    qi = positions[None, None, :, None]
+    logits = torch.where((ki < idx + S) & (ki <= qi), logits, -1e30)
+    probs = torch.softmax(logits, dim=-1).to(x.dtype)
+    del logits
+    o_c = _einsum_f32("bhst,btr->bshr", probs, ckv).to(x.dtype)
+    wuv = p["wuv"].reshape(R, H, dv)
+    out = _einsum_f32("bshr,rhd->bshd", o_c, wuv).to(x.dtype)
+    new_cache = {"kv_c": ckv, "k_rope": ckr, "len": idx + S}
+    return dot(out.reshape(B, S, H * dv), p["wo"]), new_cache
 
 
 # --- FFN (swiglu / geglu) -------------------------------------------------------

@@ -1,0 +1,219 @@
+"""Mixture-of-Experts FFN with capacity-based (GShard-style) token dispatch
+— port of ``repro.models.moe``.
+
+Tokens are grouped (G groups of S tokens, G = ``cfg.moe_groups``). The
+router's top-k choices are packed into per-expert capacity slots
+C = ``capacity(cfg, S)``, each (token, k) taking the slot given by the
+float32 exclusive cumulative count of its expert's earlier choices in
+token order; a choice whose slot is past C is dropped, and the kept gates
+are renormalised. Routing (``route``) is the reference's arithmetic, and
+its choices, slots, drops and auxiliary loss equal the reference's in
+float32.
+
+Dispatch and combine are index gathers over those slots, not the
+reference's (G, S, E, C) one-hot products: slot (e, c) of group g reads
+the one token routed there (or a zero row), and a token's output is the
+sum over its kept choices of gate (rounded to x's dtype, where the
+reference rounds its combine tensor) times its slot's expert output,
+accumulated in float32 and rounded once. These are the reference's
+products without their zero terms: dispatch is exact, and combine differs
+at most in the float32 order of its top_k terms. At deepseek-v3's
+E = 256 the one-hot tensors of a 4,096-token prefill would hold 1.7e8
+entries per layer, and their products would cost more than the experts.
+
+Every expert computes all C of its slots, empty ones included (zero rows
+in, zero rows out), as in the reference. ``n_shared_experts`` dense
+experts (deepseek-v3) are added to every token.
+
+Selection is stable by index on exact ties (``torch.sort(stable=True)``),
+as ``jax.lax.top_k`` returns the lower index first; ``torch.topk``
+promises no order.
+"""
+from __future__ import annotations
+
+from typing import Mapping, NamedTuple
+
+import torch
+
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import dtype_of, ffn, init_dense
+
+Params = Mapping[str, torch.Tensor]
+
+# dispatch slots scale with tokens-per-group; beyond this many tokens per
+# group the sequence is processed in chunks (exact — routing is per-token;
+# only capacity boundaries move, as in any production MoE server).
+_MOE_CHUNK_TOKENS = 16384
+
+
+def moe_shapes(cfg: ModelConfig) -> dict:
+    """Shapes of the routed experts' leaves."""
+    D, E, F = cfg.d_model, cfg.n_experts, cfg.moe_d_ff
+    return {"router": (D, E), "router_bias": (E,), "w1": (E, D, F),
+            "w3": (E, D, F), "w2": (E, F, D)}
+
+
+def shared_shapes(cfg: ModelConfig) -> dict:
+    """The shared expert's FFN, ``moe_d_ff * n_shared_experts`` wide."""
+    D, F = cfg.d_model, cfg.moe_d_ff * cfg.n_shared_experts
+    return {"w1": (D, F), "w3": (D, F), "w2": (F, D)}
+
+
+def moe_init(gen: torch.Generator | None, cfg: ModelConfig, device) -> dict:
+    """The MoE leaves, drawn in order on the generator's device: the
+    router float32 normal * 0.02, ``router_bias`` float32 zeros, w1 and w3
+    normal * D**-0.5 and w2 normal * F**-0.5 in ``cfg.dtype``, and the
+    shared expert (``shared``) as an FFN. Uninitialised where ``gen`` is
+    None (a converter fills them). Not JAX's bits."""
+    dt = dtype_of(cfg)
+    shapes = moe_shapes(cfg)
+    dtypes = {"router": torch.float32, "router_bias": torch.float32}
+    if gen is None:
+        p = {k: torch.empty(s, dtype=dtypes.get(k, dt), device=device)
+             for k, s in shapes.items()}
+    else:
+        D, F = cfg.d_model, cfg.moe_d_ff
+        scales = {"router": 0.02, "w1": D ** -0.5, "w3": D ** -0.5,
+                  "w2": F ** -0.5}
+        p = {}
+        for k, s in shapes.items():
+            if k == "router_bias":
+                p[k] = torch.zeros(s, dtype=torch.float32, device=device)
+                continue
+            w = torch.randn(s, generator=gen, device=device,
+                            dtype=torch.float32).mul_(scales[k])
+            p[k] = w.to(dtypes.get(k, dt))
+    if cfg.n_shared_experts:
+        p["shared"] = init_dense(gen, shared_shapes(cfg), cfg, device)
+    return p
+
+
+def capacity(cfg: ModelConfig, tokens_per_group: int) -> int:
+    c = int(tokens_per_group * cfg.top_k * cfg.capacity_factor
+            // cfg.n_experts) + 1
+    return max(c, cfg.top_k)
+
+
+class Routing(NamedTuple):
+    """The router's decisions for (G, S) tokens: ``idx`` (G, S, K) the
+    chosen experts in descending score order, ``pos`` (G, S, K) each
+    choice's slot in its expert, ``keep`` (G, S, K) pos < C, ``gate``
+    (G, S, K) float32 the renormalised kept gates (0 where dropped),
+    ``aux`` the Switch load-balancing loss, ``capacity`` C."""
+    idx: torch.Tensor
+    pos: torch.Tensor
+    keep: torch.Tensor
+    gate: torch.Tensor
+    aux: torch.Tensor
+    capacity: int
+
+
+def selection_scores(p: Params, x_flat: torch.Tensor):
+    """(gates, scores) of (G, S, D) tokens: float32 softmax gates of the
+    router's logits, and the selection scores gates + router_bias."""
+    logits = torch.matmul(x_flat.float(), p["router"].float())
+    gates = torch.softmax(logits, dim=-1)
+    return gates, gates + p["router_bias"]
+
+
+def route(p: Params, cfg: ModelConfig, x_flat: torch.Tensor,
+          choices: torch.Tensor | None = None) -> Routing:
+    """x_flat: (G, S, D) -> the routing of its tokens (reference
+    moe.py:55-91: softmax gates for combination, gates + router_bias for
+    selection, slots by a float32 exclusive cumsum in token order).
+    ``choices`` (G, S, K), where given, are taken in place of the
+    router's own top-k: a replay that follows another run's selections
+    (chip_smoke.py holds each difference to be a near-tie)."""
+    G, S, _ = x_flat.shape
+    E, K = cfg.n_experts, cfg.top_k
+    C = capacity(cfg, S)
+    gates, sel = selection_scores(p, x_flat)
+    # descending, ties to the lower index (jax.lax.top_k's order)
+    idx = (torch.sort(sel, dim=-1, descending=True, stable=True)[1][..., :K]
+           if choices is None else choices)
+    onehot = torch.nn.functional.one_hot(idx, E).float()     # (G, S, K, E)
+    flat = onehot.reshape(G, S * K, E)
+    # the count runs along the last axis (a scan over E rows of S * K, not
+    # E columns of S * K steps each); exact, as the sums are integers
+    run = torch.cumsum(flat.transpose(1, 2), dim=-1).transpose(1, 2)
+    pos = (run - flat).reshape(G, S, K, E)
+    pos = torch.sum(pos * onehot, dim=-1)                     # (G, S, K)
+    keep = pos < C
+    gate = torch.gather(gates, -1, idx) * keep
+    denom = torch.sum(gate, dim=-1, keepdim=True)
+    gate = gate / torch.clamp_min(denom, 1e-9)
+    # load-balancing aux loss (Switch): E * sum(frac_tokens * frac_prob)
+    me = torch.mean(onehot.sum(2), dim=(0, 1))
+    ce = torch.mean(gates, dim=(0, 1))
+    aux = E * torch.sum(me * ce) / K
+    return Routing(idx, pos.long(), keep, gate, aux, C)
+
+
+def _expert_dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(E, N, d_in) @ (E, d_in, d_out) per expert, accumulated in float32
+    and rounded to x's dtype (the reference's ``preferred_element_type``
+    einsums)."""
+    if x.dtype == torch.float32 or x.is_cuda:
+        return torch.bmm(x, w)
+    return torch.bmm(x.float(), w.float()).to(x.dtype)
+
+
+def moe_ffn(p: Params, cfg: ModelConfig, x: torch.Tensor, n_groups: int):
+    """x: (B, S, D) -> (out, aux_loss). Tokens regrouped to (G, S', D);
+    beyond ``_MOE_CHUNK_TOKENS`` tokens per group an even S is halved
+    until it fits or turns odd, and the chunks' aux losses averaged."""
+    B, S, D = x.shape
+    if B * S > n_groups * _MOE_CHUNK_TOKENS and S % 2 == 0:
+        n_chunks = 2
+        while (B * (S // n_chunks) > n_groups * _MOE_CHUNK_TOKENS
+               and (S // n_chunks) % 2 == 0):
+            n_chunks *= 2
+        sc = S // n_chunks
+        outs, auxs = zip(*(moe_ffn(p, cfg, x[:, i * sc:(i + 1) * sc],
+                                   n_groups) for i in range(n_chunks)))
+        return torch.cat(outs, dim=1), torch.mean(torch.stack(auxs))
+    T, G = B * S, n_groups
+    if T % G:
+        raise ValueError(f"{T} tokens do not split into {G} groups")
+    E, K = cfg.n_experts, cfg.top_k
+    xg = x.reshape(G, T // G, D)
+    s = T // G
+    r = route(p, cfg, xg)
+    C = r.capacity
+    # slot e * C + pos of each kept choice; dropped ones go to slot E * C,
+    # which is never read
+    slot = torch.where(r.keep, r.idx * C + r.pos, E * C).reshape(G, s * K)
+    tok = torch.arange(s, device=x.device).repeat_interleave(K)
+    # the token in each slot; an empty slot reads row s, a zero row
+    tok_of = torch.full((G, E * C + 1), s, dtype=torch.long, device=x.device)
+    tok_of.scatter_(1, slot, tok.expand(G, -1))
+    xpad = torch.cat([xg, xg.new_zeros(G, 1, D)], dim=1)
+    rows = torch.arange(G, device=x.device)[:, None]
+    xin = xpad[rows, tok_of[:, :E * C]]                      # (G, E*C, D)
+    xin = xin.reshape(G, E, C, D).transpose(0, 1).reshape(E, G * C, D)
+    h = _expert_dot(xin, p["w1"])
+    h3 = _expert_dot(xin, p["w3"])
+    h = h * torch.sigmoid(h) * h3          # jax.nn.silu(h) * h3, x.dtype
+    eo = _expert_dot(h, p["w2"])                               # (E, G*C, D)
+    eo = eo.reshape(E, G, C, D).transpose(0, 1).reshape(G, E * C, D)
+    eo = torch.cat([eo, eo.new_zeros(G, 1, D)], dim=1)
+    # combine: the kept gates rounded to x.dtype, as the reference rounds
+    # its combine tensor, times their slots' outputs, summed in float32
+    gate = r.gate.to(x.dtype).float()
+    slot = slot.reshape(G, s, K)
+    acc = torch.zeros((G, s, D), dtype=torch.float32, device=x.device)
+    for k in range(K):
+        acc = acc + gate[..., k, None] * eo[rows, slot[..., k]].float()
+    out = acc.to(x.dtype).reshape(B, S, D)
+    if cfg.n_shared_experts:
+        out = out + ffn(p["shared"], cfg, x)
+    return out, r.aux
+
+
+def update_router_bias(bias: torch.Tensor, expert_load: torch.Tensor,
+                       step_size: float = 1e-3) -> torch.Tensor:
+    """DeepSeek-V3 aux-loss-free balancing: nudge selection bias against
+    overloaded experts. The reference's train loop never calls it, and
+    neither does the port's."""
+    target = torch.mean(expert_load)
+    return bias + step_size * torch.sign(target - expert_load)

@@ -4,7 +4,8 @@ wave-based batching — port of ``repro.serve.engine``.
 Requests are grouped into fixed-size waves: every slot prefills together
 and decodes in lockstep, and finished sequences are dropped from the
 output. A short wave is filled with dummy slots; prompts are left-padded
-with token 0, which is then attended (not masked), and every row takes
+with token 0, which is then attended (not masked) and, in an MoE model,
+routed like any other token (it takes capacity slots), and every row takes
 positions 0..S-1 whatever its padding, as in the reference.
 """
 from __future__ import annotations

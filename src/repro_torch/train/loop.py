@@ -39,25 +39,23 @@ def bind(model: LM, params: dict) -> dict:
 
 def _grads(model: LM, tokens: torch.Tensor):
     """(loss, metrics, {name: grad}) of one batch; the gradients are taken
-    off the parameters, so the returned dict holds the only reference."""
+    off the parameters, so the returned dict holds the only reference. A
+    parameter the loss does not reach (``router_bias``: selection is not
+    differentiable) gets zeros, as ``jax.grad`` gives."""
     model.zero_grad(set_to_none=True)
     loss, metrics = model.loss(tokens)
     loss.backward()
     grads = {}
     for name, p in model.named_parameters():
-        grads[name], p.grad = p.grad, None
+        grads[name] = p.grad if p.grad is not None else torch.zeros_like(p)
+        p.grad = None
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
 
-def microbatch_grads(model: LM, params: dict, batch: dict, n_micro: int,
-                     grad_dtype: torch.dtype | None = None):
-    """Mean loss + grads over ``n_micro`` microbatches of ``batch``'s rows.
-    ``n_micro == 1`` returns the loss's metrics and grads in the
-    parameters' dtype (as ``jax.value_and_grad``); more microbatches
-    accumulate in ``grad_dtype`` (default float32) and return float32 grads
-    and no metrics."""
-    bind(model, params)
-    tokens = batch["tokens"]
+def _accumulate(model: LM, tokens: torch.Tensor, n_micro: int,
+                grad_dtype: torch.dtype | None):
+    """(mean loss, mean metrics, grads) over ``n_micro`` microbatches of
+    ``tokens``' rows (see ``microbatch_grads``)."""
     if n_micro == 1:
         return _grads(model, tokens)
     b = tokens.shape[0]
@@ -68,13 +66,30 @@ def microbatch_grads(model: LM, params: dict, batch: dict, n_micro: int,
     acc = {n: torch.zeros(p.shape, dtype=acc_dt, device=p.device)
            for n, p in model.named_parameters()}
     lsum = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    msum: dict = {}
     for mb in tokens.reshape(n_micro, b // n_micro, *tokens.shape[1:]):
-        loss, _, grads = _grads(model, mb)
+        loss, metrics, grads = _grads(model, mb)
         for n, g in grads.items():
             acc[n].add_(g.to(acc_dt))
         lsum = lsum + loss
+        for k, v in metrics.items():
+            msum[k] = msum.get(k, 0.0) + v
     inv = 1.0 / n_micro
-    return lsum * inv, {}, {n: (g * inv).float() for n, g in acc.items()}
+    return (lsum * inv, {k: v * inv for k, v in msum.items()},
+            {n: (g * inv).float() for n, g in acc.items()})
+
+
+def microbatch_grads(model: LM, params: dict, batch: dict, n_micro: int,
+                     grad_dtype: torch.dtype | None = None):
+    """Mean loss + grads over ``n_micro`` microbatches of ``batch``'s rows.
+    ``n_micro == 1`` returns the loss's metrics and grads in the
+    parameters' dtype (as ``jax.value_and_grad``); more microbatches
+    accumulate in ``grad_dtype`` (default float32) and return float32 grads
+    and, as the reference, no metrics."""
+    bind(model, params)
+    loss, metrics, grads = _accumulate(model, batch["tokens"], n_micro,
+                                       grad_dtype)
+    return loss, (metrics if n_micro == 1 else {}), grads
 
 
 def make_train_fn(model: LM, opt_cfg: adamw.AdamWConfig, n_micro: int = 1,
@@ -82,14 +97,17 @@ def make_train_fn(model: LM, opt_cfg: adamw.AdamWConfig, n_micro: int = 1,
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)``: gradients, then one AdamW update of the model's parameters
     in place, with the reference's weight-decay rule (``LM.decays``).
-    ``metrics`` holds ``loss``, ``grad_norm`` and ``lr``."""
+    ``metrics`` holds ``loss``, ``aux`` (the MoE load-balancing loss, mean
+    over the microbatches; 0 for a dense model), ``grad_norm`` and
+    ``lr``."""
     decay = model.decays()
 
     def train_step(params, opt_state, batch):
-        loss, _, grads = microbatch_grads(model, params, batch, n_micro,
-                                          grad_dtype=grad_dtype)
+        bind(model, params)
+        loss, metrics, grads = _accumulate(model, batch["tokens"], n_micro,
+                                           grad_dtype)
         new_params, new_state, m = adamw.update(
             opt_cfg, grads, opt_state, params_of(model), decay=decay)
-        return new_params, new_state, dict(m, loss=loss)
+        return new_params, new_state, dict(m, loss=loss, aux=metrics["aux"])
 
     return train_step

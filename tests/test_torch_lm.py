@@ -202,8 +202,8 @@ def test_unported_paths_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         layers.attention({}, pcfg, torch.zeros(1, 2, pcfg.d_model),
                          kv_src=torch.zeros(1, 3, pcfg.d_model))
-    for arch in ("mixtral-8x7b", "deepseek-v3-671b", "zamba2-7b",
-                 "rwkv6-1.6b", "llama-3.2-vision-90b", "whisper-base"):
+    for arch in ("zamba2-7b", "rwkv6-1.6b", "llama-3.2-vision-90b",
+                 "whisper-base"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             LM(registry.smoke_config(arch), device="cpu")
 
@@ -231,8 +231,13 @@ def _run_both(rcfg, pcfg, tokens, max_len, steps):
             rl, rc = model.decode(params, rc, jnp.asarray(tok))
             pl, pc = port.decode(pc, torch.from_numpy(tok))
             yield f"decode {step}", rl, pl
-    np.testing.assert_allclose(_np(pc["dense"]["k"]), _np(rc["dense"]["k"]),
-                               atol=LOGIT_ATOL[rcfg.dtype])
+    assert set(pc) == set(rc)
+    for seg in set(rc) - {"len"}:
+        assert set(pc[seg]) == set(rc[seg])
+        for leaf in rc[seg]:
+            np.testing.assert_allclose(_np(pc[seg][leaf]),
+                                       _np(rc[seg][leaf]),
+                                       atol=LOGIT_ATOL[rcfg.dtype])
     assert pc["len"] == int(rc["len"])
 
 
@@ -388,3 +393,130 @@ def test_bf16_leaves_convert_bit_exactly():
     assert t.dtype == torch.bfloat16
     assert np.array_equal(t.view(torch.int16).numpy().view(np.uint16),
                           np.asarray(x).view(np.uint16))
+
+
+# --- the MoE family: mixtral-8x7b (moe), deepseek-v3-671b (mla_*) -----------
+MOE_ARCHS = ["mixtral-8x7b", "deepseek-v3-671b"]
+
+
+def _moe_cfgs(arch, attn_impl="flash", **kw):
+    return (rregistry.smoke_config(arch, attn_impl=attn_impl, **kw),
+            registry.smoke_config(arch, attn_impl=attn_impl, **kw))
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+@pytest.mark.parametrize("attn_impl", ["flash", "einsum"])
+def test_moe_prefill_decode_logits_match_reference(arch, attn_impl):
+    """Prefill and 4 greedy decode steps of the SMOKE model (float32)
+    against the reference with converted weights: mixtral's windowed GQA
+    (K5's plain version under flash) and MoE, deepseek's MLA (absorbed
+    form; never K5) with a dense prefix and the shared expert; the cache
+    contents of every segment at the end."""
+    rcfg, pcfg = _moe_cfgs(arch, attn_impl)
+    tokens = np.random.default_rng(7).integers(
+        0, rcfg.vocab, (2, 11)).astype(np.int32)
+    for what, want, got in _run_both(rcfg, pcfg, tokens, 16, 4):
+        assert got.dtype == torch.float32 and got.shape == (2, rcfg.vocab)
+        np.testing.assert_allclose(_np(got), _np(want),
+                                   atol=LOGIT_ATOL[rcfg.dtype], rtol=0,
+                                   err_msg=what)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_long_prefill_matches_reference(arch):
+    """A 40-token prompt, split into MoE chunks (``_MOE_CHUNK_TOKENS`` set
+    to 16 on both sides; their capacity boundaries move) and, for
+    mixtral, past its SMOKE window (16), then 2 decode steps."""
+    from repro.models import moe as rmoe
+    from repro_torch.models import moe
+    rcfg, pcfg = _moe_cfgs(arch)
+    tokens = np.random.default_rng(8).integers(
+        0, rcfg.vocab, (2, 40)).astype(np.int32)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(rmoe, "_MOE_CHUNK_TOKENS", 16)
+        mp.setattr(moe, "_MOE_CHUNK_TOKENS", 16)
+        for what, want, got in _run_both(rcfg, pcfg, tokens, 48, 2):
+            np.testing.assert_allclose(_np(got), _np(want),
+                                       atol=LOGIT_ATOL[rcfg.dtype], rtol=0,
+                                       err_msg=what)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_segments_and_cache_layout_match_reference(arch):
+    rcfg, pcfg = _moe_cfgs(arch)
+    model = LM(pcfg, device="cpu", seed=0)
+    assert [(s.name, s.kind, s.n_blocks) for s in model.segments] == [
+        (s.name, s.kind, s.n_blocks) for s in rlm.segments_for(rcfg)]
+    want = jax.tree.map(lambda a: tuple(a.shape),
+                        rlm.build(rcfg).init_cache(3, 20))
+    got = model.init_cache(3, 20)
+    assert got.pop("len") == 0 and want.pop("len") == ()
+    assert jax.tree.map(lambda t: tuple(t.shape), got) == want
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+@pytest.mark.parametrize("attn_impl", ["flash", "einsum"])
+def test_moe_loss_and_aux_match_reference(arch, attn_impl):
+    """ce + 0.01 * aux, aux summed over the MoE blocks."""
+    rcfg, pcfg = _moe_cfgs(arch, attn_impl)
+    model, params, port = _models(rcfg, pcfg, seed=2)
+    toks = np.random.default_rng(9).integers(
+        0, rcfg.vocab, (3, 17)).astype(np.int32)
+    with _ctx(attn_impl):
+        want, wm = model.loss(params, {"tokens": jnp.asarray(toks)})
+    got, gm = port.loss(toks)
+    assert float(gm["aux"]) > 0
+    np.testing.assert_allclose(float(gm["ce"]), float(wm["ce"]), rtol=1e-5)
+    np.testing.assert_allclose(float(gm["aux"]), float(wm["aux"]), rtol=1e-6)
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
+    np.testing.assert_allclose(float(got),
+                               float(gm["ce"]) + 0.01 * float(gm["aux"]),
+                               rtol=1e-6)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_converter_round_trips_moe_trees_bitwise(arch, dtype):
+    """Every segment's tree (the dense prefix, the expert leaves, the
+    float32 router and its bias, the shared expert, the MLA weights)
+    converts into the port and back bit for bit."""
+    from repro_torch.convert import lm_params_to_numpy
+    rcfg, pcfg = _moe_cfgs(arch, dtype=dtype)
+    tree = jax.tree.map(np.asarray,
+                        rlm.build(rcfg).init(jax.random.PRNGKey(6)))
+    model = lm_params_from_numpy(pcfg, tree, device="cpu")
+    back = lm_params_to_numpy(model)
+
+    def same(a, b):
+        a, b = np.asarray(a), np.asarray(b)
+        assert a.shape == b.shape
+        if b.dtype == jnp.bfloat16:
+            assert a.dtype == np.float32
+            a = a.astype(b.dtype)
+        assert a.dtype == b.dtype
+        assert np.array_equal(a.view(np.uint8), b.view(np.uint8))
+    assert jax.tree.structure(back) == jax.tree.structure(tree)
+    jax.tree.map(same, back, tree)
+    blk = model.blocks[-1]
+    assert blk.moe["router"].dtype == blk.moe["router_bias"].dtype \
+        == torch.float32
+    with pytest.raises(KeyError, match="moe"):
+        bad = dict(tree, moe={k: v for k, v in tree["moe"].items()
+                              if k != "ln2"})
+        lm_params_from_numpy(pcfg, bad, device="cpu")
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_decays_follow_the_reference_leaves(arch):
+    """Every block leaf decays (the reference's are stacked, ndim >= 2):
+    the router's bias, the shared expert and the norms included; the
+    final norm does not."""
+    _, pcfg = _moe_cfgs(arch)
+    decays = LM(pcfg, device="cpu", seed=0).decays()
+    last = pcfg.n_layers - 1
+    assert decays[f"blocks.{last}.moe.router_bias"]
+    assert decays[f"blocks.{last}.moe.w2"] and decays[f"blocks.0.ln1"]
+    assert decays["embed"] and not decays["final_ln"]
+    if pcfg.n_shared_experts:
+        assert decays[f"blocks.{last}.moe.shared.w1"]
+        assert decays["blocks.0.attn.wkr"]

@@ -4,7 +4,9 @@ tests/test_serve.py replayed on the port, and the port's greedy tokens
 against the reference ``Engine`` on the same weights — one request alone,
 and waves with mixed prompt lengths (left-padded, with a dummy slot). The
 reference runs under a 1x1 ("data", "model") mesh so that its prefill
-takes its flash path, as the port's does.
+takes its flash path, as the port's does. The MoE SMOKE models
+(mixtral-8x7b, deepseek-v3-671b) are held to the reference engine's
+tokens the same way, and served by the launcher.
 """
 import jax
 import jax.numpy as jnp
@@ -163,3 +165,43 @@ def test_launcher_prefill_takes_the_flash_path(monkeypatch):
                     "--slots", "2", "--max-new", "2"])
     n_layers = registry.smoke_config("llama3-8b").n_layers
     assert len(calls) == n_layers * 2          # 2 waves, one prefill each
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "deepseek-v3-671b"])
+def test_moe_tokens_equal_reference_engine(arch):
+    """The MoE SMOKE models (float32) through both engines: waves with
+    mixed prompt lengths, whose left padding the router takes like any
+    token, and a dummy slot; greedy tokens equal."""
+    rcfg = rregistry.smoke_config(arch, attn_impl="flash")
+    cfg = registry.smoke_config(arch, attn_impl="flash")
+    ref_model = rlm.build(rcfg)
+    params = ref_model.init(jax.random.PRNGKey(1))
+    model = lm_params_from_numpy(cfg, jax.tree.map(np.asarray, params),
+                                 device="cpu")
+    rng = np.random.default_rng(11)
+    lengths, max_new = [3, 9, 5, 12, 2, 7, 10], [6, 4, 8, 6, 5, 3, 6]
+    prompts = [rng.integers(1, cfg.vocab, n).astype(np.int32)
+               for n in lengths]
+    with _mesh():
+        want = RefEngine(ref_model, params, batch_slots=4,
+                         max_len=24).serve(
+            _requests(RefRequest, prompts, max_new))
+    got = Engine(model, batch_slots=4, max_len=24).serve(
+        _requests(Request, prompts, max_new))
+    assert [r.uid for r in got] == [r.uid for r in want]
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.tokens, np.asarray(b.tokens))
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "deepseek-v3-671b"])
+def test_launcher_serves_moe_on_cpu(capsys, arch):
+    """``launch.serve --arch <moe> --smoke`` on the CPU."""
+    res = serve_cli.main(["--arch", arch, "--smoke", "--device", "cpu",
+                          "--requests", "3", "--slots", "2", "--max-new",
+                          "4"])
+    vocab = registry.smoke_config(arch).vocab
+    assert sorted(r.uid for r in res) == [0, 1, 2]
+    assert all(len(r.tokens) == 4 and bool(((r.tokens >= 0)
+                                            & (r.tokens < vocab)).all())
+               for r in res)
+    assert "served 3 requests, 12 tokens" in capsys.readouterr().out

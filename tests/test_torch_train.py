@@ -481,3 +481,106 @@ def test_launch_train_builds_the_flash_path():
     cfg = launch_train.config(args)
     assert cfg.attn_impl == "flash" and cfg.remat
     assert cfg.n_layers == 3 and cfg.dtype == "bfloat16"
+
+
+# --- the MoE family ------------------------------------------------------------------
+MOE_ARCHS = ["mixtral-8x7b", "deepseek-v3-671b"]
+
+
+def _moe_pair(arch, seed=0):
+    """(reference model, its params, port model) of ``arch``'s SMOKE
+    config (float32) with ``attn_impl="flash"``, the same weights."""
+    rcfg = rregistry.smoke_config(arch, attn_impl="flash")
+    pcfg = registry.smoke_config(arch, attn_impl="flash")
+    rmodel = rlm.build(rcfg)
+    params = rmodel.init(jax.random.PRNGKey(seed))
+    model = lm_params_from_numpy(pcfg, jax.tree.map(np.asarray, params),
+                                 device="cpu").requires_grad_(True)
+    return rmodel, params, model
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_loss_and_grads_match_reference(arch):
+    """ce, aux and every gradient leaf (the router's through the gates
+    and the aux loss; the experts' through the gather dispatch and
+    combine; the MLA weights) against the reference's, float32; the
+    router's bias, which selection alone reads, gets a zero gradient on
+    both sides."""
+    rmodel, params, model = _moe_pair(arch, seed=4)
+    toks = _tokens(B=2, S=24, vocab=model.cfg.vocab)
+    with _ctx("flash"):
+        (want, wm), wg = jax.value_and_grad(rmodel.loss, has_aux=True)(
+            params, {"tokens": jnp.asarray(toks)})
+    loss, metrics, grads = tl._grads(model, torch.from_numpy(toks))
+    np.testing.assert_allclose(float(loss), float(want), rtol=1e-5)
+    np.testing.assert_allclose(float(metrics["aux"]), float(wm["aux"]),
+                               rtol=1e-6)
+    got = lm_params_to_numpy(model, grads)
+    assert not np.asarray(wg["moe"]["moe"]["router_bias"]).any()
+    assert not got["moe"]["moe"]["router_bias"].any()
+    _close_tree(got, wg, GRAD_REL)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_train_step_matches_reference(arch):
+    """One AdamW step (float32 moments) of make_train_fn against the
+    reference's: loss, aux in the step's metrics, grad norm, lr, and the
+    parameters after it (as in test_int8_moment_step_matches_reference)."""
+    rmodel, params, model = _moe_pair(arch, seed=5)
+    kw = dict(lr=3e-3, warmup_steps=0)
+    rc, pc = radamw.AdamWConfig(**kw), adamw.AdamWConfig(**kw)
+    toks = _tokens(B=2, S=20, step=2, vocab=model.cfg.vocab)
+    with _ctx("flash"):
+        rp, _, rm = jax.jit(rloop.make_train_fn(rmodel, rc))(
+            params, radamw.init(rc, params), {"tokens": jnp.asarray(toks)})
+        _, wm = rmodel.loss(params, {"tokens": jnp.asarray(toks)})
+    pp = tl.params_of(model)
+    _, _, pm = tl.make_train_fn(model, pc)(
+        pp, adamw.init(pc, pp), {"tokens": torch.from_numpy(toks)})
+    np.testing.assert_allclose(float(pm["loss"]), float(rm["loss"]),
+                               rtol=1e-5)
+    np.testing.assert_allclose(float(pm["aux"]), float(wm["aux"]), rtol=1e-6)
+    np.testing.assert_allclose(float(pm["grad_norm"]),
+                               float(rm["grad_norm"]), rtol=1e-5)
+    assert float(pm["lr"]) == float(rm["lr"])
+    # Adam's first step is ill-conditioned where |g| is near eps (see
+    # test_int8_moment_step_matches_reference): a few elements may differ
+    # by up to a step, every other within 5e-5
+    err = np.concatenate([np.abs(a - np.asarray(b)).ravel() for a, b in zip(
+        jax.tree.leaves(lm_params_to_numpy(model)), jax.tree.leaves(rp))])
+    assert err.max() <= 2 * kw["lr"] and np.mean(err > 5e-5) <= 1e-3
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_checkpoint_round_trip_bitwise(tmp_path, arch):
+    """An MoE model's training state (bf16 experts, the float32 router
+    and its bias, int8 moments) saved and restored bit for bit."""
+    cfg = registry.smoke_config(arch, dtype="bfloat16")
+    model = LM(cfg, device="cpu", seed=3, trainable=True)
+    ocfg = adamw.AdamWConfig(quantized_state=True)
+    step = tl.make_train_fn(model, ocfg)
+    params = tl.params_of(model)
+    params, opt, m = step(params, adamw.init(ocfg, params),
+                          {"tokens": torch.from_numpy(
+                              _tokens(B=2, S=12, vocab=cfg.vocab))})
+    assert np.isfinite(float(m["aux"])) and float(m["aux"]) > 0
+    state = {"params": params, "opt_state": opt}
+    checkpoint.save(str(tmp_path), 1, state)
+    _assert_same(checkpoint.restore(str(tmp_path), 1, state), state)
+    assert params[f"blocks.{cfg.n_layers - 1}.moe.router"].dtype == \
+        torch.float32
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+@pytest.mark.parametrize("layers", [None, 2])
+def test_launch_train_moe_smoke_on_cpu(capsys, arch, layers):
+    """``launch.train --arch <moe> --smoke`` on the CPU, and with
+    ``--layers``: every step's line shows the aux loss."""
+    argv = ["--arch", arch, "--smoke", "--device", "cpu", "--steps", "3",
+            "--global-batch", "2", "--seq-len", "24"]
+    if layers is not None:
+        argv += ["--layers", str(layers)]
+    hist = launch_train.main(argv)
+    out = capsys.readouterr().out
+    assert "steps=3" in out and "step 2 loss=" in out and " aux=" in out
+    assert all(np.isfinite(h["loss"]) and h["aux"] > 0 for h in hist)
