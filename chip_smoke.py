@@ -7,11 +7,12 @@ Run from the root of a checkout, on a machine with one CUDA card:
 
 It builds every CUDA kernel of the port from
 ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, all started
-together; the bf16 tensor-core instantiations of K5, K6 and K7 at D = 128
-and D = 256 must not spill) and holds each against its plain PyTorch
-version at main-path shapes, the flash-attention backward (K6, K7)
-included, at llama3-8b's head dim (128) and gemma-7b's (256), and K8 at
-every width path. The bf16 cases run K5's, K6's and K7's tensor-core
+together; the bf16 tensor-core instantiations of K5, K6 and K7 at D = 64,
+D = 128 and D = 256 must not spill) and holds each against its plain
+PyTorch version at main-path shapes, the flash-attention backward (K6, K7)
+included, at llama3-8b's head dim (128), gemma-7b's (256) and
+whisper-base's (64, bidirectional at its encoder's 1500 frames), and K8
+at every width path. The bf16 cases run K5's, K6's and K7's tensor-core
 instantiations (mma.sync with p and ds split into bf16 halves); the
 float32 cases and the float32 model runs below hold the float32 FMA
 instantiations. Then it drives the port's main paths on
@@ -71,6 +72,18 @@ the card:
   ``mla_moe`` layer (256 experts, top-8, a shared expert; MLA takes no
   kernel), and its absorbed MLA decode held to the prefill and to the
   full form in float32;
+* ``[whisper]`` and ``[vision]``, cross-attention at published widths:
+  whisper-base served at full depth (6 + 6 layers, head dim 64; 8
+  requests of 4-224 prompt tokens in 2 waves of 4, 64 new tokens, 1500
+  frames through ``Engine``'s extra_inputs; K5 bidirectional in the
+  encoder, causal in the decoder's prefill, cross-attention through
+  ``_sdpa``) against the plain path, then 2 + 2 layers in float32 with
+  controls (the encoder made causal, other frames); trained at full depth
+  (16 sequences of 448 tokens a step; K5, K6 and K7 bidirectional in the
+  encoder); llama-3.2-vision-90b served at 4 of its 20 groups (20 dense
+  blocks, 4 gated cross-attention blocks, gates 0.5; 1601 vision tokens)
+  against the plain path, with other vision tokens at gates 0 (no move)
+  and 0.5 (a move), and trained at 1 group on one 4096-token sequence;
 * then the checkpoint / restart round trip of the fault Supervisor at the
   smoke size (head dim 8, padded).
 
@@ -97,8 +110,10 @@ outputs.
 Phases print one line each; the line before the last JSON line is the
 kernel table (one row per kernel, and one more per flash kernel for its
 D = 256 instantiation, named ``<kernel>_d256``, whose launches are the
-gemma-7b paths', and one for mixtral-8x7b's windowed shapes,
-``<kernel>_w4096``, whose launches are the mixtral paths'); the last line
+gemma-7b paths', one for its D = 64 instantiation, ``<kernel>_d64``,
+whose launches are the whisper-base paths', and one for mixtral-8x7b's
+windowed shapes, ``<kernel>_w4096``, whose launches are the mixtral
+paths'); the last line
 is ``{"ok": true, "device": {...}}``. Any
 failure exits non-zero before it. Without a CUDA device, or outside a
 checkout, it exits non-zero at once.
@@ -112,6 +127,11 @@ script (another commit's, to compare its per-pod path with this one's).
 
 runs the build, the windowed K5/K6/K7 cases (mixtral's shapes, rows
 ``<kernel>_w4096``) and the ``[moe]`` phases alone.
+
+    python3 chip_smoke.py --cross-only
+
+runs the build, the bidirectional K5/K6/K7 cases (whisper's shapes, rows
+``<kernel>_d64``) and the ``[whisper]`` and ``[vision]`` phases alone.
 """
 from __future__ import annotations
 
@@ -189,9 +209,15 @@ K5_CASES = [("a", 4, 32, 8, 2048, 128, "bfloat16", None, 10),
 # (w) is mixtral-8x7b's prefill: a 4096-key sliding window that cuts, 8192
 # tokens deep; its rows in the kernel table are ``<kernel>_w4096``.
 K5_CASES.append(("w", 4, 32, 8, 8192, 128, "bfloat16", 4096, 5))
-K5_FAULT_CASES = ("a", "b", "e", "f")
+# (whisper) is whisper-base's encoder: 8 heads of head dim 64 over its
+# 1500 frames, bidirectional; its rows in the kernel table are
+# ``<kernel>_d64``.
+K5_CASES.append(("whisper", 4, 8, 8, 1500, 64, "bfloat16", None, 20))
+BIDIRECTIONAL = ("whisper", "whisper_train")    # cases with causal=False
+K5_FAULT_CASES = ("a", "b", "e", "f", "whisper")
 K5_SMALL = (2, 8, 2, 333)            # a GQA group of 4, every head dim
 WIDE_D = 256                         # gemma-7b's head dim
+NARROW_D = 64                        # whisper-base's head dim
 # the D = 256 controls: an output with only its first HALF_D columns
 # written (the rest zero), as from a kernel that split D between warps and
 # lost one half
@@ -216,6 +242,10 @@ BWD_CASES = [("train", 1, 32, 8, 4095, 128, "bfloat16", None, 5),
 # model sees 8191), window 4096.
 BWD_CASES.append(("window", 1, 32, 8, 8191, 128, "bfloat16", 4096, 3))
 WINDOW_ROW = 4096        # mixtral-8x7b's attn_window: the windowed rows
+# (whisper_train) is whisper-base's encoder in training: a global batch of
+# 16, 1500 frames, bidirectional.
+BWD_CASES.append(("whisper_train", 16, 8, 8, 1500, 64, "bfloat16", None,
+                  5))
 BWD_F32_REL = 1e-4
 # The training slice: launch.train's code path at full width and depth.
 TRAIN_STEPS = 3
@@ -274,6 +304,44 @@ DEEPSEEK_SERVE_LAYERS, DEEPSEEK_PROMPT, DEEPSEEK_NEW = 4, (512, 1024), 16
 MLA_CHECK = dict(n_layers=2, n_dense_layers=1, capacity_factor=16.0,
                  dtype="float32")
 MLA_B, MLA_S, MLA_TOL = 2, 64, 1e-3
+# The cross-attention slice. whisper-base at full width and depth (6 + 6
+# layers, head dim 64): 8 requests in 2 waves of 4 with prompts of
+# WHISPER_PROMPT tokens, WHISPER_NEW new tokens and a cache of
+# WHISPER_MAX_LEN (its published decoder context, n_text_ctx), the same
+# frames for every wave (``Engine``'s extra_inputs); a float32 rerun at
+# WHISPER_F32's depth; trained WHISPER_TRAIN (a step: 16 sequences of 448
+# tokens, 1500 frames each).
+# llama-3.2-vision-90b at full width, depth cut to VISION_SERVE_LAYERS
+# (4 groups: 20 dense blocks and 4 gated cross-attention blocks, ~46 GB of
+# bf16 weights), its gates set to VISION_GATE (at their zero init tanh(0)
+# erases the cross-attention branch); trained at VISION_TRAIN_LAYERS (one
+# group) on one VISION_SEQ-token sequence. Frames and vision tokens are
+# normal * 0.1 float32 from numpy (tests/test_archs.py). Controls: the
+# float32 whisper logits must move by at least CAUSAL_MOVE with the
+# encoder made causal and by at least FRAMES_MOVE with other frames; the
+# vision logits must not move with other vision tokens at gates 0
+# (GATE_CLOSED_TOL) and must move by at least VISION_MOVE at VISION_GATE.
+# Frames of normal * 0.1 are a small change beside the encoder's
+# unit-scale sinusoid positions, and the cross-attention averages over
+# 1500 frames or 1601 vision tokens whose keys barely differ: in float32
+# other frames moved whisper's prefill logits by 0.055 at 2 + 2 layers,
+# other vision tokens a 5- or 20-block VLM's at d_model 1024 and 2048 by
+# 0.0046-0.010 (CPU runs of the same code). So the limits sit 10x
+# above the float32 logit limit (FRAMES_MOVE) and 1000x above the closed
+# gate's (VISION_MOVE), each several times below what the model gives.
+# (K5 with p rounded to bf16 is rejected at whisper's shape in the kernel
+# phase; in the float32 model at 2 + 2 layers it moves the logits by
+# 1.007e-3, too close to F32_LOGIT_TOL to be held there.)
+CROSS_FLAG = "--cross-only"
+WHISPER_ARCH, VISION_ARCH = "whisper-base", "llama-3.2-vision-90b"
+WHISPER_PROMPT, WHISPER_NEW, WHISPER_MAX_LEN = (4, 224), 64, 448
+WHISPER_F32 = dict(n_layers=2, n_encoder_layers=2)
+WHISPER_TRAIN = dict(seq_len=448, batch=16)
+VISION_SERVE_LAYERS, VISION_PROMPT, VISION_NEW = 20, (1024, 2048), 32
+VISION_TRAIN_LAYERS, VISION_SEQ = 5, 4096
+VISION_GATE = 0.5
+CAUSAL_MOVE, FRAMES_MOVE, VISION_MOVE = 0.1, 1e-2, 1e-3
+GATE_CLOSED_TOL = 1e-6
 
 
 class SmokeFailure(AssertionError):
@@ -407,7 +475,7 @@ def ptxas_entry(ptxas_log, kernel):
 
 def build_phase():
     """Start one nvcc per source, then load each library; the tensor-core
-    kernels' D = 128 and D = 256 instantiations must not spill."""
+    kernels' D = 64, D = 128 and D = 256 instantiations must not spill."""
     from repro_torch.kernels import flash_cuda, rmsnorm_cuda, topsis_cuda
     libs = [m.LIBRARY for m in (topsis_cuda, flash_cuda, rmsnorm_cuda)] \
         + [flash_cuda.BWD_LIBRARY, topsis_cuda.MATH_CHECK]
@@ -429,7 +497,7 @@ def build_phase():
             (flash_cuda.BWD_LIBRARY, "flash_bwd_dq_kernel", flash_cuda.DQ),
             (flash_cuda.BWD_LIBRARY, "flash_bwd_dkv_kernel",
              flash_cuda.DKV)):
-        for d in (128, WIDE_D):
+        for d in (NARROW_D, 128, WIDE_D):
             for dtype, mangled in ((torch.bfloat16, "I13__nv_bfloat16"),
                                    (torch.float32, "If")):
                 n, regs = ptxas_entry(lib.ptxas_log,
@@ -877,9 +945,12 @@ def _attention_case(dev, gen, b, h, hkv, s, d, dtype):
     return q.mul_(K5_Q_STD).to(dtype), k.to(dtype), v.to(dtype)
 
 
-def attention_pairs(s, window):
-    """Valid (query, key) pairs of a causal (optionally windowed) s x s
-    mask: the work K5 does after skipping masked tiles' arithmetic."""
+def attention_pairs(s, window, causal=True):
+    """Valid (query, key) pairs of a causal (optionally windowed) or
+    bidirectional s x s mask: the work K5 does after skipping masked
+    tiles' arithmetic."""
+    if not causal:
+        return s * s
     if window is None:
         return s * (s + 1) // 2
     w = min(window, s)
@@ -924,11 +995,11 @@ def attention_fault(q, k, v, *, sm_scale, causal=True, window=None,
 
 def row_name(name, d, window=None):
     """The kernel table's row of kernel ``name`` at head dim ``d``: the
-    D = 256 instantiations have rows of their own, and so have mixtral's
-    windowed shapes."""
+    D = 256 and D = 64 instantiations have rows of their own, and so have
+    mixtral's windowed shapes."""
     if window == WINDOW_ROW:
         return f"{name}_w{WINDOW_ROW}"
-    return f"{name}_d{WIDE_D}" if d == WIDE_D else name
+    return f"{name}_d{d}" if d in (NARROW_D, WIDE_D) else name
 
 
 def k5_agreement(out, lse, pout, plse):
@@ -980,7 +1051,8 @@ def lm_kernel_phase(dev, cases=K5_CASES, small=True):
         dtype = getattr(torch, dname)
         q, k, v = _attention_case(dev, gen, b, h, hkv, s, d, dtype)
         scale = d ** -0.5
-        kw = dict(sm_scale=scale, causal=True, window=window)
+        causal = tag not in BIDIRECTIONAL
+        kw = dict(sm_scale=scale, causal=causal, window=window)
         out, lse = fc.flash_fwd(q, k, v, **kw)
         pout, plse = fc.flash_fwd_plain(q, k, v, **kw)
         torch.cuda.synchronize()
@@ -1004,12 +1076,20 @@ def lm_kernel_phase(dev, cases=K5_CASES, small=True):
             check(not f_ok, f"K5 {tag}: the check passed the control "
                   f"without the window (out err {f_err})")
             faults["no_window"] = f"{f_err:.3e}/{f_lse:.3e}/{f_share:.4f}"
+        if not causal:
+            # the control: the causal mask where every key is attended
+            f_ok, f_err, f_lse, f_share = k5_agreement(
+                *fc.flash_fwd_plain(q, k, v, **dict(kw, causal=True)),
+                pout, plse)
+            check(not f_ok, f"K5 {tag}: the check passed the causal control "
+                  f"(out err {f_err})")
+            faults["causal"] = f"{f_err:.3e}/{f_lse:.3e}/{f_share:.4f}"
         ms = cuda_ms(lambda: fc.flash_fwd(q, k, v, **kw), reps)
         plain_ms = cuda_ms(lambda: fc.flash_fwd_plain(q, k, v, **kw), 3,
                            warmup=1)
         if window is None:
             lib = lambda: F.scaled_dot_product_attention(   # noqa: E731
-                q, k, v, is_causal=True, scale=scale, enable_gqa=True)
+                q, k, v, is_causal=causal, scale=scale, enable_gqa=True)
         else:
             allowed = fc.mask(s, s, causal=True, window=window, kv_len=s,
                               device=dev)
@@ -1021,11 +1101,11 @@ def lm_kernel_phase(dev, cases=K5_CASES, small=True):
         elt = q.element_size()
         nbytes = (q.numel() + k.numel() + v.numel() + out.numel()) * elt \
             + lse.numel() * 4
-        flops = 4 * d * b * h * attention_pairs(s, window)
+        flops = 4 * d * b * h * attention_pairs(s, window, causal)
         b_ms, b_by = bound(nbytes, flops, BF16_FLOPS if dtype ==
                            torch.bfloat16 else FP32_FLOPS)
         phase("kernels", kernel="flash_attention_fwd", case=tag, B=b, H=h,
-              Hkv=hkv, S=s, D=d, dtype=dname, window=window,
+              Hkv=hkv, S=s, D=d, dtype=dname, causal=causal, window=window,
               max_abs_err=f"{err:.3e}", lse_max_abs_err=f"{err_lse:.3e}",
               differing_share=f"{share:.2e}",
               max_abs_out=f"{float(pout.float().abs().max()):.3f}",
@@ -1215,7 +1295,8 @@ def bwd_kernel_phase(dev, cases=BWD_CASES, small=True):
         q, k, v = _attention_case(dev, gen, b, h, hkv, s, d, dtype)
         do = torch.randn(q.shape, generator=gen, device=dev).to(dtype)
         scale = d ** -0.5
-        kw = dict(sm_scale=scale, causal=True, window=window)
+        causal = tag not in BIDIRECTIONAL
+        kw = dict(sm_scale=scale, causal=causal, window=window)
         out, lse = fc.flash_fwd(q, k, v, **kw)
         dd = torch.sum(do.float() * out.float(), dim=-1)
         got = (fc.flash_bwd_dq(q, k, v, do, lse, dd, **kw),
@@ -1256,6 +1337,13 @@ def bwd_kernel_phase(dev, cases=BWD_CASES, small=True):
             check(not all(r[0] for r in f_res), f"K6/K7 {tag}: the check "
                   f"passed the control without the window")
             faults["no_window"] = "/".join(f"{r[1]:.3e}" for r in f_res)
+        if not causal:
+            # the control: the causal mask where every key is attended
+            f_res = list(map(grad_agreement, fc.flash_bwd_plain(
+                q, k, v, out, lse, do, **dict(kw, causal=True)), want))
+            check(not all(r[0] for r in f_res), f"K6/K7 {tag}: the check "
+                  f"passed the causal control")
+            faults["causal"] = "/".join(f"{r[1]:.3e}" for r in f_res)
         dq_ms = cuda_ms(lambda: fc.flash_bwd_dq(q, k, v, do, lse, dd, **kw),
                         reps)
         dkv_ms = cuda_ms(lambda: fc.flash_bwd_dkv(q, k, v, do, lse, dd, **kw),
@@ -1266,7 +1354,7 @@ def bwd_kernel_phase(dev, cases=BWD_CASES, small=True):
         # together (never called by the port); a window as a boolean mask
         leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
         if window is None:
-            o = F.scaled_dot_product_attention(*leaves, is_causal=True,
+            o = F.scaled_dot_product_attention(*leaves, is_causal=causal,
                                                scale=scale, enable_gqa=True)
         else:
             allowed = fc.mask(s, s, causal=True, window=window, kv_len=s,
@@ -1281,7 +1369,7 @@ def bwd_kernel_phase(dev, cases=BWD_CASES, small=True):
         backend, lib_kernel = sdpa_backend(lib)
         del o, leaves
         elt = q.element_size()
-        pairs = attention_pairs(s, window)
+        pairs = attention_pairs(s, window, causal)
         # inputs q, do, k, v (elt) and lse, dd (float32); outputs
         inputs = (2 * q.numel() + k.numel() + v.numel()) * elt \
             + 2 * lse.numel() * 4
@@ -1295,7 +1383,7 @@ def bwd_kernel_phase(dev, cases=BWD_CASES, small=True):
         for name, (ms, (b_ms, b_by), flops, outs) in rows.items():
             err = max(res[n][1] for n in outs)
             phase("kernels", kernel=name, case=tag, B=b, H=h, Hkv=hkv, S=s,
-                  D=d, dtype=dname, window=window,
+                  D=d, dtype=dname, causal=causal, window=window,
                   **{f"d{n[1:]}_max_abs_err": f"{res[n][1]:.3e}"
                      for n in outs},
                   **{f"d{n[1:]}_differing_share": f"{res[n][2]:.2e}"
@@ -2471,17 +2559,55 @@ def no_window_fwd(q, k, v, **kw):
     return fc.flash_fwd_plain(q, k, v, **dict(kw, window=None))
 
 
+def flash_layers(model):
+    """The blocks of ``model`` whose prefill runs K5: its GQA
+    self-attention blocks (an encoder's included; a VLM group's dense
+    blocks), not MLA's, and no cross-attention."""
+    return sum(len(b.selfs) if b.kind == "vlm_group"
+               else not b.kind.startswith("mla") for b in model.blocks)
+
+
+def causal_fwd(q, k, v, **kw):
+    """K5's plain version with every call causal: a bidirectional
+    encoder's control."""
+    from repro_torch.kernels import flash_cuda as fc
+    return fc.flash_fwd_plain(q, k, v, **dict(kw, causal=True))
+
+
+def with_inputs(calls, **inputs):
+    """Recorded calls with the prefill batches' inputs replaced (other
+    frames or vision tokens, as numpy arrays)."""
+    return [dict(c, tokens={**c["tokens"], **inputs})
+            if c["kind"] == "prefill" else c for c in calls]
+
+
+def cross_extra(cfg, b, seed):
+    """A batch's cross-attended inputs for ``cfg`` (``frames`` /
+    ``vision``): normal * 0.1 float32 (b, T, d_model) from numpy."""
+    import numpy as np
+
+    from repro_torch.models.lm import cross_inputs
+    rng = np.random.default_rng(seed)
+    return {k: (rng.normal(size=(b, *shape)) * 0.1).astype(np.float32)
+            for k, shape in cross_inputs(cfg).items()}
+
+
 def serve_phase(dev, arch=SERVE_ARCH, *, layers=None, prompt=SERVE_PROMPT,
-                new=SERVE_NEW, f32_layers=None,
-                control=("p_bf16", attention_fault), tag="serve"):
+                new=SERVE_NEW, max_len=None, f32=None,
+                controls=(("p_bf16", attention_fault, None, F32_LOGIT_TOL),),
+                prepare=None, checks=None, tag="serve"):
     """``arch`` at full width (at ``layers`` layers; default all), served
-    through ``Engine`` with K5 on every GQA layer's prefill, against the
+    through ``Engine`` (with ``cross_extra`` inputs where the arch
+    cross-attends) with K5 on every GQA layer's prefill, against the
     plain path teacher-forced on the kernel run's tokens (an MoE model's
     plain run following the kernel run's routing, each difference a
-    near-tie); then in float32 (the model upcast in place, or a fresh one
-    at ``f32_layers`` layers) against the plain path, with ``control``
-    ((name, a K5 binding) that must lie beyond the limit). An MLA model
-    (no K5 launch) is checked for finite logits only. Returns its launch
+    near-tie); ``checks(model, rec, max_len)`` then runs on the bf16
+    model. Then in float32 (``f32``: None upcasts the model in place, a
+    dict builds a fresh one with those config overrides, False skips)
+    against the plain path, with ``controls``: (name, a K5 binding, the
+    inputs of its prefills (None: the run's), a limit it must lie beyond).
+    ``prepare(model)`` runs on each model built. An MLA model (no K5
+    launch) is checked for finite logits only. Returns its launch
     counts."""
     import dataclasses
 
@@ -2499,19 +2625,23 @@ def serve_phase(dev, arch=SERVE_ARCH, *, layers=None, prompt=SERVE_PROMPT,
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = LM(cfg, device=dev, seed=0)
+    if prepare is not None:
+        prepare(model)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in model.parameters())
-    n_gqa = sum(not b.kind.startswith("mla") for b in model.blocks)
+    n_gqa = flash_layers(model)
     rng = np.random.default_rng(0)
     lengths = rng.integers(prompt[0], prompt[1] + 1, SERVE_REQUESTS)
     reqs = [Request(i, rng.integers(2, cfg.vocab, n).astype(np.int32),
                     max_new_tokens=new, eos_id=-1)
             for i, n in enumerate(lengths)]
-    max_len = int(lengths.max()) + new
+    max_len = max_len or int(lengths.max()) + new
     routes = RoutingRecorder() if cfg.is_moe else None
     rec = RecordingLM(model, routes.mark if routes else None)
-    eng = Engine(rec, batch_slots=SERVE_SLOTS, max_len=max_len)
+    extra = cross_extra(cfg, SERVE_SLOTS, 1)
+    eng = Engine(rec, batch_slots=SERVE_SLOTS, max_len=max_len,
+                 extra_inputs=extra)
 
     # the main path: counts set to 0 just before, read just after
     with routes.hook() if routes else contextlib.nullcontext():
@@ -2581,12 +2711,15 @@ def serve_phase(dev, arch=SERVE_ARCH, *, layers=None, prompt=SERVE_PROMPT,
               dispatch_ms=f"{split['dispatch']:.3f}",
               other_ms=f"{split['other']:.3f}",
               device_idle_share=f"{max(0.0, 1 - busy / wall_ms):.3f}")
-    prefill_tok = sum(c["tokens"].size for c in rec.calls
+    prefill_tok = sum(c["tokens"]["tokens"].size for c in rec.calls
                       if c["kind"] == "prefill")
     n_tok = sum(len(r.tokens) for r in results)
     phase(tag, arch=arch, n_layers=cfg.n_layers,
+          n_encoder_layers=cfg.n_encoder_layers or None,
           params=n_params, requests=SERVE_REQUESTS, slots=SERVE_SLOTS,
           waves=waves, prompt_lengths=",".join(map(str, lengths)),
+          cross_inputs=",".join(f"{k}:{'x'.join(map(str, a.shape))}"
+                                for k, a in extra.items()) or None,
           max_new_tokens=new, max_len=max_len, window=cfg.attn_window,
           capacity_factor=cfg.capacity_factor if cfg.is_moe else None,
           init_s=f"{init_s:.3f}", serve_s=f"{serve_s:.3f}",
@@ -2620,45 +2753,62 @@ def serve_phase(dev, arch=SERVE_ARCH, *, layers=None, prompt=SERVE_PROMPT,
           max_logit_err_vs_plain=f"{stats['max_err']:.4e}",
           logit_tol=LOGIT_TOL, near_ties=stats["near_ties"],
           max_near_tie_gap=f"{stats['max_tie_gap']:.4e}")
-
-    # the same weights in float32 (upcast in place, or a fresh model at
-    # f32_layers layers): K5's float32 instantiation against its plain
-    # version, and the control (routing on its own) beyond the limit
     del plain, kernel_logits, plain_routes
+    if checks is not None:
+        checks(model, rec, max_len)
+    if f32 is False:
+        del model, rec, eng
+        _free()
+        return launches
+
+    # the same weights in float32 (upcast in place, or a fresh model with
+    # the f32 overrides): K5's float32 instantiation against its plain
+    # version, and each control (routing on its own) beyond its limit
     t0 = time.perf_counter()
-    if f32_layers is None:
+    if f32 is None:
         float32_model(model)
     else:
         rec.model = eng.model = None
         del model
         _free()
         torch.cuda.reset_peak_memory_stats()
-        model = LM(dataclasses.replace(cfg, n_layers=f32_layers,
-                                       dtype="float32"), device=dev, seed=0)
+        model = LM(dataclasses.replace(cfg, dtype="float32", **f32),
+                   device=dev, seed=0)
+        if prepare is not None:
+            prepare(model)
     _free()
-    n32 = sum(not b.kind.startswith("mla") for b in model.blocks)
+    n32 = flash_layers(model)
     before = flash_cuda.LAUNCHES[flash_cuda.NAME]
     k32, k32_routes = replay(model, rec.calls, max_len)
     check(flash_cuda.LAUNCHES[flash_cuda.NAME] - before == n32 * waves,
           "the float32 run did not launch K5 once per layer and prefill")
     p32, p32_routes = replay(model, rec.calls, max_len,
                              flash_cuda.flash_fwd_plain, lead=k32_routes)
-    c32, _ = replay(model, rec.calls, max_len, control[1])
-    ctl = max_diff(c32, p32)
+    ctl = {}
+    for name, fwd, inputs, _ in controls:
+        calls = rec.calls if inputs is None else with_inputs(rec.calls,
+                                                             **inputs)
+        c32, _ = replay(model, calls, max_len, fwd)
+        ctl[name] = max_diff(c32, p32)
+        del c32
     phase(tag, arch=arch, dtype="float32", n_layers=model.cfg.n_layers,
+          n_encoder_layers=model.cfg.n_encoder_layers or None,
           max_logit_err_vs_plain=f"{max_diff(k32, p32):.4e}",
-          **{f"control_{control[0]}_vs_plain": f"{ctl:.4e}"},
-          logit_tol=F32_LOGIT_TOL, seconds=f"{time.perf_counter() - t0:.1f}",
+          **{f"control_{n}_vs_plain": f"{v:.4e}" for n, v in ctl.items()},
+          logit_tol=F32_LOGIT_TOL,
+          control_limits=",".join(str(c[3]) for c in controls),
+          seconds=f"{time.perf_counter() - t0:.1f}",
           max_memory_allocated=torch.cuda.max_memory_allocated())
     follow_check(p32_routes, tag, arch, "float32_plain_follows_kernel")
     stats32 = compare_runs(k32, p32, F32_LOGIT_TOL)
-    check(ctl > F32_LOGIT_TOL, f"the control ({control[0]}) lies "
-          f"within {F32_LOGIT_TOL} of the plain path: {ctl}")
+    for name, _, _, limit in controls:
+        check(ctl[name] > limit, f"the control ({name}) lies within {limit} "
+              f"of the plain path: {ctl[name]}")
     phase(tag, arch=arch, dtype="float32",
           compared_rows=stats32["rows"],
           near_ties=stats32["near_ties"],
           max_near_tie_gap=f"{stats32['max_tie_gap']:.4e}")
-    del model, rec, eng, k32, p32, c32
+    del model, rec, eng, k32, p32
     _free()
     return launches
 
@@ -2715,23 +2865,36 @@ def _rel(a, b):
     return abs(a - b) / max(abs(b), 1e-30)
 
 
-def train_argv(arch, layers=None, seq_len=4096):
-    """launch.train's arguments for ``arch``'s training slice: one
-    ``seq_len``-token sequence, at ``layers`` layers (default: all)."""
+def train_argv(arch, layers=None, seq_len=4096, batch=1):
+    """launch.train's arguments for ``arch``'s training slice: ``batch``
+    ``seq_len``-token sequences a step, at ``layers`` layers (default:
+    all)."""
     argv = ["--arch", arch] + TRAIN_ARGV
     argv[argv.index("--seq-len") + 1] = str(seq_len)
+    argv[argv.index("--global-batch") + 1] = str(batch)
     return argv + (["--layers", str(layers)] if layers else [])
 
 
+def train_inputs(cfg, batch):
+    """launch.train's ``extra_inputs`` for ``cfg``: the cross-attended
+    inputs of each step (``cross_extra`` seeded by the step), or None."""
+    from repro_torch.models.lm import cross_inputs
+    if not cross_inputs(cfg):
+        return None
+    return lambda step: cross_extra(cfg, batch, 1000 + step)
+
+
 def full_depth_run(tag, route, profile=False, arch=SERVE_ARCH, argv=None,
-                   line="train", lead=None):
+                   line="train", lead=None, prepare=None):
     """TRAIN_STEPS steps of launch.train's code path (``build`` then
     ``train_steps``) for ``arch`` (with ``argv``, default
-    ``train_argv(arch)``) with the flash bindings routed by ``route``;
-    the launch counts of each step, the peak device memory and, with
-    ``profile``, the time split of one more step. An MoE model's routing
-    over the steps is recorded (``routes``), following ``lead``'s (another
-    run's ``routes``) where given."""
+    ``train_argv(arch)``; an arch that cross-attends with
+    ``train_inputs``) with the flash bindings routed by ``route``;
+    ``prepare(model)`` runs on the model built. Returns the launch counts
+    of each step, the peak device memory and, with ``profile``, the time
+    split of one more step. An MoE model's routing over the steps is
+    recorded (``routes``), following ``lead``'s (another run's
+    ``routes``) where given."""
     import torch
 
     from repro_torch.kernels import flash_cuda as fc
@@ -2745,10 +2908,13 @@ def full_depth_run(tag, route, profile=False, arch=SERVE_ARCH, argv=None,
     out = {}
     with kernel_route(**route):
         t0 = time.perf_counter()
-        r = lt.build(args)
+        r = lt.build(args, train_inputs(lt.config(args), args.global_batch))
+        if prepare is not None:
+            prepare(r.model)
         torch.cuda.synchronize()
         out["init_s"] = time.perf_counter() - t0
         out["params"] = sum(p.numel() for p in r.model.parameters())
+        out["flash_layers"] = flash_layers(r.model)
         last = {}
 
         routes = RoutingRecorder(lead) if r.cfg.is_moe else None
@@ -2797,11 +2963,12 @@ def full_depth_run(tag, route, profile=False, arch=SERVE_ARCH, argv=None,
 
 
 def train_phase(dev, arch=SERVE_ARCH, layers=None, seq_len=4096,
-                tag="train"):
+                tag="train", batch=1, prepare=None):
     """``arch`` training at full width and depth (or ``layers`` layers) on
-    one ``seq_len``-token sequence, kernel run against the plain run (an
-    MoE model's following the kernel run's routing); returns the kernel
-    run's launch counts."""
+    ``batch`` ``seq_len``-token sequences a step, kernel run against the
+    plain run (an MoE model's following the kernel run's routing);
+    ``prepare(model)`` runs on each model built. Returns the kernel run's
+    launch counts."""
     import numpy as np
 
     from repro_torch.configs import registry
@@ -2809,15 +2976,16 @@ def train_phase(dev, arch=SERVE_ARCH, layers=None, seq_len=4096,
 
     cfg = registry.config(arch)
     n_layers = layers or cfg.n_layers
-    argv = train_argv(arch, layers, seq_len)
+    argv = train_argv(arch, layers, seq_len, batch)
     t0 = time.perf_counter()
     kern = full_depth_run("kernel", {}, profile=True, arch=arch, argv=argv,
-                          line=tag)
+                          line=tag, prepare=prepare)
+    n_flash = kern["flash_layers"]
     for h in kern["hist"]:
         check(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"]),
               f"step {h['step']}: loss {h['loss']} grad_norm "
               f"{h['grad_norm']}")
-        want = {fc.NAME: 2 * n_layers, fc.DQ: n_layers, fc.DKV: n_layers}
+        want = {fc.NAME: 2 * n_flash, fc.DQ: n_flash, fc.DKV: n_flash}
         got = {k: h["launches"][k] for k in want}
         check(got == want, f"step {h['step']}: launches {got} != {want} "
               f"(forward + recompute, dq, dk/dv per layer)")
@@ -2830,14 +2998,14 @@ def train_phase(dev, arch=SERVE_ARCH, layers=None, seq_len=4096,
     plain = full_depth_run("plain", dict(flash_fwd=fc.flash_fwd_plain,
                                          flash_bwd=fc.flash_bwd_plain),
                            arch=arch, argv=argv, line=tag,
-                           lead=kern["routes"])
+                           lead=kern["routes"], prepare=prepare)
     follow_check(plain["routes"], tag, arch, "plain_follows_kernel", held=1)
     check(sum(plain["launches"].values()) == 0, "the plain run launched a "
           "flash kernel")
     spread = full_depth_run("plain_float64", dict(flash_fwd=_plain64_fwd,
                                                   flash_bwd=_plain64_bwd),
                             arch=arch, argv=argv, line=tag,
-                            lead=kern["routes"])
+                            lead=kern["routes"], prepare=prepare)
     follow_check(spread["routes"], tag, arch, "float64_follows_kernel",
                  held=1)
     k1, p1, s1 = kern["hist"][0], plain["hist"][0], spread["hist"][0]
@@ -2863,13 +3031,16 @@ def train_phase(dev, arch=SERVE_ARCH, layers=None, seq_len=4096,
               device_ms=f"{busy:.3f}",
               **{f"{k}_ms": f"{v:.3f}" for k, v in split.items()},
               device_idle_share=f"{max(0.0, 1 - busy / (1e3 * wall)):.3f}")
-    phase(tag, arch=arch, n_layers=n_layers, params=kern["params"],
-          seq_len=seq_len, tokens_per_step=seq_len - 1, steps=TRAIN_STEPS,
+    tokens = batch * (seq_len - 1)
+    phase(tag, arch=arch, n_layers=n_layers,
+          n_encoder_layers=cfg.n_encoder_layers or None,
+          params=kern["params"], global_batch=batch,
+          seq_len=seq_len, tokens_per_step=tokens, steps=TRAIN_STEPS,
           window=cfg.attn_window, quantized_state=True,
           init_s=f"{kern['init_s']:.3f}",
           step_s=",".join(f"{h['time_s']:.3f}" for h in kern["hist"]),
           plain_step_s=",".join(f"{h['time_s']:.3f}" for h in plain["hist"]),
-          tokens_per_s=f"{(seq_len - 1) / kern['hist'][-1]['time_s']:.1f}",
+          tokens_per_s=f"{tokens / kern['hist'][-1]['time_s']:.1f}",
           grads_s=f"{kern['grads_s']:.3f}", update_s=f"{kern['update_s']:.3f}",
           max_memory_allocated=kern["peak"],
           plain_max_memory_allocated=plain["peak"],
@@ -3044,8 +3215,9 @@ def moe_phases(dev):
     t0 = time.perf_counter()
     launches = collections.Counter(serve_phase(
         dev, MIXTRAL_ARCH, layers=MIXTRAL_SERVE_LAYERS, prompt=MIXTRAL_PROMPT,
-        new=MIXTRAL_NEW, f32_layers=MIXTRAL_F32_LAYERS,
-        control=("no_window", no_window_fwd), tag="moe"))
+        new=MIXTRAL_NEW, f32={"n_layers": MIXTRAL_F32_LAYERS},
+        controls=(("no_window", no_window_fwd, None, F32_LOGIT_TOL),),
+        tag="moe"))
     phase("moe", arch=MIXTRAL_ARCH, path="serve",
           seconds=f"{time.perf_counter() - t0:.1f}")
     t0 = time.perf_counter()
@@ -3061,6 +3233,82 @@ def moe_phases(dev):
     phase("moe", arch=DEEPSEEK_ARCH, path="serve",
           seconds=f"{time.perf_counter() - t0:.1f}")
     return launches
+
+
+def set_gates(model, value):
+    """Every VLM group's x_gate and xffn_gate set to ``value``."""
+    import torch
+    with torch.no_grad():
+        for blk in model.blocks:
+            blk.x_gate.fill_(value)
+            blk.xffn_gate.fill_(value)
+
+
+def gate_controls(model, rec, max_len):
+    """The first wave's prefill again with other vision tokens: at gates 0
+    (tanh(0) erases the cross-attention branch) the logits must not move
+    (GATE_CLOSED_TOL), at VISION_GATE they must move by VISION_MOVE."""
+    batch = [c for c in rec.calls if c["kind"] == "prefill"][0]["tokens"]
+    other = {**batch, **cross_extra(model.cfg, SERVE_SLOTS, 2)}
+    moved = {}
+    for gate in (0.0, VISION_GATE):
+        set_gates(model, gate)
+        a, _ = model.prefill(batch, max_len)
+        b, _ = model.prefill(other, max_len)
+        moved[gate] = float((a - b).abs().max())
+    set_gates(model, VISION_GATE)
+    phase("vision", arch=VISION_ARCH, check="gates",
+          other_vision_at_gate_0=f"{moved[0.0]:.4e}",
+          other_vision_at_gate_0_limit=GATE_CLOSED_TOL,
+          **{f"other_vision_at_gate_{VISION_GATE}": f"{moved[VISION_GATE]:.4e}"},
+          move_limit=VISION_MOVE)
+    check(moved[0.0] <= GATE_CLOSED_TOL, f"at gates 0 other vision tokens "
+          f"moved the logits by {moved[0.0]}")
+    check(moved[VISION_GATE] >= VISION_MOVE, f"at gates {VISION_GATE} other "
+          f"vision tokens moved the logits by {moved[VISION_GATE]} only")
+
+
+def cross_phases(dev):
+    """The cross-attention slice on the card: whisper-base served and
+    trained at full width and depth (K5 bidirectional in the encoder at
+    D = 64, K6/K7 bidirectional in training), llama-3.2-vision-90b served
+    at 4 groups and trained at 1 (K5-K7 at D = 128 in the dense blocks;
+    the gated cross-attention through ``_sdpa``). Returns (whisper's
+    launch counts, vision's)."""
+    from repro_torch.configs import registry
+    from repro_torch.kernels import flash_cuda as fc
+    t0 = time.perf_counter()
+    other_frames = cross_extra(registry.config(WHISPER_ARCH), SERVE_SLOTS, 3)
+    whisper = collections.Counter(serve_phase(
+        dev, WHISPER_ARCH, prompt=WHISPER_PROMPT, new=WHISPER_NEW,
+        max_len=WHISPER_MAX_LEN, f32=WHISPER_F32,
+        controls=(("encoder_causal", causal_fwd, None, CAUSAL_MOVE),
+                  ("other_frames", fc.flash_fwd_plain, other_frames,
+                   FRAMES_MOVE)),
+        tag="whisper"))
+    phase("whisper", arch=WHISPER_ARCH, path="serve",
+          seconds=f"{time.perf_counter() - t0:.1f}")
+    t0 = time.perf_counter()
+    whisper.update(train_phase(dev, WHISPER_ARCH, tag="whisper",
+                               **WHISPER_TRAIN))
+    phase("whisper", arch=WHISPER_ARCH, path="train",
+          seconds=f"{time.perf_counter() - t0:.1f}")
+
+    def gated(model):
+        set_gates(model, VISION_GATE)
+    t0 = time.perf_counter()
+    vision = collections.Counter(serve_phase(
+        dev, VISION_ARCH, layers=VISION_SERVE_LAYERS, prompt=VISION_PROMPT,
+        new=VISION_NEW, f32=False, prepare=gated, checks=gate_controls,
+        tag="vision"))
+    phase("vision", arch=VISION_ARCH, path="serve",
+          seconds=f"{time.perf_counter() - t0:.1f}")
+    t0 = time.perf_counter()
+    vision.update(train_phase(dev, VISION_ARCH, VISION_TRAIN_LAYERS,
+                              VISION_SEQ, tag="vision", prepare=gated))
+    phase("vision", arch=VISION_ARCH, path="train",
+          seconds=f"{time.perf_counter() - t0:.1f}")
+    return whisper, vision
 
 
 def supervisor_phase(dev):
@@ -3158,15 +3406,31 @@ def main() -> int:
         print(smi)
         print(json.dumps({"kernels": list(table.values())}))
         return 0
+    if sys.argv[1:] == [CROSS_FLAG]:         # the cross-attention slice
+        table = lm_kernel_phase(dev, [c for c in K5_CASES
+                                      if c[0] in BIDIRECTIONAL], small=False)
+        table.update(bwd_kernel_phase(
+            dev, [c for c in BWD_CASES if c[0] in BIDIRECTIONAL],
+            small=False))
+        whisper, vision = cross_phases(dev)
+        for row in table.values():
+            row["launches"] = whisper[row["name"].rsplit("_d", 1)[0]]
+        phase("done", cross_only=True, vision_launches=json.dumps(
+            dict(vision), separators=(",", ":")),
+              seconds=f"{time.perf_counter() - t0:.1f}")
+        print(smi)
+        print(json.dumps({"kernels": list(table.values())}))
+        return 0
     table = kernel_phase(dev, smi)
     table.update(lm_kernel_phase(dev))
     table.update(bwd_kernel_phase(dev))
     # each main path's counts, summed: slice (K1-K4), the per-pod
     # decisions (K1), the policy round (K3), the frontier layer (K4, K3),
     # serve (K5), the smoke-size serving launcher (K5), train (K5, K6,
-    # K7), for llama3-8b (head dim 128), gemma-7b (256) and mixtral-8x7b
-    # (128, window 4096); the D = 256 rows count gemma's, the _w4096 rows
-    # mixtral's
+    # K7), for llama3-8b (head dim 128), gemma-7b (256), mixtral-8x7b
+    # (128, window 4096), whisper-base (64) and llama-3.2-vision-90b
+    # (128); the D = 256 rows count gemma's, the _w4096 rows mixtral's,
+    # the D = 64 rows whisper's
     launches = collections.Counter(slice_phase(dev))
     launches.update(perpod_phase(dev, smi))
     launches.update(policy_phase(dev, smi))
@@ -3179,11 +3443,15 @@ def main() -> int:
     wide.update(train_phase(dev, GEMMA_ARCH))
     f32_train_phase(dev, GEMMA_ARCH, GEMMA_F32_LAYERS, control="half_d")
     moe = moe_phases(dev)
+    narrow, vision = cross_phases(dev)
     supervisor_phase(dev)
     launches.update(wide)
     launches.update({row_name(n, WIDE_D): c for n, c in wide.items()})
     launches.update(moe)
     launches.update({row_name(n, 128, WINDOW_ROW): c for n, c in moe.items()})
+    launches.update(narrow)
+    launches.update({row_name(n, NARROW_D): c for n, c in narrow.items()})
+    launches.update(vision)
     for row in table.values():
         row["launches"] = launches[row["name"]]
     phase("done", seconds=f"{time.perf_counter() - t0:.1f}")

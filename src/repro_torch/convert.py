@@ -94,10 +94,13 @@ def pods_from_records(records: Iterable[tuple]) -> list[Pod]:
 def tensor_from_numpy(a: np.ndarray) -> torch.Tensor:
     """A CPU tensor of ``a``'s values. A bfloat16 array (``ml_dtypes``, as
     ``np.asarray`` of a bf16 JAX array gives) goes through its bits."""
-    a = np.ascontiguousarray(a)
+    shape = np.shape(a)
+    a = np.ascontiguousarray(a)          # (ndim >= 1: a scalar gains an axis)
     if a.dtype.name == "bfloat16":
-        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
-    return torch.from_numpy(a.copy())
+        t = torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a.copy())
+    return t.reshape(shape)
 
 
 def lm_params_from_numpy(cfg: ModelConfig, tree: Mapping, *,
@@ -106,8 +109,10 @@ def lm_params_from_numpy(cfg: ModelConfig, tree: Mapping, *,
     ``repro.models.lm.build(cfg).init(key)`` as nested dicts of numpy
     arrays, each segment's leaves stacked on axis 0 (``dense``;
     mixtral's ``moe``; deepseek's ``dense_prefix`` and ``moe``, with the
-    expert, router and shared-expert leaves and the MLA weights). Weights
-    keep the reference's layout; key sets, shapes and dtypes are
+    expert, router and shared-expert leaves and the MLA weights;
+    whisper's ``enc`` and ``dec``; a VLM's ``vlm``, whose ``selfs`` leaves
+    are stacked (n_groups, k, ...) and whose gates are (n_groups,)).
+    Weights keep the reference's layout; key sets, shapes and dtypes are
     checked."""
     model = LM(cfg, device=device, seed=None)
 
@@ -118,22 +123,28 @@ def lm_params_from_numpy(cfg: ModelConfig, tree: Mapping, *,
                              f"{tuple(dst.shape)} {dst.dtype}")
         dst.copy_(t)
 
-    def fill(module: nn.Module, node: Mapping, j: int, n: int,
+    def fill(module: nn.Module, node: Mapping, at: tuple, lead: tuple,
              name: str) -> None:
-        """Block leaves of ``module`` from slice j of the stacked
-        (n, ...) leaves of ``node``."""
+        """Leaves of ``module`` from slice ``at`` of the stacked ``lead +
+        (...)`` leaves of ``node``; a ``ModuleList`` child (a group's
+        ``selfs``) takes one more stacked axis."""
         own = dict(module.named_parameters(recurse=False))
         kids = dict(module.named_children())
         if set(node) != set(own) | set(kids):
             raise KeyError(f"{name} has {sorted(node)}, expected "
                            f"{sorted(set(own) | set(kids))}")
         for k, dst in own.items():
-            if np.shape(node[k])[:1] != (n,):
+            if np.shape(node[k])[:len(lead)] != lead:
                 raise ValueError(f"{name}.{k}: {np.shape(node[k])}, "
-                                 f"expected {n} stacked blocks")
-            put(dst, node[k][j], f"{name}.{k}[{j}]")
+                                 f"expected leading axes {lead}")
+            put(dst, node[k][at], f"{name}.{k}{list(at)}")
         for k, kid in kids.items():
-            fill(kid, node[k], j, n, f"{name}.{k}")
+            if isinstance(kid, nn.ModuleList):
+                for i, sub in enumerate(kid):
+                    fill(sub, node[k], at + (i,), lead + (len(kid),),
+                         f"{name}.{k}")
+            else:
+                fill(kid, node[k], at, lead, f"{name}.{k}")
 
     expected = {"embed", "final_ln"} | {s.name for s in model.segments} | (
         set() if cfg.tie_embeddings else {"lm_head"})
@@ -147,7 +158,7 @@ def lm_params_from_numpy(cfg: ModelConfig, tree: Mapping, *,
             put(model.lm_head, tree["lm_head"], "lm_head")
         for seg, idx in model.segment_blocks():
             for j, i in enumerate(idx):
-                fill(model.blocks[i], tree[seg.name], j, seg.n_blocks,
+                fill(model.blocks[i], tree[seg.name], (j,), (seg.n_blocks,),
                      seg.name)
     return model
 
@@ -165,26 +176,38 @@ def lm_params_to_numpy(model: LM, tensors: Mapping[str, torch.Tensor]
                        | None = None) -> dict:
     """The inverse of ``lm_params_from_numpy``: the reference's parameter
     pytree as nested dicts of numpy arrays, with each segment's block
-    leaves stacked on axis 0. ``tensors`` maps the LM's parameter names
-    (``"embed"``, ``"blocks.3.attn.wq"``, ``"blocks.1.moe.shared.w1"``,
-    ...) to tensors of their shapes, such as the gradients of a training
-    step; default: the parameters themselves."""
+    leaves stacked on axis 0 (a group's ``selfs`` on axes 0 and 1).
+    ``tensors`` maps the LM's parameter names (``"embed"``,
+    ``"blocks.3.attn.wq"``, ``"blocks.1.moe.shared.w1"``,
+    ``"blocks.0.selfs.2.ln1"``, ...) to tensors of their shapes, such as
+    the gradients of a training step; default: the parameters
+    themselves."""
     if tensors is None:
         tensors = dict(model.named_parameters())
     names = [n for n, _ in model.named_parameters()]
     if set(tensors) != set(names):
         raise KeyError(f"tensors name {sorted(set(tensors) ^ set(names))} "
                        f"differently from the model's parameters")
+
+    def stack(trees: list):
+        if isinstance(trees[0], dict):
+            return {k: stack([t[k] for t in trees]) for k in trees[0]}
+        return np.stack(trees)
+
+    def tree_of(module: nn.Module, prefix: str) -> dict:
+        node = {k: tensor_to_numpy(tensors[prefix + k])
+                for k, _ in module.named_parameters(recurse=False)}
+        for k, kid in module.named_children():
+            if isinstance(kid, nn.ModuleList):
+                node[k] = stack([tree_of(sub, f"{prefix}{k}.{i}.")
+                                 for i, sub in enumerate(kid)])
+            else:
+                node[k] = tree_of(kid, f"{prefix}{k}.")
+        return node
+
     tree = {k: tensor_to_numpy(tensors[k])
             for k in ("embed", "final_ln", "lm_head") if k in tensors}
     for seg, idx in model.segment_blocks():
-        node: dict = {}
-        for leaf, _ in model.blocks[idx[0]].named_parameters():
-            *path, last = leaf.split(".")
-            d = node
-            for k in path:
-                d = d.setdefault(k, {})
-            d[last] = np.stack([tensor_to_numpy(tensors[f"blocks.{i}.{leaf}"])
+        tree[seg.name] = stack([tree_of(model.blocks[i], f"blocks.{i}.")
                                 for i in idx])
-        tree[seg.name] = node
     return tree

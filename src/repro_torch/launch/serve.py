@@ -3,7 +3,10 @@ counterpart of ``repro.launch.serve``, with ``--device`` (default: the card).
 The model runs with ``attn_impl="flash"``, so prefill attention goes through
 the flash-attention kernel (K5) on the card and its plain version on the CPU
 (mixtral-8x7b with its 4096-token sliding window); deepseek-v3-671b's MLA
-takes no kernel (the reference's MLA calls ``_sdpa``).
+takes no kernel (the reference's MLA calls ``_sdpa``). whisper-base's
+encoder and decoder prefill take K5 (the encoder bidirectional), and
+llama-3.2-vision-90b's dense blocks; like the reference's CLI it passes no
+``frames`` / ``vision``, so their cross-attention reads zeros.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b --smoke \\

@@ -10,7 +10,11 @@ directly through the train step and nothing is written.
 
 ``--arch`` takes the dense (llama3-8b, gemma-7b, ...) and MoE
 (mixtral-8x7b, deepseek-v3-671b) architectures; a step's line shows the
-MoE load-balancing loss (``aux``; 0 for a dense model).
+MoE load-balancing loss (``aux``; 0 for a dense model). whisper-base and
+llama-3.2-vision-90b train on batches with ``frames`` / ``vision``, which
+the command line has no source for (as the reference's, which fails with
+``KeyError: 'frames'``): ``build(args, extra_inputs=...)`` takes them from
+a caller, and without them it raises a ``ValueError`` naming the input.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3-8b --smoke \\
@@ -28,7 +32,7 @@ import torch
 from repro_torch.configs import registry
 from repro_torch.data.pipeline import SyntheticLM, device_batch
 from repro_torch.device import resolve_device
-from repro_torch.models.lm import LM
+from repro_torch.models.lm import LM, cross_inputs, segments_for
 from repro_torch.optim import adamw
 from repro_torch.train import fault
 from repro_torch.train import loop as tl
@@ -68,16 +72,29 @@ def config(args: argparse.Namespace):
         over["dtype"] = args.dtype
     if args.head_dim is not None:
         over["head_dim"] = args.head_dim
-    return (registry.smoke_config(args.arch, **over) if args.smoke
-            else registry.config(args.arch, **over))
+    cfg = (registry.smoke_config(args.arch, **over) if args.smoke
+           else registry.config(args.arch, **over))
+    segments_for(cfg)        # raises on a depth the arch cannot take
+    return cfg
 
 
-def build(args: argparse.Namespace) -> types.SimpleNamespace:
+def build(args: argparse.Namespace, extra_inputs=None
+          ) -> types.SimpleNamespace:
     """The model (weights from seed 0 on the device), its optimizer
     and train step, the training state and the data: ``cfg``, ``model``,
     ``ocfg``, ``step_fn``, ``state`` ({"params", "opt_state"}) and
-    ``data_fn(step)``."""
+    ``data_fn(step)``. ``extra_inputs(step)`` gives the batch's
+    ``frames`` / ``vision`` at a step (numpy (global_batch, T, d_model)
+    arrays, ``models.lm.cross_inputs``), which an encoder-decoder or VLM
+    needs."""
     cfg = config(args)
+    need = cross_inputs(cfg)
+    if need and extra_inputs is None:
+        raise ValueError(
+            f"{cfg.arch_id} trains on batches with "
+            f"{', '.join(repr(k) for k in need)} (global_batch, T, d_model) "
+            f"inputs, which launch.train has no source for; pass "
+            f"build(args, extra_inputs=...)")
     dev = resolve_device(args.device)
     if dev.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -94,7 +111,9 @@ def build(args: argparse.Namespace) -> types.SimpleNamespace:
         cfg=cfg, model=model, ocfg=ocfg,
         step_fn=tl.make_train_fn(model, ocfg, n_micro=args.n_micro),
         state={"params": params, "opt_state": adamw.init(ocfg, params)},
-        data_fn=lambda s: device_batch({"tokens": ds.batch_at(s)}, dev))
+        data_fn=lambda s: device_batch(
+            {"tokens": ds.batch_at(s),
+             **(extra_inputs(s) if need else {})}, dev))
 
 
 def train_steps(r: types.SimpleNamespace, first: int, last: int, *,

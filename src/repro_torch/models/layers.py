@@ -1,5 +1,5 @@
-"""Neural layers of the port: norms, rope, GQA attention with a decode
-cache, MLA, FFNs — port of ``repro.models.layers`` but cross-attention.
+"""Neural layers of the port: norms, rope, GQA self- and cross-attention
+with a decode cache, MLA, FFNs — port of ``repro.models.layers``.
 
 Plain functions over parameter mappings (a dict of tensors or an
 ``nn.ParameterDict``), with the reference's ``(d_in, d_out)`` weight layout
@@ -18,8 +18,9 @@ Self-attention over a whole sequence (prefill, training) goes through K5
 its gradient through K6 and K7: one card is a model axis of 1, so no mesh
 condition applies. Decode uses ``_sdpa``, plain torch as the reference's
 is plain XLA. The decode cache is updated in place. Every function here is
-differentiable with ``torch.autograd``. MLA (``mla_attention``) never
-takes K5: the reference's calls ``_sdpa`` (layers.py:299).
+differentiable with ``torch.autograd``. Neither cross-attention
+(``attention(..., kv_src=...)``) nor MLA (``mla_attention``) takes K5: the
+reference's call ``_sdpa`` (layers.py:225, :299).
 """
 from __future__ import annotations
 
@@ -94,10 +95,13 @@ def dense_init(gen: torch.Generator, d_in: int, d_out: int,
     return w.mul_(d_in ** -0.5).to(dtype)
 
 
-def attn_shapes(cfg: ModelConfig) -> dict:
+def attn_shapes(cfg: ModelConfig, d_kv_in: int | None = None) -> dict:
+    """d_kv_in: the source width of k and v (cross-attention); default
+    d_model (the reference's ``attn_init``)."""
     D, hd = cfg.d_model, cfg.hd
-    return {"wq": (D, cfg.n_heads * hd), "wk": (D, cfg.n_kv_heads * hd),
-            "wv": (D, cfg.n_kv_heads * hd), "wo": (cfg.n_heads * hd, D)}
+    d_kv_in = d_kv_in or D
+    return {"wq": (D, cfg.n_heads * hd), "wk": (d_kv_in, cfg.n_kv_heads * hd),
+            "wv": (d_kv_in, cfg.n_kv_heads * hd), "wo": (cfg.n_heads * hd, D)}
 
 
 def ffn_shapes(cfg: ModelConfig) -> dict:
@@ -216,18 +220,26 @@ def _flash_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def attention(p: Params, cfg: ModelConfig, x: torch.Tensor, *, kv_src=None,
               positions: torch.Tensor | None = None, causal: bool = True,
               cache: dict | None = None, use_rope: bool = True):
-    """Self-attention. x: (B, S, D). Returns (out, cache').
+    """Self- or cross-attention. x: (B, S, D). Returns (out, cache').
 
     cache: None (no cache) or {k, v, len} with preallocated (B, T, Hkv, hd)
     buffers; k/v of this call are written at ``len`` in place and the cache
     comes back with ``len + S``.
+    kv_src: (B, T, Dsrc) for cross-attention: k and v from it, no rope on
+    either side, no cache, every key attended (``_sdpa``, never K5, as the
+    reference's ``use_flash`` demands ``kv_src is None``).
     """
-    if kv_src is not None:
-        raise NotImplementedError(
-            "cross-attention (kv_src) is not ported yet: ROADMAP Queue 1 "
-            "item 4 (models/layers.py)")
     B, S, _ = x.shape
     hd = cfg.hd
+    if kv_src is not None:
+        if cache is not None:
+            raise ValueError("cross-attention takes no cache")
+        T = kv_src.shape[1]
+        q = dot(x, p["wq"]).reshape(B, S, cfg.n_heads, hd)
+        k = dot(kv_src, p["wk"]).reshape(B, T, cfg.n_kv_heads, hd)
+        v = dot(kv_src, p["wv"]).reshape(B, T, cfg.n_kv_heads, hd)
+        out = _sdpa(q, k, v, causal=False, window=cfg.attn_window)
+        return dot(out.reshape(B, S, cfg.n_heads * hd), p["wo"]), None
     q = dot(x, p["wq"]).reshape(B, S, cfg.n_heads, hd)
     k = dot(x, p["wk"]).reshape(B, S, cfg.n_kv_heads, hd)
     v = dot(x, p["wv"]).reshape(B, S, cfg.n_kv_heads, hd)

@@ -1,21 +1,33 @@
 """The language model of the port — port of ``repro.models.lm`` for the
-segment kinds ``dense``, ``moe``, ``mla_dense`` and ``mla_moe``:
-embedding, the segments' blocks, final RMSNorm, unembedding, with the
-reference's prefill / decode / init_cache semantics (lm.py:464-502).
+segment kinds ``dense``, ``moe``, ``mla_dense``, ``mla_moe``, ``enc`` /
+``dec`` and ``vlm_group``: embedding, the segments' blocks, final RMSNorm,
+unembedding, with the reference's prefill / decode / init_cache semantics
+(lm.py:464-502) and batch convention (``{"tokens"}``, plus ``"frames"``
+for an encoder-decoder, ``"vision"`` for a VLM; float32 (B, T, d_model)
+embeddings from the reference's stub frontends, cast to ``cfg.dtype``).
 
 A model is a sequence of segments (``segments_for``, as the reference's):
 llama3-8b and gemma-7b one ``dense`` segment, mixtral-8x7b one ``moe``
 segment (GQA attention + MoE FFN), deepseek-v3-671b a ``dense_prefix`` of
 ``mla_dense`` blocks (MLA + dense FFN) then a ``moe`` segment of
-``mla_moe`` blocks (MLA + MoE with a shared expert). The reference stacks
-each segment's parameters on axis 0 and scans them; here the blocks of all
-segments are one ``nn.ModuleList`` in order, named ``blocks.<i>.<leaf>``,
-and the converter (``convert.lm_params_from_numpy``) unstacks the
-reference's pytree. The decode cache keeps the reference's layout — ``{"len":
-int, <segment name>: {"k", "v"}}`` (GQA kinds; (n_blocks, B, T, Hkv, hd))
-or ``{"kv_c", "k_rope"}`` (MLA kinds; (n_blocks, B, T, R) and (n_blocks,
-B, T, dr)) — and is updated in place: a cache handed to ``decode`` is the
-one it returns.
+``mla_moe`` blocks (MLA + MoE with a shared expert), whisper-base an
+``enc`` segment (bidirectional self-attention, no rope) and a ``dec``
+segment (causal self-attention, cross-attention to the encoder output,
+no rope; sinusoid positions on both sides), llama-3.2-vision-90b one
+``vlm`` segment of ``vlm_group`` blocks (``cross_attn_every`` dense
+blocks, then a tanh-gated cross-attention block over the vision tokens).
+The reference stacks each segment's parameters on axis 0 and scans them;
+here the blocks of all segments are one ``nn.ModuleList`` in order, named
+``blocks.<i>.<leaf>`` (a group's dense blocks ``blocks.<i>.selfs.<j>.
+<leaf>``), and the converter (``convert.lm_params_from_numpy``) unstacks
+the reference's pytree. The decode cache keeps the reference's layout —
+``{"len": int, <segment name>: {"k", "v"}}`` (GQA kinds; (n_blocks, B, T,
+Hkv, hd)), ``{"kv_c", "k_rope"}`` (MLA kinds; (n_blocks, B, T, R) and
+(n_blocks, B, T, dr)) or ``{"selfs": {"k", "v"}}`` (``vlm_group``;
+(n_groups, k, B, T, Hkv, hd)), plus ``"enc_out"`` (B, n_audio_frames, D)
+or ``"vision"`` (B, n_vision_tokens, D), which decode re-reads (the
+encoder has no cache) — and is updated in place: a cache handed to
+``decode`` is the one it returns.
 
 ``loss`` is the training objective (lm.py:454-461): next-token
 cross-entropy over ``tokens[:, :-1]``, chunked by 1024 positions, plus
@@ -23,12 +35,12 @@ cross-entropy over ``tokens[:, :-1]``, chunked by 1024 positions, plus
 recomputed in the backward (``torch.utils.checkpoint``) when
 ``cfg.remat``, as ``jax.checkpoint`` does in the reference's scan.
 
-Hybrid, SSM, VLM and encoder-decoder configurations raise
-``NotImplementedError``.
+Hybrid (mamba) and RWKV configurations raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Mapping
 
 import torch
 from torch import nn
@@ -42,7 +54,8 @@ from repro_torch.models.layers import (attention, attn_shapes, dot_f32,
                                        init_dense, mla_attention, mla_shapes,
                                        rmsnorm)
 
-PORTED_KINDS = ("dense", "moe", "mla_dense", "mla_moe")
+PORTED_KINDS = ("dense", "moe", "mla_dense", "mla_moe", "enc", "dec",
+                "vlm_group")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,7 +80,10 @@ def segments_for(cfg: ModelConfig) -> list[Segment]:
             segs.append(Segment("mamba_tail", "mamba", rest))
         return segs
     if cfg.cross_attn_every:
-        assert cfg.n_layers % cfg.cross_attn_every == 0
+        if cfg.n_layers % cfg.cross_attn_every:
+            raise ValueError(f"{cfg.arch_id}: n_layers {cfg.n_layers} is not "
+                             f"a multiple of cross_attn_every "
+                             f"{cfg.cross_attn_every}")
         return [Segment("vlm", "vlm_group",
                         cfg.n_layers // cfg.cross_attn_every)]
     if cfg.is_moe:
@@ -81,17 +97,26 @@ def segments_for(cfg: ModelConfig) -> list[Segment]:
     return [Segment("dense", "dense", cfg.n_layers)]
 
 
+def cross_inputs(cfg: ModelConfig) -> dict[str, tuple[int, int]]:
+    """The batch inputs besides ``tokens`` that ``cfg`` cross-attends to,
+    each with its (T, d_model) shape: ``frames`` (an encoder-decoder's
+    audio frames), ``vision`` (a VLM's vision tokens); {} for the others.
+    Training needs them; serving attends to zeros without them."""
+    out = {}
+    if cfg.enc_dec:
+        out["frames"] = (cfg.n_audio_frames, cfg.d_model)
+    if cfg.cross_attn_every:
+        out["vision"] = (cfg.n_vision_tokens, cfg.d_model)
+    return out
+
+
 def _unported_kind(cfg: ModelConfig) -> str | None:
     """The reference segment kind this config needs, where the port has
     not got it yet."""
     if cfg.rwkv:
         return "rwkv"
-    if cfg.enc_dec:
-        return "enc/dec"
     if cfg.ssm_state:
         return "mamba"
-    if cfg.cross_attn_every:
-        return "vlm_group"
     return None
 
 
@@ -104,18 +129,24 @@ def _has_moe(kind: str) -> bool:
 
 
 class Block(nn.Module):
-    """One block's weights: x + attention(rmsnorm(x)), then
+    """One block's weights: x + attention(rmsnorm(x)), then (``dec``) +
+    cross-attention(rmsnorm(x)) to the encoder output, then
     + ffn-or-moe(rmsnorm(x)). ``attn`` holds the GQA (wq, wk, wv, wo) or
-    MLA (wdq, wuq, wdkv, wkr, wuk, wuv, wo) weights, ``ffn`` w1, w3, w2
-    or ``moe`` router, router_bias, w1, w3, w2 (and ``shared``), in the
-    reference's (d_in, d_out) layout."""
+    MLA (wdq, wuq, wdkv, wkr, wuk, wuv, wo) weights, ``xattn`` and ``lnx``
+    a ``dec`` block's cross-attention, ``ffn`` w1, w3, w2 or ``moe``
+    router, router_bias, w1, w3, w2 (and ``shared``), in the reference's
+    (d_in, d_out) layout."""
 
     def __init__(self, kind: str, attn: dict, mlp: dict, ln1: torch.Tensor,
-                 ln2: torch.Tensor):
+                 ln2: torch.Tensor, xattn: dict | None = None,
+                 lnx: torch.Tensor | None = None):
         super().__init__()
         self.kind = kind
         self.ln1 = nn.Parameter(ln1, requires_grad=False)
         self.attn = frozen(attn)
+        if xattn is not None:
+            self.lnx = nn.Parameter(lnx, requires_grad=False)
+            self.xattn = frozen(xattn)
         self.ln2 = nn.Parameter(ln2, requires_grad=False)
         leaves = frozen({k: v for k, v in mlp.items() if k != "shared"})
         if "shared" in mlp:
@@ -123,19 +154,72 @@ class Block(nn.Module):
         setattr(self, "moe" if _has_moe(kind) else "ffn", leaves)
 
 
-def _block(kind: str, cfg: ModelConfig, gen, dev) -> Block:
-    """A block of ``kind``: attention, then FFN or MoE, drawn in that order
-    (uninitialised where ``gen`` is None)."""
+class VlmGroup(nn.Module):
+    """A ``vlm_group`` block's weights (reference lm.py:94-100): ``selfs``,
+    ``cross_attn_every`` dense blocks, then the gated cross-attention
+    block: ``x_ln``, ``xattn``, the float32 scalar ``x_gate``, ``x_ln2``,
+    ``xffn`` and the float32 scalar ``xffn_gate``."""
+
+    kind = "vlm_group"
+
+    def __init__(self, selfs: list, xattn: dict, xffn: dict,
+                 norm: torch.Tensor, gate: torch.Tensor):
+        super().__init__()
+        self.selfs = nn.ModuleList(selfs)
+        self.x_ln = nn.Parameter(norm.clone(), requires_grad=False)
+        self.xattn = frozen(xattn)
+        self.x_gate = nn.Parameter(gate.clone(), requires_grad=False)
+        self.x_ln2 = nn.Parameter(norm.clone(), requires_grad=False)
+        self.xffn = frozen(xffn)
+        self.xffn_gate = nn.Parameter(gate.clone(), requires_grad=False)
+
+
+def _block(kind: str, cfg: ModelConfig, gen, dev) -> nn.Module:
+    """A block of ``kind``: attention, (``dec``) cross-attention, then FFN
+    or MoE, drawn in that order (a group: its dense blocks, then the cross
+    block's attention and FFN); uninitialised where ``gen`` is None. Norms
+    are ones and a group's gates zeros, as the reference initialises
+    them."""
     D = cfg.d_model
+    ones = torch.ones(D, dtype=torch.float32, device=dev)
+    if kind == "vlm_group":
+        selfs = [_block("dense", cfg, gen, dev)
+                 for _ in range(cfg.cross_attn_every)]
+        xattn = init_dense(gen, attn_shapes(cfg), cfg, dev)
+        xffn = init_dense(gen, ffn_shapes(cfg), cfg, dev)
+        return VlmGroup(selfs, xattn, xffn, ones,
+                        torch.zeros((), dtype=torch.float32, device=dev))
     attn = init_dense(gen, mla_shapes(cfg) if _mla(kind) else
                       attn_shapes(cfg), cfg, dev)
+    xattn = (init_dense(gen, attn_shapes(cfg), cfg, dev) if kind == "dec"
+             else None)
     if _has_moe(kind):
         mlp = moe.moe_init(gen, cfg, dev)
     else:
         mlp = init_dense(gen, ffn_shapes(cfg), cfg, dev)
-    return Block(kind, attn, mlp,
-                 torch.ones(D, dtype=torch.float32, device=dev),
-                 torch.ones(D, dtype=torch.float32, device=dev))
+    return Block(kind, attn, mlp, ones, ones.clone(), xattn,
+                 ones.clone() if xattn is not None else None)
+
+
+def sinusoid(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """Rows ``positions`` of the reference's (max_len, d) float32 sinusoid
+    table (``_sinusoid``, lm.py:328-334): sin at the even columns, cos at
+    the odd ones, each row a function of its position alone."""
+    pos = positions.to(torch.float32)[:, None]
+    dim = torch.arange(0, d, 2, dtype=torch.float32,
+                       device=positions.device)[None, :]
+    ang = pos / (10000 ** (dim / d))
+    pe = torch.zeros((positions.shape[0], d), dtype=torch.float32,
+                     device=positions.device)
+    pe[:, 0::2] = torch.sin(ang)
+    pe[:, 1::2] = torch.cos(ang)
+    return pe
+
+
+def _index(tree: dict, j: int) -> dict:
+    """Slice j of every leaf of a (nested) cache dict."""
+    return {k: _index(v, j) if isinstance(v, dict) else v[j]
+            for k, v in tree.items()}
 
 
 class LM(nn.Module):
@@ -194,61 +278,175 @@ class LM(nn.Module):
 
     # --- cache ---------------------------------------------------------------
     def init_cache(self, batch_size: int, max_len: int) -> dict:
+        """The decode cache of every segment but the encoder, zeros; an
+        encoder-decoder's ``enc_out`` and a VLM's ``vision`` zeros too (a
+        prefill without ``frames`` / ``vision`` attends to them, as the
+        reference's does)."""
         cfg = self.cfg
         dt = dtype_of(cfg)
         cache = {"len": 0}
+
+        def zeros(*shape):
+            return torch.zeros(shape, dtype=dt, device=self.device)
         for seg in self.segments:
-            n = (seg.n_blocks, batch_size, max_len)
+            if seg.kind == "enc":
+                continue
+            n = (seg.n_blocks,)
+            if seg.kind == "vlm_group":
+                n += (cfg.cross_attn_every,)
+            n += (batch_size, max_len)
             shapes = ({"kv_c": n + (cfg.kv_lora_rank,),
                        "k_rope": n + (cfg.qk_rope_head_dim,)}
                       if _mla(seg.kind) else
                       {"k": n + (cfg.n_kv_heads, cfg.hd),
                        "v": n + (cfg.n_kv_heads, cfg.hd)})
-            cache[seg.name] = {
-                k: torch.zeros(s, dtype=dt, device=self.device)
-                for k, s in shapes.items()}
+            leaves = {k: zeros(*s) for k, s in shapes.items()}
+            cache[seg.name] = ({"selfs": leaves} if seg.kind == "vlm_group"
+                               else leaves)
+        if cfg.enc_dec:
+            cache["enc_out"] = zeros(batch_size, cfg.n_audio_frames,
+                                     cfg.d_model)
+        if cfg.cross_attn_every:
+            cache["vision"] = zeros(batch_size, cfg.n_vision_tokens,
+                                    cfg.d_model)
         return cache
 
     # --- forward -------------------------------------------------------------
     def _tokens(self, tokens) -> torch.Tensor:
         return torch.as_tensor(tokens, device=self.device).long()
 
-    def _block(self, blk: Block, x: torch.Tensor, positions: torch.Tensor,
-               cache: dict | None = None):
-        """One block: x + attention(rmsnorm(x)), then + ffn-or-moe(
-        rmsnorm(x)); a decode ``cache`` (this block's, with ``len``) is
+    def _batch(self, batch) -> dict:
+        """The reference's batch convention: a dict with ``"tokens"`` (B, S)
+        and, for the cross-attending kinds, ``"frames"`` / ``"vision"``
+        (B, T, d_model) embeddings (cast to ``cfg.dtype``, as the reference
+        casts them); or the tokens alone."""
+        if not isinstance(batch, Mapping):
+            batch = {"tokens": batch}
+        out = {"tokens": self._tokens(batch["tokens"])}
+        for key in ("frames", "vision"):
+            if key in batch:
+                out[key] = torch.as_tensor(batch[key], device=self.device
+                                           ).to(dtype_of(self.cfg))
+        return out
+
+    def _carried(self, cache: dict | None, key: str, source: str):
+        """``cache[key]``, what a prefill or decode without ``source`` in
+        its batch attends to; training has no cache and needs ``source``."""
+        if cache is None:
+            raise ValueError(f"{self.cfg.arch_id}: the batch has no "
+                             f"{source!r} (B, T, d_model) input")
+        return cache[key]
+
+    def _extras(self, batch: dict, cache: dict | None = None) -> dict:
+        """What the cross-attending blocks read: ``vision`` (the batch's,
+        else the cache's), ``enc_out`` (the encoder over the batch's
+        ``frames``, else the cache's)."""
+        ex = {}
+        if self.cfg.cross_attn_every:
+            ex["vision"] = (batch["vision"] if "vision" in batch else
+                            self._carried(cache, "vision", "vision"))
+        if self.cfg.enc_dec:
+            ex["enc_out"] = (self._encoder(batch["frames"])
+                             if "frames" in batch else
+                             self._carried(cache, "enc_out", "frames"))
+        return ex
+
+    def _block(self, blk: nn.Module, x: torch.Tensor, positions: torch.Tensor,
+               cache: dict | None = None, ex: dict | None = None):
+        """One block (reference lm.py:161-302): x + attention(rmsnorm(x)),
+        (``dec``) + cross-attention(rmsnorm(x)) to ``ex["enc_out"]``, then
+        + ffn-or-moe(rmsnorm(x)); a ``vlm_group`` runs its dense blocks,
+        then adds tanh(x_gate) * cross-attention to ``ex["vision"]`` and
+        tanh(xffn_gate) * ffn, each product in float32 and rounded once to
+        x's dtype. A decode ``cache`` (this block's, with ``len``) is
         written in place. Returns (x, aux): aux is the MoE's
         load-balancing loss, 0 for a dense FFN."""
         cfg = self.cfg
-        xin = rmsnorm(x, blk.ln1, cfg.norm_eps)
+        eps = cfg.norm_eps
+        zero = torch.zeros((), dtype=torch.float32, device=x.device)
+        if blk.kind == "vlm_group":
+            for i, sub in enumerate(blk.selfs):
+                c = (None if cache is None else
+                     {**_index(cache["selfs"], i), "len": cache["len"]})
+                x, _ = self._block(sub, x, positions, c, ex)
+            h, _ = attention(blk.xattn, cfg, rmsnorm(x, blk.x_ln, eps),
+                             kv_src=ex["vision"], use_rope=False)
+            x = x + (torch.tanh(blk.x_gate) * h.float()).to(x.dtype)
+            f = ffn(blk.xffn, cfg, rmsnorm(x, blk.x_ln2, eps))
+            x = x + (torch.tanh(blk.xffn_gate) * f.float()).to(x.dtype)
+            return x, zero
+        xin = rmsnorm(x, blk.ln1, eps)
         if _mla(blk.kind):
             h, _ = mla_attention(blk.attn, cfg, xin, positions=positions,
                                  cache=cache)
         else:
             h, _ = attention(blk.attn, cfg, xin, positions=positions,
-                             cache=cache)
+                             cache=cache, causal=blk.kind != "enc",
+                             use_rope=not cfg.enc_dec)
         x = x + h
-        y = rmsnorm(x, blk.ln2, cfg.norm_eps)
+        if blk.kind == "dec":
+            h, _ = attention(blk.xattn, cfg, rmsnorm(x, blk.lnx, eps),
+                             kv_src=ex["enc_out"], use_rope=False)
+            x = x + h
+        y = rmsnorm(x, blk.ln2, eps)
         if _has_moe(blk.kind):
             f, aux = moe.moe_ffn(blk.moe, cfg, y, cfg.moe_groups)
         else:
-            f = ffn(blk.ffn, cfg, y)
-            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+            f, aux = ffn(blk.ffn, cfg, y), zero
         return x + f, aux
 
-    def _forward(self, tokens: torch.Tensor, cache: dict,
-                 pos: int) -> torch.Tensor:
-        """Hidden states (B, S, D) of ``tokens`` at positions pos + arange(S),
-        writing their keys and values (or latents) into ``cache`` at
-        ``pos``."""
-        x = self.embed[tokens]
-        positions = pos + torch.arange(tokens.shape[1], device=self.device)
+    def _block_full(self, blk: nn.Module, x: torch.Tensor,
+               positions: torch.Tensor, ex: dict):
+        """``_block`` over a whole sequence without a cache, recomputed in
+        the backward when ``cfg.remat`` (the reference's ``mode="full"``
+        scan body)."""
+        if self.cfg.remat and torch.is_grad_enabled():
+            return checkpoint(self._block, blk, x, positions, None, ex,
+                              use_reentrant=False)
+        return self._block(blk, x, positions, None, ex)
+
+    def _encoder(self, frames: torch.Tensor) -> torch.Tensor:
+        """The encoder (reference lm.py:392-398): the frames plus the
+        sinusoid, the ``enc`` blocks over the whole sequence, then the
+        shared ``final_ln``."""
+        positions = torch.arange(frames.shape[1], device=self.device)
+        h = frames + sinusoid(positions, self.cfg.d_model).to(frames.dtype)
         for seg, idx in self.segment_blocks():
+            if seg.kind == "enc":
+                for i in idx:
+                    h, _ = self._block_full(self.blocks[i], h, positions, {})
+        return rmsnorm(h, self.final_ln, self.cfg.norm_eps)
+
+    def _embed(self, tokens: torch.Tensor, positions: torch.Tensor
+               ) -> torch.Tensor:
+        """Token embeddings; an encoder-decoder's decoder adds the
+        sinusoid at ``positions``."""
+        x = self.embed[tokens]
+        if self.cfg.enc_dec:
+            x = x + sinusoid(positions, self.cfg.d_model).to(x.dtype)[None]
+        return x
+
+    def _decoder_segments(self):
+        return [(seg, idx) for seg, idx in self.segment_blocks()
+                if seg.kind != "enc"]
+
+    def _forward(self, batch: dict, cache: dict, pos: int) -> torch.Tensor:
+        """Hidden states (B, S, D) of ``batch["tokens"]`` at positions
+        pos + arange(S), writing their keys and values (or latents) into
+        ``cache`` at ``pos``, and the encoder output or vision tokens they
+        attended to into ``cache["enc_out"]`` / ``cache["vision"]``."""
+        tokens = batch["tokens"]
+        ex = self._extras(batch, cache)
+        positions = pos + torch.arange(tokens.shape[1], device=self.device)
+        x = self._embed(tokens, positions)
+        for seg, idx in self._decoder_segments():
             c = cache[seg.name]
             for j, i in enumerate(idx):
                 x, _ = self._block(self.blocks[i], x, positions,
-                                   {**{k: t[j] for k, t in c.items()},
-                                    "len": pos})
+                                   {**_index(c, j), "len": pos}, ex)
+        for key in ("enc_out", "vision"):
+            if key in ex:
+                cache[key] = ex[key]
         return x
 
     def _unembed(self, x: torch.Tensor) -> torch.Tensor:
@@ -257,13 +455,15 @@ class LM(nn.Module):
         return dot_f32(x, w)
 
     @torch.no_grad()
-    def prefill(self, tokens, max_len: int) -> tuple[torch.Tensor, dict]:
-        """Run the whole prompt (B, S) and build a decode cache of length
-        ``max_len``. Returns (last-position logits (B, V) float32, cache)."""
-        tokens = self._tokens(tokens)
-        B, S = tokens.shape
+    def prefill(self, batch, max_len: int) -> tuple[torch.Tensor, dict]:
+        """Run the whole prompt (``batch``: tokens (B, S), or the batch
+        dict with ``frames`` / ``vision``) and build a decode cache of
+        length ``max_len``. Returns (last-position logits (B, V) float32,
+        cache)."""
+        batch = self._batch(batch)
+        B, S = batch["tokens"].shape
         cache = self.init_cache(B, max_len)
-        x = self._forward(tokens, cache, 0)
+        x = self._forward(batch, cache, 0)
         cache["len"] = S
         return self._unembed(x[:, -1:, :])[:, 0], cache
 
@@ -273,7 +473,7 @@ class LM(nn.Module):
         the same for every row. Returns (logits (B, V) float32, cache)."""
         tokens = self._tokens(tokens)
         pos = int(cache["len"])
-        x = self._forward(tokens[:, None], cache, pos)
+        x = self._forward({"tokens": tokens[:, None]}, cache, pos)
         new_cache = {**cache, "len": pos + 1}
         return self._unembed(x)[:, 0], new_cache
 
@@ -281,26 +481,30 @@ class LM(nn.Module):
     def decays(self) -> dict[str, bool]:
         """Which parameters take AdamW's decoupled weight decay. The
         reference decays leaves with ``ndim >= 2`` (adamw.py:136), and its
-        per-block leaves are stacked (n_blocks, ...): every block parameter
-        here, the 1-d norm gammas and ``router_bias`` included, is one
-        slice of such a leaf and decays. ``final_ln`` (D,) does not."""
-        return {name: p.dim() >= 2 or name.startswith("blocks.")
+        per-block leaves are stacked (n_blocks, ...): a block parameter
+        here is one slice of such a leaf, one dimension short. So the 1-d
+        norm gammas and ``router_bias`` decay, and a group's scalar gates,
+        stacked (n_groups,), do not; ``final_ln`` (D,) does not."""
+        return {name: p.dim() + name.startswith("blocks.") >= 2
                 for name, p in self.named_parameters()}
 
-    def hidden(self, tokens: torch.Tensor):
-        """(hidden states (B, S, D), summed aux loss) of ``tokens`` over the
-        whole sequence, without a cache (the reference's ``mode="full"``);
-        each block is recomputed in the backward when ``cfg.remat``."""
-        x = self.embed[tokens]
+    def hidden(self, batch):
+        """(hidden states (B, S, D), summed aux loss) of ``batch`` (tokens,
+        or the batch dict) over the whole sequence, without a cache (the
+        reference's ``mode="full"``); each block is recomputed in the
+        backward when ``cfg.remat``."""
+        return self._hidden(self._batch(batch))
+
+    def _hidden(self, batch: dict):
+        tokens = batch["tokens"]
+        ex = self._extras(batch)
         positions = torch.arange(tokens.shape[1], device=self.device)
+        x = self._embed(tokens, positions)
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
-        for blk in self.blocks:
-            if self.cfg.remat and torch.is_grad_enabled():
-                x, a = checkpoint(self._block, blk, x, positions,
-                                  use_reentrant=False)
-            else:
-                x, a = self._block(blk, x, positions)
-            aux = aux + a
+        for _, idx in self._decoder_segments():
+            for i in idx:
+                x, a = self._block_full(self.blocks[i], x, positions, ex)
+                aux = aux + a
         return x, aux
 
     def _chunked_ce(self, hidden: torch.Tensor, targets: torch.Tensor,
@@ -318,12 +522,13 @@ class LM(nn.Module):
             total = total + torch.sum(lse - gold)
         return total / max(B * S, 1)
 
-    def loss(self, tokens) -> tuple[torch.Tensor, dict]:
-        """Next-token loss of ``tokens`` (B, S): the model reads
-        ``tokens[:, :-1]`` and predicts ``tokens[:, 1:]``. Returns
-        ``(ce + 0.01 * aux, {"ce", "aux"})``, aux summed over the MoE
-        blocks (0 without any)."""
-        tokens = self._tokens(tokens)
-        hidden, aux = self.hidden(tokens[:, :-1])
+    def loss(self, batch) -> tuple[torch.Tensor, dict]:
+        """Next-token loss of ``batch`` (tokens (B, S), or the batch dict
+        with ``frames`` / ``vision``): the model reads ``tokens[:, :-1]``
+        and predicts ``tokens[:, 1:]``. Returns ``(ce + 0.01 * aux, {"ce",
+        "aux"})``, aux summed over the MoE blocks (0 without any)."""
+        batch = self._batch(batch)
+        tokens = batch["tokens"]
+        hidden, aux = self._hidden({**batch, "tokens": tokens[:, :-1]})
         ce = self._chunked_ce(hidden, tokens[:, 1:])
         return ce + 0.01 * aux, {"ce": ce, "aux": aux}

@@ -7,6 +7,10 @@ output. A short wave is filled with dummy slots; prompts are left-padded
 with token 0, which is then attended (not masked) and, in an MoE model,
 routed like any other token (it takes capacity slots), and every row takes
 positions 0..S-1 whatever its padding, as in the reference.
+``extra_inputs`` (the reference's: ``{"frames": (B, T, D)}`` for an
+encoder-decoder, ``{"vision": ...}`` for a VLM, with B the wave's slots)
+join every wave's prefill batch, the same for every wave; without them
+the model attends to the zeros of its cache's ``enc_out`` / ``vision``.
 """
 from __future__ import annotations
 
@@ -33,10 +37,12 @@ class Result:
 
 
 class Engine:
-    def __init__(self, model: LM, *, batch_slots: int, max_len: int):
+    def __init__(self, model: LM, *, batch_slots: int, max_len: int,
+                 extra_inputs: dict | None = None):
         self.model = model
         self.B = batch_slots
         self.max_len = max_len
+        self.extra = extra_inputs or {}
 
     def run_wave(self, requests: list[Request]) -> list[Result]:
         if not 0 < len(requests) <= self.B:
@@ -50,7 +56,8 @@ class Engine:
         prompts = np.zeros((self.B, plen), np.int32)
         for i, r in enumerate(reqs):
             prompts[i, plen - len(r.prompt):] = r.prompt  # left-pad
-        logits, cache = self.model.prefill(prompts, self.max_len)
+        batch = {"tokens": prompts, **self.extra}
+        logits, cache = self.model.prefill(batch, self.max_len)
         out = [[] for _ in range(self.B)]
         done = np.zeros((self.B,), bool)
         tok = torch.argmax(logits, dim=-1)

@@ -37,13 +37,14 @@ def bind(model: LM, params: dict) -> dict:
     return own
 
 
-def _grads(model: LM, tokens: torch.Tensor):
-    """(loss, metrics, {name: grad}) of one batch; the gradients are taken
-    off the parameters, so the returned dict holds the only reference. A
-    parameter the loss does not reach (``router_bias``: selection is not
-    differentiable) gets zeros, as ``jax.grad`` gives."""
+def _grads(model: LM, batch):
+    """(loss, metrics, {name: grad}) of one batch (the batch dict, or its
+    tokens); the gradients are taken off the parameters, so the returned
+    dict holds the only reference. A parameter the loss does not reach
+    (``router_bias``: selection is not differentiable) gets zeros, as
+    ``jax.grad`` gives."""
     model.zero_grad(set_to_none=True)
-    loss, metrics = model.loss(tokens)
+    loss, metrics = model.loss(batch)
     loss.backward()
     grads = {}
     for name, p in model.named_parameters():
@@ -52,22 +53,32 @@ def _grads(model: LM, tokens: torch.Tensor):
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
 
-def _accumulate(model: LM, tokens: torch.Tensor, n_micro: int,
+def _split(batch: dict, n_micro: int) -> list[dict]:
+    """``n_micro`` microbatches of ``batch``: every leaf split on axis 0
+    into equal consecutive row blocks, as the reference's ``split``."""
+    parts = {}
+    for k, x in batch.items():
+        b = x.shape[0]
+        if b % n_micro:
+            raise ValueError(f"batch of {b} rows ({k!r}) does not split into "
+                             f"{n_micro} microbatches")
+        parts[k] = x.reshape(n_micro, b // n_micro, *x.shape[1:])
+    return [{k: x[i] for k, x in parts.items()} for i in range(n_micro)]
+
+
+def _accumulate(model: LM, batch: dict, n_micro: int,
                 grad_dtype: torch.dtype | None):
     """(mean loss, mean metrics, grads) over ``n_micro`` microbatches of
-    ``tokens``' rows (see ``microbatch_grads``)."""
+    ``batch``'s rows (see ``microbatch_grads``)."""
     if n_micro == 1:
-        return _grads(model, tokens)
-    b = tokens.shape[0]
-    if b % n_micro:
-        raise ValueError(f"batch of {b} rows does not split into {n_micro} "
-                         f"microbatches")
+        return _grads(model, batch)
+    mbs = _split(batch, n_micro)
     acc_dt = grad_dtype or torch.float32
     acc = {n: torch.zeros(p.shape, dtype=acc_dt, device=p.device)
            for n, p in model.named_parameters()}
-    lsum = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    lsum = torch.zeros((), dtype=torch.float32, device=model.device)
     msum: dict = {}
-    for mb in tokens.reshape(n_micro, b // n_micro, *tokens.shape[1:]):
+    for mb in mbs:
         loss, metrics, grads = _grads(model, mb)
         for n, g in grads.items():
             acc[n].add_(g.to(acc_dt))
@@ -81,14 +92,14 @@ def _accumulate(model: LM, tokens: torch.Tensor, n_micro: int,
 
 def microbatch_grads(model: LM, params: dict, batch: dict, n_micro: int,
                      grad_dtype: torch.dtype | None = None):
-    """Mean loss + grads over ``n_micro`` microbatches of ``batch``'s rows.
+    """Mean loss + grads over ``n_micro`` microbatches of ``batch``'s rows
+    (the whole batch dict: ``tokens`` and any ``frames`` / ``vision``).
     ``n_micro == 1`` returns the loss's metrics and grads in the
     parameters' dtype (as ``jax.value_and_grad``); more microbatches
     accumulate in ``grad_dtype`` (default float32) and return float32 grads
     and, as the reference, no metrics."""
     bind(model, params)
-    loss, metrics, grads = _accumulate(model, batch["tokens"], n_micro,
-                                       grad_dtype)
+    loss, metrics, grads = _accumulate(model, batch, n_micro, grad_dtype)
     return loss, (metrics if n_micro == 1 else {}), grads
 
 
@@ -104,7 +115,7 @@ def make_train_fn(model: LM, opt_cfg: adamw.AdamWConfig, n_micro: int = 1,
 
     def train_step(params, opt_state, batch):
         bind(model, params)
-        loss, metrics, grads = _accumulate(model, batch["tokens"], n_micro,
+        loss, metrics, grads = _accumulate(model, batch, n_micro,
                                            grad_dtype)
         new_params, new_state, m = adamw.update(
             opt_cfg, grads, opt_state, params_of(model), decay=decay)

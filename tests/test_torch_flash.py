@@ -439,3 +439,30 @@ def test_cuda_flash_rejects_misaligned_bf16(bad):
     pout, plse = flash_cuda.flash_fwd_plain(q, k, v, sm_scale=0.2)
     torch.cuda.synchronize()
     _agree(out, pout, torch.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_flash_bidirectional_at_whisper_encoder_shape(dtype):
+    """K5 with causal=False at head dim 64 and Sq = Skv = 1500 (whisper-
+    base's encoder: 8 heads, 1500 frames; the frames' rows seen through
+    transpose(1, 2), as the model hands them over) against its plain
+    version: out and lse, every key attended."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run with -m gpu on the card)")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(1500)
+    q, k, v = (torch.from_numpy(
+        rng.normal(size=(2, 1500, 8, 64)).astype(np.float32) * sd).to(
+            dev, dtype).transpose(1, 2) for sd in (2.0, 1.0, 1.0))
+    kw = dict(sm_scale=64 ** -0.5, causal=False, window=None)
+    before = flash_cuda.LAUNCHES[flash_cuda.NAME]
+    out, lse = flash_cuda.flash_fwd(q, k, v, **kw)
+    pout, plse = flash_cuda.flash_fwd_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_cuda.LAUNCHES[flash_cuda.NAME] == before + 1
+    _agree(out, pout, dtype)
+    np.testing.assert_allclose(lse.cpu().numpy(), plse.cpu().numpy(),
+                               **F32_TOL)
+    causal, _ = flash_cuda.flash_fwd_plain(q, k, v, **dict(kw, causal=True))
+    assert float((causal.float() - pout.float()).abs().max()) > 0.1

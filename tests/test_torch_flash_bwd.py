@@ -437,3 +437,33 @@ def test_cuda_flash_bwd_rejects_misaligned_bf16():
     with pytest.raises(ValueError, match="16"):
         flash_cuda.flash_bwd(q, k, v, out, lse, do, sm_scale=0.2)
     assert flash_cuda.LAUNCHES == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_flash_bwd_bidirectional_at_whisper_encoder_shape(dtype):
+    """K6 and K7 with causal=False at head dim 64 and Sq = Skv = 1500
+    (whisper-base's encoder in training: 8 heads, 1500 frames) against the
+    plain backward, through the autograd Function's bindings."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run with -m gpu on the card)")
+    dev = torch.device("cuda")
+    q, k, v, do = (torch.from_numpy(a).to(dev, dtype)
+                   for a in _arrays(64, 2, 8, 8, 1500, 64))
+    q = q * 2
+    kw = dict(sm_scale=64 ** -0.5, causal=False, window=None)
+    out, lse = flash_cuda.flash_fwd(q, k, v, **kw)
+    before = dict(flash_cuda.LAUNCHES)
+    got = flash_cuda.flash_bwd(q, k, v, out, lse, do, **kw)
+    want = flash_cuda.flash_bwd_plain(q, k, v, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert flash_cuda.LAUNCHES[flash_cuda.DQ] == before[flash_cuda.DQ] + 1
+    assert flash_cuda.LAUNCHES[flash_cuda.DKV] == before[flash_cuda.DKV] + 1
+    for g, w in zip(got, want):
+        g, w = g.float().cpu().numpy(), w.float().cpu().numpy()
+        if dtype == torch.bfloat16:
+            np.testing.assert_allclose(g, w, atol=1e-4, rtol=2 ** -7)
+            assert float(np.mean(g != w)) <= 1e-2
+        else:
+            np.testing.assert_allclose(
+                g, w, atol=1e-4 * float(np.abs(w).max()), rtol=0)

@@ -198,12 +198,7 @@ def test_decode_updates_cache_in_place():
 
 
 def test_unported_paths_raise():
-    _, pcfg = _cfgs("float32")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        layers.attention({}, pcfg, torch.zeros(1, 2, pcfg.d_model),
-                         kv_src=torch.zeros(1, 3, pcfg.d_model))
-    for arch in ("zamba2-7b", "rwkv6-1.6b", "llama-3.2-vision-90b",
-                 "whisper-base"):
+    for arch in ("zamba2-7b", "rwkv6-1.6b"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             LM(registry.smoke_config(arch), device="cpu")
 
