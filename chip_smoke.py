@@ -34,8 +34,9 @@ the card:
   ``numpy``, which must reach the same placements, event log, counters,
   energy and carbon once it follows the cuda run's float64 near-tie
   breaks (each shown to be one); every policy mechanism must act, and the
-  cuda run once more with telemetry (after the timed runs) must record the
-  run's counters and export them to Prometheus text and an HTML report;
+  first two bursts on cuda once more, with telemetry and without (after
+  the timed runs), must give the same run, the recorded one its counters
+  exported to Prometheus text and an HTML report;
 * the Pareto frontier layer: ``placement_metrics`` for 64 pods under 64
   weight schemes of six criteria on the same fleet (one K4 launch; the
   frontier equal to numpy's), and ``scenario_metrics`` for three schemes
@@ -84,6 +85,19 @@ the card:
   blocks, 4 gated cross-attention blocks, gates 0.5; 1601 vision tokens)
   against the plain path, with other vision tokens at gates 0 (no move)
   and 0.5 (a move), and trained at 1 group on one 4096-token sequence;
+* ``[zamba2]`` and ``[rwkv]``, the state-space family at published widths:
+  zamba2-7b served at full depth (81 layers: 13 groups of 6 Mamba2 blocks
+  and the one shared attention block, then 3 Mamba2 blocks; 8 requests of
+  1024-2048 prompt tokens in 2 waves of 4, each wave's longest 2048, 32
+  new tokens; K5 at head dim 112, zero-padded to 128, in the shared block
+  of every group) against the plain path, then 9 layers in float32 with
+  a control at the padded head dim's softmax scale, and its O(1) decode
+  state against the chunked scan (controls: the SSM state zeroed, the conv
+  buffer not shifted); trained at full depth on one 4096-token sequence
+  (K5, K6, K7 in the shared block); rwkv6-1.6b served at full depth (24
+  layers; no kernel on its path), held in float32 at 2 layers against the
+  same weights on the CPU (controls: u_bonus on the value axis, the wkv
+  state zeroed) and trained at full depth on 8 x 512 tokens a step;
 * then the checkpoint / restart round trip of the fault Supervisor at the
   smoke size (head dim 8, padded).
 
@@ -105,15 +119,17 @@ multiply, K6/K7 with dk and dv from one head of each GQA group, ds
 without its dd term, dq without its diagonal key tile, or (bf16) ds
 rounded to bf16 before K6's product, p or ds rounded to bf16 before K7's;
 at D = 256 also K5 and K7 with only the first 128 columns of their
-outputs.
+outputs; at D = 112 (zamba2's, zero-padded to 128 by the wrapper) K5, K6
+and K7 with the padded D's softmax scale.
 
 Phases print one line each; the line before the last JSON line is the
 kernel table (one row per kernel, and one more per flash kernel for its
 D = 256 instantiation, named ``<kernel>_d256``, whose launches are the
 gemma-7b paths', one for its D = 64 instantiation, ``<kernel>_d64``,
-whose launches are the whisper-base paths', and one for mixtral-8x7b's
+whose launches are the whisper-base paths', one for mixtral-8x7b's
 windowed shapes, ``<kernel>_w4096``, whose launches are the mixtral
-paths'); the last line
+paths', and one for zamba2-7b's head dim 112 behind the wrapper's pad,
+``<kernel>_d112``, whose launches are the zamba2 paths'); the last line
 is ``{"ok": true, "device": {...}}``. Any
 failure exits non-zero before it. Without a CUDA device, or outside a
 checkout, it exits non-zero at once.
@@ -132,6 +148,11 @@ runs the build, the windowed K5/K6/K7 cases (mixtral's shapes, rows
 
 runs the build, the bidirectional K5/K6/K7 cases (whisper's shapes, rows
 ``<kernel>_d64``) and the ``[whisper]`` and ``[vision]`` phases alone.
+
+    python3 chip_smoke.py --ssm-only
+
+runs the build, the D = 112 K5/K6/K7 cases (zamba2's shapes, rows
+``<kernel>_d112``) and the ``[zamba2]`` and ``[rwkv]`` phases alone.
 """
 from __future__ import annotations
 
@@ -152,6 +173,10 @@ SRC = ROOT / "src"
 N_NODES = 15000          # GKE's documented per-cluster node limit
 BURST = 512
 N_BURSTS = 8
+# [policy]'s telemetry rerun takes the first TELEMETRY_BURSTS bursts (every
+# policy mechanism acts within them), beside a cuda run of the same bursts
+# without telemetry, which it must equal
+TELEMETRY_BURSTS = 2
 GRID_S, GRID_P = 64, 64
 TOL = 1e-5               # float32 kernels vs float32 plain / float64 numpy
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -188,6 +213,14 @@ SERVE_PROMPT = (1024, 2048)          # prompt lengths, inclusive
 # limit cannot tell a kernel that rounds p to bf16 (the same flips, more
 # often); the float32 comparison below does.
 LOGIT_TOL = 0.2
+# A model whose bf16 logits carry a larger spread than llama3-8b's is held
+# to the same ratio of its own: the limit is SPREAD_RATIO times the plain
+# path's distance from the same model with float64 attention, measured in
+# the same run (llama3-8b: 0.2 against 0.089), and never below LOGIT_TOL.
+# zamba2-7b takes it: 81 bf16 layers whose gated Mamba2 blocks grow an
+# attention output's one-ulp flips (kernel vs plain 0.2375 on an H100,
+# PERF.md); its float32 run holds K5 at 1e-3.
+SPREAD_RATIO = 2.25
 # The same weights upcast to float32, teacher-forced on the bf16 run's
 # tokens: K5's float32 instantiation against its plain version, within
 # F32_LOGIT_TOL; the plain version with p rounded to bf16 before P.V (the
@@ -259,7 +292,7 @@ GEMMA_ARCH = "gemma-7b"
 # flips compound over 32 layers and, after step 1, through AdamW's
 # sign-like first updates. The limits are ~10x the spread between the
 # plain path and float64 attention (6.6e-6, 1.5e-4, 1.5e-3 on an H100;
-# PERF.md), which the script prints beside them.
+# PERF.md), which the script prints beside them for llama3-8b.
 TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL, TRAIN_LOSSES_RTOL = 1e-4, 2e-3, 1e-2
 # float32 at full width, F32_TRAIN_LAYERS layers (gemma-7b:
 # GEMMA_F32_LAYERS; its 256000 x 3072 float32 embedding and its moments
@@ -342,6 +375,51 @@ VISION_TRAIN_LAYERS, VISION_SEQ = 5, 4096
 VISION_GATE = 0.5
 CAUSAL_MOVE, FRAMES_MOVE, VISION_MOVE = 0.1, 1e-2, 1e-3
 GATE_CLOSED_TOL = 1e-6
+# The state-space slice. zamba2-7b's shared attention block at head dim
+# ZAMBA_D (3584 / 32), which ops.flash_attention zero-pads to the D = 128
+# instantiation: K5 at the serving shape (ZAMBA_K5: B, H = Hkv, S), K6 and
+# K7 at the training shape (ZAMBA_BWD), each timed bare (on inputs padded
+# beforehand), through the wrapper (the pad, the kernel and the slice;
+# under autograd for K6 + K7), beside its plain version and SDPA at D = 112;
+# rows ``<kernel>_d112``. A control with the padded D's softmax scale
+# (128**-0.5 for 112**-0.5) must fail. Served at full depth (81 layers: 13
+# groups of 6 Mamba2 blocks and the shared block, then a 3-block tail;
+# ~6.75e9 parameters) with ZAMBA_NEW new tokens and prompts of
+# ZAMBA_PROMPT tokens, each wave's longest exactly ZAMBA_PROMPT[1] (a
+# prefill longer than the 256-token SSD chunk must be a multiple of it);
+# in float32 at ZAMBA_F32 (1 group + a 3-block tail) against the plain
+# path with the scale control; decode against prefill in float32 at that
+# depth (ZAMBA_DECODE: B, S tokens then one step against S + 1) within
+# SSM_DECODE_TOL, and controls (the SSM state zeroed, the conv buffer not
+# shifted) beyond it; trained at full depth on one 4096-token sequence.
+# rwkv6-1.6b (24 layers, d 2048, 32 heads of 64; no kernel) served the
+# same way, then in float32 at RWKV_F32_LAYERS: the card's prefill and
+# decode logits against the same weights on the CPU (RWKV_CARD_TOL),
+# decode against prefill (SSM_DECODE_TOL) with controls (the wkv state
+# zeroed, u_bonus on the value axis); trained at full depth on
+# RWKV_TRAIN, step 1 held card against CPU at RWKV_F32_LAYERS in float32
+# on RWKV_CPU_STEP's batch (RWKV_CARD_TOL relative). The constant-
+# initialised leaves (a_log, d_skip, dt_bias, u_bonus, w_bias, the mixes)
+# are drawn from SSM_NOISE's ranges (seeded), as the CPU tests draw them.
+SSM_FLAG = "--ssm-only"
+ZAMBA_ARCH, RWKV_ARCH = "zamba2-7b", "rwkv6-1.6b"
+ZAMBA_D = 112
+ZAMBA_K5 = (4, 32, 2048)
+ZAMBA_BWD = (1, 32, 4095)
+ZAMBA_PROMPT, ZAMBA_NEW = (1024, 2048), 32
+ZAMBA_F32 = dict(n_layers=9)
+ZAMBA_DECODE = (2, 255)
+SSM_DECODE_TOL = 1e-3
+RWKV_PROMPT, RWKV_NEW = (1024, 2048), 32
+RWKV_F32_LAYERS, RWKV_CARD_TOL = 2, 1e-4
+RWKV_CHECK_S = 64
+RWKV_TRAIN = dict(seq_len=512, batch=8)
+RWKV_CPU_STEP = dict(batch=2, seq_len=128)
+SSM_NOISE = {"a_log": (-1.0, 0.5), "d_skip": (0.5, 1.5),
+             "dt_bias": (-1.0, 0.5), "u_bonus": (-0.5, 0.5),
+             "w_bias": (-7.0, -3.0), "mix_r": (0.1, 0.9),
+             "mix_k": (0.1, 0.9), "mix_v": (0.1, 0.9), "mix_w": (0.1, 0.9),
+             "cmix_k": (0.1, 0.9)}
 
 
 class SmokeFailure(AssertionError):
@@ -996,10 +1074,10 @@ def attention_fault(q, k, v, *, sm_scale, causal=True, window=None,
 def row_name(name, d, window=None):
     """The kernel table's row of kernel ``name`` at head dim ``d``: the
     D = 256 and D = 64 instantiations have rows of their own, and so have
-    mixtral's windowed shapes."""
+    mixtral's windowed shapes and zamba2's D = 112 (padded to 128)."""
     if window == WINDOW_ROW:
         return f"{name}_w{WINDOW_ROW}"
-    return f"{name}_d{d}" if d in (NARROW_D, WIDE_D) else name
+    return f"{name}_d{d}" if d in (NARROW_D, WIDE_D, ZAMBA_D) else name
 
 
 def k5_agreement(out, lse, pout, plse):
@@ -1461,6 +1539,182 @@ def bwd_kernel_phase(dev, cases=BWD_CASES, small=True):
           shape="B={},H={},Hkv={},S={}".format(*K5_SMALL),
           d256_planted_faults_rejected="first_head,half_d",
           d256_fault_dtypes=",".join(small_faults))
+    return table
+
+
+# --- phase 3d: K5, K6 and K7 at head dim 112, behind the wrapper's pad -----------
+def pad_scale_fwd(q, k, v, **kw):
+    """K5's plain version with the softmax scale of the padded head dim
+    (what a wrapper that took the scale after padding would pass): the
+    D = 112 control."""
+    from repro_torch.kernels import flash_cuda as fc
+    return fc.flash_fwd_plain(q, k, v, **dict(kw,
+                                             sm_scale=q.shape[-1] ** -0.5))
+
+
+def padded_kernel_phase(dev):
+    """K5 (zamba2's serving shape) and K6 / K7 (its training shape) at
+    head dim ZAMBA_D, which no kernel is built for: through
+    ``ops.flash_attention`` (zero-padded to 128, the output sliced back;
+    under autograd for K6 and K7) and bare on inputs padded beforehand,
+    each against the plain version at D = 112, with a control at the
+    padded D's scale; timed beside SDPA at D = 112. Returns the
+    ``<kernel>_d112`` rows."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_cuda as fc
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    d, dp = ZAMBA_D, ops.padded_head_dim(ZAMBA_D)
+    scale = d ** -0.5
+    kw = dict(sm_scale=scale, causal=True, window=None)
+    table = {}
+
+    def padded(*ts):
+        return [F.pad(t, (0, dp - d)).contiguous() for t in ts]
+
+    # K5 at the serving shape
+    b, h, s = ZAMBA_K5
+    q, k, v = _attention_case(dev, gen, b, h, h, s, d, torch.bfloat16)
+    pout, plse = fc.flash_fwd_plain(q, k, v, **kw)
+    wrapped = ops.flash_attention(q, k, v, causal=True)
+    qp, kp, vp = padded(q, k, v)
+    out, lse = fc.flash_fwd(qp, kp, vp, **kw)
+    torch.cuda.synchronize()
+    ok, err, err_lse, share = k5_agreement(out[..., :d].contiguous(), lse,
+                                           pout, plse)
+    check(ok, f"K5 d{d} (bare, padded): out err {err} (share {share}), "
+          f"lse err {err_lse}")
+    w_ok, w_err, w_share = agreement(wrapped, pout)
+    check(w_ok, f"K5 d{d} through the wrapper: err {w_err} (share "
+          f"{w_share})")
+    check(bool((out[..., d:] == 0).all()), f"K5 d{d}: the padded columns "
+          f"of out are not zero")
+    c_ok, c_err, c_lse, _ = k5_agreement(
+        *[t[..., :d].contiguous() if t.dim() == 4 else t
+          for t in pad_scale_fwd(qp, kp, vp, **kw)], pout, plse)
+    check(not c_ok, f"K5 d{d}: the check passed the padded-scale control")
+    ms = cuda_ms(lambda: fc.flash_fwd(qp, kp, vp, **kw), 10)
+    wrapper_ms = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=True),
+                         10)
+    plain_ms = cuda_ms(lambda: fc.flash_fwd_plain(q, k, v, **kw), 3,
+                       warmup=1)
+    lib = lambda: F.scaled_dot_product_attention(   # noqa: E731
+        q, k, v, is_causal=True, scale=scale)
+    lib_err = float((lib().float() - pout.float()).abs().max())
+    library_ms = cuda_ms(lib, 10)
+    backend, lib_kernel = sdpa_backend(lib)
+    pairs = attention_pairs(s, None)
+    # q, k, v and out at the model's D, lse float32
+    nbytes = 4 * q.numel() * q.element_size() + lse.numel() * 4
+    flops = 4 * d * b * h * pairs
+    b_ms, b_by = bound(nbytes, flops, BF16_FLOPS)
+    phase("kernels", kernel=fc.NAME, case="zamba2", B=b, H=h, Hkv=h, S=s,
+          D=d, padded_D=dp, dtype="bfloat16", causal=True,
+          max_abs_err=f"{err:.3e}", lse_max_abs_err=f"{err_lse:.3e}",
+          differing_share=f"{share:.2e}", wrapper_max_abs_err=f"{w_err:.3e}",
+          control_pad_scale_err=f"{c_err:.3e}/{c_lse:.3e}",
+          library_max_abs_err=f"{lib_err:.3e}", ms=f"{ms:.6f}",
+          wrapper_ms=f"{wrapper_ms:.6f}", plain_ms=f"{plain_ms:.6f}",
+          library_ms=f"{library_ms:.6f}", library_backend=backend,
+          library_kernel=lib_kernel, bound_ms=f"{b_ms:.6f}", bound_by=b_by,
+          tflops=f"{flops / ms / 1e9:.2f}",
+          padded_share_of_work=f"{1 - d / dp:.3f}")
+    rname = row_name(fc.NAME, d)
+    table[rname] = dict(
+        name=rname, route="cuda", source=f"{CSRC}/flash_attention.cu",
+        replaces=fc.REPLACES[fc.NAME], launches=0,
+        max_abs_err=max(err, err_lse, w_err), ms=ms, wrapper_ms=wrapper_ms,
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=library_ms, library_backend=backend)
+    del q, k, v, qp, kp, vp, out, lse, pout, plse, wrapped
+    torch.cuda.empty_cache()
+
+    # K6 and K7 at the training shape
+    b, h, s = ZAMBA_BWD
+    q, k, v = _attention_case(dev, gen, b, h, h, s, d, torch.bfloat16)
+    do = torch.randn(q.shape, generator=gen, device=dev).to(torch.bfloat16)
+    qp, kp, vp, dop = padded(q, k, v, do)
+    out, lse = fc.flash_fwd(qp, kp, vp, **kw)
+    dd = torch.sum(dop.float() * out.float(), dim=-1)
+    # the plain backward at D = 112 from K5's out and lse, as the kernels
+    # (and, through autograd, the wrapper) take them
+    pout = out[..., :d].contiguous()
+    want = fc.flash_bwd_plain(q, k, v, pout, lse, do, **kw)
+    bare = (fc.flash_bwd_dq(qp, kp, vp, dop, lse, dd, **kw),
+            *fc.flash_bwd_dkv(qp, kp, vp, dop, lse, dd, **kw))
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    o = ops.flash_attention(*leaves, causal=True)
+    wrap = lambda: torch.autograd.grad(         # noqa: E731
+        o, leaves, do, retain_graph=True)
+    through = wrap()
+    torch.cuda.synchronize()
+    names = ("dq", "dk", "dv")
+    res = {}
+    for n, g_bare, g_wrap, w in zip(names, bare, through, want):
+        check(bool((g_bare[..., d:] == 0).all()), f"K6/K7 d{d}: padded "
+              f"columns of {n} are not zero")
+        ok, err, share = grad_agreement(g_bare[..., :d].contiguous(), w)
+        check(ok, f"K6/K7 d{d} {n} (bare, padded): err {err} (share "
+              f"{share})")
+        w_ok, w_err, _ = grad_agreement(g_wrap, w)
+        check(w_ok, f"K6/K7 d{d} {n} through the wrapper: err {w_err}")
+        res[n] = (err, share, w_err)
+    c_res = [grad_agreement(g, w) for g, w in zip(fc.flash_bwd_plain(
+        q, k, v, pout, lse, do, **dict(kw, sm_scale=dp ** -0.5)), want)]
+    check(not all(r[0] for r in c_res), f"K6/K7 d{d}: the check passed "
+          f"the padded-scale control")
+    dq_ms = cuda_ms(lambda: fc.flash_bwd_dq(qp, kp, vp, dop, lse, dd, **kw),
+                    5)
+    dkv_ms = cuda_ms(lambda: fc.flash_bwd_dkv(qp, kp, vp, dop, lse, dd,
+                                              **kw), 5)
+    wrapper_ms = cuda_ms(wrap, 5)
+    plain_ms = cuda_ms(lambda: fc.flash_bwd_plain(q, k, v, pout, lse, do,
+                                                  **kw), 3, warmup=1)
+    sl = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    so = F.scaled_dot_product_attention(*sl, is_causal=True, scale=scale)
+    lib = lambda: torch.autograd.grad(          # noqa: E731
+        so, sl, do, retain_graph=True)
+    lib_err = max(float((x.float() - w.float()).abs().max())
+                  for x, w in zip(lib(), want))
+    library_ms = cuda_ms(lib, 5)
+    backend, lib_kernel = sdpa_backend(lib)
+    pairs = attention_pairs(s, None)
+    elt = q.element_size()
+    inputs = 4 * q.numel() * elt + 2 * lse.numel() * 4
+    rows = {fc.DQ: (dq_ms, bound(inputs + q.numel() * elt,
+                                 6 * d * b * h * pairs, BF16_FLOPS),
+                    ("dq",)),
+            fc.DKV: (dkv_ms, bound(inputs + 2 * q.numel() * elt,
+                                   8 * d * b * h * pairs, BF16_FLOPS),
+                     ("dk", "dv"))}
+    for name, (ms, (b_ms, b_by), outs) in rows.items():
+        err = max(max(res[n][0], res[n][2]) for n in outs)
+        phase("kernels", kernel=name, case="zamba2_train", B=b, H=h, Hkv=h,
+              S=s, D=d, padded_D=dp, dtype="bfloat16", causal=True,
+              **{f"{n}_max_abs_err": f"{res[n][0]:.3e}" for n in outs},
+              **{f"{n}_differing_share": f"{res[n][1]:.2e}" for n in outs},
+              **{f"{n}_wrapper_max_abs_err": f"{res[n][2]:.3e}"
+                 for n in outs},
+              control_pad_scale_err="/".join(f"{r[1]:.3e}" for r in c_res),
+              ms=f"{ms:.6f}", wrapper_ms_dq_dk_dv=f"{wrapper_ms:.6f}",
+              plain_ms_dq_dk_dv=f"{plain_ms:.6f}",
+              library_ms_dq_dk_dv=f"{library_ms:.6f}",
+              library_max_abs_err=f"{lib_err:.3e}", library_backend=backend,
+              library_kernel=lib_kernel, bound_ms=f"{b_ms:.6f}",
+              bound_by=b_by)
+        rname = row_name(name, d)
+        table[rname] = dict(
+            name=rname, route="cuda",
+            source=f"{CSRC}/flash_attention_bwd.cu",
+            replaces=fc.REPLACES[name], launches=0, max_abs_err=err, ms=ms,
+            wrapper_ms=wrapper_ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=library_ms, library_backend=backend)
+    del q, k, v, do, qp, kp, vp, dop, out, lse, dd, bare, through, want
+    del pout, o, leaves, so, sl
+    torch.cuda.empty_cache()
     return table
 
 
@@ -2039,10 +2293,10 @@ def policy_phase(dev, smi):
     ``run_scenario(batch=True)`` on cuda, then on numpy following the cuda
     run's near-tie breaks (``parity.make_policy_scheduler``): the two runs
     must then end equal — placements, start times, event log, counters,
-    energy and carbon — then, after both timed runs, on cuda again with
-    telemetry recording. K3 runs at C = 6 with an exclude mask on every
-    call: once a round and once a wake scoring. Returns the first cuda
-    run's launch counts."""
+    energy and carbon — then, after both timed runs, the first
+    TELEMETRY_BURSTS bursts on cuda without and with telemetry recording.
+    K3 runs at C = 6 with an exclude mask on every call: once a round and
+    once a wake scoring. Returns the first cuda run's launch counts."""
     import torch
 
     from repro_torch.kernels import topsis_cuda as tc
@@ -2095,8 +2349,8 @@ def policy_checks(smi, tel, res_cuda, cu, launches, peak, res_np, nps):
         check(abs(e_cu[key] - want) <= 1e-9 * abs(want),
               f"{key}: {e_cu[key]} vs {want}")
 
-    check(tel["placements"] == placements(res_cuda)
-          and tel["events"] == res_cuda.events,
+    check(tel["placements"] == tel["bare_placements"]
+          and tel["events"] == tel["bare_events"],
           "recording telemetry changed the cuda run")
     fired = dict(counters(res_cuda), deferred_pods=tel["deferred_pods"],
                  drained_tasks=tel["drained_tasks"])
@@ -2128,6 +2382,7 @@ def policy_checks(smi, tel, res_cuda, cu, launches, peak, res_np, nps):
     phase("policy", wall_s_cuda=f"{cu['wall']:.3f}",
           wall_s_numpy=f"{nps['wall']:.3f}",
           wall_s_cuda_telemetry=f"{tel['wall_s']:.3f}",
+          telemetry_bursts=TELEMETRY_BURSTS,
           replay_check_s=f"{nps['check_s']:.3f}",
           round_s_median_cuda=f"{med(rounds):.6f}",
           round_s_median_numpy=f"{med(np_rounds):.6f}",
@@ -2163,13 +2418,14 @@ def policy_checks(smi, tel, res_cuda, cu, launches, peak, res_np, nps):
 
 
 def policy_telemetry_run(dev):
-    """The [policy] cuda run once more with telemetry recording: the
-    registry's ``policy_preemptions`` and ``policy_node_sleeps`` must equal
-    the run's counters, its Prometheus text must parse back to every
-    counter and gauge, and ``html_report`` must render the run. Returns
-    the placements and the event log (``policy_checks`` holds them to the
-    first cuda run), what the policies did by the registry, and the run's
-    wall time."""
+    """The [policy] cuda run over its first TELEMETRY_BURSTS bursts, once
+    without and once with telemetry recording: the registry's
+    ``policy_preemptions`` and ``policy_node_sleeps`` must equal the run's
+    counters, its Prometheus text must parse back to every counter and
+    gauge, and ``html_report`` must render the run. Returns the two runs'
+    placements and event logs (``policy_checks`` holds them equal),
+    what the policies did by the registry, and the recorded run's wall
+    time."""
     import torch
 
     from repro_torch.cluster.parity import policy_knobs
@@ -2178,12 +2434,16 @@ def policy_telemetry_run(dev):
     from repro_torch.telemetry import (html_report, parse_prometheus,
                                        prometheus_text)
     carbon, autoscale = policy_knobs()
+
+    def run():
+        return run_scenario(policy_arrivals(TELEMETRY_BURSTS), POLICY_SCHEME,
+                            cluster_factory=scenario_fleet, batch=True,
+                            batch_backend="cuda", carbon=carbon,
+                            autoscale=autoscale, device=dev)
+    bare = run()
     with telemetry.enabled() as tel:
         t0 = time.perf_counter()
-        res = run_scenario(policy_arrivals(), POLICY_SCHEME,
-                           cluster_factory=scenario_fleet, batch=True,
-                           batch_backend="cuda", carbon=carbon,
-                           autoscale=autoscale, device=dev)
+        res = run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     check(tel.counter_value("policy_preemptions", policy="CarbonScheduling")
@@ -2202,6 +2462,7 @@ def policy_telemetry_run(dev):
     check(html.startswith("<html>") and html.endswith("</html>")
           and "<svg" in html, "html_report did not render the run's charts")
     return dict(placements=placements(res), events=res.events, wall_s=wall,
+                bare_placements=placements(bare), bare_events=bare.events,
                 deferred_pods=tel.counter_value("policy_deferred_pods",
                                                 policy="CarbonScheduling"),
                 drained_tasks=tel.counter_value("policy_drained_tasks",
@@ -2562,9 +2823,15 @@ def no_window_fwd(q, k, v, **kw):
 def flash_layers(model):
     """The blocks of ``model`` whose prefill runs K5: its GQA
     self-attention blocks (an encoder's included; a VLM group's dense
-    blocks), not MLA's, and no cross-attention."""
-    return sum(len(b.selfs) if b.kind == "vlm_group"
-               else not b.kind.startswith("mla") for b in model.blocks)
+    blocks; zamba2's shared block once a group), not MLA's, no
+    cross-attention, no Mamba2 or RWKV block."""
+    def runs(b):
+        if b.kind == "vlm_group":
+            return len(b.selfs)
+        if b.kind in ("mamba_group", "mamba", "rwkv"):
+            return int(b.kind == "mamba_group")
+        return int(not b.kind.startswith("mla"))
+    return sum(runs(b) for b in model.blocks)
 
 
 def causal_fwd(q, k, v, **kw):
@@ -2595,7 +2862,8 @@ def cross_extra(cfg, b, seed):
 def serve_phase(dev, arch=SERVE_ARCH, *, layers=None, prompt=SERVE_PROMPT,
                 new=SERVE_NEW, max_len=None, f32=None,
                 controls=(("p_bf16", attention_fault, None, F32_LOGIT_TOL),),
-                prepare=None, checks=None, tag="serve"):
+                prepare=None, checks=None, tag="serve", lengths=None,
+                profile=("prefill", "decode"), spread=False):
     """``arch`` at full width (at ``layers`` layers; default all), served
     through ``Engine`` (with ``cross_extra`` inputs where the arch
     cross-attends) with K5 on every GQA layer's prefill, against the
@@ -2606,9 +2874,14 @@ def serve_phase(dev, arch=SERVE_ARCH, *, layers=None, prompt=SERVE_PROMPT,
     dict builds a fresh one with those config overrides, False skips)
     against the plain path, with ``controls``: (name, a K5 binding, the
     inputs of its prefills (None: the run's), a limit it must lie beyond).
-    ``prepare(model)`` runs on each model built. An MLA model (no K5
-    launch) is checked for finite logits only. Returns its launch
-    counts."""
+    ``prepare(model)`` runs on each model built. An MLA or RWKV model (no
+    K5 launch) is checked for finite logits only. ``lengths`` gives the
+    prompt lengths in place of draws from ``prompt``; without
+    ``profile`` names what torch.profiler records (the last wave's
+    prefill, PROFILE_STEPS decode steps after it); with
+    ``spread`` the bf16 limit is SPREAD_RATIO times the plain path's
+    distance from float64 attention (at least LOGIT_TOL). Returns its
+    launch counts."""
     import dataclasses
 
     import numpy as np
@@ -2632,7 +2905,8 @@ def serve_phase(dev, arch=SERVE_ARCH, *, layers=None, prompt=SERVE_PROMPT,
     n_params = sum(p.numel() for p in model.parameters())
     n_gqa = flash_layers(model)
     rng = np.random.default_rng(0)
-    lengths = rng.integers(prompt[0], prompt[1] + 1, SERVE_REQUESTS)
+    drawn = rng.integers(prompt[0], prompt[1] + 1, SERVE_REQUESTS)
+    lengths = drawn if lengths is None else np.asarray(lengths)
     reqs = [Request(i, rng.integers(2, cfg.vocab, n).astype(np.int32),
                     max_new_tokens=new, eos_id=-1)
             for i, n in enumerate(lengths)]
@@ -2690,19 +2964,25 @@ def serve_phase(dev, arch=SERVE_ARCH, *, layers=None, prompt=SERVE_PROMPT,
             tok = torch.argmax(logits, dim=-1)
 
     top = []
-    split_pre, split_dec = device_ms(prefill, top), device_ms(decode)
+    if "prefill" in profile:
+        split_pre = device_ms(prefill, top)
+    else:
+        prefill()
+        split_pre = "not profiled"
+    split_dec = (device_ms(decode) if "decode" in profile
+                 else "not profiled")
     del state
     if top:
         phase(tag, arch=arch, profile="prefill_longest_kernels_ms",
               kernels=json.dumps(top, separators=(",", ":")))
     for what, split, wall_ms in (
             ("prefill", split_pre, 1e3 * prefill_s[-1]),
-            ("decode_step", split_dec and {k: v / PROFILE_STEPS for k, v in
-                                           split_dec.items()},
+            ("decode_step", split_dec if not isinstance(split_dec, dict)
+             else {k: v / PROFILE_STEPS for k, v in split_dec.items()},
              1e3 * float(np.median(decode_s)))):
-        if split is None:
+        if split is None or isinstance(split, str):
             phase(tag, arch=arch, profile=what,
-                  device_time="not recorded")
+                  device_time=split or "not recorded")
             continue
         busy = sum(split.values())
         phase(tag, arch=arch, profile=what, wall_ms=f"{wall_ms:.3f}",
@@ -2747,11 +3027,27 @@ def serve_phase(dev, arch=SERVE_ARCH, *, layers=None, prompt=SERVE_PROMPT,
     check(flash_cuda.LAUNCHES[flash_cuda.NAME] == before,
           "a comparison run launched K5")
     follow_check(plain_routes, tag, arch, "plain_follows_kernel")
-    stats = compare_runs(kernel_logits, plain, LOGIT_TOL)
+    tol = LOGIT_TOL
+    if spread:
+        # the plain path's own spread: the same calls with float64
+        # attention rounded back
+        f64, _ = replay(model, rec.calls, max_len, _plain64_fwd)
+        spread_err = max_diff(plain, f64)
+        del f64
+        tol = max(LOGIT_TOL, SPREAD_RATIO * spread_err)
+        by_kind = {k: max((float((g - w).abs().max()) for g, w, c in zip(
+            kernel_logits, plain, rec.calls) if c["kind"] == k),
+            default=0.0) for k in ("prefill", "decode")}
+        phase(tag, arch=arch, check="spread",
+              plain_vs_float64_attention=f"{spread_err:.4e}",
+              spread_ratio=SPREAD_RATIO, logit_tol=f"{tol:.4e}",
+              **{f"{k}_max_logit_err_vs_plain": f"{v:.4e}"
+                 for k, v in by_kind.items()})
+    stats = compare_runs(kernel_logits, plain, tol)
     phase(tag, arch=arch, compared_rows=stats["rows"],
           max_abs_logit=f"{max(float(x.abs().max()) for x in plain):.4f}",
           max_logit_err_vs_plain=f"{stats['max_err']:.4e}",
-          logit_tol=LOGIT_TOL, near_ties=stats["near_ties"],
+          logit_tol=f"{tol:.4g}", near_ties=stats["near_ties"],
           max_near_tie_gap=f"{stats['max_tie_gap']:.4e}")
     del plain, kernel_logits, plain_routes
     if checks is not None:
@@ -2885,14 +3181,17 @@ def train_inputs(cfg, batch):
 
 
 def full_depth_run(tag, route, profile=False, arch=SERVE_ARCH, argv=None,
-                   line="train", lead=None, prepare=None):
+                   line="train", lead=None, prepare=None, trace=True,
+                   halves="grads"):
     """TRAIN_STEPS steps of launch.train's code path (``build`` then
     ``train_steps``) for ``arch`` (with ``argv``, default
     ``train_argv(arch)``; an arch that cross-attends with
     ``train_inputs``) with the flash bindings routed by ``route``;
     ``prepare(model)`` runs on the model built. Returns the launch counts
     of each step, the peak device memory and, with ``profile``, the time
-    split of one more step. An MoE model's routing over the steps is
+    split of one more step (by torch.profiler, unless ``trace`` is off) and
+    its two halves on the host clock (``halves="update"``: the AdamW update
+    alone, on zero gradients, without the gradients' pass). An MoE model's routing over the steps is
     recorded (``routes``), following ``lead``'s (another run's
     ``routes``) where given."""
     import torch
@@ -2942,33 +3241,42 @@ def full_depth_run(tag, route, profile=False, arch=SERVE_ARCH, argv=None,
         out["peak"] = torch.cuda.max_memory_allocated()
         if profile:
             n = TRAIN_STEPS
-            t0 = time.perf_counter()
-            out["split"] = device_ms(lambda: lt.train_steps(r, n, n + 1))
-            out["profiled_wall_s"] = time.perf_counter() - t0
-            # the same step's two halves on the host clock, unprofiled
-            batch = r.data_fn(n + 1)
+            out["split"] = "not profiled"
+            if trace:
+                t0 = time.perf_counter()
+                out["split"] = device_ms(lambda: lt.train_steps(r, n, n + 1))
+                out["profiled_wall_s"] = time.perf_counter() - t0
+            # the step's two halves on the host clock, unprofiled
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            _, _, grads = tl.microbatch_grads(r.model, r.state["params"],
-                                              batch, 1)
+            if halves == "grads":
+                _, _, grads = tl.microbatch_grads(
+                    r.model, r.state["params"], r.data_fn(n + 1), 1)
+            else:
+                grads = {k: torch.zeros_like(p)
+                         for k, p in r.state["params"].items()}
             torch.cuda.synchronize()
             t1 = time.perf_counter()
             adamw.update(r.ocfg, grads, r.state["opt_state"],
                          r.state["params"], decay=r.model.decays())
             torch.cuda.synchronize()
-            out["grads_s"], out["update_s"] = t1 - t0, time.perf_counter() - t1
+            out["update_s"] = time.perf_counter() - t1
+            out["grads_s"] = (f"{t1 - t0:.3f}" if halves == "grads"
+                              else "not measured")
         del r
     _free()
     return out
 
 
 def train_phase(dev, arch=SERVE_ARCH, layers=None, seq_len=4096,
-                tag="train", batch=1, prepare=None):
+                tag="train", batch=1, prepare=None, trace=True, spread=True):
     """``arch`` training at full width and depth (or ``layers`` layers) on
     ``batch`` ``seq_len``-token sequences a step, kernel run against the
     plain run (an MoE model's following the kernel run's routing);
-    ``prepare(model)`` runs on each model built. Returns the kernel run's
-    launch counts."""
+    ``prepare(model)`` runs on each model built; without ``trace`` no
+    step is profiled; with ``spread`` the same steps with float64
+    attention give the plain path's own spread (printed beside, not
+    held). Returns the kernel run's launch counts."""
     import numpy as np
 
     from repro_torch.configs import registry
@@ -2979,7 +3287,7 @@ def train_phase(dev, arch=SERVE_ARCH, layers=None, seq_len=4096,
     argv = train_argv(arch, layers, seq_len, batch)
     t0 = time.perf_counter()
     kern = full_depth_run("kernel", {}, profile=True, arch=arch, argv=argv,
-                          line=tag, prepare=prepare)
+                          line=tag, prepare=prepare, trace=trace)
     n_flash = kern["flash_layers"]
     for h in kern["hist"]:
         check(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"]),
@@ -3002,28 +3310,29 @@ def train_phase(dev, arch=SERVE_ARCH, layers=None, seq_len=4096,
     follow_check(plain["routes"], tag, arch, "plain_follows_kernel", held=1)
     check(sum(plain["launches"].values()) == 0, "the plain run launched a "
           "flash kernel")
-    spread = full_depth_run("plain_float64", dict(flash_fwd=_plain64_fwd,
-                                                  flash_bwd=_plain64_bwd),
-                            arch=arch, argv=argv, line=tag,
-                            lead=kern["routes"], prepare=prepare)
-    follow_check(spread["routes"], tag, arch, "float64_follows_kernel",
-                 held=1)
-    k1, p1, s1 = kern["hist"][0], plain["hist"][0], spread["hist"][0]
-    cmp = dict(
-        step1_loss_rel=_rel(k1["loss"], p1["loss"]),
-        step1_grad_norm_rel=_rel(k1["grad_norm"], p1["grad_norm"]),
-        losses_rel=max(_rel(a["loss"], b["loss"]) for a, b in
-                       zip(kern["hist"], plain["hist"], strict=True)))
-    spr = dict(
-        step1_loss_rel=_rel(p1["loss"], s1["loss"]),
-        step1_grad_norm_rel=_rel(p1["grad_norm"], s1["grad_norm"]),
-        losses_rel=max(_rel(a["loss"], b["loss"]) for a, b in
-                       zip(plain["hist"], spread["hist"], strict=True)))
+    def gaps(a, b):
+        return dict(
+            step1_loss_rel=_rel(a[0]["loss"], b[0]["loss"]),
+            step1_grad_norm_rel=_rel(a[0]["grad_norm"], b[0]["grad_norm"]),
+            losses_rel=max(_rel(x["loss"], y["loss"])
+                           for x, y in zip(a, b, strict=True)))
+    k1, p1 = kern["hist"][0], plain["hist"][0]
+    cmp = gaps(kern["hist"], plain["hist"])
+    spr = None
+    if spread:
+        f64 = full_depth_run("plain_float64", dict(flash_fwd=_plain64_fwd,
+                                                   flash_bwd=_plain64_bwd),
+                             arch=arch, argv=argv, line=tag,
+                             lead=kern["routes"], prepare=prepare)
+        follow_check(f64["routes"], tag, arch, "float64_follows_kernel",
+                     held=1)
+        spr = gaps(plain["hist"], f64["hist"])
     # the profiler slows the host several-fold, so the device's idle share
     # is taken against the last unprofiled step's wall time
     split, wall = kern["split"], kern["hist"][-1]["time_s"]
-    if split is None:
-        phase(tag, arch=arch, profile="step", device_time="not recorded")
+    if split is None or isinstance(split, str):
+        phase(tag, arch=arch, profile="step",
+              device_time=split or "not recorded")
     else:
         busy = sum(split.values())
         phase(tag, arch=arch, profile="step", wall_ms=f"{1e3 * wall:.3f}",
@@ -3041,16 +3350,17 @@ def train_phase(dev, arch=SERVE_ARCH, layers=None, seq_len=4096,
           step_s=",".join(f"{h['time_s']:.3f}" for h in kern["hist"]),
           plain_step_s=",".join(f"{h['time_s']:.3f}" for h in plain["hist"]),
           tokens_per_s=f"{tokens / kern['hist'][-1]['time_s']:.1f}",
-          grads_s=f"{kern['grads_s']:.3f}", update_s=f"{kern['update_s']:.3f}",
+          grads_s=kern["grads_s"], update_s=f"{kern['update_s']:.3f}",
           max_memory_allocated=kern["peak"],
           plain_max_memory_allocated=plain["peak"],
           launches=json.dumps(launches, separators=(",", ":")))
     phase(tag, arch=arch, compare="kernel_vs_plain",
           **{k: f"{v:.3e}" for k, v in cmp.items()},
           limits=f"{TRAIN_LOSS_RTOL}/{TRAIN_GNORM_RTOL}/{TRAIN_LOSSES_RTOL}")
-    phase(tag, arch=arch, compare="plain_vs_float64_attention",
-          **{k: f"{v:.3e}" for k, v in spr.items()},
-          seconds=f"{time.perf_counter() - t0:.1f}")
+    if spr is not None:
+        phase(tag, arch=arch, compare="plain_vs_float64_attention",
+              **{k: f"{v:.3e}" for k, v in spr.items()})
+    phase(tag, arch=arch, seconds=f"{time.perf_counter() - t0:.1f}")
     check(cmp["step1_loss_rel"] <= TRAIN_LOSS_RTOL, f"step-1 loss: "
           f"kernel {k1['loss']} vs plain {p1['loss']}")
     check(cmp["step1_grad_norm_rel"] <= TRAIN_GNORM_RTOL, f"step-1 grad "
@@ -3222,7 +3532,7 @@ def moe_phases(dev):
           seconds=f"{time.perf_counter() - t0:.1f}")
     t0 = time.perf_counter()
     launches.update(train_phase(dev, MIXTRAL_ARCH, MIXTRAL_TRAIN_LAYERS,
-                                MIXTRAL_SEQ, tag="moe"))
+                                MIXTRAL_SEQ, tag="moe", spread=False))
     phase("moe", arch=MIXTRAL_ARCH, path="train",
           seconds=f"{time.perf_counter() - t0:.1f}")
     t0 = time.perf_counter()
@@ -3290,7 +3600,7 @@ def cross_phases(dev):
           seconds=f"{time.perf_counter() - t0:.1f}")
     t0 = time.perf_counter()
     whisper.update(train_phase(dev, WHISPER_ARCH, tag="whisper",
-                               **WHISPER_TRAIN))
+                               spread=False, **WHISPER_TRAIN))
     phase("whisper", arch=WHISPER_ARCH, path="train",
           seconds=f"{time.perf_counter() - t0:.1f}")
 
@@ -3305,10 +3615,291 @@ def cross_phases(dev):
           seconds=f"{time.perf_counter() - t0:.1f}")
     t0 = time.perf_counter()
     vision.update(train_phase(dev, VISION_ARCH, VISION_TRAIN_LAYERS,
-                              VISION_SEQ, tag="vision", prepare=gated))
+                              VISION_SEQ, tag="vision", prepare=gated,
+                              spread=False))
     phase("vision", arch=VISION_ARCH, path="train",
           seconds=f"{time.perf_counter() - t0:.1f}")
     return whisper, vision
+
+
+def perturb_ssm_leaves(model, seed=0):
+    """Every constant-initialised Mamba2 / RWKV leaf of ``model`` (by name,
+    SSM_NOISE) drawn uniform from its range, float32, from numpy's
+    generator at ``seed``: at their constant inits (A = -1, u_bonus 0,
+    every mix 0.5) a wrong axis or a swapped mix could not show."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf in SSM_NOISE:
+                p.copy_(torch.from_numpy(rng.uniform(
+                    *SSM_NOISE[leaf], tuple(p.shape)).astype(np.float32)))
+
+
+def ssm_caches(cache, key):
+    """The ``key`` state leaves of every state-space segment of a decode
+    cache (zamba2's groups and tail: ``conv`` / ``ssm``; rwkv6: ``wkv``)."""
+    for seg, node in cache.items():
+        if seg == "len":
+            continue
+        node = node.get("mambas", node)
+        leaf = node["m"].get(key) if "m" in node else node.get(key)
+        if leaf is not None:
+            yield leaf
+
+
+def zero_ssm(cache):
+    """The control: the SSM states zeroed before decode."""
+    for t in ssm_caches(cache, "ssm"):
+        t.zero_()
+
+
+def unshifted_conv(cache):
+    """The control: the cached conv inputs [c0, c1, c2, c3] moved one row
+    back to [c0, c0, c1, c2], so decode's shift leaves [c0, c1, c2, new],
+    the window of a decode that did not shift out the oldest input."""
+    for t in ssm_caches(cache, "conv"):
+        t[..., 1:, :] = t[..., :-1, :].clone()
+
+
+def zero_wkv(cache):
+    """The control: the WKV states zeroed before decode."""
+    for t in ssm_caches(cache, "wkv"):
+        t.zero_()
+
+
+def value_axis_wkv_step(s_prev, r, k, v, w, u):
+    """``rwkv6.wkv_step`` with ``u_bonus`` on the value axis m of k^T v
+    (the reference scales the key axis n): the RWKV control."""
+    import torch
+    kv = k[..., :, None] * v[..., None, :]
+    out = torch.matmul(r[..., None, :], s_prev + u[..., None, :] * kv)
+    return out[..., 0, :], w[..., None] * s_prev + kv
+
+
+def decode_vs_prefill(model, toks, s, corrupt=None):
+    """|last logits of (prefill s tokens, decode token s) - those of a
+    prefill of s + 1 tokens|; ``corrupt(cache)`` runs between the prefill
+    and the decode."""
+    _, cache = model.prefill(toks[:, :s], s + 4)
+    if corrupt is not None:
+        corrupt(cache)
+    inc, _ = model.decode(cache, toks[:, s])
+    full, _ = model.prefill(toks[:, :s + 1], s + 4)
+    return float((inc - full).abs().max())
+
+
+def ssm_decode_phase(dev, arch, over, b, s, controls, tag):
+    """``arch`` in float32 at ``over`` (perturbed), K5 on the shared
+    block's prefill: the O(1) decode state against the chunked scan or
+    recurrence (S tokens then one step against S + 1, within
+    SSM_DECODE_TOL), and each control (name -> corrupt(cache)) beyond
+    it."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.models.lm import LM
+
+    cfg = registry.config(arch, attn_impl="flash", dtype="float32", **over)
+    _free()
+    t0 = time.perf_counter()
+    model = LM(cfg, device=dev, seed=0)
+    perturb_ssm_leaves(model)
+    toks = torch.as_tensor(np.random.default_rng(2).integers(
+        1, cfg.vocab, (b, s + 1)), device=dev)
+    err = decode_vs_prefill(model, toks, s)
+    ctl = {n: decode_vs_prefill(model, toks, s, fn)
+           for n, fn in controls.items()}
+    phase(tag, arch=arch, check="decode_vs_prefill", dtype="float32",
+          n_layers=cfg.n_layers, B=b, s=s, decode_vs_prefill=f"{err:.4e}",
+          **{f"control_{n}": f"{v:.4e}" for n, v in ctl.items()},
+          tol=SSM_DECODE_TOL, seconds=f"{time.perf_counter() - t0:.1f}")
+    check(err <= SSM_DECODE_TOL, f"{arch}: decode after a prefill of {s} "
+          f"lies {err} from the prefill of {s + 1}")
+    for n, v in ctl.items():
+        check(v > SSM_DECODE_TOL, f"{arch}: the control ({n}) lies within "
+              f"{SSM_DECODE_TOL}: {v}")
+    del model
+    _free()
+
+
+def zamba2_phases(dev):
+    """zamba2-7b on the card: served at full depth (K5 at head dim 112 in
+    the shared block of each of the 13 groups) against the plain path,
+    then in float32 at ZAMBA_F32 with the padded-scale control; decode
+    against prefill with its state controls; trained at full depth (K5,
+    K6, K7). Returns the serving and training launch counts."""
+    import numpy as np
+    t0 = time.perf_counter()
+    lengths = np.random.default_rng(0).integers(
+        ZAMBA_PROMPT[0], ZAMBA_PROMPT[1] + 1, SERVE_REQUESTS)
+    lengths[::SERVE_SLOTS] = ZAMBA_PROMPT[1]     # each wave's longest
+    launches = collections.Counter(serve_phase(
+        dev, ZAMBA_ARCH, lengths=lengths, new=ZAMBA_NEW, f32=ZAMBA_F32,
+        controls=(("pad_scale", pad_scale_fwd, None, F32_LOGIT_TOL),),
+        prepare=perturb_ssm_leaves, tag="zamba2", spread=True,
+        profile=("prefill",)))
+    ssm_decode_phase(dev, ZAMBA_ARCH, ZAMBA_F32, *ZAMBA_DECODE,
+                     {"ssm_zeroed": zero_ssm,
+                      "conv_unshifted": unshifted_conv}, "zamba2")
+    phase("zamba2", arch=ZAMBA_ARCH, path="serve",
+          seconds=f"{time.perf_counter() - t0:.1f}")
+    t0 = time.perf_counter()
+    # no profiled step: torch.profiler takes a minute over a zamba2 step
+    # (60.4 s on an H100, PERF.md); its prefill is profiled above
+    launches.update(train_phase(dev, ZAMBA_ARCH, tag="zamba2",
+                                prepare=perturb_ssm_leaves, trace=False,
+                                spread=False))
+    phase("zamba2", arch=ZAMBA_ARCH, path="train",
+          seconds=f"{time.perf_counter() - t0:.1f}")
+    return launches
+
+
+def rwkv_card_phase(dev):
+    """rwkv6-1.6b in float32 at RWKV_F32_LAYERS (perturbed): the card's
+    prefill and two decode steps against the same weights on the CPU
+    (RWKV_CARD_TOL), decode against prefill with the wkv-zeroed control,
+    and u_bonus on the value axis, which must move the card's prefill
+    beyond RWKV_CARD_TOL of the CPU's."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.models import rwkv6
+    from repro_torch.models.lm import LM
+
+    cfg = registry.config(RWKV_ARCH, dtype="float32",
+                          n_layers=RWKV_F32_LAYERS)
+    _free()
+    t0 = time.perf_counter()
+    card = LM(cfg, device=dev, seed=0)
+    perturb_ssm_leaves(card)
+    cpu = LM(cfg, device="cpu", seed=None)
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    s = RWKV_CHECK_S
+    toks = np.random.default_rng(3).integers(1, cfg.vocab, (2, s + 2))
+
+    def run(model):
+        t = torch.as_tensor(toks, device=model.device)
+        logits, cache = model.prefill(t[:, :s], s + 4)
+        out = [logits.cpu()]
+        for i in range(2):
+            logits, cache = model.decode(cache, t[:, s + i])
+            out.append(logits.cpu())
+        return out
+    got, want = run(card), run(cpu)
+    err = max_diff(got, want)
+    saved = rwkv6.wkv_step
+    rwkv6.wkv_step = value_axis_wkv_step
+    try:
+        moved = run(card)
+    finally:
+        rwkv6.wkv_step = saved
+    ctl_u = max_diff(moved, want)
+    t = torch.as_tensor(toks, device=dev)
+    inc = decode_vs_prefill(card, t, s)
+    ctl_wkv = decode_vs_prefill(card, t, s, zero_wkv)
+    phase("rwkv", arch=RWKV_ARCH, check="card_vs_cpu", dtype="float32",
+          n_layers=cfg.n_layers, B=2, s=s, decode_steps=2,
+          max_abs_logit=f"{max(float(x.abs().max()) for x in want):.4f}",
+          card_vs_cpu=f"{err:.4e}", control_u_value_axis=f"{ctl_u:.4e}",
+          tol=RWKV_CARD_TOL, decode_vs_prefill=f"{inc:.4e}",
+          control_wkv_zeroed=f"{ctl_wkv:.4e}",
+          decode_tol=SSM_DECODE_TOL,
+          seconds=f"{time.perf_counter() - t0:.1f}")
+    check(err <= RWKV_CARD_TOL, f"rwkv card vs CPU: {err}")
+    check(ctl_u > RWKV_CARD_TOL, f"the control (u_bonus on the value axis) "
+          f"lies within {RWKV_CARD_TOL}: {ctl_u}")
+    check(inc <= SSM_DECODE_TOL, f"rwkv decode vs prefill: {inc}")
+    check(ctl_wkv > SSM_DECODE_TOL, f"the control (wkv zeroed) lies within "
+          f"{SSM_DECODE_TOL}: {ctl_wkv}")
+    del card, cpu
+    _free()
+
+
+def rwkv_train_phase(dev):
+    """rwkv6-1.6b trained at full depth (perturbed) for TRAIN_STEPS steps
+    of RWKV_TRAIN through launch.train's functions (no kernel on its
+    path: every count stays 0); then step 1 in float32 at
+    RWKV_F32_LAYERS on RWKV_CPU_STEP's batch, card against CPU on the same
+    weights (loss and grad norm within RWKV_CARD_TOL relative). Returns
+    the launch counts."""
+    import numpy as np
+
+    from repro_torch.launch import train as lt
+
+    t0 = time.perf_counter()
+    argv = train_argv(RWKV_ARCH, None, RWKV_TRAIN["seq_len"],
+                      RWKV_TRAIN["batch"])
+    kern = full_depth_run("kernel", {}, profile=True, arch=RWKV_ARCH,
+                          argv=argv, line="rwkv", prepare=perturb_ssm_leaves,
+                          trace=False, halves="update")
+    for h in kern["hist"]:
+        check(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"]),
+              f"rwkv step {h['step']}: loss {h['loss']} grad_norm "
+              f"{h['grad_norm']}")
+    check(sum(kern["launches"].values()) == 0, "rwkv training launched a "
+          "flash kernel")
+    tokens = RWKV_TRAIN["batch"] * (RWKV_TRAIN["seq_len"] - 1)
+    phase("rwkv", arch=RWKV_ARCH, n_layers=lt.config(lt.parse(argv)).n_layers,
+          params=kern["params"], global_batch=RWKV_TRAIN["batch"],
+          seq_len=RWKV_TRAIN["seq_len"], tokens_per_step=tokens,
+          steps=TRAIN_STEPS, quantized_state=True,
+          init_s=f"{kern['init_s']:.3f}",
+          step_s=",".join(f"{h['time_s']:.3f}" for h in kern["hist"]),
+          tokens_per_s=f"{tokens / kern['hist'][-1]['time_s']:.1f}",
+          grads_s=kern["grads_s"], update_s=f"{kern['update_s']:.3f}",
+          max_memory_allocated=kern["peak"],
+          launches=json.dumps(kern["launches"], separators=(",", ":")))
+    # step 1 in float32 at RWKV_F32_LAYERS, card against CPU
+    small = train_argv(RWKV_ARCH, RWKV_F32_LAYERS,
+                       RWKV_CPU_STEP["seq_len"], RWKV_CPU_STEP["batch"]) + [
+        "--dtype", "float32"]
+    card = lt.build(lt.parse(small))
+    perturb_ssm_leaves(card.model)
+    small[small.index("--device") + 1] = "cpu"
+    cpu = lt.build(lt.parse(small))
+    cpu.model.load_state_dict({k: v.cpu() for k, v in
+                               card.model.state_dict().items()})
+    hc, hp = lt.train_steps(card, 0, 1)[0], lt.train_steps(cpu, 0, 1)[0]
+    cmp = dict(loss_rel=_rel(hc["loss"], hp["loss"]),
+               grad_norm_rel=_rel(hc["grad_norm"], hp["grad_norm"]))
+    phase("rwkv", arch=RWKV_ARCH, compare="step1_card_vs_cpu",
+          dtype="float32", n_layers=RWKV_F32_LAYERS,
+          global_batch=RWKV_CPU_STEP["batch"],
+          seq_len=RWKV_CPU_STEP["seq_len"], loss=f"{hc['loss']:.6f}",
+          grad_norm=f"{hc['grad_norm']:.6f}",
+          **{k: f"{v:.3e}" for k, v in cmp.items()}, tol=RWKV_CARD_TOL,
+          card_step_s=f"{hc['time_s']:.3f}", cpu_step_s=f"{hp['time_s']:.3f}",
+          seconds=f"{time.perf_counter() - t0:.1f}")
+    check(all(v <= RWKV_CARD_TOL for v in cmp.values()), f"rwkv step 1, "
+          f"card vs CPU: {cmp}")
+    del card, cpu
+    _free()
+    return kern["launches"]
+
+
+def rwkv_phases(dev):
+    """rwkv6-1.6b on the card: served at full depth (no kernel: every
+    count 0), its float32 checks against the CPU, trained at full depth.
+    Returns the launch counts."""
+    from repro_torch.kernels import flash_cuda as fc
+    t0 = time.perf_counter()
+    launches = collections.Counter(serve_phase(
+        dev, RWKV_ARCH, prompt=RWKV_PROMPT, new=RWKV_NEW,
+        prepare=perturb_ssm_leaves, profile=("decode",), tag="rwkv"))
+    check(launches[fc.NAME] == 0, "rwkv serving launched K5")
+    rwkv_card_phase(dev)
+    phase("rwkv", arch=RWKV_ARCH, path="serve",
+          seconds=f"{time.perf_counter() - t0:.1f}")
+    t0 = time.perf_counter()
+    launches.update(rwkv_train_phase(dev))
+    phase("rwkv", arch=RWKV_ARCH, path="train",
+          seconds=f"{time.perf_counter() - t0:.1f}")
+    return launches
 
 
 def supervisor_phase(dev):
@@ -3406,6 +3997,18 @@ def main() -> int:
         print(smi)
         print(json.dumps({"kernels": list(table.values())}))
         return 0
+    if sys.argv[1:] == [SSM_FLAG]:           # the state-space slice
+        table = padded_kernel_phase(dev)
+        zamba = zamba2_phases(dev)
+        rwkv = rwkv_phases(dev)
+        for row in table.values():
+            row["launches"] = zamba[row["name"].rsplit("_d", 1)[0]]
+        phase("done", ssm_only=True, rwkv_launches=json.dumps(
+            dict(rwkv), separators=(",", ":")),
+              seconds=f"{time.perf_counter() - t0:.1f}")
+        print(smi)
+        print(json.dumps({"kernels": list(table.values())}))
+        return 0
     if sys.argv[1:] == [CROSS_FLAG]:         # the cross-attention slice
         table = lm_kernel_phase(dev, [c for c in K5_CASES
                                       if c[0] in BIDIRECTIONAL], small=False)
@@ -3424,13 +4027,15 @@ def main() -> int:
     table = kernel_phase(dev, smi)
     table.update(lm_kernel_phase(dev))
     table.update(bwd_kernel_phase(dev))
+    table.update(padded_kernel_phase(dev))
     # each main path's counts, summed: slice (K1-K4), the per-pod
     # decisions (K1), the policy round (K3), the frontier layer (K4, K3),
     # serve (K5), the smoke-size serving launcher (K5), train (K5, K6,
     # K7), for llama3-8b (head dim 128), gemma-7b (256), mixtral-8x7b
-    # (128, window 4096), whisper-base (64) and llama-3.2-vision-90b
-    # (128); the D = 256 rows count gemma's, the _w4096 rows mixtral's,
-    # the D = 64 rows whisper's
+    # (128, window 4096), whisper-base (64), llama-3.2-vision-90b (128),
+    # zamba2-7b (112, padded to 128) and rwkv6-1.6b (none); the D = 256
+    # rows count gemma's, the _w4096 rows mixtral's, the D = 64 rows
+    # whisper's, the D = 112 rows zamba2's
     launches = collections.Counter(slice_phase(dev))
     launches.update(perpod_phase(dev, smi))
     launches.update(policy_phase(dev, smi))
@@ -3440,10 +4045,14 @@ def main() -> int:
     wide = collections.Counter(serve_phase(dev, GEMMA_ARCH))
     launches.update(train_phase(dev))
     f32_train_phase(dev)
-    wide.update(train_phase(dev, GEMMA_ARCH))
+    # the float64 spread run of llama3-8b only: the others' are recorded
+    # (PERF.md), and the script's time is near its limit
+    wide.update(train_phase(dev, GEMMA_ARCH, spread=False))
     f32_train_phase(dev, GEMMA_ARCH, GEMMA_F32_LAYERS, control="half_d")
     moe = moe_phases(dev)
     narrow, vision = cross_phases(dev)
+    zamba = zamba2_phases(dev)
+    rwkv = rwkv_phases(dev)
     supervisor_phase(dev)
     launches.update(wide)
     launches.update({row_name(n, WIDE_D): c for n, c in wide.items()})
@@ -3452,6 +4061,9 @@ def main() -> int:
     launches.update(narrow)
     launches.update({row_name(n, NARROW_D): c for n, c in narrow.items()})
     launches.update(vision)
+    launches.update(zamba)
+    launches.update({row_name(n, ZAMBA_D): c for n, c in zamba.items()})
+    launches.update(rwkv)
     for row in table.values():
         row["launches"] = launches[row["name"]]
     phase("done", seconds=f"{time.perf_counter() - t0:.1f}")

@@ -111,9 +111,11 @@ def lm_params_from_numpy(cfg: ModelConfig, tree: Mapping, *,
     mixtral's ``moe``; deepseek's ``dense_prefix`` and ``moe``, with the
     expert, router and shared-expert leaves and the MLA weights;
     whisper's ``enc`` and ``dec``; a VLM's ``vlm``, whose ``selfs`` leaves
-    are stacked (n_groups, k, ...) and whose gates are (n_groups,)).
-    Weights keep the reference's layout; key sets, shapes and dtypes are
-    checked."""
+    are stacked (n_groups, k, ...) and whose gates are (n_groups,);
+    zamba2's ``mamba_group``, whose ``mambas`` are stacked (n_groups, k,
+    ...), its ``mamba_tail`` and the unstacked top-level ``shared_attn``;
+    rwkv6's ``rwkv``). Weights keep the reference's layout; key sets,
+    shapes and dtypes are checked."""
     model = LM(cfg, device=device, seed=None)
 
     def put(dst: torch.Tensor, a, name: str) -> None:
@@ -147,7 +149,8 @@ def lm_params_from_numpy(cfg: ModelConfig, tree: Mapping, *,
                 fill(kid, node[k], at, lead, f"{name}.{k}")
 
     expected = {"embed", "final_ln"} | {s.name for s in model.segments} | (
-        set() if cfg.tie_embeddings else {"lm_head"})
+        set() if cfg.tie_embeddings else {"lm_head"}) | (
+        {"shared_attn"} if model.shared_attn is not None else set())
     if set(tree) != expected:
         raise KeyError(f"parameter tree has {sorted(tree)}, expected "
                        f"{sorted(expected)}")
@@ -160,6 +163,9 @@ def lm_params_from_numpy(cfg: ModelConfig, tree: Mapping, *,
             for j, i in enumerate(idx):
                 fill(model.blocks[i], tree[seg.name], (j,), (seg.n_blocks,),
                      seg.name)
+        if model.shared_attn is not None:
+            fill(model.shared_attn, tree["shared_attn"], (), (),
+                 "shared_attn")
     return model
 
 
@@ -176,10 +182,12 @@ def lm_params_to_numpy(model: LM, tensors: Mapping[str, torch.Tensor]
                        | None = None) -> dict:
     """The inverse of ``lm_params_from_numpy``: the reference's parameter
     pytree as nested dicts of numpy arrays, with each segment's block
-    leaves stacked on axis 0 (a group's ``selfs`` on axes 0 and 1).
+    leaves stacked on axis 0 (a group's ``selfs`` or ``mambas`` on axes 0
+    and 1; ``shared_attn`` unstacked).
     ``tensors`` maps the LM's parameter names (``"embed"``,
     ``"blocks.3.attn.wq"``, ``"blocks.1.moe.shared.w1"``,
-    ``"blocks.0.selfs.2.ln1"``, ...) to tensors of their shapes, such as
+    ``"blocks.0.selfs.2.ln1"``, ``"shared_attn.attn.wq"``, ...) to
+    tensors of their shapes, such as
     the gradients of a training step; default: the parameters
     themselves."""
     if tensors is None:
@@ -210,4 +218,6 @@ def lm_params_to_numpy(model: LM, tensors: Mapping[str, torch.Tensor]
     for seg, idx in model.segment_blocks():
         tree[seg.name] = stack([tree_of(model.blocks[i], f"blocks.{i}.")
                                 for i in idx])
+    if model.shared_attn is not None:
+        tree["shared_attn"] = tree_of(model.shared_attn, "shared_attn.")
     return tree

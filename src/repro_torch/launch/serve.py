@@ -6,7 +6,9 @@ the flash-attention kernel (K5) on the card and its plain version on the CPU
 takes no kernel (the reference's MLA calls ``_sdpa``). whisper-base's
 encoder and decoder prefill take K5 (the encoder bidirectional), and
 llama-3.2-vision-90b's dense blocks; like the reference's CLI it passes no
-``frames`` / ``vision``, so their cross-attention reads zeros.
+``frames`` / ``vision``, so their cross-attention reads zeros. zamba2-7b's
+shared attention block takes K5 in every group's prefill (head dim 112,
+padded to 128); its Mamba2 blocks and rwkv6-1.6b take no kernel.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b --smoke \\

@@ -8,9 +8,12 @@ under the fault ``Supervisor`` (checkpoints every ``--ckpt-every`` steps and
 at the end, restart from the latest on a fault); without it they run
 directly through the train step and nothing is written.
 
-``--arch`` takes the dense (llama3-8b, gemma-7b, ...) and MoE
-(mixtral-8x7b, deepseek-v3-671b) architectures; a step's line shows the
-MoE load-balancing loss (``aux``; 0 for a dense model). whisper-base and
+``--arch`` takes the dense (llama3-8b, gemma-7b, ...), MoE
+(mixtral-8x7b, deepseek-v3-671b) and state-space (zamba2-7b: K5, K6 and K7
+in its shared attention block; rwkv6-1.6b: no kernel) architectures; a
+step's line shows the MoE load-balancing loss (``aux``; 0 for the others).
+``--layers`` on zamba2-7b takes any depth: whole groups of
+``attn_every`` Mamba2 blocks, then a tail (``segments_for``). whisper-base and
 llama-3.2-vision-90b train on batches with ``frames`` / ``vision``, which
 the command line has no source for (as the reference's, which fails with
 ``KeyError: 'frames'``): ``build(args, extra_inputs=...)`` takes them from

@@ -1,10 +1,10 @@
-"""The language model of the port — port of ``repro.models.lm`` for the
-segment kinds ``dense``, ``moe``, ``mla_dense``, ``mla_moe``, ``enc`` /
-``dec`` and ``vlm_group``: embedding, the segments' blocks, final RMSNorm,
-unembedding, with the reference's prefill / decode / init_cache semantics
-(lm.py:464-502) and batch convention (``{"tokens"}``, plus ``"frames"``
-for an encoder-decoder, ``"vision"`` for a VLM; float32 (B, T, d_model)
-embeddings from the reference's stub frontends, cast to ``cfg.dtype``).
+"""The language model of the port — port of ``repro.models.lm`` for all
+of its segment kinds (``PORTED_KINDS``): embedding, the segments' blocks,
+final RMSNorm, unembedding, with the reference's prefill / decode /
+init_cache semantics (lm.py:464-502) and batch convention (``{"tokens"}``,
+plus ``"frames"`` for an encoder-decoder, ``"vision"`` for a VLM; float32
+(B, T, d_model) embeddings from the reference's stub frontends, cast to
+``cfg.dtype``).
 
 A model is a sequence of segments (``segments_for``, as the reference's):
 llama3-8b and gemma-7b one ``dense`` segment, mixtral-8x7b one ``moe``
@@ -15,27 +15,37 @@ segment (GQA attention + MoE FFN), deepseek-v3-671b a ``dense_prefix`` of
 segment (causal self-attention, cross-attention to the encoder output,
 no rope; sinusoid positions on both sides), llama-3.2-vision-90b one
 ``vlm`` segment of ``vlm_group`` blocks (``cross_attn_every`` dense
-blocks, then a tanh-gated cross-attention block over the vision tokens).
+blocks, then a tanh-gated cross-attention block over the vision tokens),
+zamba2-7b a ``mamba_group`` segment (each group ``attn_every`` Mamba2
+blocks, then the one shared attention block) and a ``mamba_tail`` of
+``mamba`` blocks, rwkv6-1.6b one ``rwkv`` segment (time-mix, then
+channel-mix, each with its carried state).
 The reference stacks each segment's parameters on axis 0 and scans them;
 here the blocks of all segments are one ``nn.ModuleList`` in order, named
-``blocks.<i>.<leaf>`` (a group's dense blocks ``blocks.<i>.selfs.<j>.
-<leaf>``), and the converter (``convert.lm_params_from_numpy``) unstacks
-the reference's pytree. The decode cache keeps the reference's layout —
-``{"len": int, <segment name>: {"k", "v"}}`` (GQA kinds; (n_blocks, B, T,
-Hkv, hd)), ``{"kv_c", "k_rope"}`` (MLA kinds; (n_blocks, B, T, R) and
-(n_blocks, B, T, dr)) or ``{"selfs": {"k", "v"}}`` (``vlm_group``;
-(n_groups, k, B, T, Hkv, hd)), plus ``"enc_out"`` (B, n_audio_frames, D)
-or ``"vision"`` (B, n_vision_tokens, D), which decode re-reads (the
-encoder has no cache) — and is updated in place: a cache handed to
-``decode`` is the one it returns.
+``blocks.<i>.<leaf>`` (a group's inner blocks ``blocks.<i>.selfs.<j>.
+<leaf>`` or ``blocks.<i>.mambas.<j>.<leaf>``), and the converter
+(``convert.lm_params_from_numpy``) unstacks the reference's pytree.
+zamba2's shared attention block is one module, ``shared_attn`` (``ln1``,
+``attn``, ``ln2``, ``ffn``, as the reference's top-level leaf), called by
+every group, so its gradient sums over the groups. The decode cache keeps
+the reference's layout — ``{"len": int, <segment name>: {"k", "v"}}``
+(GQA kinds; (n_blocks, B, T, Hkv, hd)), ``{"kv_c", "k_rope"}`` (MLA kinds;
+(n_blocks, B, T, R) and (n_blocks, B, T, dr)), ``{"selfs": {"k", "v"}}``
+(``vlm_group``; (n_groups, k, B, T, Hkv, hd)), ``{"m": {"conv",
+"ssm"}}`` (``mamba``; (n, B, ssm_conv, d_inner + 2N) in ``cfg.dtype`` and
+(n, B, H, N, P) float32), ``{"mambas": {"m": ...}, "shared_kv": {"k",
+"v"}}`` (``mamba_group``; the states stacked (n_groups, k, B, ...)) or
+``{"tm_prev", "wkv", "cm_prev"}`` (``rwkv``; (n, B, 1, D), (n, B, H, 64,
+64) float32, (n, B, 1, D)), plus ``"enc_out"`` (B, n_audio_frames, D) or
+``"vision"`` (B, n_vision_tokens, D), which decode re-reads (the encoder
+has no cache) — and is updated in place: a cache handed to ``decode`` is
+the one it returns.
 
 ``loss`` is the training objective (lm.py:454-461): next-token
 cross-entropy over ``tokens[:, :-1]``, chunked by 1024 positions, plus
 0.01 times the MoE blocks' summed load-balancing loss, with each block
 recomputed in the backward (``torch.utils.checkpoint``) when
 ``cfg.remat``, as ``jax.checkpoint`` does in the reference's scan.
-
-Hybrid (mamba) and RWKV configurations raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -47,7 +57,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
-from repro_torch.models import moe
+from repro_torch.models import mamba2, moe, rwkv6
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (attention, attn_shapes, dot_f32,
                                        dtype_of, ffn, ffn_shapes, frozen,
@@ -55,7 +65,7 @@ from repro_torch.models.layers import (attention, attn_shapes, dot_f32,
                                        rmsnorm)
 
 PORTED_KINDS = ("dense", "moe", "mla_dense", "mla_moe", "enc", "dec",
-                "vlm_group")
+                "vlm_group", "mamba", "mamba_group", "rwkv")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,16 +118,6 @@ def cross_inputs(cfg: ModelConfig) -> dict[str, tuple[int, int]]:
     if cfg.cross_attn_every:
         out["vision"] = (cfg.n_vision_tokens, cfg.d_model)
     return out
-
-
-def _unported_kind(cfg: ModelConfig) -> str | None:
-    """The reference segment kind this config needs, where the port has
-    not got it yet."""
-    if cfg.rwkv:
-        return "rwkv"
-    if cfg.ssm_state:
-        return "mamba"
-    return None
 
 
 def _mla(kind: str) -> bool:
@@ -174,14 +174,61 @@ class VlmGroup(nn.Module):
         self.xffn_gate = nn.Parameter(gate.clone(), requires_grad=False)
 
 
+class MambaBlock(nn.Module):
+    """A ``mamba`` block's weights (reference lm.py:102-103): ``ln1`` and
+    the Mamba2 leaves ``mamba`` (``models.mamba2.mamba2_init``)."""
+
+    kind = "mamba"
+
+    def __init__(self, mamba: dict, ln1: torch.Tensor):
+        super().__init__()
+        self.ln1 = nn.Parameter(ln1, requires_grad=False)
+        self.mamba = frozen(mamba)
+
+
+class MambaGroup(nn.Module):
+    """A ``mamba_group`` block's weights (reference lm.py:104-107):
+    ``mambas``, ``attn_every`` Mamba2 blocks. The shared attention block
+    that closes every group is the LM's ``shared_attn``, not a child."""
+
+    kind = "mamba_group"
+
+    def __init__(self, mambas: list):
+        super().__init__()
+        self.mambas = nn.ModuleList(mambas)
+
+
+class RwkvBlock(nn.Module):
+    """An ``rwkv`` block's weights (reference lm.py:108-110): ``ln1``,
+    ``ln2`` and the time- and channel-mix leaves ``rwkv``
+    (``models.rwkv6.rwkv6_init``)."""
+
+    kind = "rwkv"
+
+    def __init__(self, rwkv: dict, ln1: torch.Tensor, ln2: torch.Tensor):
+        super().__init__()
+        self.ln1 = nn.Parameter(ln1, requires_grad=False)
+        self.ln2 = nn.Parameter(ln2, requires_grad=False)
+        self.rwkv = frozen(rwkv)
+
+
 def _block(kind: str, cfg: ModelConfig, gen, dev) -> nn.Module:
     """A block of ``kind``: attention, (``dec``) cross-attention, then FFN
     or MoE, drawn in that order (a group: its dense blocks, then the cross
-    block's attention and FFN); uninitialised where ``gen`` is None. Norms
-    are ones and a group's gates zeros, as the reference initialises
-    them."""
+    block's attention and FFN; a Mamba2 group: its Mamba2 blocks);
+    uninitialised where ``gen`` is None. Norms are ones and a group's gates
+    zeros, as the reference initialises them."""
+    if kind not in PORTED_KINDS:
+        raise ValueError(f"unknown segment kind {kind!r}")
     D = cfg.d_model
     ones = torch.ones(D, dtype=torch.float32, device=dev)
+    if kind == "mamba":
+        return MambaBlock(mamba2.mamba2_init(gen, cfg, dev), ones)
+    if kind == "mamba_group":
+        return MambaGroup([_block("mamba", cfg, gen, dev)
+                           for _ in range(cfg.attn_every)])
+    if kind == "rwkv":
+        return RwkvBlock(rwkv6.rwkv6_init(gen, cfg, dev), ones, ones.clone())
     if kind == "vlm_group":
         selfs = [_block("dense", cfg, gen, dev)
                  for _ in range(cfg.cross_attn_every)]
@@ -232,12 +279,6 @@ class LM(nn.Module):
     def __init__(self, cfg: ModelConfig, *, device=None, seed: int | None = 0,
                  trainable: bool = False):
         super().__init__()
-        kind = _unported_kind(cfg)
-        if kind is not None:
-            raise NotImplementedError(
-                f"{cfg.arch_id}: segment kind {kind!r} is not ported yet "
-                f"(ROADMAP Queue 1 item 5, models/lm.py); ported: "
-                f"{', '.join(PORTED_KINDS)}")
         if cfg.n_dense_layers > cfg.n_layers:
             raise ValueError(f"{cfg.arch_id}: {cfg.n_dense_layers} dense "
                              f"layers > n_layers {cfg.n_layers}")
@@ -263,6 +304,9 @@ class LM(nn.Module):
         self.blocks = nn.ModuleList(
             _block(seg.kind, cfg, gen, dev)
             for seg in self.segments for _ in range(seg.n_blocks))
+        # zamba2's shared attention block, drawn last as in the reference
+        self.shared_attn = (_block("dense", cfg, gen, dev) if cfg.attn_every
+                            else None)
         self.requires_grad_(trainable)
 
     @property
@@ -291,6 +335,10 @@ class LM(nn.Module):
         for seg in self.segments:
             if seg.kind == "enc":
                 continue
+            if seg.kind in ("mamba", "mamba_group", "rwkv"):
+                cache[seg.name] = self._state_cache(seg, batch_size,
+                                                    max_len)
+                continue
             n = (seg.n_blocks,)
             if seg.kind == "vlm_group":
                 n += (cfg.cross_attn_every,)
@@ -310,6 +358,29 @@ class LM(nn.Module):
             cache["vision"] = zeros(batch_size, cfg.n_vision_tokens,
                                     cfg.d_model)
         return cache
+
+    def _state_cache(self, seg: Segment, batch_size: int,
+                     max_len: int) -> dict:
+        """A state-space segment's decode cache, zeros: each block's
+        ``mamba2_init_state`` (``{"m": ...}``; a group's stacked (n, k,
+        ...) beside the shared block's k/v (n, B, T, Hkv, hd)) or
+        ``rwkv6_block_state``, stacked (n_blocks, ...)."""
+        cfg, dev = self.cfg, self.device
+        if seg.kind == "rwkv":
+            one = rwkv6.rwkv6_block_state(cfg, batch_size, dev)
+        else:
+            one = {"m": mamba2.mamba2_init_state(cfg, batch_size, dev)}
+
+        def stacked(tree, lead):
+            return {k: stacked(v, lead) if isinstance(v, dict)
+                    else v.new_zeros(lead + v.shape) for k, v in tree.items()}
+        if seg.kind != "mamba_group":
+            return stacked(one, (seg.n_blocks,))
+        kv = (seg.n_blocks, batch_size, max_len, cfg.n_kv_heads, cfg.hd)
+        return {"mambas": stacked(one, (seg.n_blocks, cfg.attn_every)),
+                "shared_kv": {k: torch.zeros(kv, dtype=dtype_of(cfg),
+                                             device=dev)
+                              for k in ("k", "v")}}
 
     # --- forward -------------------------------------------------------------
     def _tokens(self, tokens) -> torch.Tensor:
@@ -364,6 +435,8 @@ class LM(nn.Module):
         cfg = self.cfg
         eps = cfg.norm_eps
         zero = torch.zeros((), dtype=torch.float32, device=x.device)
+        if blk.kind in ("mamba", "mamba_group", "rwkv"):
+            return self._state_block(blk, x, positions, cache, ex), zero
         if blk.kind == "vlm_group":
             for i, sub in enumerate(blk.selfs):
                 c = (None if cache is None else
@@ -394,6 +467,54 @@ class LM(nn.Module):
         else:
             f, aux = ffn(blk.ffn, cfg, y), zero
         return x + f, aux
+
+    def _state_block(self, blk: nn.Module, x: torch.Tensor,
+                     positions: torch.Tensor, cache: dict | None,
+                     ex: dict | None) -> torch.Tensor:
+        """A state-space block (reference lm.py:240-292). ``mamba``: x +
+        Mamba2(rmsnorm(x)), over the whole sequence without a cache
+        (training), with the decode state after the prompt (a prefill: S >
+        1) or one O(1) step from the cached state (decode: S == 1). A
+        ``mamba_group``: its Mamba2 blocks, then the shared attention block
+        (``shared_attn``, with this group's k/v cache). ``rwkv``: x +
+        time-mix(rmsnorm(x)), then + channel-mix(rmsnorm(x)), from the
+        cached state (zeros without a cache). The new states are written
+        into ``cache`` in place."""
+        cfg = self.cfg
+        eps = cfg.norm_eps
+        if blk.kind == "mamba_group":
+            for i, sub in enumerate(blk.mambas):
+                c = (None if cache is None else
+                     {**_index(cache["mambas"], i), "len": cache["len"]})
+                x = self._state_block(sub, x, positions, c, ex)
+            c = (None if cache is None else
+                 {**cache["shared_kv"], "len": cache["len"]})
+            x, _ = self._block(self.shared_attn, x, positions, c, ex)
+            return x
+        if blk.kind == "mamba":
+            xin = rmsnorm(x, blk.ln1, eps)
+            if cache is None:
+                h, new = mamba2.mamba2_forward(blk.mamba, cfg, xin)
+            elif x.shape[1] > 1:
+                h, new = mamba2.mamba2_forward(blk.mamba, cfg, xin,
+                                               return_state=True)
+            else:
+                h, new = mamba2.mamba2_forward(blk.mamba, cfg, xin,
+                                               state=cache["m"])
+            if cache is not None:
+                for k, v in new.items():
+                    cache["m"][k].copy_(v)
+            return x + h
+        st = (cache if cache is not None else
+              rwkv6.rwkv6_block_state(cfg, x.shape[0], x.device))
+        h, tm = rwkv6.time_mix(blk.rwkv, cfg, rmsnorm(x, blk.ln1, eps), st)
+        x = x + h
+        h, cm = rwkv6.channel_mix(blk.rwkv, cfg, rmsnorm(x, blk.ln2, eps),
+                                  st)
+        if cache is not None:
+            for k, v in {**tm, **cm}.items():
+                cache[k].copy_(v)
+        return x + h
 
     def _block_full(self, blk: nn.Module, x: torch.Tensor,
                positions: torch.Tensor, ex: dict):
@@ -483,8 +604,10 @@ class LM(nn.Module):
         reference decays leaves with ``ndim >= 2`` (adamw.py:136), and its
         per-block leaves are stacked (n_blocks, ...): a block parameter
         here is one slice of such a leaf, one dimension short. So the 1-d
-        norm gammas and ``router_bias`` decay, and a group's scalar gates,
-        stacked (n_groups,), do not; ``final_ln`` (D,) does not."""
+        norm gammas, ``router_bias`` and the Mamba2 and RWKV vectors
+        (``a_log``, ``u_bonus``, ...) decay, and a group's scalar gates,
+        stacked (n_groups,), do not; ``final_ln`` (D,) does not, nor do
+        ``shared_attn``'s norms, an unstacked leaf of the reference."""
         return {name: p.dim() + name.startswith("blocks.") >= 2
                 for name, p in self.named_parameters()}
 

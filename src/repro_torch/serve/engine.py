@@ -4,9 +4,13 @@ wave-based batching — port of ``repro.serve.engine``.
 Requests are grouped into fixed-size waves: every slot prefills together
 and decodes in lockstep, and finished sequences are dropped from the
 output. A short wave is filled with dummy slots; prompts are left-padded
-with token 0, which is then attended (not masked) and, in an MoE model,
-routed like any other token (it takes capacity slots), and every row takes
-positions 0..S-1 whatever its padding, as in the reference.
+with token 0, which is then attended (not masked), in an MoE model
+routed like any other token (it takes capacity slots), and in zamba2's
+Mamba2 blocks and rwkv6's time- and channel-mix fed into the SSM and WKV
+states and the token shift like any other token; every row takes
+positions 0..S-1 whatever its padding, as in the reference. A zamba2
+wave's longest prompt must be at most the SSD chunk (256 tokens) or a
+multiple of it, or its prefill raises (``models.mamba2``).
 ``extra_inputs`` (the reference's: ``{"frames": (B, T, D)}`` for an
 encoder-decoder, ``{"vision": ...}`` for a VLM, with B the wave's slots)
 join every wave's prefill batch, the same for every wave; without them

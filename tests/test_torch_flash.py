@@ -192,8 +192,9 @@ def test_smem_queries_match_bindings(name, params):
         assert f"case {d}: return " in src
 
 
-# a head dim the kernels do not take, with and without a window
-PAD_CASES = [(d, w) for d in (8, 16, 48) for w in (None, 16)]
+# a head dim the kernels do not take, with and without a window; 112 is
+# zamba2-7b's (3584 / 32), padded to 128
+PAD_CASES = [(d, w) for d in (8, 16, 48, 112) for w in (None, 16)]
 
 
 def test_padded_head_dim():
@@ -214,7 +215,8 @@ def test_padded_head_dim():
 @pytest.mark.parametrize("d,window", PAD_CASES)
 def test_padded_head_dim_equals_plain(d, window):
     """ops.flash_attention zero-pads q, k, v along D to the next head dim
-    the kernels take (8, 16 -> 32; 48 -> 64) with sm_scale = 1/sqrt(D) of
+    the kernels take (8, 16 -> 32; 48 -> 64; 112 -> 128) with
+    sm_scale = 1/sqrt(D) of
     the unpadded D, and slices out back: the plain version at D."""
     q, k, v = (torch.from_numpy(a) for a in _qkv(d, 2, 4, 2, 70, d))
     got = ops.flash_attention(q, k, v, causal=True, window=window,
@@ -466,3 +468,47 @@ def test_cuda_flash_bidirectional_at_whisper_encoder_shape(dtype):
                                **F32_TOL)
     causal, _ = flash_cuda.flash_fwd_plain(q, k, v, **dict(kw, causal=True))
     assert float((causal.float() - pout.float()).abs().max()) > 0.1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_flash_at_zamba2_head_dim_112(dtype):
+    """zamba2-7b's head dim (112) through ``ops.flash_attention`` on the
+    card: q, k, v seen through transpose(1, 2) as the model hands them
+    over, zero-padded to the D = 128 instantiation; out and, under
+    autograd (K6 and K7), dq, dk, dv sliced back to 112 against the plain
+    versions at D = 112, with sm_scale 112**-0.5; one launch each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run with -m gpu on the card)")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(112)
+    q, k, v = (torch.from_numpy(
+        rng.normal(size=(2, 300, 4, 112)).astype(np.float32) * sd).to(
+            dev, dtype).transpose(1, 2).requires_grad_()
+        for sd in (2.0, 1.0, 1.0))
+    do = torch.from_numpy(rng.normal(size=(2, 4, 300, 112)).astype(
+        np.float32)).to(dev, dtype)
+    kw = dict(sm_scale=112 ** -0.5, causal=True, window=None)
+    before = dict(flash_cuda.LAUNCHES)
+    out = ops.flash_attention(q, k, v, causal=True)
+    grads = torch.autograd.grad(out, (q, k, v), do)
+    torch.cuda.synchronize()
+    assert {n: flash_cuda.LAUNCHES[n] - before[n] for n in before} == {
+        flash_cuda.NAME: 1, flash_cuda.DQ: 1, flash_cuda.DKV: 1}
+    assert ops.padded_head_dim(112) == 128
+    qd, kd, vd = (t.detach() for t in (q, k, v))
+    pout, _ = flash_cuda.flash_fwd_plain(qd, kd, vd, **kw)
+    assert out.shape == pout.shape
+    _agree(out.detach(), pout, dtype)
+    # the plain backward from K5's own out and lse, as the kernels take
+    # them (K5 is deterministic: the wrapper's forward gave the same)
+    kout, klse = flash_cuda.flash_fwd(
+        *(torch.nn.functional.pad(t, (0, 16)) for t in (qd, kd, vd)), **kw)
+    for g, w in zip(grads, flash_cuda.flash_bwd_plain(
+            qd, kd, vd, kout[..., :112], klse, do, **kw)):
+        assert g.shape == w.shape
+        if dtype == torch.bfloat16:
+            _agree(g, w, dtype)
+        else:
+            scale = float(w.abs().max())
+            assert float((g - w).abs().max()) <= 1e-4 * scale

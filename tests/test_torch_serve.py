@@ -5,8 +5,9 @@ against the reference ``Engine`` on the same weights — one request alone,
 and waves with mixed prompt lengths (left-padded, with a dummy slot). The
 reference runs under a 1x1 ("data", "model") mesh so that its prefill
 takes its flash path, as the port's does. The MoE SMOKE models
-(mixtral-8x7b, deepseek-v3-671b) are held to the reference engine's
-tokens the same way, and served by the launcher.
+(mixtral-8x7b, deepseek-v3-671b) and the state-space ones (zamba2-7b,
+rwkv6-1.6b, their constant leaves perturbed) are held to the reference
+engine's tokens the same way, and served by the launcher.
 """
 import jax
 import jax.numpy as jnp
@@ -196,6 +197,43 @@ def test_moe_tokens_equal_reference_engine(arch):
 @pytest.mark.parametrize("arch", ["mixtral-8x7b", "deepseek-v3-671b"])
 def test_launcher_serves_moe_on_cpu(capsys, arch):
     """``launch.serve --arch <moe> --smoke`` on the CPU."""
+    res = serve_cli.main(["--arch", arch, "--smoke", "--device", "cpu",
+                          "--requests", "3", "--slots", "2", "--max-new",
+                          "4"])
+    vocab = registry.smoke_config(arch).vocab
+    assert sorted(r.uid for r in res) == [0, 1, 2]
+    assert all(len(r.tokens) == 4 and bool(((r.tokens >= 0)
+                                            & (r.tokens < vocab)).all())
+               for r in res)
+    assert "served 3 requests, 12 tokens" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch", ["zamba2-7b", "rwkv6-1.6b"])
+def test_ssm_tokens_equal_reference_engine(arch):
+    """The state-space SMOKE models (float32, perturbed) through both
+    engines: waves with mixed prompt lengths, whose left padding enters
+    the SSM / WKV states like any token, and a dummy slot; greedy tokens
+    equal."""
+    from test_torch_mamba2 import ssm_models
+    _, cfg, ref_model, params, model = ssm_models(arch, seed=1)
+    rng = np.random.default_rng(11)
+    lengths, max_new = [3, 9, 5, 12, 2, 7, 10], [6, 4, 8, 6, 5, 3, 6]
+    prompts = [rng.integers(1, cfg.vocab, n).astype(np.int32)
+               for n in lengths]
+    with _mesh():
+        want = RefEngine(ref_model, params, batch_slots=4,
+                         max_len=24).serve(
+            _requests(RefRequest, prompts, max_new))
+    got = Engine(model, batch_slots=4, max_len=24).serve(
+        _requests(Request, prompts, max_new))
+    assert [r.uid for r in got] == [r.uid for r in want]
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.tokens, np.asarray(b.tokens))
+
+
+@pytest.mark.parametrize("arch", ["zamba2-7b", "rwkv6-1.6b"])
+def test_launcher_serves_ssm_on_cpu(capsys, arch):
+    """``launch.serve --arch zamba2-7b|rwkv6-1.6b --smoke`` on the CPU."""
     res = serve_cli.main(["--arch", arch, "--smoke", "--device", "cpu",
                           "--requests", "3", "--slots", "2", "--max-new",
                           "4"])

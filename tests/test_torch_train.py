@@ -584,3 +584,83 @@ def test_launch_train_moe_smoke_on_cpu(capsys, arch, layers):
     out = capsys.readouterr().out
     assert "steps=3" in out and "step 2 loss=" in out and " aux=" in out
     assert all(np.isfinite(h["loss"]) and h["aux"] > 0 for h in hist)
+
+
+# --- the state-space family: zamba2-7b and rwkv6-1.6b -------------------------
+SSM_ARCHS = ["zamba2-7b", "rwkv6-1.6b"]
+
+
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_ssm_loss_and_grads_match_reference(arch):
+    """The loss and every gradient leaf, float32, the constant-initialised
+    leaves perturbed: zamba2's shared block's gradient is the sum over the
+    groups that call it (the reference's ``extras["shared_attn"]``). The
+    einsum path (the flash path's gradients are held by the step below)."""
+    from test_torch_mamba2 import ssm_models
+    _, _, rmodel, params, model = ssm_models(arch, attn_impl="einsum")
+    model.requires_grad_(True)
+    toks = _tokens(B=2, S=24, vocab=model.cfg.vocab)
+    (want, _), wg = jax.jit(jax.value_and_grad(rmodel.loss, has_aux=True))(
+        params, {"tokens": jnp.asarray(toks)})
+    loss, _, grads = tl._grads(model, torch.from_numpy(toks))
+    np.testing.assert_allclose(float(loss), float(want), rtol=1e-5)
+    got = lm_params_to_numpy(model, grads)
+    if arch == "zamba2-7b":
+        assert np.abs(got["shared_attn"]["attn"]["wq"]).max() > 0
+    _close_tree(got, wg, GRAD_REL)
+
+
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_ssm_train_step_matches_reference(arch):
+    """One AdamW step (float32 moments, weight decay on) of make_train_fn
+    against the reference's: loss, grad norm, lr and the parameters after
+    it, zamba2's shared block (no decay on its (D,) norms) included."""
+    from test_torch_mamba2 import ssm_models
+    _, _, rmodel, params, model = ssm_models(arch)
+    model.requires_grad_(True)
+    kw = dict(lr=3e-3, warmup_steps=0, weight_decay=0.5)
+    rc, pc = radamw.AdamWConfig(**kw), adamw.AdamWConfig(**kw)
+    toks = _tokens(B=2, S=20, step=2, vocab=model.cfg.vocab)
+    with _ctx("flash"):
+        rp, _, rm = jax.jit(rloop.make_train_fn(rmodel, rc))(
+            params, radamw.init(rc, params), {"tokens": jnp.asarray(toks)})
+    pp = tl.params_of(model)
+    _, _, pm = tl.make_train_fn(model, pc)(
+        pp, adamw.init(pc, pp), {"tokens": torch.from_numpy(toks)})
+    np.testing.assert_allclose(float(pm["loss"]), float(rm["loss"]),
+                               rtol=1e-5)
+    np.testing.assert_allclose(float(pm["grad_norm"]),
+                               float(rm["grad_norm"]), rtol=1e-5)
+    assert float(pm["lr"]) == float(rm["lr"])
+    got = lm_params_to_numpy(model)
+    if arch == "zamba2-7b":
+        np.testing.assert_allclose(got["shared_attn"]["ln1"],
+                                   np.asarray(rp["shared_attn"]["ln1"]),
+                                   atol=1e-6, rtol=0)
+    # Adam's first step is ill-conditioned where |g| is near eps (see
+    # test_int8_moment_step_matches_reference): a few elements may differ
+    # by up to a step, every other within 5e-5
+    err = np.concatenate([np.abs(a - np.asarray(b)).ravel() for a, b in zip(
+        jax.tree.leaves(got), jax.tree.leaves(rp))])
+    assert err.max() <= 2 * kw["lr"] and np.mean(err > 5e-5) <= 1e-3
+
+
+@pytest.mark.parametrize("arch,layers", [("zamba2-7b", None),
+                                         ("zamba2-7b", 3),
+                                         ("rwkv6-1.6b", None)])
+def test_launch_train_ssm_smoke_on_cpu(capsys, arch, layers):
+    """``launch.train --arch zamba2-7b|rwkv6-1.6b --smoke`` on the CPU;
+    zamba2 at ``--layers 3`` is one group of 2 and a 1-block tail."""
+    argv = ["--arch", arch, "--smoke", "--device", "cpu", "--steps", "3",
+            "--global-batch", "2", "--seq-len", "24"]
+    if layers is not None:
+        argv += ["--layers", str(layers)]
+    hist = launch_train.main(argv)
+    out = capsys.readouterr().out
+    assert "steps=3" in out and "step 2 loss=" in out
+    assert all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])
+               for h in hist)
+    if layers == 3:
+        r = launch_train.build(launch_train.parse(argv))
+        assert [(s.kind, s.n_blocks) for s in r.model.segments] == [
+            ("mamba_group", 1), ("mamba", 1)]
