@@ -97,9 +97,21 @@ the card:
   (K5, K6, K7 in the shared block); rwkv6-1.6b served at full depth (24
   layers; no kernel on its path), held in float32 at 2 layers against the
   same weights on the CPU (controls: u_bonus on the value axis, the wkv
-  state zeroed) and trained at full depth on 8 x 512 tokens a step;
+  state zeroed) and trained at full depth on 8 x 256 tokens a step;
 * then the checkpoint / restart round trip of the fault Supervisor at the
-  smoke size (head dim 8, padded).
+  smoke size (head dim 8, padded);
+* ``[dist]``, training on a device mesh: llama3-8b at full width, 2
+  layers, bf16, one 4095-token sequence a rank, (a) through
+  ``make_train_step`` and ``make_compressed_dp_step`` on a one-rank NCCL
+  mesh, equal to the one-device step (K5, K6 and K7 in the ``local_map``
+  region; the one-shard compression rule bit for bit), (b) through the
+  compressed step on two gloo ranks sharing the card (spawned here),
+  against one process on both rows, with the int32 sums, g_hat and error
+  feedback's running sum checked (a control drops the residual). K5, K6
+  and K7 at one rank's local heads of a (1, 2) mesh are timed as kernel
+  cases (``tp2``); no card path runs that shape (DTensor's collectives
+  over gloo on CUDA tensors crash), so their rows are printed on
+  ``[dist]`` lines and not in the kernel table line.
 
 K3 and K4 write the -inf over infeasible nodes themselves and sum only the
 real criteria: each is held against its plain version masked and
@@ -153,6 +165,12 @@ runs the build, the bidirectional K5/K6/K7 cases (whisper's shapes, rows
 
 runs the build, the D = 112 K5/K6/K7 cases (zamba2's shapes, rows
 ``<kernel>_d112``) and the ``[zamba2]`` and ``[rwkv]`` phases alone.
+
+    python3 chip_smoke.py --dist-only
+
+runs the build, K5 at case (a), K6/K7 at the training case, the
+local-head cases and the ``[dist]`` phase alone, and ends with the same
+last line as the whole script.
 """
 from __future__ import annotations
 
@@ -413,7 +431,9 @@ SSM_DECODE_TOL = 1e-3
 RWKV_PROMPT, RWKV_NEW = (1024, 2048), 32
 RWKV_F32_LAYERS, RWKV_CARD_TOL = 2, 1e-4
 RWKV_CHECK_S = 64
-RWKV_TRAIN = dict(seq_len=512, batch=8)
+# 256 tokens a sequence (512 until PR 22): its host-bound WKV loop is
+# ~14 s a step at 512, and the script's limit is near (PERF.md §7)
+RWKV_TRAIN = dict(seq_len=256, batch=8)
 RWKV_CPU_STEP = dict(batch=2, seq_len=128)
 SSM_NOISE = {"a_log": (-1.0, 0.5), "d_skip": (0.5, 1.5),
              "dt_bias": (-1.0, 0.5), "u_bonus": (-0.5, 0.5),
@@ -1071,10 +1091,13 @@ def attention_fault(q, k, v, *, sm_scale, causal=True, window=None,
     return out, (m + torch.log(lm)).reshape(b, h, sq)
 
 
-def row_name(name, d, window=None):
+def row_name(name, d, window=None, tag=None):
     """The kernel table's row of kernel ``name`` at head dim ``d``: the
     D = 256 and D = 64 instantiations have rows of their own, and so have
-    mixtral's windowed shapes and zamba2's D = 112 (padded to 128)."""
+    mixtral's windowed shapes, zamba2's D = 112 (padded to 128) and one
+    rank's local heads on the (1, 2) mesh (case ``tag`` LOCAL_HEADS)."""
+    if tag == "tp2":
+        return f"{name}_tp2"
     if window == WINDOW_ROW:
         return f"{name}_w{WINDOW_ROW}"
     return f"{name}_d{d}" if d in (NARROW_D, WIDE_D, ZAMBA_D) else name
@@ -1197,7 +1220,7 @@ def lm_kernel_phase(dev, cases=K5_CASES, small=True):
             phase("kernels", kernel="flash_attention_fwd", case=tag,
                   planted_faults_rejected=",".join(faults),
                   **{f"{f}_err": r for f, r in faults.items()})
-        rname = row_name(fc.NAME, d, window)
+        rname = row_name(fc.NAME, d, window, tag)
         row = table.setdefault(rname, dict(
             name=rname, route="cuda",
             source=f"{CSRC}/flash_attention.cu", replaces=fc.REPLACES[fc.NAME],
@@ -1472,7 +1495,7 @@ def bwd_kernel_phase(dev, cases=BWD_CASES, small=True):
                   library_backend=backend, library_kernel=lib_kernel,
                   bound_ms=f"{b_ms:.6f}", bound_by=b_by,
                   tflops=f"{flops / ms / 1e9:.2f}")
-            rname = row_name(name, d, window)
+            rname = row_name(name, d, window, tag)
             row = table.setdefault(rname, dict(
                 name=rname, route="cuda",
                 source=f"{CSRC}/flash_attention_bwd.cu",
@@ -3950,6 +3973,375 @@ def supervisor_phase(dev):
         shutil.rmtree(ckpt, ignore_errors=True)
 
 
+# --- [dist]: training on a device mesh ------------------------------------------
+# llama3-8b at full width (d_model 4096, 32 heads, 8 kv heads, head dim
+# 128, d_ff 14336, vocab 128,256), bf16, one 4096-token sequence a rank
+# (the model sees 4095), DIST_LAYERS layers: (a) make_train_step and
+# make_compressed_dp_step on a one-rank NCCL mesh; (b) two ranks sharing
+# the card over gloo: (data=2, model=1) compressed DP. The tensor-parallel
+# run (data=1, model=2) is not on the card (dist_two_rank_phase).
+DIST_FLAG = "--dist-only"
+DIST_ARCH = "llama3-8b"
+DIST_LAYERS, DIST_STEPS = 2, 2
+DIST_SEQ = 4096
+# (a): a world of one adds no reduction; (b): bf16 multi-rank runs sum in
+# another order than one process (the bf16 training limit, 1e-2, of the
+# one-device slice above)
+DIST_ONE_RANK_RTOL, DIST_LOSS_RTOL = 1e-6, 1e-2
+DIST_TIMEOUT = 900       # the ranks' join (s)
+# the compressed all-reduce's checks run on these reference leaves (each
+# the per-block leaves stacked into it): a matrix and a norm gamma
+DIST_CHECK_LEAVES = ("dense.attn.wq", "final_ln")
+# K5/K6/K7 at one rank's local heads on a (1, 2) mesh, timed beside their
+# plain versions and SDPA (``[kernels] case=tp2``; no main path on the
+# card runs this shape, so these rows stay out of the kernel table line)
+LOCAL_HEADS = "tp2"
+K5_CASES.append((LOCAL_HEADS, 1, 16, 4, 4095, 128, "bfloat16", None, 10))
+BWD_CASES.append((LOCAL_HEADS, 1, 16, 4, 4095, 128, "bfloat16", None, 5))
+
+
+def dist_config(dtype="bfloat16", layers=DIST_LAYERS):
+    from repro_torch.configs import registry
+    return registry.config(DIST_ARCH, attn_impl="flash", n_layers=layers,
+                           dtype=dtype)
+
+
+def dist_opt():
+    from repro_torch.optim import adamw
+    return adamw.AdamWConfig(lr=3e-4, warmup_steps=DIST_STEPS,
+                             total_steps=DIST_STEPS, quantized_state=True)
+
+
+def dist_tokens(vocab, rows, step, lo=0, hi=None):
+    from repro_torch.data.pipeline import SyntheticLM
+    return SyntheticLM(vocab, DIST_SEQ, rows).batch_at(step, lo, hi)
+
+
+def one_process_steps(dev, cfg, rows):
+    """make_train_fn's DIST_STEPS steps on ``rows`` sequences a step, one
+    process, no mesh: the per-step metrics and the launch counts."""
+    import torch
+
+    from repro_torch.data.pipeline import device_batch
+    from repro_torch.kernels import flash_cuda as fc
+    from repro_torch.models.lm import LM
+    from repro_torch.optim import adamw
+    from repro_torch.train import loop as tl
+    _free()
+    model = LM(cfg, device=dev, seed=0, trainable=True)
+    ocfg = dist_opt()
+    step = tl.make_train_fn(model, ocfg)
+    params = tl.params_of(model)
+    state = (params, adamw.init(ocfg, params))
+    hist = []
+    fc.reset_launches()
+    for s in range(DIST_STEPS):
+        p, o, m = step(*state, device_batch(
+            {"tokens": dist_tokens(cfg.vocab, rows, s)}, dev))
+        state = (p, o)
+        hist.append({k: float(v) for k, v in m.items()})
+    torch.cuda.synchronize()
+    launches = dict(fc.LAUNCHES)
+    del model, step, state, params
+    _free()
+    return hist, launches
+
+
+def dist_one_rank_phase(dev):
+    """(a): make_train_step on a one-rank NCCL mesh against make_train_fn
+    on the same card (losses and grad norms to DIST_ONE_RANK_RTOL, the
+    same launches), then make_compressed_dp_step, its all-reduce through
+    NCCL, held to the one-shard rule: g_hat = dequant(quant(g + err)) bit
+    for bit. Returns the launch counts of both mesh runs."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.data.pipeline import make_global_batch
+    from repro_torch.kernels import flash_cuda as fc
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.lm import LM
+    from repro_torch.optim import adamw, compress
+    from repro_torch.train import loop as tl
+
+    cfg = dist_config()
+    want, want_launches = one_process_steps(dev, cfg, 1)
+    mesh = make_host_mesh()
+    try:
+        check(dist.get_backend() == "nccl" and tuple(mesh.shape) == (1, 1),
+              f"one-rank mesh {dist.get_backend()} {tuple(mesh.shape)}")
+        model = LM(cfg, device=dev, seed=0, trainable=True)
+        ocfg = dist_opt()
+        step, shardings = tl.make_train_step(model, ocfg, mesh)
+        params = tl.params_of(model)
+        state = shardings(params).distribute(
+            {"opt_state": adamw.init(ocfg, params)})
+        torch.cuda.reset_peak_memory_stats()
+        # the main path: counts set to 0 just before, read just after
+        fc.reset_launches()
+        for s in range(DIST_STEPS):
+            t0 = time.perf_counter()
+            p, o, m = step(state["params"], state["opt_state"],
+                           make_global_batch(mesh, {"tokens": dist_tokens(
+                               cfg.vocab, 1, s)}))
+            state = {"params": p, "opt_state": o}
+            m = {k: float(v) for k, v in m.items()}
+            loss_rel = _rel(m["loss"], want[s]["loss"])
+            gn_rel = _rel(m["grad_norm"], want[s]["grad_norm"])
+            phase("dist", run="one_rank_nccl", mesh="1x1", step=s,
+                  loss=f"{m['loss']:.6f}", loss_rel=f"{loss_rel:.3e}",
+                  grad_norm_rel=f"{gn_rel:.3e}",
+                  step_s=f"{time.perf_counter() - t0:.3f}")
+            check(loss_rel <= DIST_ONE_RANK_RTOL
+                  and gn_rel <= DIST_ONE_RANK_RTOL,
+                  f"one-rank mesh step {s}: loss {loss_rel}, grad norm "
+                  f"{gn_rel} from the one-device step")
+        launches = collections.Counter(fc.LAUNCHES)
+        check(dict(launches) == want_launches and all(launches.values()),
+              f"one-rank mesh launches {dict(launches)}, one device "
+              f"{want_launches}")
+        peak = torch.cuda.max_memory_allocated()
+        del model, step, state, params, p, o
+        _free()
+        # the compressed step, its all-reduce through NCCL
+        model = LM(cfg, device=dev, seed=0, trainable=True)
+        params = tl.params_of(model)
+        batch = make_global_batch(mesh, {"tokens": dist_tokens(cfg.vocab, 1,
+                                                              0)})
+        _, _, grads = tl._grads(model, {k: v.to_local()
+                                        for k, v in batch.items()})
+        err = compress.init_error(params)
+        g_hat, new_err = compress.tree_compressed_psum(grads, err,
+                                                       (mesh, "data"))
+        bad = [n for n, g in grads.items()
+               if not torch.equal(g_hat[n], compress._quantize(
+                   g.float() + err[n])[2].to(g.dtype))]
+        check(not bad, f"one-shard g_hat differs from dequant(quant(g + "
+              f"err)) at {bad[:3]}")
+        del grads, g_hat, new_err
+        cstep = tl.make_compressed_dp_step(model, ocfg, mesh)
+        fc.reset_launches()
+        out = cstep(params, adamw.init(ocfg, params), err, batch)
+        torch.cuda.synchronize()
+        claunch, cm = dict(fc.LAUNCHES), out[3]
+        del out
+        check(_rel(float(cm["loss"]), want[0]["loss"]) <= DIST_ONE_RANK_RTOL,
+              f"one-rank compressed step's loss {float(cm['loss'])} vs "
+              f"{want[0]['loss']}")
+        phase("dist", run="one_rank_nccl", mesh="1x1",
+              train_step_launches=json.dumps(dict(launches),
+                                             separators=(",", ":")),
+              compressed_launches=json.dumps(claunch, separators=(",", ":")),
+              one_shard_rule="bitwise", payload_bytes=cstep.stats[
+                  "payload_bytes"], dense_bytes=cstep.stats["dense_bytes"],
+              peak_gb=f"{peak / 2 ** 30:.2f}")
+        launches.update(claunch)
+        del model, cstep, params, err
+    finally:
+        dist.destroy_process_group()
+        _free()
+    return launches
+
+
+def _dist_dp(rank):
+    """(data=2, model=1) compressed DP on this rank: per-step metrics, the
+    all-reduce's bytes and time, the checks' inputs on
+    DIST_CHECK_LEAVES (gathered from both ranks) and the launches."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.data.pipeline import local_rows, make_global_batch
+    from repro_torch.kernels import flash_cuda as fc
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.lm import LM
+    from repro_torch.optim import adamw, compress
+    from repro_torch.train import loop as tl
+
+    dev = torch.device("cuda", 0)
+    mesh = make_host_mesh(1, device="cuda")
+    cfg = dist_config()
+    model = LM(cfg, device=dev, seed=0, trainable=True)
+    ocfg = dist_opt()
+    groups = {k: v for k, v in model.reference_leaves().items()
+              if k in DIST_CHECK_LEAVES}
+    watched = [n for g in groups.values() for n in g]
+    step = tl.make_compressed_dp_step(model, ocfg, mesh)
+    params = tl.params_of(model)
+    state = (params, adamw.init(ocfg, params), compress.init_error(params))
+    rec = []
+    orig = compress.tree_compressed_psum
+
+    def timed(grads, errs, group, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g_hat, new_err = orig(grads, errs, group, **kw)
+        torch.cuda.synchronize()
+        rec.append({"s": time.perf_counter() - t0,
+                    "dtype": {k: grads[names[0]].dtype
+                              for k, names in groups.items()},
+                    "g": {n: grads[n].float().clone() for n in watched},
+                    "err_in": {n: errs[n].clone() for n in watched},
+                    "err_out": {n: new_err[n].clone() for n in watched},
+                    "g_hat": {n: g_hat[n].float().clone() for n in watched}})
+        return g_hat, new_err
+
+    lo, hi = local_rows(mesh, 2)
+    hist = []
+    compress.tree_compressed_psum = timed
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        fc.reset_launches()
+        for s in range(DIST_STEPS):
+            t0 = time.perf_counter()
+            batch = make_global_batch(mesh, {"tokens": dist_tokens(
+                cfg.vocab, 2, s, lo, hi)}, global_batch=2)
+            p, o, e, m = step(*state, batch)
+            state = (p, o, e)
+            m = {k: float(v) for k, v in m.items()}
+            hist.append(dict(m, step_s=time.perf_counter() - t0,
+                             allreduce_s=rec[-1]["s"], **step.stats))
+        launches = dict(fc.LAUNCHES)
+    finally:
+        compress.tree_compressed_psum = orig
+    peak = torch.cuda.max_memory_allocated()
+    del model, state, params, p, o, e, step
+    _free()
+    # the checks: the int32 sums and g_hat against the plain formula on
+    # both ranks' inputs (gathered), error feedback's running sum
+    world = dist.get_world_size()
+    checks = {}
+    for s, r in enumerate(rec):
+        for key, names in groups.items():
+            x = torch.cat([(r["g"][n] + r["err_in"][n]).reshape(-1)
+                           for n in names])
+            xs = [torch.empty_like(x, device="cpu") for _ in range(world)]
+            dist.all_gather(xs, x.cpu())
+            qs = [compress._quantize(t.to(dev)) for t in xs]
+            qsum = sum(q.to(torch.int32) for q, _, _ in qs)
+            mine = qs[rank][0].to(torch.int32)
+            dist.all_reduce(mine)                   # gloo, CUDA tensors
+            ssum = qs[0][1]
+            for _, sc, _ in qs[1:]:
+                ssum = ssum + sc
+            # g_hat in the gradient's dtype, as the step hands it on
+            plain = ((qsum.float() * (ssum / world)[:, None]).reshape(-1)[
+                :x.numel()] / world).to(r["dtype"][key]).float()
+            got = torch.cat([r["g_hat"][n].reshape(-1) for n in names])
+            ulp = torch.nextafter(plain.abs(), torch.full_like(
+                plain, float("inf"))) - plain.abs()
+            checks[f"{key}@{s}"] = (bool(torch.equal(mine, qsum)),
+                                    float(((got - plain).abs()
+                                           / ulp).max()))
+    # error feedback: sum over the steps of what was sent plus the last
+    # residual equals the sum of the gradients; the control drops the
+    # residual each step (err zeroed), on the same gradients
+    ef = {}
+    for key, names in groups.items():
+        g_sum = sum(torch.cat([r["g"][n].reshape(-1) for n in names])
+                    for r in rec)
+        tol = 1e-5 * float(g_sum.abs().max())
+        sent = sum(compress._quantize(torch.cat(
+            [(r["g"][n] + r["err_in"][n]).reshape(-1) for n in names]))[2]
+            for r in rec)
+        last = torch.cat([rec[-1]["err_out"][n].reshape(-1) for n in names])
+        kept = float((sent + last - g_sum).abs().max())
+        sent0 = sum(compress._quantize(torch.cat(
+            [r["g"][n].reshape(-1) for n in names]))[2] for r in rec)
+        g_last = torch.cat([rec[-1]["g"][n].reshape(-1) for n in names])
+        last0 = g_last - compress._quantize(g_last)[2]
+        dropped = float((sent0 + last0 - g_sum).abs().max())
+        ef[key] = (kept, dropped, tol)
+    return {"hist": hist, "launches": launches, "peak": peak,
+            "checks": checks, "ef": ef}
+
+
+def _dist_rank(rank, world, init_file):
+    """One of the two ranks of (b): gloo over CUDA tensors, both on card
+    0."""
+    import os
+
+    import torch
+
+    from repro_torch.launch import ranks
+    # two processes share the card's 80 GB: segments that grow in place
+    # keep what one frees usable for the next leaf's buffers
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    ranks.init(rank, world, init_file, backend="gloo", threads=None)
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    return {"dp": _dist_dp(rank)}
+
+
+def dist_two_rank_phase(dev):
+    """(b): two ranks sharing the card over gloo (DIST_TIMEOUT), then the
+    one-process steps they are held to. Returns the DP run's launches
+    (rank 0). The tensor-parallel run is not here: DTensor's functional
+    all-reduce over gloo on CUDA tensors ended both ranks with a
+    segmentation fault at its first redistribute (PERF.md §7); the CPU
+    tests hold the (1, 2) and (1, 4) meshes."""
+    from repro_torch.launch import ranks
+    _free()         # the ranks share the card with this process
+    init = ROOT / "build" / "dist_rdzv"
+    init.parent.mkdir(exist_ok=True)
+    init.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    res = ranks.run_ranks(_dist_rank, 2, str(init), timeout=DIST_TIMEOUT)
+    ranks_s = time.perf_counter() - t0
+    init.unlink(missing_ok=True)
+    whole, _ = one_process_steps(dev, dist_config(), 2)
+    for r, out in enumerate(res):
+        dp = out["dp"]
+        for s, h in enumerate(dp["hist"]):
+            rel = _rel(h["loss"], whole[s]["loss"])
+            phase("dist", run="dp_compressed", mesh="2x1", rank=r, step=s,
+                  loss=f"{h['loss']:.6f}", loss_rel_vs_one_process=f"{rel:.3e}",
+                  step_s=f"{h['step_s']:.3f}",
+                  allreduce_s=f"{h['allreduce_s']:.3f}",
+                  payload_bytes=h["payload_bytes"],
+                  dense_f32_bytes=h["dense_bytes"],
+                  peak_gb=f"{dp['peak'] / 2 ** 30:.2f}",
+                  launches=json.dumps(dp["launches"], separators=(",", ":")))
+            check(rel <= DIST_LOSS_RTOL, f"DP rank {r} step {s}: loss {rel} "
+                  f"from the one-process step on the whole batch")
+        for key, (exact, ulps) in dp["checks"].items():
+            check(exact and ulps <= 1.0, f"DP rank {r} {key}: int32 sums "
+                  f"exact {exact}, g_hat {ulps} ulp from the plain formula")
+        for key, (kept, dropped, tol) in dp["ef"].items():
+            check(kept <= tol < dropped, f"DP rank {r} {key}: error feedback "
+                  f"sum err {kept}, control {dropped}, limit {tol}")
+        phase("dist", run="dp_compressed", rank=r, checks=",".join(
+            f"{k}:int32_exact={e}:g_hat_ulps={u:.1f}"
+            for k, (e, u) in dp["checks"].items()),
+              error_feedback=",".join(f"{k}:{a:.2e}<={t:.2e}<{b:.2e}"
+                                      for k, (a, b, t) in dp["ef"].items()))
+    phase("dist", ranks_seconds=f"{ranks_s:.1f}")
+    return collections.Counter(res[0]["dp"]["launches"])
+
+
+def dist_phases(dev):
+    """[dist]: (a) then (b). Returns their launches (rank 0's in (b))."""
+    t0 = time.perf_counter()
+    launches = dist_one_rank_phase(dev)
+    launches.update(dist_two_rank_phase(dev))
+    phase("dist", seconds=f"{time.perf_counter() - t0:.1f}")
+    return launches
+
+
+def kernel_rows(table, launches):
+    """The kernel table line's rows: each row's launches from the main
+    paths' counts; the local-head rows, which no card path launches, go
+    to a ``[dist]`` line of their own instead."""
+    rows = []
+    for row in table.values():
+        row["launches"] = launches[row["name"]]
+        if row["name"].endswith(f"_{LOCAL_HEADS}"):
+            phase("dist", local_head_row=json.dumps(row,
+                                                    separators=(",", ":")))
+        else:
+            rows.append(row)
+    return rows
+
+
 def main() -> int:
     try:
         import torch
@@ -4009,6 +4401,24 @@ def main() -> int:
         print(smi)
         print(json.dumps({"kernels": list(table.values())}))
         return 0
+    if sys.argv[1:] == [DIST_FLAG]:          # training on a mesh alone
+        # the [dist] path's shapes (K5 at the serving case's, K6/K7 at the
+        # training case's) and one rank's local heads
+        table = lm_kernel_phase(dev, [c for c in K5_CASES
+                                      if c[0] in ("a", LOCAL_HEADS)],
+                                small=False)
+        table.update(bwd_kernel_phase(
+            dev, [c for c in BWD_CASES if c[0] in ("train", LOCAL_HEADS)],
+            small=False))
+        launches = dist_phases(dev)
+        rows = kernel_rows(table, launches)
+        phase("done", dist_only=True,
+              seconds=f"{time.perf_counter() - t0:.1f}")
+        print(smi)
+        print(json.dumps({"kernels": rows}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name, "count": count}}))
+        return 0
     if sys.argv[1:] == [CROSS_FLAG]:         # the cross-attention slice
         table = lm_kernel_phase(dev, [c for c in K5_CASES
                                       if c[0] in BIDIRECTIONAL], small=False)
@@ -4054,6 +4464,7 @@ def main() -> int:
     zamba = zamba2_phases(dev)
     rwkv = rwkv_phases(dev)
     supervisor_phase(dev)
+    launches.update(dist_phases(dev))
     launches.update(wide)
     launches.update({row_name(n, WIDE_D): c for n, c in wide.items()})
     launches.update(moe)
@@ -4064,11 +4475,10 @@ def main() -> int:
     launches.update(zamba)
     launches.update({row_name(n, ZAMBA_D): c for n, c in zamba.items()})
     launches.update(rwkv)
-    for row in table.values():
-        row["launches"] = launches[row["name"]]
+    rows = kernel_rows(table, launches)
     phase("done", seconds=f"{time.perf_counter() - t0:.1f}")
     print(smi)
-    print(json.dumps({"kernels": list(table.values())}))
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}))
     return 0

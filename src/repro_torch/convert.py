@@ -19,11 +19,13 @@ from typing import Iterable, Mapping
 import numpy as np
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from repro_torch.cluster.node import FleetState, Node
 from repro_torch.cluster.workload import WORKLOADS, Pod, WorkloadSpec
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.lm import LM
+from repro_torch.train.loop import distribute_model
 
 # NodeTable fields, in declaration order. The first eight (and the two
 # list columns) define the nodes; the three profile columns are derived
@@ -104,7 +106,7 @@ def tensor_from_numpy(a: np.ndarray) -> torch.Tensor:
 
 
 def lm_params_from_numpy(cfg: ModelConfig, tree: Mapping, *,
-                         device=None):
+                         device=None, shardings: Mapping | None = None):
     """The port's ``LM`` with the reference's parameters: ``tree`` is
     ``repro.models.lm.build(cfg).init(key)`` as nested dicts of numpy
     arrays, each segment's leaves stacked on axis 0 (``dense``;
@@ -115,7 +117,10 @@ def lm_params_from_numpy(cfg: ModelConfig, tree: Mapping, *,
     zamba2's ``mamba_group``, whose ``mambas`` are stacked (n_groups, k,
     ...), its ``mamba_tail`` and the unstacked top-level ``shared_attn``;
     rwkv6's ``rwkv``). Weights keep the reference's layout; key sets,
-    shapes and dtypes are checked."""
+    shapes and dtypes are checked. With ``shardings`` (``{name:
+    rules.NamedSharding}``, as ``train.loop.make_train_step``'s
+    ``shardings(params).params``) the parameters come back as DTensors laid
+    out by them, each rank keeping its slice."""
     model = LM(cfg, device=device, seed=None)
 
     def put(dst: torch.Tensor, a, name: str) -> None:
@@ -166,12 +171,16 @@ def lm_params_from_numpy(cfg: ModelConfig, tree: Mapping, *,
         if model.shared_attn is not None:
             fill(model.shared_attn, tree["shared_attn"], (), (),
                  "shared_attn")
+    if shardings is not None:
+        distribute_model(model, shardings)
     return model
 
 
 def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
-    """A numpy copy of ``t``; bfloat16 (which numpy has not got) comes back
-    as float32, exactly."""
+    """A numpy copy of ``t`` (a DTensor gathered whole); bfloat16 (which
+    numpy has not got) comes back as float32, exactly."""
+    if isinstance(t, DTensor):
+        t = t.full_tensor()
     t = t.detach().cpu()
     if t.dtype == torch.bfloat16:
         t = t.float()

@@ -20,6 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core import topsis as _topsis
 from repro_torch.device import resolve_device
@@ -326,6 +327,10 @@ def flash_attention(q, k, v, *, causal: bool = True,
     ``out`` (and through autograd dq, dk, dv) sliced back to D: zero
     columns change neither q.k nor the kept columns of p.v. Otherwise
     ``out`` has q's memory layout."""
+    if any(isinstance(t, DTensor) for t in (q, k, v)):
+        raise TypeError("flash_attention takes local tensors; a DTensor "
+                        "reaches it only through a local_map region "
+                        "(models.layers._flash_sdpa)")
     dev = _device_for(q, device)
     q, k, v = (_as_tensor(t, dev) for t in (q, k, v))
     d = q.shape[-1]

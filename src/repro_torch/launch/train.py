@@ -8,6 +8,14 @@ under the fault ``Supervisor`` (checkpoints every ``--ckpt-every`` steps and
 at the end, restart from the latest on a fault); without it they run
 directly through the train step and nothing is written.
 
+On a mesh — launched by ``torchrun`` (the process group from the
+environment), inside a caller's process group, or with ``--model-axis`` —
+the steps run through ``make_train_step`` on ``make_host_mesh(
+--model-axis)``: parameters laid out by the sharding rules, the optimizer
+state by ZeRO-1, each rank making only its own rows of the batch
+(``make_global_batch``); ``--device cpu`` is gloo, the default the card
+and NCCL. Only rank 0 prints.
+
 ``--arch`` takes the dense (llama3-8b, gemma-7b, ...), MoE
 (mixtral-8x7b, deepseek-v3-671b) and state-space (zamba2-7b: K5, K6 and K7
 in its shared attention block; rwkv6-1.6b: no kernel) architectures; a
@@ -22,19 +30,25 @@ a caller, and without them it raises a ``ValueError`` naming the input.
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3-8b --smoke \\
       --steps 20 --device cpu
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+      --smoke --device cpu --model-axis 2 --steps 20
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 import types
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import registry
-from repro_torch.data.pipeline import SyntheticLM, device_batch
+from repro_torch.data.pipeline import (SyntheticLM, device_batch,
+                                       local_rows, make_global_batch)
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models.lm import LM, cross_inputs, segments_for
 from repro_torch.optim import adamw
 from repro_torch.train import fault
@@ -64,7 +78,21 @@ def parse(argv=None) -> argparse.Namespace:
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
+    ap.add_argument("--model-axis", type=int, default=None,
+                    help="TP size of the (data, model) mesh over the ranks")
     return ap.parse_args(argv)
+
+
+def on_mesh(args: argparse.Namespace) -> bool:
+    """Whether the run takes the mesh path: a process group exists (a
+    caller's), ``torchrun`` set the environment, or ``--model-axis``."""
+    return (dist.is_initialized() or "TORCHELASTIC_RUN_ID" in os.environ
+            or ("RANK" in os.environ and "WORLD_SIZE" in os.environ)
+            or args.model_axis is not None)
+
+
+def _rank() -> int:
+    return dist.get_rank() if dist.is_initialized() else 0
 
 
 def config(args: argparse.Namespace):
@@ -99,7 +127,11 @@ def build(args: argparse.Namespace, extra_inputs=None
             f"inputs, which launch.train has no source for; pass "
             f"build(args, extra_inputs=...)")
     dev = resolve_device(args.device)
+    mesh = make_host_mesh(args.model_axis, device=dev) if on_mesh(args) \
+        else None
     if dev.type == "cuda":
+        if mesh is not None:
+            dev = torch.device("cuda", torch.cuda.current_device())
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
             False
@@ -110,13 +142,31 @@ def build(args: argparse.Namespace, extra_inputs=None
     ds = SyntheticLM(vocab=cfg.vocab, seq_len=args.seq_len,
                      global_batch=args.global_batch)
     params = tl.params_of(model)
+    state = {"params": params, "opt_state": adamw.init(ocfg, params)}
+    if mesh is None:
+        return types.SimpleNamespace(
+            cfg=cfg, model=model, ocfg=ocfg, mesh=None, shardings=None,
+            step_fn=tl.make_train_fn(model, ocfg, n_micro=args.n_micro),
+            state=state,
+            data_fn=lambda s: device_batch(
+                {"tokens": ds.batch_at(s),
+                 **(extra_inputs(s) if need else {})}, dev))
+    step_fn, shardings = tl.make_train_step(model, ocfg, mesh,
+                                            n_micro=args.n_micro)
+    sh = shardings(params)
+    lo, hi = local_rows(mesh, args.global_batch)
+
+    def data_fn(s):
+        extra = ({k: v[lo:hi] for k, v in extra_inputs(s).items()}
+                 if need else {})
+        return make_global_batch(mesh, {"tokens": ds.batch_at(s, lo, hi),
+                                        **extra},
+                                 global_batch=args.global_batch)
+
     return types.SimpleNamespace(
-        cfg=cfg, model=model, ocfg=ocfg,
-        step_fn=tl.make_train_fn(model, ocfg, n_micro=args.n_micro),
-        state={"params": params, "opt_state": adamw.init(ocfg, params)},
-        data_fn=lambda s: device_batch(
-            {"tokens": ds.batch_at(s),
-             **(extra_inputs(s) if need else {})}, dev))
+        cfg=cfg, model=model, ocfg=ocfg, mesh=mesh,
+        shardings={"params": sh.params, "opt_state": sh.state},
+        step_fn=step_fn, state=sh.distribute(state), data_fn=data_fn)
 
 
 def train_steps(r: types.SimpleNamespace, first: int, last: int, *,
@@ -148,7 +198,7 @@ def run(args: argparse.Namespace, *, on_step=None) -> list[dict]:
         return train_steps(r, 0, args.steps, on_step=on_step)
     sup = fault.Supervisor(ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every)
     _, hist = sup.run(state=r.state, step_fn=r.step_fn, data_fn=r.data_fn,
-                      n_steps=args.steps)
+                      n_steps=args.steps, shardings=r.shardings)
     if on_step is not None:
         for h in hist:
             on_step(h)
@@ -159,15 +209,17 @@ def main(argv=None) -> list[dict]:
     args = parse(argv)
 
     def show(h):
-        print(f"step {h['step']} loss={h['loss']:.6f} aux={h['aux']:.6f} "
-              f"grad_norm={h['grad_norm']:.6f} lr={h['lr']:.6e} "
-              f"time_s={h['time_s']:.3f}", flush=True)
+        if _rank() == 0:
+            print(f"step {h['step']} loss={h['loss']:.6f} "
+                  f"aux={h['aux']:.6f} grad_norm={h['grad_norm']:.6f} "
+                  f"lr={h['lr']:.6e} time_s={h['time_s']:.3f}", flush=True)
 
     hist = run(args, on_step=show)
     losses = [h["loss"] for h in hist]
-    print(f"steps={len(hist)} first_loss={losses[0]:.4f} "
-          f"final_loss={losses[-1]:.4f} "
-          f"mean_step_s={np.mean([h['time_s'] for h in hist]):.3f}")
+    if _rank() == 0:
+        print(f"steps={len(hist)} first_loss={losses[0]:.4f} "
+              f"final_loss={losses[-1]:.4f} "
+              f"mean_step_s={np.mean([h['time_s'] for h in hist]):.3f}")
     return hist
 
 

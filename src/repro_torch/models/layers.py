@@ -15,23 +15,33 @@ rounded to the input dtype where the reference rounds:
 
 Self-attention over a whole sequence (prefill, training) goes through K5
 (``kernels.ops.flash_attention``) when ``cfg.attn_impl == "flash"``, and
-its gradient through K6 and K7: one card is a model axis of 1, so no mesh
-condition applies. Decode uses ``_sdpa``, plain torch as the reference's
-is plain XLA. The decode cache is updated in place. Every function here is
-differentiable with ``torch.autograd``. Neither cross-attention
+its gradient through K6 and K7. On one device that is a model axis of 1,
+so no mesh condition applies. Under a mesh, the activations are DTensors;
+the port has no ambient mesh, so it reads the mesh from the input (q's
+``device_mesh`` when it has a ``"model"`` dim), and the kernels run on
+each rank's local heads inside a ``local_map`` region, under the
+reference's condition (``_flash_shardable``); otherwise ``_sdpa`` runs on
+the DTensors, as the reference's einsum path. Decode uses ``_sdpa``, plain
+torch as the reference's is plain XLA. The decode cache is updated in
+place. Every function here is differentiable with ``torch.autograd``.
+Neither cross-attention
 (``attention(..., kv_src=...)``) nor MLA (``mla_attention``) takes K5: the
 reference's call ``_sdpa`` (layers.py:225, :299).
 """
 from __future__ import annotations
 
+import math
 from typing import Mapping
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.kernels import ops as kops
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding import rules
 
 Params = Mapping[str, torch.Tensor]
 
@@ -75,11 +85,38 @@ class _DotF32(torch.autograd.Function):
         return dx, dw
 
 
+def _dot_f32_mesh(x: DTensor, w: DTensor) -> DTensor:
+    """``_DotF32`` of (N, K) and (K, M) DTensors in a ``local_map``
+    region (DTensor has no rule for ``mm`` with ``out_dtype``): K whole on
+    every rank, each rank the product of its rows and columns; a mesh dim
+    that splits x's rows or w's columns leaves the other operand's
+    gradient a partial sum over it."""
+    mesh = x.device_mesh
+    xp, wp = [], []
+    for px, pw in zip(x.placements, w.placements):
+        rows = isinstance(px, Shard) and px.dim == 0
+        cols = isinstance(pw, Shard) and pw.dim == 1 and not rows
+        xp.append(Shard(0) if rows else Replicate())
+        wp.append(Shard(1) if cols else Replicate())
+    out = [a if isinstance(a, Shard) else Shard(1) if isinstance(b, Shard)
+           else Replicate() for a, b in zip(xp, wp)]
+    x_grad = [Partial() if isinstance(b, Shard) else a
+              for a, b in zip(xp, wp)]
+    w_grad = [Partial() if isinstance(a, Shard) else b
+              for a, b in zip(xp, wp)]
+    return local_map(_DotF32.apply, out_placements=out,
+                     in_placements=(xp, wp),
+                     in_grad_placements=(x_grad, w_grad), device_mesh=mesh,
+                     redistribute_inputs=True)(x, w)
+
+
 def dot_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` accumulated and returned in float32 (the unembedding)."""
     if x.dtype == torch.bfloat16 and x.is_cuda:
         lead = x.shape[:-1]
-        out = _DotF32.apply(x.reshape(-1, x.shape[-1]), w)
+        x2 = x.reshape(-1, x.shape[-1])
+        out = (_dot_f32_mesh(x2, w) if isinstance(x2, DTensor)
+               else _DotF32.apply(x2, w))
         return out.reshape(*lead, w.shape[-1])
     return torch.matmul(x.float(), w.float())
 
@@ -185,6 +222,15 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
                   q_pos=q_pos[i:i + _Q_CHUNK], kv_len=kv_len)
             for i in range(0, s, _Q_CHUNK)], dim=1)
     t, hkv = k.shape[1], k.shape[2]
+    # the reference's GQA rule: the grouped form, unless a model axis
+    # that does not divide the kv heads would lose its head sharding in
+    # training / prefill; then k and v are repeated to every query head
+    mesh = model_mesh(q)
+    m = rules.model_axis_size(mesh) if mesh is not None else 1
+    if not (s == 1 or hkv % m == 0 or hkv == h):
+        k = torch.repeat_interleave(k, h // hkv, dim=2)
+        v = torch.repeat_interleave(v, h // hkv, dim=2)
+        hkv = h
     g = h // hkv
     qg = q.reshape(b, s, hkv, g, d)
     logits = torch.einsum("bskgd,btkd->bkgst", qg.float(),
@@ -206,14 +252,80 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
     return out.reshape(b, s, h, v.shape[-1]).to(q.dtype)
 
 
+def model_mesh(x: torch.Tensor):
+    """The ``DeviceMesh`` of ``x`` when x is a DTensor on a mesh with a
+    ``"model"`` dim, else None (the port's stand-in for the reference's
+    ambient mesh)."""
+    if isinstance(x, DTensor) and "model" in (x.device_mesh.mesh_dim_names
+                                              or ()):
+        return x.device_mesh
+    return None
+
+
+def _flash_shardable(cfg: ModelConfig, mesh) -> bool:
+    """The flash path under a mesh needs a model axis that divides the
+    query heads (each rank runs the kernels on its local heads); with no
+    mesh it always runs."""
+    if mesh is None:
+        return True
+    m = rules.model_axis_size(mesh)
+    if cfg.n_heads % m:
+        return False
+    h_loc = cfg.n_heads // m
+    if cfg.n_kv_heads % m == 0:
+        return True
+    # replicated-KV mode: each rank's q heads must map to a contiguous,
+    # rank-constant set of kv heads
+    g = cfg.n_heads // cfg.n_kv_heads
+    return g % h_loc == 0 or h_loc % g == 0
+
+
 def _flash_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 causal: bool, window: int | None) -> torch.Tensor:
     """(B, S, H, D) attention through K5 (and, under autograd, K6 and K7);
     the kernels read the (B, H, S, D) views in place and write their
-    outputs in their inputs' layouts."""
-    out = kops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                               v.transpose(1, 2), causal=causal,
-                               window=window)
+    outputs in their inputs' layouts.
+
+    DTensors on a mesh with a ``"model"`` dim go through a ``local_map``
+    region (the reference's ``shard_map``, layers.py:107-150): q (B, H,
+    S, D) with the batch over the data axes and the heads over
+    ``model``; k and v with their heads over ``model`` when it divides
+    them, else replicated, each rank slicing the kv heads its query heads
+    attend to (and their gradients partial sums over ``model``)."""
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    mesh = model_mesh(q)
+    if mesh is None:
+        return kops.flash_attention(qt, kt, vt, causal=causal,
+                                    window=window).transpose(1, 2)
+    m = rules.model_axis_size(mesh)
+    b, h, hkv = qt.shape[0], qt.shape[1], kt.shape[1]
+    ba = rules.batch_axes(mesh)
+    if not ba or b % math.prod(rules.sizes(mesh)[a] for a in ba):
+        ba = None
+    h_loc = h // m
+    kv_sharded = hkv % m == 0
+    q_place = rules.placements(rules.Spec(ba, "model", None, None), mesh)
+    kv_place = rules.placements(
+        rules.Spec(ba, "model" if kv_sharded else None, None, None), mesh)
+    kv_grad = tuple(Partial() if not kv_sharded and n == "model" else p
+                    for n, p in zip(mesh.mesh_dim_names, kv_place))
+
+    def local(ql, kl, vl):
+        if not kv_sharded and hkv != h:
+            # slice the kv heads this rank's q heads attend to
+            r = mesh.get_local_rank("model")
+            g = h // hkv
+            n_kv_loc = max(h_loc // g, 1)
+            start = (r * h_loc) // g
+            kl = kl[:, start:start + n_kv_loc]
+            vl = vl[:, start:start + n_kv_loc]
+        return kops.flash_attention(ql, kl, vl, causal=causal,
+                                    window=window)
+
+    out = local_map(local, out_placements=list(q_place),
+                    in_placements=(q_place, kv_place, kv_place),
+                    in_grad_placements=(q_place, kv_grad, kv_grad),
+                    device_mesh=mesh, redistribute_inputs=True)(qt, kt, vt)
     return out.transpose(1, 2)
 
 
@@ -248,7 +360,8 @@ def attention(p: Params, cfg: ModelConfig, x: torch.Tensor, *, kv_src=None,
     if use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-    use_flash = cfg.attn_impl == "flash" and S > 1
+    use_flash = (cfg.attn_impl == "flash" and S > 1
+                 and _flash_shardable(cfg, model_mesh(q)))
     if cache is not None:
         idx = int(cache["len"])
         ck, cv = cache["k"], cache["v"]

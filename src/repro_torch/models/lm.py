@@ -53,7 +53,9 @@ import dataclasses
 from typing import Mapping
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
@@ -319,6 +321,38 @@ class LM(nn.Module):
         for seg in self.segments:
             yield seg, list(range(i, i + seg.n_blocks))
             i += seg.n_blocks
+
+    def stack_dims(self) -> dict[str, tuple]:
+        """Each parameter's stack dims in the reference's layout: a
+        segment's block leaves are stacked ``(n_blocks,)``, a group's inner
+        blocks (``selfs``, ``mambas``) ``(n_groups, k)``; the others
+        (``embed``, ``final_ln``, ``lm_head``, ``shared_attn``) none."""
+        lead = {}
+        for seg, idx in self.segment_blocks():
+            for i in idx:
+                for name, _ in self.blocks[i].named_parameters():
+                    parts = name.split(".")
+                    inner = parts[0] in ("selfs", "mambas")
+                    lead[f"blocks.{i}.{name}"] = (
+                        (seg.n_blocks, len(getattr(self.blocks[i], parts[0])))
+                        if inner else (seg.n_blocks,))
+        return {n: lead.get(n, ()) for n, _ in self.named_parameters()}
+
+    def reference_leaves(self) -> dict[str, list[str]]:
+        """The reference's parameter leaves, each by its dotted path
+        (``"dense.attn.wq"``, ``"vlm.selfs.ln1"``, ``"embed"``), with the
+        names of the parameters stacked into it, in stack order (a
+        segment's blocks in order; a group's inner blocks group by group)."""
+        seg_of = {i: seg.name for seg, idx in self.segment_blocks()
+                  for i in idx}
+        out: dict[str, list[str]] = {}
+        for name, _ in self.named_parameters():
+            parts = name.split(".")
+            if parts[0] == "blocks":
+                parts = [seg_of[int(parts[1])]] + [
+                    p for p in parts[2:] if not p.isdigit()]
+            out.setdefault(".".join(parts), []).append(name)
+        return out
 
     # --- cache ---------------------------------------------------------------
     def init_cache(self, batch_size: int, max_len: int) -> dict:
@@ -640,8 +674,15 @@ class LM(nn.Module):
         for i in range(0, S, chunk):
             logits = self._unembed(hidden[:, i:i + chunk])       # float32
             lse = torch.logsumexp(logits, dim=-1)
-            gold = torch.gather(logits, -1,
-                                targets[:, i:i + chunk, None])[..., 0]
+            tgt = targets[:, i:i + chunk]
+            if isinstance(logits, DTensor):
+                # DTensor's gather over a vocab-sharded dim does not
+                # reduce its masked partials; the one-hot product picks
+                # the same logit exactly
+                gold = torch.sum(logits * F.one_hot(
+                    tgt, logits.shape[-1]).to(logits.dtype), dim=-1)
+            else:
+                gold = torch.gather(logits, -1, tgt[..., None])[..., 0]
             total = total + torch.sum(lse - gold)
         return total / max(B * S, 1)
 

@@ -34,6 +34,8 @@ from __future__ import annotations
 from typing import Mapping, NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dtype_of, ffn, init_dense
@@ -158,27 +160,19 @@ def _expert_dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.bmm(x.float(), w.float()).to(x.dtype)
 
 
-def moe_ffn(p: Params, cfg: ModelConfig, x: torch.Tensor, n_groups: int):
-    """x: (B, S, D) -> (out, aux_loss). Tokens regrouped to (G, S', D);
-    beyond ``_MOE_CHUNK_TOKENS`` tokens per group an even S is halved
-    until it fits or turns odd, and the chunks' aux losses averaged."""
+def _dispatch(router: torch.Tensor, router_bias: torch.Tensor,
+              cfg: ModelConfig, x: torch.Tensor, n_groups: int):
+    """Routing and dispatch of x (B, S, D) in ``n_groups`` groups:
+    ``(xin (E, G*C, D), slot (G, s, K), gate (G, s, K) float32, aux)``,
+    slot e * C + pos of each kept choice (E * C for a dropped one)."""
     B, S, D = x.shape
-    if B * S > n_groups * _MOE_CHUNK_TOKENS and S % 2 == 0:
-        n_chunks = 2
-        while (B * (S // n_chunks) > n_groups * _MOE_CHUNK_TOKENS
-               and (S // n_chunks) % 2 == 0):
-            n_chunks *= 2
-        sc = S // n_chunks
-        outs, auxs = zip(*(moe_ffn(p, cfg, x[:, i * sc:(i + 1) * sc],
-                                   n_groups) for i in range(n_chunks)))
-        return torch.cat(outs, dim=1), torch.mean(torch.stack(auxs))
     T, G = B * S, n_groups
     if T % G:
         raise ValueError(f"{T} tokens do not split into {G} groups")
     E, K = cfg.n_experts, cfg.top_k
     xg = x.reshape(G, T // G, D)
     s = T // G
-    r = route(p, cfg, xg)
+    r = route({"router": router, "router_bias": router_bias}, cfg, xg)
     C = r.capacity
     # slot e * C + pos of each kept choice; dropped ones go to slot E * C,
     # which is never read
@@ -191,23 +185,108 @@ def moe_ffn(p: Params, cfg: ModelConfig, x: torch.Tensor, n_groups: int):
     rows = torch.arange(G, device=x.device)[:, None]
     xin = xpad[rows, tok_of[:, :E * C]]                      # (G, E*C, D)
     xin = xin.reshape(G, E, C, D).transpose(0, 1).reshape(E, G * C, D)
-    h = _expert_dot(xin, p["w1"])
-    h3 = _expert_dot(xin, p["w3"])
+    return xin, slot.reshape(G, s, K), r.gate, r.aux
+
+
+def _experts(xin: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
+             w2: torch.Tensor) -> torch.Tensor:
+    """(E, N, D) slot rows -> (E, N, D) expert outputs (silu(x w1) * x w3
+    then w2, each product rounded to x's dtype)."""
+    h = _expert_dot(xin, w1)
+    h3 = _expert_dot(xin, w3)
     h = h * torch.sigmoid(h) * h3          # jax.nn.silu(h) * h3, x.dtype
-    eo = _expert_dot(h, p["w2"])                               # (E, G*C, D)
+    return _expert_dot(h, w2)
+
+
+def _combine(eo: torch.Tensor, slot: torch.Tensor, gate: torch.Tensor,
+             B: int, S: int, dtype: torch.dtype) -> torch.Tensor:
+    """(E, G*C, D) expert outputs -> (B, S, D): the kept gates rounded to
+    x's dtype, as the reference rounds its combine tensor, times their
+    slots' outputs, summed in float32."""
+    G, s, K = slot.shape
+    E, D = eo.shape[0], eo.shape[-1]
+    C = eo.shape[1] // G
     eo = eo.reshape(E, G, C, D).transpose(0, 1).reshape(G, E * C, D)
     eo = torch.cat([eo, eo.new_zeros(G, 1, D)], dim=1)
-    # combine: the kept gates rounded to x.dtype, as the reference rounds
-    # its combine tensor, times their slots' outputs, summed in float32
-    gate = r.gate.to(x.dtype).float()
-    slot = slot.reshape(G, s, K)
-    acc = torch.zeros((G, s, D), dtype=torch.float32, device=x.device)
+    gate = gate.to(dtype).float()
+    rows = torch.arange(G, device=eo.device)[:, None]
+    acc = torch.zeros((G, s, D), dtype=torch.float32, device=eo.device)
     for k in range(K):
         acc = acc + gate[..., k, None] * eo[rows, slot[..., k]].float()
-    out = acc.to(x.dtype).reshape(B, S, D)
+    return acc.to(dtype).reshape(B, S, D)
+
+
+def _moe_mesh(p: Params, cfg: ModelConfig, x: DTensor, n_groups: int):
+    """The routed experts of a DTensor x on its mesh, in three
+    ``local_map`` regions: routing, dispatch and combine on the whole
+    batch on every rank (the tokens and the router gathered; the
+    reference's groups span the global batch), and the experts on each
+    rank's share of the expert weights as the sharding rules laid them
+    out: the slot rows split with E where E is sharded (expert
+    parallelism: only local experts run), the F dim's partial sums
+    reduced where F is. With ``cfg.ep_axes`` the slot rows are first
+    redistributed to E sharded over those axes (the reference's ``ep``
+    constraint, moe.py:119-131)."""
+    mesh = x.device_mesh
+    names = mesh.mesh_dim_names
+    rep = (Replicate(),) * mesh.ndim
+    B, S, _ = x.shape
+    xin, slot, gate, aux = local_map(
+        lambda xl, r, rb: _dispatch(r, rb, cfg, xl, n_groups),
+        out_placements=(rep, rep, rep, rep), in_placements=(rep, rep, rep),
+        device_mesh=mesh, redistribute_inputs=True)(
+            x, p["router"], p["router_bias"])
+    if cfg.ep_axes:
+        xin = xin.redistribute(mesh, tuple(
+            Shard(0) if n in cfg.ep_axes else Replicate() for n in names))
+    w_place = tuple(w.placements if isinstance(w, DTensor) else rep
+                    for w in (p["w1"], p["w3"], p["w2"]))
+    # per mesh dim: experts split (Shard(0)), F split (a partial sum),
+    # or neither
+    e_split = [isinstance(pl, Shard) and pl.dim == 0 for pl in w_place[0]]
+    f_split = [isinstance(pl, Shard) and pl.dim != 0 for pl in w_place[0]]
+    x_place = tuple(Shard(0) if e else Replicate() for e in e_split)
+    x_grad = tuple(Shard(0) if e else Partial() if f else Replicate()
+                   for e, f in zip(e_split, f_split))
+    out_place = tuple(Shard(0) if e else Partial() if f else Replicate()
+                      for e, f in zip(e_split, f_split))
+    eo = local_map(_experts, out_placements=list(out_place),
+                   in_placements=(x_place,) + w_place,
+                   in_grad_placements=(x_grad,) + w_place,
+                   device_mesh=mesh, redistribute_inputs=True)(
+        xin, p["w1"], p["w3"], p["w2"])
+    out = local_map(
+        lambda e, sl, g: _combine(e, sl, g, B, S, x.dtype),
+        out_placements=list(rep), in_placements=(rep, rep, rep),
+        device_mesh=mesh, redistribute_inputs=True)(eo, slot, gate)
+    return out, aux
+
+
+def moe_ffn(p: Params, cfg: ModelConfig, x: torch.Tensor, n_groups: int):
+    """x: (B, S, D) -> (out, aux_loss). Tokens regrouped to (G, S', D);
+    beyond ``_MOE_CHUNK_TOKENS`` tokens per group an even S is halved
+    until it fits or turns odd, and the chunks' aux losses averaged. A
+    DTensor x runs on its mesh (``_moe_mesh``)."""
+    B, S, D = x.shape
+    if B * S > n_groups * _MOE_CHUNK_TOKENS and S % 2 == 0:
+        n_chunks = 2
+        while (B * (S // n_chunks) > n_groups * _MOE_CHUNK_TOKENS
+               and (S // n_chunks) % 2 == 0):
+            n_chunks *= 2
+        sc = S // n_chunks
+        outs, auxs = zip(*(moe_ffn(p, cfg, x[:, i * sc:(i + 1) * sc],
+                                   n_groups) for i in range(n_chunks)))
+        return torch.cat(outs, dim=1), torch.mean(torch.stack(auxs))
+    if isinstance(x, DTensor):
+        out, aux = _moe_mesh(p, cfg, x, n_groups)
+    else:
+        xin, slot, gate, aux = _dispatch(p["router"], p["router_bias"], cfg,
+                                         x, n_groups)
+        eo = _experts(xin, p["w1"], p["w3"], p["w2"])
+        out = _combine(eo, slot, gate, B, S, x.dtype)
     if cfg.n_shared_experts:
         out = out + ffn(p["shared"], cfg, x)
-    return out, r.aux
+    return out, aux
 
 
 def update_router_bias(bias: torch.Tensor, expert_load: torch.Tensor,

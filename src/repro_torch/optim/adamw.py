@@ -14,6 +14,17 @@ Unlike the reference, which is functional, ``update`` writes the new
 parameters into the given tensors in place and consumes ``grads`` leaf by
 leaf, so that at most one leaf's float32 temporaries are alive at a time
 and each gradient is freed once applied.
+
+Parameters, gradients and moments may be DTensors on a mesh (the ZeRO-1
+layout of ``train.loop.state_shardings``: the moments split over
+``data`` where the parameter is not). The global norm then reduces each
+leaf's partial sum of squares before the clip factor is taken. A float32
+moment's update runs on local tensors in the moment's layout (the
+gradient and the parameter are sliced to it, no communication) and is
+redistributed to the parameter's layout for the in-place write, which
+DTensor refuses across layouts. An int8 moment's ``q`` and ``scale`` may
+be split on different dims, so its update runs on the gathered leaf, and
+the new ``q`` and ``scale`` are sliced back to their layouts.
 """
 from __future__ import annotations
 
@@ -23,6 +34,7 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate
 
 BLOCK = 128
 
@@ -39,6 +51,14 @@ class QTensor:
 
     def __repr__(self):
         return f"QTensor(shape={self.shape})"
+
+
+def qtensor_shapes(shape: tuple) -> tuple[tuple, tuple]:
+    """The shapes of ``quantize``'s ``q`` and ``scale`` for a tensor of
+    ``shape`` (a scalar is taken as one value)."""
+    shape = tuple(shape) or (1,)
+    n_blocks = -(-shape[-1] // BLOCK)
+    return shape[:-1] + (n_blocks * BLOCK,), shape[:-1] + (n_blocks,)
 
 
 def quantize(x: torch.Tensor) -> QTensor:
@@ -106,12 +126,72 @@ def init(cfg: AdamWConfig, params: dict) -> OptState:
 
 
 def global_norm(tensors) -> torch.Tensor:
-    """sqrt of the sum of squares of every tensor, in float32."""
+    """sqrt of the sum of squares of every tensor, in float32 (a
+    DTensor's sum reduced over the mesh first: a plain tensor)."""
     total = None
     for x in tensors:
         sq = torch.sum(x.float().square())
+        if isinstance(sq, DTensor):
+            sq = sq.full_tensor()
         total = sq if total is None else total + sq
     return torch.sqrt(total)
+
+
+def _local(x: DTensor, like: DTensor) -> torch.Tensor:
+    """x's local tensor in ``like``'s layout."""
+    return x.redistribute(like.device_mesh, like.placements).to_local()
+
+
+def _replicated(x: torch.Tensor, like: DTensor) -> DTensor:
+    """The whole tensor ``x`` (equal on every rank) as a DTensor in
+    ``like``'s layout: a local slice, no communication."""
+    rep = (Replicate(),) * like.device_mesh.ndim
+    return DTensor.from_local(x, like.device_mesh, rep).redistribute(
+        like.device_mesh, like.placements)
+
+
+def _adamw_leaf(cfg: AdamWConfig, g, m, v, p, clip, lr, b1c, b2c,
+                decays: bool):
+    """The reference's expressions for one leaf, on plain tensors: the
+    new moments (float32) and the new parameter (float32)."""
+    dev = p.device
+    g = g.float() * clip.to(dev)
+    # each product and sum rounded to float32 as there, evaluated in
+    # place on owned copies
+    mf = dequantize(m) if isinstance(m, QTensor) else m.clone()
+    vf = dequantize(v) if isinstance(v, QTensor) else v.clone()
+    mf.mul_(cfg.b1).add_(g * (1 - cfg.b1))
+    vf.mul_(cfg.b2).add_((g * (1 - cfg.b2)).mul_(g))
+    del g
+    u = torch.div(mf, b1c.to(dev)).div_(
+        torch.div(vf, b2c.to(dev)).sqrt_().add_(cfg.eps))
+    if decays:
+        u.add_(p.float() * cfg.weight_decay)
+    return mf, vf, p.float() - u.mul_(lr.to(dev))
+
+
+def _update_dtensor(cfg: AdamWConfig, g, m, v, p, clip, lr, b1c, b2c,
+                    decays: bool):
+    """One DTensor leaf: the new moments in their layouts; ``p`` written
+    in place."""
+    if isinstance(m, QTensor):
+        full = [QTensor(t.q.full_tensor(), t.scale.full_tensor(), t.shape)
+                for t in (m, v)]
+        mf, vf, pn = _adamw_leaf(cfg, g.full_tensor(), *full,
+                                 p.full_tensor(), clip, lr, b1c, b2c, decays)
+        new = []
+        for t, like in ((quantize(mf), m), (quantize(vf), v)):
+            new.append(QTensor(_replicated(t.q, like.q),
+                               _replicated(t.scale, like.scale), t.shape))
+        p.to_local().copy_(_replicated(pn.to(p.dtype), p).to_local())
+        return new
+    mf, vf, pn = _adamw_leaf(cfg, _local(g, m), m.to_local(), v.to_local(),
+                             _local(p, m), clip, lr, b1c, b2c, decays)
+    pn = DTensor.from_local(pn.to(p.dtype), m.device_mesh, m.placements,
+                            shape=m.shape, stride=m.stride())
+    p.to_local().copy_(_local(pn, p))
+    return [DTensor.from_local(t, m.device_mesh, m.placements, shape=m.shape,
+                               stride=m.stride()) for t in (mf, vf)]
 
 
 @torch.no_grad()
@@ -131,22 +211,18 @@ def update(cfg: AdamWConfig, grads: dict, state: OptState, params: dict, *,
     b2c = 1 - cfg.b2 ** stepf
     new_m, new_v = {}, {}
     for name, p in params.items():
-        dev = p.device
-        g = grads.pop(name).float() * clip.to(dev)
+        g = grads.pop(name)
         m, v = state.m[name], state.v[name]
-        # the reference's expressions, each product and sum rounded to
-        # float32 as there, evaluated in place on owned copies
-        mf = dequantize(m) if cfg.quantized_state else m.clone()
-        vf = dequantize(v) if cfg.quantized_state else v.clone()
-        mf.mul_(cfg.b1).add_(g * (1 - cfg.b1))
-        vf.mul_(cfg.b2).add_((g * (1 - cfg.b2)).mul_(g))
+        decays = decay[name] if decay is not None else p.dim() >= 2
+        if isinstance(p, DTensor):
+            new_m[name], new_v[name] = _update_dtensor(
+                cfg, g, m, v, p, clip, lr, b1c, b2c, decays)
+            continue
+        mf, vf, pn = _adamw_leaf(cfg, g, m, v, p, clip, lr, b1c, b2c,
+                                 decays)
         del g
-        u = torch.div(mf, b1c.to(dev)).div_(
-            torch.div(vf, b2c.to(dev)).sqrt_().add_(cfg.eps))
-        if (decay[name] if decay is not None else p.dim() >= 2):
-            u.add_(p.float() * cfg.weight_decay)
-        p.copy_(p.float() - u.mul_(lr.to(dev)))
-        del u
+        p.copy_(pn)
+        del pn
         if cfg.quantized_state:
             mf, vf = quantize(mf), quantize(vf)
         new_m[name], new_v[name] = mf, vf

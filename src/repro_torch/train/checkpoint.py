@@ -12,9 +12,16 @@ numpy has no bfloat16: a bf16 tensor is stored as its raw 16 bits
 A save snapshots every leaf to host memory in the calling thread, then
 writes the files (on a background thread when ``blocking=False``) into a
 writer-unique staging directory and publishes it with ``os.replace``.
-``restore`` puts each leaf back on the device and in the dtype of the
-matching leaf of ``like_tree``; there is one device, so nothing is
-re-sharded (the reference's elastic restore waits for the sharding slice).
+
+Across ranks: a save gathers every DTensor leaf whole (``full_tensor``, a
+collective every rank takes part in) before anything else, so the writer
+thread issues no collective; rank 0 writes, and a blocking save ends at a
+barrier of every rank. ``restore`` puts each leaf back on the device and in
+the dtype of the matching leaf of ``like_tree`` and, with ``shardings`` (a
+tree of ``rules.NamedSharding`` of the same structure, on any mesh), lays
+it out by them: the elastic restore, each rank keeping its slice of the
+whole leaf it reads. Without them a DTensor leaf of ``like_tree`` keeps
+its own layout.
 """
 from __future__ import annotations
 
@@ -26,8 +33,11 @@ import threading
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from repro_torch.optim.adamw import QTensor
+from repro_torch.sharding import rules
 
 _SEP = "__"
 _save_seq = itertools.count()
@@ -56,7 +66,20 @@ def _flatten(tree, prefix: tuple = ()) -> dict:
     return flat
 
 
+def _rank() -> int:
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def barrier() -> None:
+    """Every rank waits for the others (nothing without a process
+    group)."""
+    if dist.is_initialized():
+        dist.barrier()
+
+
 def _to_host(leaf) -> tuple[np.ndarray, str]:
+    if isinstance(leaf, DTensor):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu()
         if t.dtype == torch.bfloat16:
@@ -72,11 +95,17 @@ def save(ckpt_dir: str, step: int, tree, *, blocking: bool = True):
 
     The staging dir is writer-unique so a blocking save and a still-running
     async save of the same step never collide; os.replace publishes
-    atomically and the loser's rename is a no-op failure we swallow."""
+    atomically and the loser's rename is a no-op failure we swallow.
+    Every rank calls it (DTensor leaves are gathered here, in the calling
+    thread); rank 0 writes, the others return None."""
+    host = {k: _to_host(v) for k, v in _flatten(tree).items()}  # snapshot
+    if _rank() != 0:
+        if blocking:
+            barrier()
+        return None
     out = os.path.join(ckpt_dir, f"step_{step:08d}")
     tmp = out + f".tmp.{os.getpid()}.{next(_save_seq)}"
     os.makedirs(tmp, exist_ok=True)
-    host = {k: _to_host(v) for k, v in _flatten(tree).items()}  # snapshot
     manifest = {"step": step,
                 "leaves": {k: {"shape": list(a.shape), "dtype": dt}
                            for k, (a, dt) in host.items()}}
@@ -94,6 +123,7 @@ def save(ckpt_dir: str, step: int, tree, *, blocking: bool = True):
 
     if blocking:
         write()
+        barrier()
         return None
     t = threading.Thread(target=write, daemon=True)
     t.start()
@@ -108,7 +138,7 @@ def latest_step(ckpt_dir: str) -> int | None:
     return max(steps) if steps else None
 
 
-def _load(src: str, key: str, dtype: str, like):
+def _load(src: str, key: str, dtype: str, like, sharding=None):
     a = np.load(os.path.join(src, key + ".npy"))
     if tuple(a.shape) != tuple(np.shape(like)):
         raise ValueError(f"{key}: checkpoint shape {a.shape}, expected "
@@ -119,21 +149,35 @@ def _load(src: str, key: str, dtype: str, like):
         t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
     else:
         t = torch.from_numpy(a)
-    return t.to(device=like.device, dtype=like.dtype)
+    if sharding is not None:
+        return distribute_tensor(
+            t.to(device=sharding.mesh.device_type, dtype=like.dtype),
+            sharding.mesh, sharding.placements, src_data_rank=None)
+    t = t.to(device=like.device, dtype=like.dtype)
+    if isinstance(like, DTensor):
+        return distribute_tensor(t, like.device_mesh, like.placements,
+                                 src_data_rank=None)
+    return t
 
 
-def restore(ckpt_dir: str, step: int, like_tree):
+def restore(ckpt_dir: str, step: int, like_tree, shardings=None):
     """The tree saved at ``step``, in the structure of ``like_tree``, each
-    leaf on the device and in the dtype of ``like_tree``'s."""
+    leaf on the device and in the dtype of ``like_tree``'s. ``shardings``
+    (the same structure, a ``rules.NamedSharding`` at each tensor leaf;
+    possibly for a different mesh than the checkpoint was saved from)
+    lays the leaves out on its mesh: elastic re-sharding on load."""
     src = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(src, "manifest.json")) as f:
         leaves = json.load(f)["leaves"]
+    shard_flat = _flatten(shardings) if shardings is not None else {}
 
     def build(node, prefix):
         items = _items(node)
         if items is None:
             key = _SEP.join(prefix)
-            return _load(src, key, leaves[key]["dtype"], node)
+            sh = shard_flat.get(key)
+            return _load(src, key, leaves[key]["dtype"], node,
+                         sh if isinstance(sh, rules.NamedSharding) else None)
         kids = [build(v, prefix + (k,)) for k, v in items]
         if isinstance(node, dict):
             return dict(zip(node.keys(), kids))

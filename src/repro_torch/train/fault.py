@@ -3,7 +3,9 @@ straggler detection — port of ``repro.train.fault``.
 
 The supervisor wraps the train loop; any step may raise (a hardware fault
 is simulated by an injected callback in tests). Recovery = restore the
-latest checkpoint and continue. Straggler mitigation: per-step wall times
+latest checkpoint (elastically, onto the mesh of ``shardings`` when given)
+and continue. Across ranks every rank runs the loop; a fault must reach
+every rank at the same step. Straggler mitigation: per-step wall times
 (the host clock after the card has finished the step) feed an EWMA; a step
 slower than ``straggler_factor`` x EWMA raises a StragglerAlert that the
 fleet layer answers by re-running TOPSIS placement for the slow slice.
@@ -44,18 +46,21 @@ class Supervisor:
     on_straggler: Callable[[StragglerAlert], None] | None = None
 
     def run(self, *, state: dict[str, Any], step_fn, data_fn, n_steps: int,
-            fault_hook=None):
+            fault_hook=None, shardings=None):
         """state: {"params": ..., "opt_state": ...}; step_fn(params,
         opt_state, batch) -> (params, opt_state, metrics); data_fn(step) ->
         batch. Returns (final state, history). fault_hook(step) may raise to
-        simulate node failure."""
+        simulate node failure. ``shardings`` (the state's structure, a
+        ``rules.NamedSharding`` at each tensor leaf) lays every restored
+        state out on its mesh, at the start and on every restart."""
         restarts = 0
         pending: list = []
         history: list[dict] = []
         start = checkpoint.latest_step(self.ckpt_dir)
         step = 0
         if start is not None:
-            state = checkpoint.restore(self.ckpt_dir, start, state)
+            state = checkpoint.restore(self.ckpt_dir, start, state,
+                                       shardings)
             step = start
         ewma = None
         while step < n_steps:
@@ -93,9 +98,11 @@ class Supervisor:
                     if t is not None:
                         t.join()
                 pending.clear()
+                checkpoint.barrier()   # rank 0's writes land for all
                 last = checkpoint.latest_step(self.ckpt_dir)
                 if last is not None:
-                    state = checkpoint.restore(self.ckpt_dir, last, state)
+                    state = checkpoint.restore(self.ckpt_dir, last, state,
+                                               shardings)
                     step = last
                 else:
                     step = 0
