@@ -62,7 +62,7 @@ the card:
 * the gemma-7b training path the same way (K5, K6, K7 at D = 256), then 2
   layers in float32, where a K7 writing only the first 128 columns of dK
   and dV must fail;
-* ``[moe]``, the MoE family at published widths: mixtral-8x7b served at 16
+* ``[moe]``, the MoE family at published widths: mixtral-8x7b served at 8
   of its 32 layers (8 requests of 4096-8192 prompt tokens in 2 waves of
   4, 32 new tokens; K5 with its 4096-key window cutting, ``_sdpa`` with
   the window in decode) against the plain path, whose routing follows the
@@ -81,23 +81,23 @@ the card:
   ``_sdpa``) against the plain path, then 2 + 2 layers in float32 with
   controls (the encoder made causal, other frames); trained at full depth
   (16 sequences of 448 tokens a step; K5, K6 and K7 bidirectional in the
-  encoder); llama-3.2-vision-90b served at 4 of its 20 groups (20 dense
-  blocks, 4 gated cross-attention blocks, gates 0.5; 1601 vision tokens)
+  encoder); llama-3.2-vision-90b served at 2 of its 20 groups (10 dense
+  blocks, 2 gated cross-attention blocks, gates 0.5; 1601 vision tokens)
   against the plain path, with other vision tokens at gates 0 (no move)
   and 0.5 (a move), and trained at 1 group on one 4096-token sequence;
 * ``[zamba2]`` and ``[rwkv]``, the state-space family at published widths:
-  zamba2-7b served at full depth (81 layers: 13 groups of 6 Mamba2 blocks
+  zamba2-7b served at 27 of its 81 layers (4 groups of 6 Mamba2 blocks
   and the one shared attention block, then 3 Mamba2 blocks; 8 requests of
   1024-2048 prompt tokens in 2 waves of 4, each wave's longest 2048, 32
   new tokens; K5 at head dim 112, zero-padded to 128, in the shared block
   of every group) against the plain path, then 9 layers in float32 with
   a control at the padded head dim's softmax scale, and its O(1) decode
   state against the chunked scan (controls: the SSM state zeroed, the conv
-  buffer not shifted); trained at full depth on one 4096-token sequence
-  (K5, K6, K7 in the shared block); rwkv6-1.6b served at full depth (24
-  layers; no kernel on its path), held in float32 at 2 layers against the
+  buffer not shifted); trained at 27 layers on one 4096-token sequence
+  (K5, K6, K7 in the shared block); rwkv6-1.6b served at 12 of its 24
+  layers (no kernel on its path), held in float32 at 2 layers against the
   same weights on the CPU (controls: u_bonus on the value axis, the wkv
-  state zeroed) and trained at full depth on 8 x 256 tokens a step;
+  state zeroed) and trained at 12 layers on 8 x 256 tokens a step;
 * then the checkpoint / restart round trip of the fault Supervisor at the
   smoke size (head dim 8, padded);
 * ``[dist]``, training on a device mesh: llama3-8b at full width, 2
@@ -111,7 +111,19 @@ the card:
   and K7 at one rank's local heads of a (1, 2) mesh are timed as kernel
   cases (``tp2``); no card path runs that shape (DTensor's collectives
   over gloo on CUDA tensors crash), so their rows are printed on
-  ``[dist]`` lines and not in the kernel table line.
+  ``[dist]`` lines and not in the kernel table line;
+* ``[dryrun]``, the dry-run roofline and the GPU-fleet placement: (a)
+  ``launch.dryrun``'s llama3-8b ``train_4k`` and ``decode_32k`` cells on
+  the fake 256-rank production mesh at full size, each in a process of
+  its own (started after the build, CPU-only, beside the card phases):
+  both ``ok``, the peak per device within the card's 80 GB; (b) one
+  training step of llama3-8b at full width, 2 layers (``[dist]``'s
+  configuration, einsum attention), counted on meta and on the card by
+  ``launch.op_analysis``: the counts equal exactly, the argument bytes
+  are the real tensors' bytes, the measured step is at or above its
+  roofline bound, the predicted peak within [0.5, 2]x the card's; (c)
+  ``launch.fleet`` places (a)'s jobs on a fleet of L4, A100 and H100
+  slices under the four schemes, and a degraded slice's job moves.
 
 K3 and K4 write the -inf over infeasible nodes themselves and sum only the
 real criteria: each is held against its plain version masked and
@@ -171,6 +183,12 @@ runs the build, the D = 112 K5/K6/K7 cases (zamba2's shapes, rows
 runs the build, K5 at case (a), K6/K7 at the training case, the
 local-head cases and the ``[dist]`` phase alone, and ends with the same
 last line as the whole script.
+
+    python3 chip_smoke.py --dryrun-only
+
+runs the ``[dryrun]`` phase alone (no kernel runs on its path, so
+nothing is built), and ends with the same last line as the whole
+script.
 """
 from __future__ import annotations
 
@@ -182,6 +200,7 @@ import math
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -327,7 +346,8 @@ GEMMA_F32_LAYERS = 2
 # MIXTRAL_TRAIN_LAYERS layers on one 8192-token sequence.
 MOE_FLAG = "--moe-only"
 MIXTRAL_ARCH = "mixtral-8x7b"
-MIXTRAL_SERVE_LAYERS, MIXTRAL_F32_LAYERS = 16, 2
+# 8 layers (16 before [dryrun] came): the script's limit (PERF.md §7)
+MIXTRAL_SERVE_LAYERS, MIXTRAL_F32_LAYERS = 8, 2
 MIXTRAL_PROMPT, MIXTRAL_NEW = (4096, 8192), 32
 MIXTRAL_TRAIN_LAYERS, MIXTRAL_SEQ = 4, 8192
 # A routing flip: a (layer, token) whose set of top-k experts differs
@@ -363,8 +383,7 @@ MLA_B, MLA_S, MLA_TOL = 2, 64, 1e-3
 # WHISPER_F32's depth; trained WHISPER_TRAIN (a step: 16 sequences of 448
 # tokens, 1500 frames each).
 # llama-3.2-vision-90b at full width, depth cut to VISION_SERVE_LAYERS
-# (4 groups: 20 dense blocks and 4 gated cross-attention blocks, ~46 GB of
-# bf16 weights), its gates set to VISION_GATE (at their zero init tanh(0)
+# (2 groups: 10 dense blocks and 2 gated cross-attention blocks), its gates set to VISION_GATE (at their zero init tanh(0)
 # erases the cross-attention branch); trained at VISION_TRAIN_LAYERS (one
 # group) on one VISION_SEQ-token sequence. Frames and vision tokens are
 # normal * 0.1 float32 from numpy (tests/test_archs.py). Controls: the
@@ -388,7 +407,8 @@ WHISPER_ARCH, VISION_ARCH = "whisper-base", "llama-3.2-vision-90b"
 WHISPER_PROMPT, WHISPER_NEW, WHISPER_MAX_LEN = (4, 224), 64, 448
 WHISPER_F32 = dict(n_layers=2, n_encoder_layers=2)
 WHISPER_TRAIN = dict(seq_len=448, batch=16)
-VISION_SERVE_LAYERS, VISION_PROMPT, VISION_NEW = 20, (1024, 2048), 32
+# 2 groups (4 before [dryrun] came): the script's limit (PERF.md §7)
+VISION_SERVE_LAYERS, VISION_PROMPT, VISION_NEW = 10, (1024, 2048), 32
 VISION_TRAIN_LAYERS, VISION_SEQ = 5, 4096
 VISION_GATE = 0.5
 CAUSAL_MOVE, FRAMES_MOVE, VISION_MOVE = 0.1, 1e-2, 1e-3
@@ -400,21 +420,23 @@ GATE_CLOSED_TOL = 1e-6
 # beforehand), through the wrapper (the pad, the kernel and the slice;
 # under autograd for K6 + K7), beside its plain version and SDPA at D = 112;
 # rows ``<kernel>_d112``. A control with the padded D's softmax scale
-# (128**-0.5 for 112**-0.5) must fail. Served at full depth (81 layers: 13
-# groups of 6 Mamba2 blocks and the shared block, then a 3-block tail;
-# ~6.75e9 parameters) with ZAMBA_NEW new tokens and prompts of
-# ZAMBA_PROMPT tokens, each wave's longest exactly ZAMBA_PROMPT[1] (a
-# prefill longer than the 256-token SSD chunk must be a multiple of it);
+# (128**-0.5 for 112**-0.5) must fail. Served at ZAMBA_LAYERS of its 81
+# (4 groups of 6 Mamba2 blocks and the shared block, then a 3-block tail;
+# 81 before [dryrun] came: the script's limit) with ZAMBA_NEW new
+# tokens and prompts of ZAMBA_PROMPT tokens, each wave's longest exactly
+# ZAMBA_PROMPT[1] (a prefill longer than the 256-token SSD chunk must be
+# a multiple of it);
 # in float32 at ZAMBA_F32 (1 group + a 3-block tail) against the plain
 # path with the scale control; decode against prefill in float32 at that
 # depth (ZAMBA_DECODE: B, S tokens then one step against S + 1) within
 # SSM_DECODE_TOL, and controls (the SSM state zeroed, the conv buffer not
-# shifted) beyond it; trained at full depth on one 4096-token sequence.
+# shifted) beyond it; trained at ZAMBA_LAYERS on one 4096-token sequence.
 # rwkv6-1.6b (24 layers, d 2048, 32 heads of 64; no kernel) served the
-# same way, then in float32 at RWKV_F32_LAYERS: the card's prefill and
-# decode logits against the same weights on the CPU (RWKV_CARD_TOL),
-# decode against prefill (SSM_DECODE_TOL) with controls (the wkv state
-# zeroed, u_bonus on the value axis); trained at full depth on
+# same way at RWKV_LAYERS, then in float32 at RWKV_F32_LAYERS: the card's
+# prefill and decode logits against the same weights on the CPU
+# (RWKV_CARD_TOL), decode against prefill (SSM_DECODE_TOL) with controls
+# (the wkv state zeroed, u_bonus on the value axis); trained at
+# RWKV_LAYERS on
 # RWKV_TRAIN, step 1 held card against CPU at RWKV_F32_LAYERS in float32
 # on RWKV_CPU_STEP's batch (RWKV_CARD_TOL relative). The constant-
 # initialised leaves (a_log, d_skip, dt_bias, u_bonus, w_bias, the mixes)
@@ -422,6 +444,7 @@ GATE_CLOSED_TOL = 1e-6
 SSM_FLAG = "--ssm-only"
 ZAMBA_ARCH, RWKV_ARCH = "zamba2-7b", "rwkv6-1.6b"
 ZAMBA_D = 112
+ZAMBA_LAYERS = 27        # 4 groups of 6 + the shared block, then 3
 ZAMBA_K5 = (4, 32, 2048)
 ZAMBA_BWD = (1, 32, 4095)
 ZAMBA_PROMPT, ZAMBA_NEW = (1024, 2048), 32
@@ -434,6 +457,9 @@ RWKV_CHECK_S = 64
 # 256 tokens a sequence (512 until PR 22): its host-bound WKV loop is
 # ~14 s a step at 512, and the script's limit is near (PERF.md §7)
 RWKV_TRAIN = dict(seq_len=256, batch=8)
+# served and trained at 12 of its 24 layers: no kernel runs on its path,
+# and the host-bound loop's time is what [dryrun] needs (PERF.md §7)
+RWKV_LAYERS = 12
 RWKV_CPU_STEP = dict(batch=2, seq_len=128)
 SSM_NOISE = {"a_log": (-1.0, 0.5), "d_skip": (0.5, 1.5),
              "dt_bias": (-1.0, 0.5), "u_bonus": (-0.5, 0.5),
@@ -3750,18 +3776,19 @@ def ssm_decode_phase(dev, arch, over, b, s, controls, tag):
 
 
 def zamba2_phases(dev):
-    """zamba2-7b on the card: served at full depth (K5 at head dim 112 in
-    the shared block of each of the 13 groups) against the plain path,
-    then in float32 at ZAMBA_F32 with the padded-scale control; decode
-    against prefill with its state controls; trained at full depth (K5,
-    K6, K7). Returns the serving and training launch counts."""
+    """zamba2-7b on the card: served at ZAMBA_LAYERS (K5 at head dim 112
+    in the shared block of each group) against the plain path, then in
+    float32 at ZAMBA_F32 with the padded-scale control; decode against
+    prefill with its state controls; trained at ZAMBA_LAYERS (K5, K6,
+    K7). Returns the serving and training launch counts."""
     import numpy as np
     t0 = time.perf_counter()
     lengths = np.random.default_rng(0).integers(
         ZAMBA_PROMPT[0], ZAMBA_PROMPT[1] + 1, SERVE_REQUESTS)
     lengths[::SERVE_SLOTS] = ZAMBA_PROMPT[1]     # each wave's longest
     launches = collections.Counter(serve_phase(
-        dev, ZAMBA_ARCH, lengths=lengths, new=ZAMBA_NEW, f32=ZAMBA_F32,
+        dev, ZAMBA_ARCH, layers=ZAMBA_LAYERS, lengths=lengths,
+        new=ZAMBA_NEW, f32=ZAMBA_F32,
         controls=(("pad_scale", pad_scale_fwd, None, F32_LOGIT_TOL),),
         prepare=perturb_ssm_leaves, tag="zamba2", spread=True,
         profile=("prefill",)))
@@ -3773,7 +3800,7 @@ def zamba2_phases(dev):
     t0 = time.perf_counter()
     # no profiled step: torch.profiler takes a minute over a zamba2 step
     # (60.4 s on an H100, PERF.md); its prefill is profiled above
-    launches.update(train_phase(dev, ZAMBA_ARCH, tag="zamba2",
+    launches.update(train_phase(dev, ZAMBA_ARCH, ZAMBA_LAYERS, tag="zamba2",
                                 prepare=perturb_ssm_leaves, trace=False,
                                 spread=False))
     phase("zamba2", arch=ZAMBA_ARCH, path="train",
@@ -3844,7 +3871,7 @@ def rwkv_card_phase(dev):
 
 
 def rwkv_train_phase(dev):
-    """rwkv6-1.6b trained at full depth (perturbed) for TRAIN_STEPS steps
+    """rwkv6-1.6b trained at RWKV_LAYERS (perturbed) for TRAIN_STEPS steps
     of RWKV_TRAIN through launch.train's functions (no kernel on its
     path: every count stays 0); then step 1 in float32 at
     RWKV_F32_LAYERS on RWKV_CPU_STEP's batch, card against CPU on the same
@@ -3855,7 +3882,7 @@ def rwkv_train_phase(dev):
     from repro_torch.launch import train as lt
 
     t0 = time.perf_counter()
-    argv = train_argv(RWKV_ARCH, None, RWKV_TRAIN["seq_len"],
+    argv = train_argv(RWKV_ARCH, RWKV_LAYERS, RWKV_TRAIN["seq_len"],
                       RWKV_TRAIN["batch"])
     kern = full_depth_run("kernel", {}, profile=True, arch=RWKV_ARCH,
                           argv=argv, line="rwkv", prepare=perturb_ssm_leaves,
@@ -3906,14 +3933,15 @@ def rwkv_train_phase(dev):
 
 
 def rwkv_phases(dev):
-    """rwkv6-1.6b on the card: served at full depth (no kernel: every
-    count 0), its float32 checks against the CPU, trained at full depth.
-    Returns the launch counts."""
+    """rwkv6-1.6b on the card: served at RWKV_LAYERS of its 24 layers (no
+    kernel: every count 0), its float32 checks against the CPU, trained
+    at RWKV_LAYERS. Returns the launch counts."""
     from repro_torch.kernels import flash_cuda as fc
     t0 = time.perf_counter()
     launches = collections.Counter(serve_phase(
-        dev, RWKV_ARCH, prompt=RWKV_PROMPT, new=RWKV_NEW,
-        prepare=perturb_ssm_leaves, profile=("decode",), tag="rwkv"))
+        dev, RWKV_ARCH, layers=RWKV_LAYERS, prompt=RWKV_PROMPT,
+        new=RWKV_NEW, prepare=perturb_ssm_leaves, profile=("decode",),
+        tag="rwkv"))
     check(launches[fc.NAME] == 0, "rwkv serving launched K5")
     rwkv_card_phase(dev)
     phase("rwkv", arch=RWKV_ARCH, path="serve",
@@ -4327,6 +4355,210 @@ def dist_phases(dev):
     return launches
 
 
+DRYRUN_FLAG = "--dryrun-only"
+DRYRUN_ARCH = "llama3-8b"
+DRYRUN_CELLS = ("train_4k", "decode_32k")
+DRYRUN_TIMEOUT = 900     # (a)'s processes (s)
+DEVICE_BYTES = 80e9      # the H100's memory, the cells' peak limit
+DRYRUN_REPS = 3          # (b): timed steps after a warm-up, median
+PEAK_RATIO = (0.5, 2.0)  # (b): predicted / measured peak
+
+
+@contextlib.contextmanager
+def dryrun_cells(out_dir):
+    """(a)'s processes (``dryrun_cells_start``), killed on the way out if
+    they still run."""
+    procs = dryrun_cells_start(out_dir)
+    try:
+        yield procs
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def dryrun_cells_start(out_dir):
+    """(a): one ``launch.dryrun`` process per DRYRUN_CELLS cell, started
+    together, on the CPU (the card hidden from them): each makes its own
+    fake 256-rank process group."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="",
+               OMP_NUM_THREADS="1")
+    procs = []
+    for shape in DRYRUN_CELLS:
+        # output to a file: a pipe nobody reads until the end would fill
+        with open(Path(out_dir) / f"{shape}.log", "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun",
+                 "--arch", DRYRUN_ARCH, "--shape", shape, "--mesh",
+                 "single", "--out", str(out_dir)], env=env, cwd=str(ROOT),
+                stdout=log, stderr=subprocess.STDOUT))
+    return procs
+
+
+def dryrun_cells_finish(procs, out_dir, t_start):
+    """(a)'s records, once both processes end: each ``ok``, its peak per
+    device within DEVICE_BYTES."""
+    recs = []
+    for p, shape in zip(procs, DRYRUN_CELLS):
+        left = max(DRYRUN_TIMEOUT - (time.perf_counter() - t_start), 1)
+        p.wait(timeout=left)
+        out = (Path(out_dir) / f"{shape}.log").read_text()
+        check(p.returncode == 0, f"dry run {shape} exited {p.returncode}: "
+              f"{out[-2000:]}")
+    for shape in DRYRUN_CELLS:
+        path = Path(out_dir) / f"{DRYRUN_ARCH}__{shape}__single.json"
+        rec = json.loads(path.read_text())
+        check(rec["ok"], f"dry run {shape}: {rec.get('error')}")
+        r, mem = rec["roofline"], rec["memory"]
+        phase("dryrun", cell=f"{DRYRUN_ARCH}/{shape}", mesh="16x16",
+              chips=rec["chips"], trace_s=rec["trace_s"],
+              flops_per_dev=f"{rec['cost']['flops_per_dev']:.6e}",
+              bytes_per_dev=f"{rec['cost']['bytes_per_dev']:.6e}",
+              collective_bytes_per_dev=(
+                  f"{rec['collectives']['total_bytes']:.6e}"),
+              compute_s=f"{r['compute_s']:.6e}",
+              memory_s=f"{r['memory_s']:.6e}",
+              collective_s=f"{r['collective_s']:.6e}",
+              dominant=r["dominant"], peak_bytes=mem["peak_bytes"],
+              argument_bytes=mem["argument_bytes"],
+              useful_flops_frac=f"{rec['useful_flops_frac']:.4f}",
+              derived="counts_not_measured")
+        check(mem["peak_bytes"] <= DEVICE_BYTES,
+              f"dry run {shape}: peak {mem['peak_bytes']} bytes a device")
+        recs.append(rec)
+    return recs
+
+
+def dryrun_step_phase(dev):
+    """(b): [dist]'s step (llama3-8b, full width, DIST_LAYERS layers,
+    bf16, int8 moments, one DIST_SEQ-token sequence), einsum attention,
+    world of one: counted on meta, then on the card; the counts must
+    equal exactly, the argument bytes equal the real tensors', the
+    measured step lie at or above max(compute_s, memory_s), the
+    predicted peak within PEAK_RATIO of the card's."""
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.launch import dryrun, op_analysis, specs
+    cfg = registry.config(DIST_ARCH, n_layers=DIST_LAYERS)
+    cell = specs.Cell(DIST_ARCH, "train_4k", DIST_SEQ, 1, "train")
+    plan = dryrun.Plan(quantized=True)
+
+    def count(device):
+        fn, args, _, _ = dryrun.build_cell(DIST_ARCH, "train_4k", None,
+                                           plan, cfg=cfg, cell=cell,
+                                           device=device, seed=0)
+        return fn, args
+
+    fn, args = count(torch.device("meta"))
+    meta, out, meta_s = dryrun.count_cell(fn, args)
+    mem = meta.memory(out)
+    roof = dryrun.roofline(*(meta.analyze()[k] for k in (
+        "flops_per_dev", "bytes_per_dev", "collective_bytes_per_dev")))
+    del fn, args, out
+    _free()
+    fn, args = count(dev)
+    real = sum(t.numel() * t.element_size()
+               for t in op_analysis.local_tensors(args))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    card, out, card_s = dryrun.count_cell(fn, args, device=dev)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    del out
+    mine = {k: getattr(card.cost, k) for k in ("flops", "eflops", "bytes",
+                                               "coll_bytes")}
+    want = {k: getattr(meta.cost, k) for k in mine}
+    check(mine == want and card.n_ops == meta.n_ops,
+          f"card counts {mine} ({card.n_ops} ops) differ from meta's {want} "
+          f"({meta.n_ops} ops)")
+    check(card.argument_bytes == mem["argument_bytes"] == real,
+          f"argument bytes: card {card.argument_bytes}, meta "
+          f"{mem['argument_bytes']}, tensors {real}")
+    times = []
+    for i in range(DRYRUN_REPS + 1):
+        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0.record()
+        fn(*args)
+        t1.record()
+        torch.cuda.synchronize()
+        if i:
+            times.append(t0.elapsed_time(t1) / 1e3)
+    step = sorted(times)[len(times) // 2]
+    bound = max(roof["compute_s"], roof["memory_s"])
+    ratio = mem["peak_bytes"] / peak
+    phase("dryrun", step=f"{DIST_ARCH}/{DIST_LAYERS}_layers",
+          tokens=DIST_SEQ, flops=f"{meta.cost.flops + meta.cost.eflops:.6e}",
+          matmul_flops=f"{meta.cost.flops:.6e}",
+          bytes=f"{meta.cost.bytes:.6e}", ops=meta.n_ops,
+          counts="meta_equals_card", argument_bytes=real,
+          compute_s=f"{roof['compute_s']:.6e}",
+          memory_s=f"{roof['memory_s']:.6e}", bound_s=f"{bound:.6e}",
+          step_s=f"{step:.6f}", steps_s=",".join(f"{t:.6f}" for t in times),
+          bound_over_step=f"{bound / step:.4f}",
+          predicted_peak=mem["peak_bytes"], max_memory_allocated=peak,
+          peak_ratio=f"{ratio:.4f}", meta_count_s=f"{meta_s:.1f}",
+          card_count_s=f"{card_s:.1f}")
+    check(step >= bound, f"measured step {step} s below its roofline bound "
+          f"{bound} s: a miscount")
+    check(PEAK_RATIO[0] <= ratio <= PEAK_RATIO[1],
+          f"predicted peak {mem['peak_bytes']} vs max_memory_allocated "
+          f"{peak}: ratio {ratio}")
+    del fn, args
+    _free()
+
+
+def dryrun_fleet_phase(recs):
+    """(c): (a)'s records as jobs (``fleet.load_jobs``) placed under
+    every scheme on a fleet of L4, A100 and H100 slices; then the first
+    job's slice degraded and the job re-placed (``replace_slice``): it
+    must leave that slice."""
+    from repro_torch.launch import fleet
+    with tempfile.TemporaryDirectory() as d:
+        for rec in recs:
+            (Path(d) / f"{rec['arch']}__{rec['shape']}__single.json"
+             ).write_text(json.dumps(rec))
+        jobs = fleet.load_jobs(d)
+    check(len(jobs) == len(recs), f"{len(jobs)} jobs from {len(recs)} "
+          f"records")
+
+    def gpus():
+        return [fleet.Slice("l4-0", 256, 256, "l4"),
+                fleet.Slice("a100-0", 256, 256, "a100"),
+                fleet.Slice("h100-0", 256, 256, "h100"),
+                fleet.Slice("h100-1", 256, 256, "h100")]
+
+    for scheme in fleet.FLEET_SCHEMES:
+        slices = gpus()
+        placed = fleet.schedule_queue(jobs, slices, scheme)
+        phase("dryrun", fleet_scheme=scheme, placements=",".join(
+            f"{j.shape}->{slices[i].name if i is not None else None}"
+            for j, i in placed))
+        check(all(i is not None for _, i in placed),
+              f"{scheme}: a job found no slice")
+    slices = gpus()
+    job = jobs[0]
+    cur, _ = fleet.place(job, slices)
+    new = fleet.replace_slice(job, slices, cur)
+    phase("dryrun", straggler=f"{job.arch}/{job.shape}",
+          degraded=slices[cur].name, health=slices[cur].health,
+          replaced_to=slices[new].name if new is not None else None)
+    check(new is not None and new != cur,
+          f"replace_slice kept the job on the degraded {slices[cur].name}")
+
+
+def dryrun_phases(dev, procs, out_dir, t_start):
+    """[dryrun]: (b) on the card, then (a)'s records, then (c)."""
+    t0 = time.perf_counter()
+    dryrun_step_phase(dev)
+    recs = dryrun_cells_finish(procs, out_dir, t_start)
+    dryrun_fleet_phase(recs)
+    phase("dryrun", seconds=f"{time.perf_counter() - t0:.1f}",
+          cells_wall_s=f"{time.perf_counter() - t_start:.1f}")
+
+
 def kernel_rows(table, launches):
     """The kernel table line's rows: each row's launches from the main
     paths' counts; the local-head rows, which no card path launches, go
@@ -4375,6 +4607,17 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
     smi, name, count = device_phase()
+    if sys.argv[1:] == [DRYRUN_FLAG]:        # the dry run alone
+        with tempfile.TemporaryDirectory() as out_dir, \
+                dryrun_cells(out_dir) as procs:
+            dryrun_phases(dev, procs, out_dir, time.perf_counter())
+        phase("done", dryrun_only=True,
+              seconds=f"{time.perf_counter() - t0:.1f}")
+        print(smi)
+        print(json.dumps({"kernels": []}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name, "count": count}}))
+        return 0
     build_phase()
     if sys.argv[1:] == [MOE_FLAG]:           # the MoE slice alone
         windowed = [c for c in K5_CASES if c[7] == WINDOW_ROW]
@@ -4434,6 +4677,22 @@ def main() -> int:
         print(smi)
         print(json.dumps({"kernels": list(table.values())}))
         return 0
+    # [dryrun]'s cells run in processes of their own beside the card
+    # phases; their records are read at the end
+    with tempfile.TemporaryDirectory() as dry_dir, \
+            dryrun_cells(dry_dir) as dry_procs:
+        rows = _main_paths(dev, smi, dry_procs, dry_dir, time.perf_counter())
+    phase("done", seconds=f"{time.perf_counter() - t0:.1f}")
+    print(smi)
+    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                             "count": count}}))
+    return 0
+
+
+def _main_paths(dev, smi, dry_procs, dry_dir, dry_t0):
+    """The whole script's kernel cases and main paths, [dryrun] last;
+    returns the kernel table line's rows."""
     table = kernel_phase(dev, smi)
     table.update(lm_kernel_phase(dev))
     table.update(bwd_kernel_phase(dev))
@@ -4465,6 +4724,7 @@ def main() -> int:
     rwkv = rwkv_phases(dev)
     supervisor_phase(dev)
     launches.update(dist_phases(dev))
+    dryrun_phases(dev, dry_procs, dry_dir, dry_t0)
     launches.update(wide)
     launches.update({row_name(n, WIDE_D): c for n, c in wide.items()})
     launches.update(moe)
@@ -4475,13 +4735,7 @@ def main() -> int:
     launches.update(zamba)
     launches.update({row_name(n, ZAMBA_D): c for n, c in zamba.items()})
     launches.update(rwkv)
-    rows = kernel_rows(table, launches)
-    phase("done", seconds=f"{time.perf_counter() - t0:.1f}")
-    print(smi)
-    print(json.dumps({"kernels": rows}))
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
-                                             "count": count}}))
-    return 0
+    return kernel_rows(table, launches)
 
 
 if __name__ == "__main__":

@@ -20,8 +20,9 @@ so no mesh condition applies. Under a mesh, the activations are DTensors;
 the port has no ambient mesh, so it reads the mesh from the input (q's
 ``device_mesh`` when it has a ``"model"`` dim), and the kernels run on
 each rank's local heads inside a ``local_map`` region, under the
-reference's condition (``_flash_shardable``); otherwise ``_sdpa`` runs on
-the DTensors, as the reference's einsum path. Decode uses ``_sdpa``, plain
+reference's condition (``_flash_shardable``); otherwise ``_sdpa`` runs,
+on the same local heads where the model axis takes them and on the
+DTensors where it does not. Decode uses ``_sdpa``, plain
 torch as the reference's is plain XLA. The decode cache is updated in
 place. Every function here is differentiable with ``torch.autograd``.
 Neither cross-attention
@@ -56,10 +57,24 @@ def dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` over x's last axis, accumulated in float32, then cast to
     x's dtype. cuBLAS accumulates bf16 products in float32 (with reduced
     precision reductions switched off by the caller); on the CPU the
-    product is taken in float32 explicitly."""
-    if x.dtype == torch.float32 or x.is_cuda:
-        return torch.matmul(x, w)
-    return torch.matmul(x.float(), w.float()).to(x.dtype)
+    product is taken in float32 explicitly. The meta device takes the
+    card's ops: the dry run (``launch.dryrun``) counts the card's
+    program there. On a mesh a row-parallel product's partial sums are
+    reduced at once (``_reduced``)."""
+    if x.dtype == torch.float32 or x.is_cuda or x.is_meta:
+        return _reduced(torch.matmul(x, w))
+    return _reduced(torch.matmul(x.float(), w.float())).to(x.dtype)
+
+
+def _reduced(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's partial sums reduced to a replica, as GSPMD all-reduces
+    after a row-parallel product; otherwise as it is. Left partial, the
+    sum would carry through the residual stream, and DTensor may then
+    gather the next product's weight whole instead of reducing."""
+    if isinstance(t, DTensor) and any(p.is_partial() for p in t.placements):
+        t = t.redistribute(t.device_mesh, [
+            Replicate() if p.is_partial() else p for p in t.placements])
+    return t
 
 
 class _DotF32(torch.autograd.Function):
@@ -111,8 +126,9 @@ def _dot_f32_mesh(x: DTensor, w: DTensor) -> DTensor:
 
 
 def dot_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x @ w`` accumulated and returned in float32 (the unembedding)."""
-    if x.dtype == torch.bfloat16 and x.is_cuda:
+    """``x @ w`` accumulated and returned in float32 (the unembedding);
+    on the meta device as on the card (``dot``)."""
+    if x.dtype == torch.bfloat16 and (x.is_cuda or x.is_meta):
         lead = x.shape[:-1]
         x2 = x.reshape(-1, x.shape[-1])
         out = (_dot_f32_mesh(x2, w) if isinstance(x2, DTensor)
@@ -212,7 +228,18 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
 
     q_pos: (S,) absolute query positions (decode: the cache length);
     kv_len: number of valid kv entries (decode with a preallocated cache).
+
+    DTensors on a mesh with a ``"model"`` dim run on each rank's local
+    heads (``_on_local_heads``) where the model axis takes the heads, as
+    the reference's GSPMD keeps them split; otherwise on the DTensors.
     """
+    if model_mesh(q) is not None:
+        out = _on_local_heads(
+            lambda ql, kl, vl: _sdpa(ql, kl, vl, causal=causal,
+                                     window=window, q_pos=q_pos,
+                                     kv_len=kv_len), q, k, v, head_dim=2)
+        if out is not None:
+            return out
     b, s, h, d = q.shape
     if s > _Q_CHUNK and s % _Q_CHUNK == 0:
         if q_pos is None:
@@ -262,71 +289,122 @@ def model_mesh(x: torch.Tensor):
     return None
 
 
+def _heads_shardable(h: int, hkv: int, m: int) -> bool:
+    """Whether a model axis of m ranks can take h query heads (each rank
+    runs its local heads): m divides h, and the kv heads either divide
+    too or, replicated, map to a contiguous, rank-constant set for each
+    rank's query heads."""
+    if h % m:
+        return False
+    h_loc = h // m
+    if hkv % m == 0:
+        return True
+    g = h // hkv
+    return g % h_loc == 0 or h_loc % g == 0
+
+
 def _flash_shardable(cfg: ModelConfig, mesh) -> bool:
     """The flash path under a mesh needs a model axis that divides the
     query heads (each rank runs the kernels on its local heads); with no
     mesh it always runs."""
-    if mesh is None:
-        return True
-    m = rules.model_axis_size(mesh)
-    if cfg.n_heads % m:
-        return False
-    h_loc = cfg.n_heads // m
-    if cfg.n_kv_heads % m == 0:
-        return True
-    # replicated-KV mode: each rank's q heads must map to a contiguous,
-    # rank-constant set of kv heads
-    g = cfg.n_heads // cfg.n_kv_heads
-    return g % h_loc == 0 or h_loc % g == 0
+    return mesh is None or _heads_shardable(
+        cfg.n_heads, cfg.n_kv_heads, rules.model_axis_size(mesh))
 
 
-def _flash_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                causal: bool, window: int | None) -> torch.Tensor:
-    """(B, S, H, D) attention through K5 (and, under autograd, K6 and K7);
-    the kernels read the (B, H, S, D) views in place and write their
-    outputs in their inputs' layouts.
+class _DenseGrad(torch.autograd.Function):
+    """The identity, its gradient made contiguous."""
 
-    DTensors on a mesh with a ``"model"`` dim go through a ``local_map``
-    region (the reference's ``shard_map``, layers.py:107-150): q (B, H,
-    S, D) with the batch over the data axes and the heads over
-    ``model``; k and v with their heads over ``model`` when it divides
-    them, else replicated, each rank slicing the kv heads its query heads
-    attend to (and their gradients partial sums over ``model``)."""
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def _on_local_heads(attend, q: torch.Tensor, k: torch.Tensor,
+                    v: torch.Tensor, *, head_dim: int):
+    """``attend(q, k, v)`` on each rank's local heads, in a ``local_map``
+    region (the reference's ``shard_map``, layers.py:107-150): q with its
+    batch over the data axes and its heads (dim ``head_dim`` of the 4-d
+    layout) over ``model``; k and v with their heads over ``model`` when
+    it divides them, else whole, each rank slicing the kv heads its query
+    heads attend to (and their gradients partial sums over ``model``).
+    None when the model axis cannot take the heads."""
     mesh = model_mesh(q)
-    if mesh is None:
-        return kops.flash_attention(qt, kt, vt, causal=causal,
-                                    window=window).transpose(1, 2)
     m = rules.model_axis_size(mesh)
-    b, h, hkv = qt.shape[0], qt.shape[1], kt.shape[1]
+    b, h, hkv = q.shape[0], q.shape[head_dim], k.shape[head_dim]
+    if not _heads_shardable(h, hkv, m):
+        return None
     ba = rules.batch_axes(mesh)
     if not ba or b % math.prod(rules.sizes(mesh)[a] for a in ba):
         ba = None
     h_loc = h // m
     kv_sharded = hkv % m == 0
-    q_place = rules.placements(rules.Spec(ba, "model", None, None), mesh)
-    kv_place = rules.placements(
-        rules.Spec(ba, "model" if kv_sharded else None, None, None), mesh)
+
+    def place(heads):
+        spec = [ba, None, None, None]
+        spec[head_dim] = heads
+        return rules.placements(rules.Spec(*spec), mesh)
+
+    q_place = place("model")
+    kv_place = place("model" if kv_sharded else None)
     kv_grad = tuple(Partial() if not kv_sharded and n == "model" else p
                     for n, p in zip(mesh.mesh_dim_names, kv_place))
 
     def local(ql, kl, vl):
+        # the gradients leave the region contiguous: DTensor takes a
+        # reshape's backward as a view of each rank's local gradient
+        ql, kl, vl = (_DenseGrad.apply(t) for t in (ql, kl, vl))
         if not kv_sharded and hkv != h:
             # slice the kv heads this rank's q heads attend to
             r = mesh.get_local_rank("model")
             g = h // hkv
             n_kv_loc = max(h_loc // g, 1)
             start = (r * h_loc) // g
-            kl = kl[:, start:start + n_kv_loc]
-            vl = vl[:, start:start + n_kv_loc]
+            kl = kl.narrow(head_dim, start, n_kv_loc)
+            vl = vl.narrow(head_dim, start, n_kv_loc)
+        return attend(ql, kl, vl)
+
+    return local_map(local, out_placements=list(q_place),
+                     in_placements=(q_place, kv_place, kv_place),
+                     in_grad_placements=(q_place, kv_grad, kv_grad),
+                     device_mesh=mesh, redistribute_inputs=True)(q, k, v)
+
+
+def _flash_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                causal: bool, window: int | None) -> torch.Tensor:
+    """(B, S, H, D) attention through K5 (and, under autograd, K6 and K7);
+    the kernels read the (B, H, S, D) views in place and write their
+    outputs in their inputs' layouts. DTensors on a mesh with a
+    ``"model"`` dim run on each rank's local heads
+    (``_on_local_heads``)."""
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+    def attend(ql, kl, vl):
         return kops.flash_attention(ql, kl, vl, causal=causal,
                                     window=window)
 
-    out = local_map(local, out_placements=list(q_place),
-                    in_placements=(q_place, kv_place, kv_place),
-                    in_grad_placements=(q_place, kv_grad, kv_grad),
-                    device_mesh=mesh, redistribute_inputs=True)(qt, kt, vt)
-    return out.transpose(1, 2)
+    if model_mesh(q) is None:
+        return attend(qt, kt, vt).transpose(1, 2)
+    return _on_local_heads(attend, qt, kt, vt, head_dim=1).transpose(1, 2)
+
+
+def _split_heads(t: torch.Tensor, n: int, hd: int) -> torch.Tensor:
+    """(B, S, n * hd) -> (B, S, n, hd). A DTensor whose last dim is split
+    over more ranks than divide n is first gathered on those mesh dims:
+    DTensor cannot split a head."""
+    if isinstance(t, DTensor):
+        last = t.dim() - 1
+        pl = list(t.placements)
+        split = [i for i, p in enumerate(pl)
+                 if isinstance(p, Shard) and p.dim == last]
+        if n % math.prod(t.device_mesh.shape[i] for i in split):
+            for i in split:
+                pl[i] = Replicate()
+            t = t.redistribute(t.device_mesh, pl)
+    return t.reshape(*t.shape[:-1], n, hd)
 
 
 def attention(p: Params, cfg: ModelConfig, x: torch.Tensor, *, kv_src=None,
@@ -347,14 +425,14 @@ def attention(p: Params, cfg: ModelConfig, x: torch.Tensor, *, kv_src=None,
         if cache is not None:
             raise ValueError("cross-attention takes no cache")
         T = kv_src.shape[1]
-        q = dot(x, p["wq"]).reshape(B, S, cfg.n_heads, hd)
-        k = dot(kv_src, p["wk"]).reshape(B, T, cfg.n_kv_heads, hd)
-        v = dot(kv_src, p["wv"]).reshape(B, T, cfg.n_kv_heads, hd)
+        q = _split_heads(dot(x, p["wq"]), cfg.n_heads, hd)
+        k = _split_heads(dot(kv_src, p["wk"]), cfg.n_kv_heads, hd)
+        v = _split_heads(dot(kv_src, p["wv"]), cfg.n_kv_heads, hd)
         out = _sdpa(q, k, v, causal=False, window=cfg.attn_window)
         return dot(out.reshape(B, S, cfg.n_heads * hd), p["wo"]), None
-    q = dot(x, p["wq"]).reshape(B, S, cfg.n_heads, hd)
-    k = dot(x, p["wk"]).reshape(B, S, cfg.n_kv_heads, hd)
-    v = dot(x, p["wv"]).reshape(B, S, cfg.n_kv_heads, hd)
+    q = _split_heads(dot(x, p["wq"]), cfg.n_heads, hd)
+    k = _split_heads(dot(x, p["wk"]), cfg.n_kv_heads, hd)
+    v = _split_heads(dot(x, p["wv"]), cfg.n_kv_heads, hd)
     if positions is None:
         positions = torch.arange(S, device=x.device)
     if use_rope:

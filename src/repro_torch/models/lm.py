@@ -55,7 +55,8 @@ from typing import Mapping
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
@@ -263,6 +264,27 @@ def sinusoid(positions: torch.Tensor, d: int) -> torch.Tensor:
     pe[:, 0::2] = torch.sin(ang)
     pe[:, 1::2] = torch.cos(ang)
     return pe
+
+
+def _lookup_on_mesh(table: DTensor, tokens: torch.Tensor) -> DTensor:
+    """``table[tokens]`` of a DTensor table in a ``local_map`` region: the
+    table gathered whole on every rank, each rank indexing it with its own
+    tokens (laid out as they are; a plain tensor as replicated) as one
+    device does, the table's gradient a partial sum over the mesh dims
+    that split them. DTensor's own rules do worse: indexing's backward
+    fails in torch 2.11, the vocab-parallel ``F.embedding`` leaves a
+    partial sum it cannot reduce-scatter, and with a whole table it may
+    gather the tokens."""
+    mesh = table.device_mesh
+    if not isinstance(tokens, DTensor):
+        tokens = DTensor.from_local(tokens, mesh, [Replicate()] * mesh.ndim,
+                                    run_check=False)
+    tp = list(tokens.placements)
+    grad = [Partial() if isinstance(p, Shard) else Replicate() for p in tp]
+    return local_map(lambda t, w: w[t], out_placements=tp,
+                     in_placements=(tp, [Replicate()] * mesh.ndim),
+                     in_grad_placements=(tp, grad), device_mesh=mesh,
+                     redistribute_inputs=True)(tokens, table)
 
 
 def _index(tree: dict, j: int) -> dict:
@@ -575,8 +597,12 @@ class LM(nn.Module):
     def _embed(self, tokens: torch.Tensor, positions: torch.Tensor
                ) -> torch.Tensor:
         """Token embeddings; an encoder-decoder's decoder adds the
-        sinusoid at ``positions``."""
-        x = self.embed[tokens]
+        sinusoid at ``positions``. A DTensor table is looked up in a
+        ``local_map`` region (``_lookup_on_mesh``)."""
+        if isinstance(self.embed, DTensor):
+            x = _lookup_on_mesh(self.embed, tokens)
+        else:
+            x = self.embed[tokens]
         if self.cfg.enc_dec:
             x = x + sinusoid(positions, self.cfg.d_model).to(x.dtype)[None]
         return x
@@ -610,14 +636,18 @@ class LM(nn.Module):
         return dot_f32(x, w)
 
     @torch.no_grad()
-    def prefill(self, batch, max_len: int) -> tuple[torch.Tensor, dict]:
+    def prefill(self, batch, max_len: int, cache: dict | None = None
+                ) -> tuple[torch.Tensor, dict]:
         """Run the whole prompt (``batch``: tokens (B, S), or the batch
         dict with ``frames`` / ``vision``) and build a decode cache of
-        length ``max_len``. Returns (last-position logits (B, V) float32,
-        cache)."""
+        length ``max_len``: ``cache``, a zero cache of ``init_cache``'s
+        layout (on a mesh, DTensors laid out by the sharding rules), or a
+        fresh ``init_cache``. Returns (last-position logits (B, V)
+        float32, cache)."""
         batch = self._batch(batch)
         B, S = batch["tokens"].shape
-        cache = self.init_cache(B, max_len)
+        if cache is None:
+            cache = self.init_cache(B, max_len)
         x = self._forward(batch, cache, 0)
         cache["len"] = S
         return self._unembed(x[:, -1:, :])[:, 0], cache

@@ -154,8 +154,8 @@ def route(p: Params, cfg: ModelConfig, x_flat: torch.Tensor,
 def _expert_dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """(E, N, d_in) @ (E, d_in, d_out) per expert, accumulated in float32
     and rounded to x's dtype (the reference's ``preferred_element_type``
-    einsums)."""
-    if x.dtype == torch.float32 or x.is_cuda:
+    einsums); on the meta device as on the card (``layers.dot``)."""
+    if x.dtype == torch.float32 or x.is_cuda or x.is_meta:
         return torch.bmm(x, w)
     return torch.bmm(x.float(), w.float()).to(x.dtype)
 

@@ -41,7 +41,9 @@ EXPECTED = {
         "llama32_vision_90b", "whisper_base")),
     "repro_torch.serve", "repro_torch.serve.engine",
     "repro_torch.launch", "repro_torch.launch.serve",
-    "repro_torch.launch.train", "repro_torch.optim",
+    "repro_torch.launch.train", "repro_torch.launch.op_analysis",
+    "repro_torch.launch.dryrun", "repro_torch.launch.fleet",
+    "repro_torch.optim",
     "repro_torch.optim.adamw", "repro_torch.data",
     "repro_torch.data.pipeline", "repro_torch.train",
     "repro_torch.train.loop", "repro_torch.train.checkpoint",
