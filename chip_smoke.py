@@ -13,9 +13,11 @@ PyTorch version at main-path shapes, the flash-attention backward (K6, K7)
 included, at llama3-8b's head dim (128), gemma-7b's (256) and
 whisper-base's (64, bidirectional at its encoder's 1500 frames), and K8
 at every width path. The bf16 cases run K5's, K6's and K7's tensor-core
-instantiations (mma.sync with p and ds split into bf16 halves); the
-float32 cases and the float32 model runs below hold the float32 FMA
-instantiations. Then it drives the port's main paths on
+instantiations (K5: wgmma from TMA-loaded shared memory in warp-
+specialised warpgroups, one producer and two consumers, with p split
+into bf16 halves; K6 and K7: mma.sync with p and ds split into bf16
+halves); the float32 cases and the float32 model runs below hold the
+float32 FMA instantiations. Then it drives the port's main paths on
 the card:
 
 * the GreenPod scheduling path — a 15,000-node fleet taking eight bursts
@@ -94,10 +96,10 @@ the card:
   a control at the padded head dim's softmax scale, and its O(1) decode
   state against the chunked scan (controls: the SSM state zeroed, the conv
   buffer not shifted); trained at 27 layers on one 4096-token sequence
-  (K5, K6, K7 in the shared block); rwkv6-1.6b served at 12 of its 24
+  (K5, K6, K7 in the shared block); rwkv6-1.6b served at 6 of its 24
   layers (no kernel on its path), held in float32 at 2 layers against the
   same weights on the CPU (controls: u_bonus on the value axis, the wkv
-  state zeroed) and trained at 12 layers on 8 x 256 tokens a step;
+  state zeroed) and trained at 6 layers on 8 x 256 tokens a step;
 * then the checkpoint / restart round trip of the fault Supervisor at the
   smoke size (head dim 8, padded);
 * ``[dist]``, training on a device mesh: llama3-8b at full width, 2
@@ -184,6 +186,14 @@ runs the build, K5 at case (a), K6/K7 at the training case, the
 local-head cases and the ``[dist]`` phase alone, and ends with the same
 last line as the whole script.
 
+    python3 chip_smoke.py --kernels-only
+
+runs the build and the flash and RMSNorm kernel phases alone (every K5,
+K6, K7 and K8 case, row and planted fault, the local-head cases and
+zamba2's D = 112 included) and prints their kernel table line, each
+row's ``launches`` 0 (no main path runs), before the same last line as
+the whole script.
+
     python3 chip_smoke.py --dryrun-only
 
 runs the ``[dryrun]`` phase alone (no kernel runs on its path, so
@@ -236,7 +246,9 @@ BF16_ATOL, BF16_RTOL, BF16_FLIP_SHARE = 1e-4, 2 ** -7, 1e-2
 # have standard deviation 2 and attention is peaked (out of the order of
 # v, not a near-uniform mean that hides a dropped key tile).
 K5_Q_STD = 2.0
-K5_TILE = 64             # BK of csrc/flash_attention.cu
+# the keys the planted diagonal_tile faults drop (from K5's out and K6's
+# dq): each query's own tile of 64
+K5_TILE = 64
 # The serving slice: llama3-8b, 8 requests in waves of 4.
 SERVE_ARCH = "llama3-8b"
 SERVE_REQUESTS, SERVE_SLOTS, SERVE_NEW = 8, 4, 32
@@ -286,6 +298,13 @@ K5_CASES.append(("whisper", 4, 8, 8, 1500, 64, "bfloat16", None, 20))
 BIDIRECTIONAL = ("whisper", "whisper_train")    # cases with causal=False
 K5_FAULT_CASES = ("a", "b", "e", "f", "whisper")
 K5_SMALL = (2, 8, 2, 333)            # a GQA group of 4, every head dim
+# The bf16 K5's tile edges (128 query rows and 128 keys a tile; 64 keys at
+# D = 256), at every head dim and K5_SMALL's heads: S on both sides of a
+# tile, a window of 48 and of 64 (a band inside one tile, and one that
+# ends on a 64-key edge), and kv_len < S (negative: S less that many).
+K5_EDGE_S = (127, 128, 129, 1000)
+K5_EDGE_MASKS = ((True, None, None), (False, None, None), (True, 48, None),
+                 (True, 64, None), (True, None, -37), (False, None, -37))
 WIDE_D = 256                         # gemma-7b's head dim
 NARROW_D = 64                        # whisper-base's head dim
 # the D = 256 controls: an output with only its first HALF_D columns
@@ -345,6 +364,7 @@ GEMMA_F32_LAYERS = 2
 # a float32 rerun at MIXTRAL_F32_LAYERS layers; trained at
 # MIXTRAL_TRAIN_LAYERS layers on one 8192-token sequence.
 MOE_FLAG = "--moe-only"
+KERNELS_FLAG = "--kernels-only"
 MIXTRAL_ARCH = "mixtral-8x7b"
 # 8 layers (16 before [dryrun] came): the script's limit (PERF.md §7)
 MIXTRAL_SERVE_LAYERS, MIXTRAL_F32_LAYERS = 8, 2
@@ -457,9 +477,10 @@ RWKV_CHECK_S = 64
 # 256 tokens a sequence (512 until PR 22): its host-bound WKV loop is
 # ~14 s a step at 512, and the script's limit is near (PERF.md §7)
 RWKV_TRAIN = dict(seq_len=256, batch=8)
-# served and trained at 12 of its 24 layers: no kernel runs on its path,
-# and the host-bound loop's time is what [dryrun] needs (PERF.md §7)
-RWKV_LAYERS = 12
+# served and trained at 6 of its 24 layers (12 before): no kernel runs
+# on its path, and its host-bound loop's time is the script's margin
+# under its limit on a slow host (PERF.md §7)
+RWKV_LAYERS = 6
 RWKV_CPU_STEP = dict(batch=2, seq_len=128)
 SSM_NOISE = {"a_log": (-1.0, 0.5), "d_skip": (0.5, 1.5),
              "dt_bias": (-1.0, 0.5), "u_bonus": (-0.5, 0.5),
@@ -1238,6 +1259,7 @@ def lm_kernel_phase(dev, cases=K5_CASES, small=True):
               max_abs_out=f"{float(pout.float().abs().max()):.3f}",
               library_max_abs_err=f"{lib_err:.3e}", ms=f"{ms:.6f}",
               plain_ms=f"{plain_ms:.6f}", library_ms=f"{library_ms:.6f}",
+              library_factor=f"{ms / library_ms:.3f}",
               library_backend=backend, library_kernel=lib_kernel,
               bound_ms=f"{b_ms:.6f}", bound_by=b_by,
               tflops=f"{flops / ms / 1e9:.2f}")
@@ -1252,7 +1274,7 @@ def lm_kernel_phase(dev, cases=K5_CASES, small=True):
             source=f"{CSRC}/flash_attention.cu", replaces=fc.REPLACES[fc.NAME],
             launches=0, max_abs_err=max(err, err_lse), ms=ms,
             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-            library_ms=library_ms))
+            library_ms=library_ms, library_factor=ms / library_ms))
         row["max_abs_err"] = max(row["max_abs_err"], err, err_lse)
         del q, k, v, out, lse, pout, plse
         torch.cuda.empty_cache()
@@ -1275,6 +1297,30 @@ def lm_kernel_phase(dev, cases=K5_CASES, small=True):
     phase("kernels", kernel="flash_attention_fwd", head_dims_checked=str(
         fc.HEAD_DIMS).replace(" ", ""),
           shape="B={},H={},Hkv={},S={}".format(*K5_SMALL))
+    # the bf16 tile's edges at every head dim
+    b, h, hkv, _ = K5_SMALL
+    n_edge = 0
+    for d in fc.HEAD_DIMS:
+        for s in K5_EDGE_S:
+            q, k, v = _attention_case(dev, gen, b, h, hkv, s, d,
+                                      torch.bfloat16)
+            for causal, window, short in K5_EDGE_MASKS:
+                kw = dict(sm_scale=d ** -0.5, causal=causal, window=window,
+                          kv_len=None if short is None else s + short)
+                ok, err, err_lse, share = k5_agreement(
+                    *fc.flash_fwd(q, k, v, **kw),
+                    *fc.flash_fwd_plain(q, k, v, **kw))
+                check(ok, f"K5 edge D={d} S={s} causal={causal} "
+                      f"window={window} kv_len={kw['kv_len']}: out err {err} "
+                      f"(share {share}), lse err {err_lse}")
+                row = table[row_name(fc.NAME, d)]
+                row["max_abs_err"] = max(row["max_abs_err"], err, err_lse)
+                n_edge += 1
+    phase("kernels", kernel="flash_attention_fwd", dtype="bfloat16",
+          tile_edges_checked=n_edge, S=",".join(map(str, K5_EDGE_S)),
+          masks="causal,bidirectional,window48,window64,kv_len-37,"
+                "bidirectional_kv_len-37",
+          shape="B={},H={},Hkv={}".format(b, h, hkv))
     rows, d = K8_SHAPE
     for dtype in (torch.bfloat16, torch.float32):
         x = torch.randn((rows, d), generator=gen, device=dev).to(dtype)
@@ -1667,7 +1713,8 @@ def padded_kernel_phase(dev):
           control_pad_scale_err=f"{c_err:.3e}/{c_lse:.3e}",
           library_max_abs_err=f"{lib_err:.3e}", ms=f"{ms:.6f}",
           wrapper_ms=f"{wrapper_ms:.6f}", plain_ms=f"{plain_ms:.6f}",
-          library_ms=f"{library_ms:.6f}", library_backend=backend,
+          library_ms=f"{library_ms:.6f}",
+          library_factor=f"{ms / library_ms:.3f}", library_backend=backend,
           library_kernel=lib_kernel, bound_ms=f"{b_ms:.6f}", bound_by=b_by,
           tflops=f"{flops / ms / 1e9:.2f}",
           padded_share_of_work=f"{1 - d / dp:.3f}")
@@ -1677,7 +1724,8 @@ def padded_kernel_phase(dev):
         replaces=fc.REPLACES[fc.NAME], launches=0,
         max_abs_err=max(err, err_lse, w_err), ms=ms, wrapper_ms=wrapper_ms,
         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-        library_ms=library_ms, library_backend=backend)
+        library_ms=library_ms, library_factor=ms / library_ms,
+        library_backend=backend)
     del q, k, v, qp, kp, vp, out, lse, pout, plse, wrapped
     torch.cuda.empty_cache()
 
@@ -4619,6 +4667,17 @@ def main() -> int:
             "platform": "gpu", "kind": name, "count": count}}))
         return 0
     build_phase()
+    if sys.argv[1:] == [KERNELS_FLAG]:       # the flash and RMSNorm kernels
+        table = lm_kernel_phase(dev)
+        table.update(bwd_kernel_phase(dev))
+        table.update(padded_kernel_phase(dev))
+        phase("done", kernels_only=True,
+              seconds=f"{time.perf_counter() - t0:.1f}")
+        print(smi)
+        print(json.dumps({"kernels": list(table.values())}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name, "count": count}}))
+        return 0
     if sys.argv[1:] == [MOE_FLAG]:           # the MoE slice alone
         windowed = [c for c in K5_CASES if c[7] == WINDOW_ROW]
         table = lm_kernel_phase(dev, windowed, small=False)

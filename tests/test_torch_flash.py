@@ -307,10 +307,10 @@ def _misaligned(bad, dtype, b=1, h=4, s=8, d=32, device="cpu"):
 
 @pytest.mark.parametrize("bad", ["offset", "row_stride", "head_stride"])
 def test_card_checks_reject_misaligned_bf16(bad):
-    """The bf16 kernels copy 16-byte pieces with cp.async, so the card
-    checks (run here on CPU tensors) raise on bf16 data whose pointer or
-    batch, head or row stride is not a multiple of 16 bytes; float32 (the
-    FMA kernels) takes the same layouts."""
+    """The bf16 kernels read 16-byte pieces (TMA in K5, cp.async in K6
+    and K7), so the card checks (run here on CPU tensors) raise on bf16
+    data whose pointer or batch, head or row stride is not a multiple of
+    16 bytes; float32 (the FMA kernels) takes the same layouts."""
     k = torch.zeros((1, 2, 8, 32))
     flash_cuda._check_card(("q", _misaligned(bad, torch.float32)), ("k", k))
     kb = k.to(torch.bfloat16)
@@ -341,30 +341,64 @@ def test_build_key_covers_headers(tmp_path):
     assert lib._target() != first
 
 
+def test_bf16_forward_is_built_on_hopper_primitives():
+    """K5's source includes the Hopper primitives (TMA tensor loads,
+    wgmma), not the mma.sync helpers K6 and K7 keep; the header holds
+    both instructions and the source no longer carries the mma.sync
+    forward body. Reading the sources needs no nvcc."""
+    csrc = flash_cuda.LIBRARY.source.parent
+    src = flash_cuda.LIBRARY.source.read_text()
+    includes = re.findall(r'#include "([^"]+)"', src)
+    assert "hopper.cuh" in includes and "mma_bf16.cuh" not in includes
+    header = (csrc / "hopper.cuh").read_text()
+    assert "wgmma.mma_async" in header
+    assert "cp.async.bulk.tensor" in header
+    for gone in ("fwd_tc", "FwdTc", "mma_bf16::", "ldmatrix"):
+        assert gone not in src, gone
+    bwd = flash_cuda.BWD_LIBRARY.source.read_text()
+    assert '#include "mma_bf16.cuh"' in bwd
+
+
 # --- on the card ----------------------------------------------------------------
+# The bf16 K5's tile edges (128 query rows and 128 keys a tile, 64 keys
+# at D = 256): S on both sides of a tile, windows of 48 and 64, kv_len < S
+# (negative: S less that many).
+EDGE_CASES = [(True, None, torch.bfloat16, s, None) for s in (127, 128, 129)]
+EDGE_CASES += [(False, None, torch.bfloat16, 129, None),
+               (True, 48, torch.bfloat16, 1000, None),
+               (True, 64, torch.bfloat16, 129, None),
+               (True, None, torch.bfloat16, 1000, -37),
+               (False, None, torch.bfloat16, 128, -37)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("causal,window,dtype,s", [
-    (True, None, torch.bfloat16, 1000), (False, None, torch.float32, 256),
-    (True, 64, torch.bfloat16, 512), (True, None, torch.float32, 333)])
-def test_cuda_flash_matches_plain(causal, window, dtype, s):
+@pytest.mark.parametrize("causal,window,dtype,s,short", [
+    (True, None, torch.bfloat16, 1000, None),
+    (False, None, torch.float32, 256, None),
+    (True, 64, torch.bfloat16, 512, None),
+    (True, None, torch.float32, 333, None)] + EDGE_CASES)
+def test_cuda_flash_matches_plain(causal, window, dtype, s, short):
     """The CUDA kernel against its plain version on the same card inputs,
     out and lse, for every head dim. q is scaled so that the logits have
     standard deviation 2 and attention is peaked. Both sides are float32
     results rounded once: bf16 out may differ by one ulp (2**-7 |want|,
     plus 1e-4 near 0), on at most 1% of the elements; f32 out and lse by
-    2e-5 (another summation order)."""
+    2e-5 (another summation order). ``short``: kv_len = S + short."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run with -m gpu on the card)")
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
+    kv_len = None if short is None else s + short
     for d in flash_cuda.HEAD_DIMS:
         q, k, v = _qkv(d + s, 2, 8, 2, s, d)
         q, k, v = (torch.from_numpy(a).to(dev, dtype) for a in (q * 8, k, v))
         before = flash_cuda.LAUNCHES[flash_cuda.NAME]
         out, lse = flash_cuda.flash_fwd(q, k, v, sm_scale=d ** -0.5,
-                                        causal=causal, window=window)
+                                        causal=causal, window=window,
+                                        kv_len=kv_len)
         pout, plse = flash_cuda.flash_fwd_plain(
-            q, k, v, sm_scale=d ** -0.5, causal=causal, window=window)
+            q, k, v, sm_scale=d ** -0.5, causal=causal, window=window,
+            kv_len=kv_len)
         torch.cuda.synchronize()
         assert flash_cuda.LAUNCHES[flash_cuda.NAME] == before + 1
         if dtype == torch.bfloat16:
@@ -393,26 +427,35 @@ def _agree(got, want, dtype):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_cuda_flash_strided_view(dtype):
     """A (B, S, H, D) tensor seen through transpose(1, 2), as the model
-    hands it over, for every head dim and a ragged S: the kernel reads the
-    strides in place, writes out in q's layout and agrees with the plain
-    version on the same view."""
+    hands it over, for every head dim, a ragged S and the bf16 tile's
+    edges (S 127, 128, 129, 1000; windows of 48 and 64; kv_len < S): the
+    kernel reads the strides in place, writes out in q's layout and agrees
+    with the plain version on the same view."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run with -m gpu on the card)")
     dev = torch.device("cuda")
-    for d in flash_cuda.HEAD_DIMS:
-        rng = np.random.default_rng(d)
-        q, k, v = (torch.from_numpy(
-            rng.normal(size=(2, 300, n, d)).astype(np.float32) * sd).to(
-                dev, dtype).transpose(1, 2)
-            for n, sd in ((8, 2.0), (2, 1.0), (2, 1.0)))
-        kw = dict(sm_scale=d ** -0.5, causal=True, window=None)
-        out, lse = flash_cuda.flash_fwd(q, k, v, **kw)
-        pout, plse = flash_cuda.flash_fwd_plain(q, k, v, **kw)
-        torch.cuda.synchronize()
-        assert out.stride() == q.stride()
-        _agree(out, pout, dtype)
-        np.testing.assert_allclose(lse.cpu().numpy(), plse.cpu().numpy(),
-                                   **F32_TOL)
+    masks = [dict(causal=True, window=None), dict(causal=True, window=48),
+             dict(causal=True, window=64), dict(causal=False, window=None),
+             dict(causal=True, window=None, short=-37)]
+    for s in (300, 127, 128, 129, 1000):
+        for d in flash_cuda.HEAD_DIMS:
+            rng = np.random.default_rng(d + s)
+            q, k, v = (torch.from_numpy(
+                rng.normal(size=(2, s, n, d)).astype(np.float32) * sd).to(
+                    dev, dtype).transpose(1, 2)
+                for n, sd in ((8, 2.0), (2, 1.0), (2, 1.0)))
+            for mask in masks if s != 300 else masks[:1]:
+                kw = dict(sm_scale=d ** -0.5, causal=mask["causal"],
+                          window=mask["window"])
+                if "short" in mask:
+                    kw["kv_len"] = s + mask["short"]
+                out, lse = flash_cuda.flash_fwd(q, k, v, **kw)
+                pout, plse = flash_cuda.flash_fwd_plain(q, k, v, **kw)
+                torch.cuda.synchronize()
+                assert out.stride() == q.stride()
+                _agree(out, pout, dtype)
+                np.testing.assert_allclose(lse.cpu().numpy(),
+                                           plse.cpu().numpy(), **F32_TOL)
 
 
 @pytest.mark.gpu
