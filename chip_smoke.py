@@ -13,12 +13,13 @@ PyTorch version at main-path shapes, the flash-attention backward (K6, K7)
 included, at llama3-8b's head dim (128), gemma-7b's (256) and
 whisper-base's (64, bidirectional at its encoder's 1500 frames), and K8
 at every width path. The bf16 cases run K5's, K6's and K7's tensor-core
-instantiations (K5: wgmma from TMA-loaded shared memory in warp-
-specialised warpgroups, one producer and two consumers, with p split
-into bf16 halves; K6 and K7: mma.sync with p and ds split into bf16
-halves); the float32 cases and the float32 model runs below hold the
-float32 FMA instantiations. Then it drives the port's main paths on
-the card:
+instantiations (wgmma from TMA-loaded shared memory in warp-
+specialised warpgroups, one producer and two consumers, with p, and in
+K6 and K7 ds, split into bf16 halves); K7 must give bitwise-equal dk and
+dv over two launches at the training and local-head shapes, and every
+K6/K7 line names its factor over SDPA's backward; the float32 cases and
+the float32 model runs below hold the float32 FMA instantiations. Then
+it drives the port's main paths on the card:
 
 * the GreenPod scheduling path — a 15,000-node fleet taking eight bursts
   of 512 pods through ``run_scenario(..., batch=True)`` on the ``cuda``
@@ -1480,6 +1481,18 @@ def bwd_kernel_phase(dev, cases=BWD_CASES, small=True):
         for n, (ok, err, share) in res.items():
             check(ok, f"K6/K7 {tag} d{n}: err {err} (differing share "
                   f"{share}) beyond the {dname} limit")
+        if tag in K7_DETERMINISTIC:
+            # one block writes each dk, dv row once, summing in a fixed
+            # order: a second launch gives the same bits
+            again = fc.flash_bwd_dkv(q, k, v, do, lse, dd, **kw)
+            torch.cuda.synchronize()
+            same = [bool(torch.equal(a, g_)) for a, g_ in zip(again,
+                                                             got[1:])]
+            check(all(same), f"K7 {tag}: dk, dv differ between two "
+                  f"launches (equal: {same})")
+            phase("kernels", kernel=fc.DKV, case=tag,
+                  deterministic="bitwise", launches_compared=2)
+            del again
         faults, split = {}, {}
         # one head per group is no fault where the group is one head (MHA:
         # gemma-7b); at D = 256 the half-D control takes its place here,
@@ -1563,6 +1576,7 @@ def bwd_kernel_phase(dev, cases=BWD_CASES, small=True):
                      for n in outs},
                   ms=f"{ms:.6f}", plain_ms_dq_dk_dv=f"{plain_ms:.6f}",
                   library_ms_dq_dk_dv=f"{library_ms:.6f}",
+                  library_factor=f"{(dq_ms + dkv_ms) / library_ms:.3f}",
                   library_max_abs_err=f"{lib_err:.3e}",
                   library_backend=backend, library_kernel=lib_kernel,
                   bound_ms=f"{b_ms:.6f}", bound_by=b_by,
@@ -1573,7 +1587,8 @@ def bwd_kernel_phase(dev, cases=BWD_CASES, small=True):
                 source=f"{CSRC}/flash_attention_bwd.cu",
                 replaces=fc.REPLACES[name], launches=0, max_abs_err=err,
                 ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=library_ms))
+                library_ms=library_ms,
+                library_factor=(dq_ms + dkv_ms) / library_ms))
             row["max_abs_err"] = max(row["max_abs_err"], err)
         # dq / dk / dv max |err| of each planted fault
         phase("kernels", kernel="flash_attention_bwd", case=tag,
@@ -1799,6 +1814,8 @@ def padded_kernel_phase(dev):
               ms=f"{ms:.6f}", wrapper_ms_dq_dk_dv=f"{wrapper_ms:.6f}",
               plain_ms_dq_dk_dv=f"{plain_ms:.6f}",
               library_ms_dq_dk_dv=f"{library_ms:.6f}",
+              library_factor=f"{(dq_ms + dkv_ms) / library_ms:.3f}",
+              wrapper_library_factor=f"{wrapper_ms / library_ms:.3f}",
               library_max_abs_err=f"{lib_err:.3e}", library_backend=backend,
               library_kernel=lib_kernel, bound_ms=f"{b_ms:.6f}",
               bound_by=b_by)
@@ -1808,7 +1825,9 @@ def padded_kernel_phase(dev):
             source=f"{CSRC}/flash_attention_bwd.cu",
             replaces=fc.REPLACES[name], launches=0, max_abs_err=err, ms=ms,
             wrapper_ms=wrapper_ms, plain_ms=plain_ms, bound_ms=b_ms,
-            bound_by=b_by, library_ms=library_ms, library_backend=backend)
+            bound_by=b_by, library_ms=library_ms,
+            library_factor=(dq_ms + dkv_ms) / library_ms,
+            library_backend=backend)
     del q, k, v, do, qp, kp, vp, dop, out, lse, dd, bare, through, want
     del pout, o, leaves, so, sl
     torch.cuda.empty_cache()
@@ -4074,6 +4093,9 @@ DIST_CHECK_LEAVES = ("dense.attn.wq", "final_ln")
 LOCAL_HEADS = "tp2"
 K5_CASES.append((LOCAL_HEADS, 1, 16, 4, 4095, 128, "bfloat16", None, 10))
 BWD_CASES.append((LOCAL_HEADS, 1, 16, 4, 4095, 128, "bfloat16", None, 5))
+# K7 launched twice at these cases (the training shape, one rank's local
+# heads): dk and dv must be equal bit for bit
+K7_DETERMINISTIC = ("train", LOCAL_HEADS)
 
 
 def dist_config(dtype="bfloat16", layers=DIST_LAYERS):
@@ -4636,7 +4658,7 @@ def main() -> int:
                for f in ("topsis.cu", "topsis_math.cuh",
                          "topsis_math_check.cu", "flash_attention.cu",
                          "rmsnorm.cu", "flash_attention_bwd.cu",
-                         "mma_bf16.cuh")):
+                         "hopper.cuh")):
         print(f"chip_smoke: {SRC / 'repro_torch'} not found; run from a "
               f"checkout of the repository", file=sys.stderr)
         return 1

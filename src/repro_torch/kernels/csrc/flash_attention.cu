@@ -82,6 +82,8 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <atomic>
+
 #include "hopper.cuh"
 
 namespace {
@@ -285,24 +287,6 @@ struct FwdWg {
 };
 
 constexpr float NEG_INF = -__builtin_huge_valf();
-
-// 2^x on the special-function unit; results below 2^-126 flush to 0.
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// hi = bf16(x), lo = bf16(x - hi), each packed as bf16x2 with x0 in the
-// low half. hi + lo keeps about 16 bits of x; x - hi is exact in float32.
-__device__ __forceinline__ void split(float x0, float x1, uint32_t& hi,
-                                      uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const float2 hf = __bfloat1622float2(h);
-  const __nv_bfloat162 r = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = *reinterpret_cast<const uint32_t*>(&r);
-}
 
 template <int D>
 __device__ __forceinline__ void fwd_wg(const Params& p,
@@ -597,16 +581,19 @@ constexpr int smem_of() {
 }
 
 template <typename T, int D>
-cudaError_t launch(const Params& p, int batch, cudaStream_t stream) {
+cudaError_t launch(const Params& p, int batch, int device,
+                   cudaStream_t stream) {
   constexpr bool wg = kWgmma<T>;
   constexpr int bytes = smem_of<T, D>();
-  static bool configured = false;
-  if (!configured) {
+  // the attribute belongs to the kernel on one device: set once per device
+  static std::atomic<uint64_t> configured{0};
+  const uint64_t bit = uint64_t(1) << (device & 63);
+  if (!(configured.load(std::memory_order_relaxed) & bit)) {
     const cudaError_t e = cudaFuncSetAttribute(
         flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         bytes);
     if (e != cudaSuccess) return e;
-    configured = true;
+    configured.fetch_or(bit, std::memory_order_relaxed);
   }
   Maps maps{};
   if constexpr (wg)
@@ -632,13 +619,14 @@ int smem_bytes(int d) {
 }
 
 template <typename T>
-cudaError_t dispatch(const Params& p, int batch, int d, cudaStream_t s) {
+cudaError_t dispatch(const Params& p, int batch, int d, int device,
+                     cudaStream_t s) {
   switch (d) {
-    case 32: return launch<T, 32>(p, batch, s);
-    case 64: return launch<T, 64>(p, batch, s);
-    case 80: return launch<T, 80>(p, batch, s);
-    case 128: return launch<T, 128>(p, batch, s);
-    case 256: return launch<T, 256>(p, batch, s);
+    case 32: return launch<T, 32>(p, batch, device, s);
+    case 64: return launch<T, 64>(p, batch, device, s);
+    case 80: return launch<T, 80>(p, batch, device, s);
+    case 128: return launch<T, 128>(p, batch, device, s);
+    case 256: return launch<T, 256>(p, batch, device, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -658,14 +646,15 @@ int flash_attention_fwd(int dtype, const void* q, const void* k,
                         int64_t o_sb, int64_t o_sh, int64_t o_ss,
                         float sm_scale, int causal, int window, int kv_len,
                         int device, void* stream) {
-  cudaSetDevice(device);
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
   Params p{q, k, v, out, lse, h, hkv, sq, skv, kv_len, window, causal,
            sm_scale, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
            o_sb, o_sh, o_ss};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t e = dtype == 1
-      ? dispatch<__nv_bfloat16>(p, batch, d, s)
-      : dtype == 0 ? dispatch<float>(p, batch, d, s) : cudaErrorInvalidValue;
+  e = dtype == 1 ? dispatch<__nv_bfloat16>(p, batch, d, device, s)
+      : dtype == 0 ? dispatch<float>(p, batch, d, device, s)
+                   : cudaErrorInvalidValue;
   return (int)e;
 }
 

@@ -18,15 +18,16 @@
 // nothing is padded (the reference pads S to a tile multiple and relies on
 // do = 0 there).
 //
-// K6: one block per (64-row query tile, batch * head), looping over key
-// tiles with the dq tile in registers (the TPU kernel carries it in VMEM
-// across its sequential kv grid axis). K7: one block per (64-row key tile,
-// batch * kv head), looping over every query head of the group and every
-// query tile, the reference's flattened (group, iq) axis, with dk and dv in
-// registers. No atomics: each output row is written once, by one block, so
-// dk and dv are deterministic and need no zero-fill pass. Tiles wholly
-// above the causal diagonal, outside the window or past kv_len are skipped,
-// as K5 skips them.
+// K6: one block per (query tile, batch * head), looping over key tiles with
+// the dq tile in registers (the TPU kernel carries it in VMEM across its
+// sequential kv grid axis). K7: one block per (64-key tile, batch * kv
+// head), looping over every query head of the group and every query tile,
+// the reference's flattened (group, iq) axis, with dk and dv in registers.
+// No atomics: each output row is written once, by one block, in a fixed
+// order of sums, so dk and dv are deterministic and need no zero-fill pass
+// (a key tile with no valid pair writes zeros). Tiles wholly above the
+// causal diagonal, outside the window or past kv_len are skipped, as K5
+// skips them.
 //
 // Bound. At the training shape (B=1, H=32, Hkv=8, S=4095, D=128, bf16,
 // causal) each valid pair costs K6 6*D operations (s, dp, dq) and K7 8*D
@@ -34,12 +35,56 @@
 // bf16 tensor-core peak, against ~35 us for the bytes: both are bound by
 // operations.
 //
-// K6 and K7 in bf16 (the main path) run on the tensor cores: mma.sync
-// m16n8k16 on bf16 tiles staged by cp.async, p and ds split into two bf16
-// halves in registers to keep their float32 semantics (dq_tc and dkv_tc
-// below; the building blocks are in mma_bf16.cuh). With the split K6's
-// tensor work is 8*D a pair and K7's 12*D, 4/3x and 1.5x what the bound
-// counts (278 and 417 us at the peak).
+// bf16 (the main path): wgmma, TMA and warp-specialised warpgroups on K5's
+// pieces (hopper.cuh). A block has 384 threads: warpgroup 0 is the
+// producer, whose first thread starts every TMA load, and warpgroups 1 and
+// 2 are the consumers (setmaxnreg moves the producer's registers to them).
+// The tensor maps are K5's: 4-d over (D, S, heads, batch) with the
+// tensors' own strides, boxes of 64 columns with 128-byte swizzle (D = 64,
+// 128, 256), 32 with 64-byte (D = 32) or 16 with 32-byte (D = 80). Rows
+// past S arrive as zeros, and every pair off the mask, a query at or past
+// Sq included, is masked in the kernel: without branches, and only in
+// tiles that cross kv_len, Sq, the diagonal or the window edge. p is
+// 2^(q.k * scale * log2(e) - lse * log2(e)), one FFMA and one ex2 a pair
+// as in K5 (about one float32 rounding of the exponent from exp(s - lse)).
+// p and ds enter the output products as bf16 hi/lo halves in registers
+// (the accumulator layout repacked as the A operand, hopper.cuh), so each
+// output product is two register-A wgmmas a k-step: K6's tensor work is
+// 8*D a valid pair and K7's 12*D, 4/3x and 1.5x what the bound counts (278
+// and 417 us at the peak). Each tile's output product goes into a fresh
+// accumulator (a chunk of 64 columns at D = 256), added to the running
+// sum by one FADD: the tensor cores' float32 additions are not rounded to
+// nearest, and a chain of every tile's products into dK and dV drifts past
+// the limit chip_smoke.py holds them to (over 1% of bf16 outputs one ulp
+// off at mixtral-8x7b's window shape; 0.25% with fresh accumulators).
+//
+// K6 (dq_wg): 128 query rows of one (batch, head) a block, 64 a consumer.
+// q and do are loaded once; K and V tiles of BK keys (64; 32 at D = 256,
+// where q and do alone take 128 KB) come through a ring of 3 stages (2 at
+// D = 256) with a full and an empty mbarrier for K and for V: S = q.k^T
+// starts while V is in flight, p is taken while dP = do.v^T runs, and V's
+// stage is released as soon as dP is done. dQ += dS.K reads the K tile a
+// second time, MN-major, through another descriptor on the same shared
+// memory, as K5 reads V. Each thread keeps lse and dd of its two rows in
+// registers. Shared memory 164,968 bytes at D = 128, 197,704 at D = 256.
+//
+// K7 (dkv_wg): 64 keys of one (batch, kv head) a block; K and V are loaded
+// once and stay. The producer streams the (query head, query tile of 64)
+// pairs through a ring of 3 stages (2 at D = 256): q and do by TMA, lse
+// (times log2 e) and dd by plain loads of its second warp (they are
+// (B, H, Sq) float32, and at Sq = 4095 a row of 16,380 bytes is no
+// multiple of 16: no tensor map takes it), 0 at rows past Sq. The two
+// consumers share the 64 keys in two roles: consumer 0 computes s^T =
+// K.q^T, p^T and dV += P^T.do, and hands p^T to consumer 1 through shared
+// memory (two buffers, each behind a full and an empty mbarrier);
+// consumer 1 computes dp^T = V.do^T, ds^T = p^T (dp^T - dd)
+// scale and dK += dS^T.q. Keys are the wgmma's M rows; q and do are read
+// K-major for the score products and MN-major for the output products.
+// One D-wide accumulator a consumer leaves room for the fresh
+// accumulators above: dK and dV together in one consumer (128 floats a
+// thread at D = 128) would not. blockIdx.y is the key tile, so under the
+// causal mask every (batch, kv head) takes its longest tiles first. Shared
+// memory 166,488 bytes at D = 128, 231,496 at D = 256.
 //
 // In float32 both are the FMA kernels of the first port (CUDA cores, 67
 // TFLOP/s peak). Thread layout: 256 threads, (ty, tx) =
@@ -49,42 +94,28 @@
 // (c < D/16) of rows 4*ty..4*ty+3. Q, dO, K and V tiles sit in shared
 // memory transposed (D x 68 floats), so the score products read broadcast
 // or conflict-free float4s; the output products read the transposed tiles
-// by column (a 2-way bank conflict) and ds / p by float4. The float32
-// instantiations are what chip_smoke's float32 checks (4 training layers
-// in float32, the f32_window case) hold; the bf16 ones are held by the
-// bf16 checks and their planted faults.
-//
-// D = 256 (gemma-7b; the work a pair is twice D = 128's, and at gemma's
-// training shape, H = 16, the bound is llama's). The D <= 128 tiles do not
-// fit: K6's dQ and K7's dK + dV accumulators would be 128 and 256 floats a
-// lane beside the score tiles, and the float32 kernels' four transposed
-// D x 68 tiles alone are 278 KB, over the 227 KB a block may hold. So:
-// - bf16 K6: 8 warps and 128 query rows a block, key tiles of 32 (s and
-//   dp 16 floats a lane beside dQ's 128), the score k-loop unrolled by 2
-//   (unrolled whole it spilled); 198 KB, one block an SM.
-// - bf16 K7: 8 warps, two to each 16-key strip, in two roles: one computes
-//   s^T, p^T and dV (all 256 columns), and hands p^T to the other through
-//   shared memory (double-buffered, behind a barrier of the two warps),
-//   which computes dp^T, ds^T and dK. Each holds one 128-float accumulator
-//   and runs one product chain a part; the tensor work is D = 128's design
-//   (12*D a pair), split evenly. The score k-loop is unrolled by 4. One
-//   block still owns each key tile: no atomics. 207 KB, one block an SM.
-// - float32 K6 and K7: the K and V tiles (K6) or the q and do tiles (K7)
-//   are staged DC columns at a time (DC = 128 and 64), once for the score
-//   products and again, last chunk first, for the output products; the
-//   other pair stays whole. 221 and 204 KB.
-// At D <= 128 every kernel keeps its shape above.
+// by column (a 2-way bank conflict) and ds / p by float4. At D = 256 the K
+// and V tiles (K6) or the q and do tiles (K7) are staged DC columns at a
+// time (DC = 128 and 64), once for the score products and again, last
+// chunk first, for the output products; the other pair stays whole (221
+// and 204 KB). The float32 instantiations are what chip_smoke's float32
+// checks (4 training layers in float32, the f32_window case) hold; the
+// bf16 ones are held by the bf16 checks and their planted faults.
 //
 // Templated on the element type (float, __nv_bfloat16) and the head dim
 // (32, 64, 80, 128, 256). C interface, loaded with ctypes by
-// repro_torch/kernels/flash_cuda.py; each entry point launches on the
-// given stream, does not synchronise, and returns cudaGetLastError().
+// repro_torch/kernels/flash_cuda.py; each entry point encodes the bf16
+// tensor maps (cuTensorMapEncodeTiled through the CUDA runtime: nothing
+// links libcuda), launches on the given stream, does not synchronise, and
+// returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
-#include "mma_bf16.cuh"
+#include <atomic>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -94,13 +125,7 @@ constexpr int THREADS = 256;
 constexpr int TP = 68;  // row pitch (floats) of every transposed tile
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
 
 struct Params {
   const void* q;
@@ -441,554 +466,686 @@ __device__ __forceinline__ void dkv_fma(const Params& p) {
 }
 
 
-// bf16: tensor cores. One block per (batch * kv head, key tile of BK = 64
-// rows), blockIdx.y the key tile, so the longest (causal) tiles are
-// dispatched first. Each of the 4 warps owns 16 key rows; K and V stay in
-// shared memory (bf16, pitched), the q and do tiles (BQ = 64 rows) with
-// their lse and dd are double-buffered by cp.async over the flattened
-// (head of the group, query tile) loop. The query tile is taken in parts
-// of SUB = 16 queries so that at D = 128 the dK and dV accumulators (128
-// floats a lane) leave room for s^T and dp^T (8 each) without spilling
-// (parts of 32 spilled 48 bytes a thread):
-//   s^T  = K.Q^T           (A: K by ldmatrix, B: Q by ldmatrix)
-//   p^T  = exp(s^T * scale - lse), 0 off the mask
-//   dV  += P^T.dO          (A: p^T split hi/lo, B: dO by ldmatrix.trans)
-//   dp^T = V.dO^T
-//   ds^T = p^T * (dp^T - dd) * scale
-//   dK  += dS^T.Q          (A: ds^T split hi/lo, B: Q by ldmatrix.trans)
-// p and ds never leave the registers. The split costs 12*D tensor
-// operations a valid pair where the bound counts 8*D.
-//
-// At D > 128 (DkvTc::SPLIT) the block has 8 warps, two to each 16-key
-// strip w % 4: warp w < 4 computes s^T, p^T and dV, and hands p^T to warp
-// w + 4 through shared memory, which computes dp^T, ds^T and dK (the
-// file's header).
-constexpr int SUB = 16;
+// --- bf16: wgmma, TMA and warp-specialised warpgroups ------------------------------
+// The layout of a consumer warpgroup is hopper.cuh's: warp w of the group,
+// lane (g, t) = (lane / 4, lane % 4), holds rows 16w + g and 16w + g + 8 of
+// the group's 64 and, of an m64nN score, columns 8j + 2t and 8j + 2t + 1:
+// accumulator i sits at row (i >> 1) & 1, column 8 (i >> 2) + 2t + (i & 1).
 constexpr float LOG2E = 1.4426950408889634f;
 
+template <typename T>
+constexpr bool kWgmma = false;
+template <>
+constexpr bool kWgmma<__nv_bfloat16> = true;
+
+constexpr int WG_THREADS = 384;      // a producer and two consumer warpgroups
+constexpr int CONSUMER_WARPS = 8;    // arrivals on an empty barrier
+// registers a thread after setmaxnreg: 128 x 40 + 256 x 232 = 64,512, the
+// block's 384 x 168
+constexpr int PRODUCER_REGS = 40;
+constexpr int CONSUMER_REGS = 232;
+
+// K6: 128 query rows a block (64 a consumer), key tiles of BK through a
+// ring of STAGES; dQ taken in chunks of DC columns.
 template <int D>
-struct DkvTc {
-  static constexpr bool SPLIT = D > 128;
-  static constexpr int WARPS = SPLIT ? 8 : 4;
-  static constexpr int THREADS = 32 * WARPS;
-  static constexpr int MIN_BLOCKS = SPLIT ? 1 : 2;
-  // floats of the p^T hand-over: (strip, buffer) x a lane's SUB / 8
-  // accumulator tiles x 32 lanes
-  static constexpr int XCH = SPLIT ? 4 * 2 * (SUB / 2) * 32 : 0;
+struct DqWg {
+  using SW = hopper::Swizzle<D>;
+  static constexpr int BQ = 128;
+  static constexpr int BK = D > 128 ? 32 : 64;
+  static constexpr int DC = D > 128 ? 64 : D;
+  static constexpr int STAGES = D > 128 ? 2 : 3;
+  static constexpr int Q_BOX = BQ * SW::BYTES;   // bytes of a box
+  static constexpr int KV_BOX = BK * SW::BYTES;
+  static constexpr int Q_BYTES = BQ * D * 2;
+  static constexpr int KV_BYTES = BK * D * 2;
+  // q, do, the K and V rings, the barriers, and 1 KB to align the tiles
+  static constexpr int SMEM =
+      1024 + 2 * Q_BYTES + 2 * STAGES * KV_BYTES + 8 * (1 + 4 * STAGES);
 };
 
-// acc (the warp's 16 rows x D) += X.Y for X = x, 16 x NS*8 float32 in the
-// accumulator layout of a score
-// product (K7's p^T or ds^T, K6's ds), split hi/lo, and Y = rows
-// c0..c0+NS*8-1 of the pitched tile Y (K7's q or do, K6's k; read by
-// ldmatrix.trans). Each 8-column tile's products go into a fresh
-// accumulator that one FADD adds to acc: the tensor cores' float32
-// additions are not rounded to nearest, and a chain of every query tile's
-// products into acc drifts (by 1% of bf16 outputs differing from the plain
-// version at the training shape).
-template <int D, int NS>
-__device__ __forceinline__ void accumulate(float (&acc)[D / 8][4],
-                                           const float (&x)[NS][4],
-                                           const __nv_bfloat16* Y, int c0,
-                                           int lane) {
-  using namespace mma_bf16;
-  uint32_t hi[NS / 2][4], lo[NS / 2][4];
-#pragma unroll
-  for (int c = 0; c < NS / 2; ++c)
-    split_a(x[2 * c], x[2 * c + 1], hi[c], lo[c]);
-#pragma unroll
-  for (int n = 0; n < D / 8; n += 2) {
-    float part[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-#pragma unroll
-    for (int c = 0; c < NS / 2; ++c) {
-      uint32_t yf[4];
-      ldsm_x4_t(yf, a_addr<D>(Y, c0 + 16 * c, 8 * n, lane));
-      mma(part[0], hi[c], yf[0], yf[1]);
-      mma(part[0], lo[c], yf[0], yf[1]);
-      mma(part[1], hi[c], yf[2], yf[3]);
-      mma(part[1], lo[c], yf[2], yf[3]);
-    }
-#pragma unroll
-    for (int u = 0; u < 2; ++u)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[n + u][e] += part[u][e];
-  }
-}
-
-// x (16 rows of A x NS*8 columns, accumulator layout) = A.B^T over all of
-// D: A the warp's 16 rows from row a0 of a pitched tile, B rows c0.. of
-// another (one per output column); both read by ldmatrix.
-template <int D, int NS>
-__device__ __forceinline__ void score_tc(float (&x)[NS][4],
-                                         const __nv_bfloat16* A, int a0,
-                                         const __nv_bfloat16* B, int c0,
-                                         int lane) {
-  using namespace mma_bf16;
-#pragma unroll
-  for (int n = 0; n < NS; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) x[n][e] = 0.f;
-  // at D > 128 unrolled by 4 only: unrolled whole, K7 spilled 4 bytes
-#pragma unroll (D > 128 ? 4 : D / 16)
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t af[4];
-    ldsm_x4(af, a_addr<D>(A, a0, 16 * kk, lane));
-#pragma unroll
-    for (int n = 0; n < NS; n += 2) {
-      uint32_t bf[4];
-      ldsm_x4(bf, bt_addr<D>(B, c0 + 8 * n, 16 * kk, lane));
-      mma(x[n], af, bf[0], bf[1]);
-      mma(x[n + 1], af, bf[2], bf[3]);
-    }
-  }
-}
-
+// K7: 64 keys a block (both consumers), (head, query tile of BQ) pairs
+// through a ring of STAGES; dK and dV taken in chunks of DC columns; p^T
+// handed from consumer 0 to consumer 1 through two buffers.
 template <int D>
-constexpr int smem_dkv_tc() {
-  return (int)sizeof(__nv_bfloat16) * (2 * BK + 4 * BQ) *
-             mma_bf16::Tile<D>::PITCH +
-         (int)sizeof(float) * (4 * BQ + DkvTc<D>::XCH);
-}
-
-template <int D>
-__device__ __forceinline__ void dkv_tc(const Params& p) {
-  using namespace mma_bf16;
-  using bf16 = __nv_bfloat16;
-  using C = DkvTc<D>;
-  constexpr int PITCH = Tile<D>::PITCH;
-  constexpr int ND = D / 8;     // 8-column tiles of dK, dV
-  constexpr int NS = SUB / 8;   // 8-column tiles of a score part
-  constexpr int NA = C::SPLIT ? 1 : 2;  // dK and dV, or (SPLIT) one
-  constexpr int NT = C::THREADS;
-  extern __shared__ float4 smem4[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem4);  // BK x PITCH (resident)
-  bf16* Vs = Ks + BK * PITCH;                 // BK x PITCH (resident)
-  bf16* Qs = Vs + BK * PITCH;                 // 2 x BQ x PITCH
-  bf16* Os = Qs + 2 * BQ * PITCH;             // 2 x BQ x PITCH, do
-  float* Ls = reinterpret_cast<float*>(Os + 2 * BQ * PITCH);  // 2 x BQ lse
-  float* Ds = Ls + 2 * BQ;                                    // 2 x BQ dd
-  float* Xs = Ds + 2 * BQ;                    // C::XCH, p^T handed over
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int strip = warp & 3;                 // the warp's 16 keys
-  const int role = C::SPLIT ? warp >> 2 : 0;  // SPLIT: 0 dV, 1 dK
-  const int b = blockIdx.x / p.hkv, hk = blockIdx.x % p.hkv;
-  const int group = p.h / p.hkv;
-  const int k0 = blockIdx.y * BK;
-  const int kw = k0 + 16 * strip;               // the warp's first key
-  const int kv_end = min(p.kv_len, p.skv);
-  const bf16* kg = static_cast<const bf16*>(p.k) + b * p.k_sb + hk * p.k_sh;
-  const bf16* vg = static_cast<const bf16*>(p.v) + b * p.v_sb + hk * p.v_sh;
-
-  // query tiles that hold a valid pair with a key of this tile
-  int iq_begin = 0, iq_end = (p.sq + BQ - 1) / BQ;
-  if (k0 >= kv_end) iq_end = 0;
-  if (p.causal) iq_begin = k0 / BQ;
-  if (p.window > 0)
-    iq_end = min(iq_end, (k0 + BK - 1 + p.window - 1) / BQ + 1);
-  const int nqt = max(0, iq_end - iq_begin);
-  const int n_iter = group * nqt;
-
-  // stage the (head, query tile) of iteration it into buffer buf
-  auto stage = [&](int it, int buf) {
-    const int h = hk * group + it / nqt;
-    const int q0 = (iq_begin + it % nqt) * BQ;
-    const bf16* qg =
-        static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
-    const bf16* og =
-        static_cast<const bf16*>(p.dout) + b * p.o_sb + h * p.o_sh;
-    load_tile<BQ, D, NT, true>(Qs + buf * BQ * PITCH, qg, p.q_ss, q0, p.sq);
-    load_tile<BQ, D, NT, true>(Os + buf * BQ * PITCH, og, p.o_ss, q0, p.sq);
-    if (tid < 2 * BQ) {
-      const int64_t row = ((int64_t)b * p.h + h) * p.sq;
-      const int r = tid & (BQ - 1);
-      const bool in = q0 + r < p.sq;
-      const float* src = (tid < BQ ? p.lse : p.dd) + row + (in ? q0 + r : 0);
-      cp_async4((tid < BQ ? Ls : Ds) + buf * BQ + r, src, in);
-    }
-  };
-
-  load_tile<BK, D, NT, true>(Ks, kg, p.k_ss, k0, p.skv);
-  load_tile<BK, D, NT, true>(Vs, vg, p.v_ss, k0, p.skv);
-  if (n_iter > 0) stage(0, 0);
-  cp_async_commit();
-
-  float acc[NA][ND][4];   // dK, dV; SPLIT: the role's one
-#pragma unroll
-  for (int a = 0; a < NA; ++a)
-#pragma unroll
-    for (int n = 0; n < ND; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[a][n][e] = 0.f;
-  const int keys[2] = {kw + g, kw + g + 8};
-  int xb = 0;   // the hand-over buffer of the next part (SPLIT)
-
-  for (int it = 0; it < n_iter; ++it) {
-    const int buf = it & 1;
-    cp_async_wait<0>();  // iteration it's tiles have landed (this thread's)
-    __syncthreads();     // ... everyone's; iteration it-1's buffer is free
-    if (it + 1 < n_iter) stage(it + 1, buf ^ 1);
-    cp_async_commit();
-    const int q0 = (iq_begin + it % nqt) * BQ;
-    const bf16* Qb = Qs + buf * BQ * PITCH;
-    const bf16* Ob = Os + buf * BQ * PITCH;
-    const float* Lb = Ls + buf * BQ;
-    const float* Db = Ds + buf * BQ;
-
-#pragma unroll 1
-    for (int part = 0; part < BQ / SUB; ++part) {
-      const int c0 = part * SUB;   // first column (query) of the part
-      const int qs = q0 + c0;
-      // warp-uniform (and the same for both warps of a strip): no valid
-      // pair between the warp's keys and the part
-      if (kw >= kv_end || qs >= p.sq || (p.causal && qs + SUB - 1 < kw) ||
-          (p.window > 0 && qs - p.window >= kw + 15))
-        continue;
-      const bool edge = kw + 15 >= kv_end || qs + SUB > p.sq ||
-                        (p.causal && qs < kw + 15) ||
-                        (p.window > 0 && qs + SUB - 1 - p.window >= kw);
-      // s^T -> p^T in place: exp(s^T * scale - lse), 0 off the mask
-      auto probs = [&](float (&x)[NS][4]) {
-#pragma unroll
-        for (int n = 0; n < NS; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int col = c0 + 8 * n + 2 * t + (e & 1);
-            bool ok = true;
-            if (edge) {
-              const int qi = q0 + col, key = keys[e >> 1];
-              ok = qi < p.sq && key < kv_end;
-              if (p.causal) ok = ok && key <= qi;
-              if (p.window > 0) ok = ok && key > qi - p.window;
-            }
-            x[n][e] = ok ? exp2f((x[n][e] * p.sm_scale - Lb[col]) * LOG2E)
-                         : 0.f;
-          }
-      };
-      // dp^T -> ds^T in place: p^T * (dp^T - dd) * scale
-      auto dscores = [&](float (&x)[NS][4], const float (&pt)[NS][4]) {
-#pragma unroll
-        for (int n = 0; n < NS; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int col = c0 + 8 * n + 2 * t + (e & 1);
-            x[n][e] = pt[n][e] * (x[n][e] - Db[col]) * p.sm_scale;
-          }
-      };
-
-      if constexpr (C::SPLIT) {
-        // role 0: s^T, p^T (handed over), dV += P^T.dO;
-        // role 1: dp^T, ds^T with the p^T handed over, dK += dS^T.Q
-        float* xp = Xs + (strip * 2 + xb) * NS * 4 * 32;
-        float x[NS][4];
-        score_tc<D, NS>(x, role ? Vs : Ks, 16 * strip, role ? Ob : Qb, c0,
-                        lane);
-        if (role == 0) {
-          probs(x);
-#pragma unroll
-          for (int n = 0; n < NS; ++n)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) xp[(4 * n + e) * 32 + lane] = x[n][e];
-        }
-        // p^T is written; a buffer is written again two parts on, after
-        // the next barrier, which role 1 reaches only once it has read
-        // this part's
-        bar_sync(1 + strip, 64);
-        xb ^= 1;
-        if (role == 1) {
-          float pt[NS][4];
-#pragma unroll
-          for (int n = 0; n < NS; ++n)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) pt[n][e] = xp[(4 * n + e) * 32 + lane];
-          dscores(x, pt);
-        }
-        accumulate<D, NS>(acc[0], x, role ? Qb : Ob, c0, lane);
-      } else {
-        float st[NS][4], dpt[NS][4];
-        score_tc<D, NS>(st, Ks, 16 * strip, Qb, c0, lane);
-        probs(st);
-        // dV += P^T.dO
-        accumulate<D, NS>(acc[NA - 1], st, Ob, c0, lane);
-        // dp^T = V.dO^T, ds^T in place; dK += dS^T.Q
-        score_tc<D, NS>(dpt, Vs, 16 * strip, Ob, c0, lane);
-        dscores(dpt, st);
-        accumulate<D, NS>(acc[0], dpt, Qb, c0, lane);
-      }
-    }
-  }
-  cp_async_wait<0>();  // nothing left in flight (n_iter may be 0)
-
-  bf16* dkg = static_cast<bf16*>(p.dk) + b * p.dk_sb + hk * p.dk_sh;
-  bf16* dvg = static_cast<bf16*>(p.dv) + b * p.dv_sb + hk * p.dv_sh;
-  bf16* dst[NA];
-  int64_t ss[NA];
-  if constexpr (C::SPLIT) {
-    dst[0] = role ? dkg : dvg;
-    ss[0] = role ? p.dk_ss : p.dv_ss;
-  } else {
-    dst[0] = dkg, dst[NA - 1] = dvg;
-    ss[0] = p.dk_ss, ss[NA - 1] = p.dv_ss;
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = keys[i];
-    if (r >= p.skv) continue;
-#pragma unroll
-    for (int a = 0; a < NA; ++a)
-#pragma unroll
-      for (int n = 0; n < ND; ++n)
-        *reinterpret_cast<__nv_bfloat162*>(
-            &dst[a][(int64_t)r * ss[a] + 8 * n + 2 * t]) =
-            __floats2bfloat162_rn(acc[a][n][2 * i], acc[a][n][2 * i + 1]);
-  }
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(
-    mma_bf16::kTensorCores<T> ? DkvTc<D>::THREADS : THREADS,
-    mma_bf16::kTensorCores<T> ? DkvTc<D>::MIN_BLOCKS : 1)
-flash_bwd_dkv_kernel(const Params p) {
-  if constexpr (mma_bf16::kTensorCores<T>)
-    dkv_tc<D>(p);
-  else
-    dkv_fma<T, D>(p);
-}
-
-// --- K6, bf16: dq on the tensor cores ------------------------------------------
-// K5's loop with K7's products. One block per (query tile of BQ = 64 rows,
-// batch * head), blockIdx.x the query tile, longest (causal) tiles first.
-// Each of the 4 warps owns 16 query rows; the q and do tiles stay in
-// shared memory (bf16, pitched) and are re-read by ldmatrix (held in
-// registers they would take 64 of them a lane), K and V tiles (BK = 64
-// keys) are double-buffered by cp.async, the next tile's copy in flight
-// during the current one's products; lse and dd of the lane's two rows
-// sit in registers. The whole key tile is taken at once: at D = 128 the
-// dQ accumulator (64 floats a lane) and s and dp (32 each) fit without
-// spilling, and parts of 32 or 16 keys ran slower:
-//   s   = Q.K^T            (A: Q by ldmatrix, B: K by ldmatrix)
-//   dp  = dO.V^T           (A: dO by ldmatrix, B: V by ldmatrix)
-//   p   = exp(s * scale - lse), 0 off the mask
-//   ds  = p * (dp - dd) * scale
-//   dQ += dS.K             (A: ds split hi/lo, B: K by ldmatrix.trans)
-// ds never leaves the registers. The split costs 8*D tensor operations a
-// valid pair where the bound counts 6*D. About 104 KB of shared memory at
-// D = 128: two blocks an SM. At D > 128 (DqTc): 8 warps and 128 rows a
-// block, key tiles of 32.
-template <int D>
-struct DqTc {
-  static constexpr bool WIDE = D > 128;
-  static constexpr int WARPS = WIDE ? 8 : 4;
-  static constexpr int THREADS = 32 * WARPS;   // a warp per 16 queries
-  static constexpr int BQ = 16 * WARPS;
-  static constexpr int BK = WIDE ? 32 : 64;
-  static constexpr int MIN_BLOCKS = WIDE ? 1 : 2;
+struct DkvWg {
+  using SW = hopper::Swizzle<D>;
+  static constexpr int BK = 64;
+  static constexpr int BQ = 64;
+  static constexpr int DC = D > 128 ? 64 : D;
+  static constexpr int STAGES = D > 128 ? 2 : 3;
+  static constexpr int LOADERS = 32;             // the lanes that load lse, dd
+  static constexpr int BOX = 64 * SW::BYTES;     // bytes of a box (64 rows)
+  static constexpr int TILE = 64 * D * 2;        // bytes of a 64-row tile
+  static constexpr int P_FLOATS = BK * BQ;       // a p^T buffer
+  // K, V, the q and do rings, p^T, lse and dd, the barriers, alignment
+  static constexpr int SMEM = 1024 + 2 * TILE + 2 * STAGES * TILE +
+                              2 * P_FLOATS * 4 + 2 * STAGES * BQ * 4 +
+                              8 * (1 + 2 * STAGES + 4);
 };
 
+// K6: dq of 128 query rows of one (batch, head); the file's header.
 template <int D>
-constexpr int smem_dq_tc() {
-  return (int)sizeof(__nv_bfloat16) * (2 * DqTc<D>::BQ + 4 * DqTc<D>::BK) *
-         mma_bf16::Tile<D>::PITCH;
-}
-
-template <int D>
-__device__ __forceinline__ void dq_tc(const Params& p) {
-  using namespace mma_bf16;
+__device__ __forceinline__ void dq_wg(const Params& p, const CUtensorMap* mq,
+                                      const CUtensorMap* mk,
+                                      const CUtensorMap* mv,
+                                      const CUtensorMap* mo) {
+  using namespace hopper;
+  using C = DqWg<D>;
+  using SW = typename C::SW;
   using bf16 = __nv_bfloat16;
-  constexpr int PITCH = Tile<D>::PITCH;
-  constexpr int BQ = DqTc<D>::BQ;
-  constexpr int BK = DqTc<D>::BK;
-  constexpr int KD = D / 16;       // k-steps of the score products
-  constexpr int ND = D / 8;        // 8-column tiles of dQ
-  constexpr int NK = BK / 8;       // 8-column tiles of S
-  constexpr int NT = DqTc<D>::THREADS;
-  extern __shared__ float4 smem4[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem4);  // BQ x PITCH
-  bf16* Os = Qs + BQ * PITCH;                 // BQ x PITCH, do
-  bf16* Ks = Os + BQ * PITCH;                 // 2 x BK x PITCH
-  bf16* Vs = Ks + 2 * BK * PITCH;             // 2 x BK x PITCH
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* Qs = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* Os = Qs + C::Q_BYTES;               // do
+  uint8_t* Ks = Os + C::Q_BYTES;               // STAGES tiles
+  uint8_t* Vs = Ks + C::STAGES * C::KV_BYTES;  // STAGES tiles
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(Vs + C::STAGES * C::KV_BYTES);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + C::STAGES;
+  uint64_t* k_empty = v_full + C::STAGES;
+  uint64_t* v_empty = k_empty + C::STAGES;
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
   const int iq = gridDim.x - 1 - blockIdx.x;    // longest tiles first
   const int b = blockIdx.y / p.h, h = blockIdx.y % p.h;
   const int hk = h / (p.h / p.hkv);
-  const int q0 = iq * BQ;
-  const int qw = q0 + 16 * warp;                // the warp's first row
-  const bf16* qg = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const bf16* og =
-      static_cast<const bf16*>(p.dout) + b * p.o_sb + h * p.o_sh;
-  const bf16* kg = static_cast<const bf16*>(p.k) + b * p.k_sb + hk * p.k_sh;
-  const bf16* vg = static_cast<const bf16*>(p.v) + b * p.v_sb + hk * p.v_sh;
-
+  const int q0 = iq * C::BQ;
   const int kv_end = min(p.kv_len, p.skv);
   int k_end = kv_end;
-  if (p.causal) k_end = min(k_end, q0 + BQ);
+  if (p.causal) k_end = min(k_end, q0 + C::BQ);
   int k_begin = 0;
-  if (p.window > 0) k_begin = max(0, q0 - p.window + 1) / BK * BK;
-  const int n_tiles = k_end > k_begin ? (k_end - k_begin + BK - 1) / BK : 0;
+  if (p.window > 0) k_begin = max(0, q0 - p.window + 1) / C::BK * C::BK;
+  const int n_tiles =
+      k_end > k_begin ? (k_end - k_begin + C::BK - 1) / C::BK : 0;
 
-  load_tile<BQ, D, NT, true>(Qs, qg, p.q_ss, q0, p.sq);
-  load_tile<BQ, D, NT, true>(Os, og, p.o_ss, q0, p.sq);
-  if (n_tiles > 0) {
-    load_tile<BK, D, NT, true>(Ks, kg, p.k_ss, k_begin, p.skv);
-    load_tile<BK, D, NT, true>(Vs, vg, p.v_ss, k_begin, p.skv);
-  }
-  cp_async_commit();
-
-  const int rows[2] = {qw + g, qw + g + 8};
-  const int64_t row = ((int64_t)b * p.h + h) * p.sq;
-  float lse[2], dd[2];
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const bool in = rows[i] < p.sq;
-    lse[i] = in ? p.lse[row + rows[i]] : 0.f;
-    dd[i] = in ? p.dd[row + rows[i]] : 0.f;
-  }
-  float dq[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
-
-  for (int j = 0; j < n_tiles; ++j) {
-    const int k0 = k_begin + j * BK;
-    const int buf = j & 1;
-    cp_async_wait<0>();  // tile j has landed (this thread's copies)
-    __syncthreads();     // ... everyone's; tile j-1's buffer is free
-    if (j + 1 < n_tiles) {
-      // unrolled: K7 rolls its copy loops to save registers; here rolled
-      // ones ran slower and unrolled ones do not spill
-      load_tile<BK, D, NT>(Ks + (buf ^ 1) * BK * PITCH, kg, p.k_ss, k0 + BK,
-                           p.skv);
-      load_tile<BK, D, NT>(Vs + (buf ^ 1) * BK * PITCH, vg, p.v_ss, k0 + BK,
-                           p.skv);
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&k_empty[s], CONSUMER_WARPS);
+      mbar_init(&v_empty[s], CONSUMER_WARPS);
     }
-    cp_async_commit();
-    const bf16* Kb = Ks + buf * BK * PITCH;
-    const bf16* Vb = Vs + buf * BK * PITCH;
+    fence_barrier_init();
+  }
+  __syncthreads();
 
-    // warp-uniform: a tile with no valid pair for this warp's rows
-    if (qw >= p.sq || (p.causal && k0 > qw + 15) ||
-        (p.window > 0 && k0 + BK - 1 <= qw - p.window))
-      continue;
-    // mask only where the tile crosses kv_len, Sq, the diagonal or the
-    // window edge for some row of the warp
-    const bool edge = k0 + BK > kv_end || qw + 15 >= p.sq ||
-                      (p.causal && k0 + BK - 1 > qw) ||
-                      (p.window > 0 && k0 <= qw + 15 - p.window);
-
-    float s[NK][4], dp[NK][4];
+  if (threadIdx.x < 128) {
+    // the producer warpgroup: one thread keeps the ring full
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, 2 * C::Q_BYTES);
 #pragma unroll
-    for (int n = 0; n < NK; ++n)
+      for (int x = 0; x < SW::BOXES; ++x) {
+        tma_load_4d(Qs + x * C::Q_BOX, mq, q_full, x * SW::BW, q0, h, b);
+        tma_load_4d(Os + x * C::Q_BOX, mo, q_full, x * SW::BW, q0, h, b);
+      }
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % C::STAGES;
+        const uint32_t phase = (j / C::STAGES) & 1;
+        const int k0 = k_begin + j * C::BK;
+        mbar_wait(&k_empty[s], phase ^ 1);
+        mbar_expect_tx(&k_full[s], C::KV_BYTES);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-    // at D > 128 unrolled by 2 only: unrolled whole, its fragment loads
-    // are hoisted and spill
-#pragma unroll (DqTc<D>::WIDE ? 2 : KD)
-    for (int kk = 0; kk < KD; ++kk) {
-      uint32_t qa[4], oa[4];
-      ldsm_x4(qa, a_addr<D>(Qs, 16 * warp, 16 * kk, lane));
-      ldsm_x4(oa, a_addr<D>(Os, 16 * warp, 16 * kk, lane));
+        for (int x = 0; x < SW::BOXES; ++x)
+          tma_load_4d(Ks + s * C::KV_BYTES + x * C::KV_BOX, mk, &k_full[s],
+                      x * SW::BW, k0, hk, b);
+        mbar_wait(&v_empty[s], phase ^ 1);
+        mbar_expect_tx(&v_full[s], C::KV_BYTES);
 #pragma unroll
-      for (int n = 0; n < NK; n += 2) {
-        uint32_t kf[4], vf[4];
-        ldsm_x4(kf, bt_addr<D>(Kb, 8 * n, 16 * kk, lane));
-        ldsm_x4(vf, bt_addr<D>(Vb, 8 * n, 16 * kk, lane));
-        mma(s[n], qa, kf[0], kf[1]);
-        mma(s[n + 1], qa, kf[2], kf[3]);
-        mma(dp[n], oa, vf[0], vf[1]);
-        mma(dp[n + 1], oa, vf[2], vf[3]);
+        for (int x = 0; x < SW::BOXES; ++x)
+          tma_load_4d(Vs + s * C::KV_BYTES + x * C::KV_BOX, mv, &v_full[s],
+                      x * SW::BW, k0, hk, b);
       }
     }
-    // ds in place of s
+  } else {
+    // a consumer warpgroup: 64 query rows
+    setmaxnreg_inc<CONSUMER_REGS>();
+    constexpr int NS = C::BK / 2;   // score accumulators a thread
+    constexpr int KQ = D / 16;      // k-steps of the score products
+    constexpr int KP = C::BK / 16;  // k-steps of dS.K
+    constexpr int PER_BOX = SW::BW / 16;
+    const int tw = threadIdx.x % 128;
+    const int c = threadIdx.x / 128 - 1;
+    const int warp = tw >> 5, lane = tw & 31, t = lane & 3;
+    const int qw = q0 + 64 * c;                 // the group's first row
+    const int rows[2] = {qw + 16 * warp + (lane >> 2),
+                         qw + 16 * warp + (lane >> 2) + 8};
+    // lse (times log2 e) and dd of the lane's rows; 0 past Sq, where no
+    // row is stored
+    const int64_t row0 = ((int64_t)b * p.h + h) * p.sq;
+    float lse2[2], dd[2];
 #pragma unroll
-    for (int n = 0; n < NK; ++n)
+    for (int r = 0; r < 2; ++r) {
+      const bool in = rows[r] < p.sq;
+      lse2[r] = in ? p.lse[row0 + rows[r]] * LOG2E : 0.f;
+      dd[r] = in ? p.dd[row0 + rows[r]] : 0.f;
+    }
+    // descriptors at k-step 0 of the group's q and do rows, of stage 0's
+    // K and V (all K-major), and of stage 0's K read MN-major for dS.K; a
+    // stage is KV_BYTES further
+    const uint64_t dq0 = desc(smem_u32(Qs) + 64 * c * SW::BYTES, 16,
+                              SW::ATOM, SW::LAYOUT);
+    const uint64_t do0 = desc(smem_u32(Os) + 64 * c * SW::BYTES, 16,
+                              SW::ATOM, SW::LAYOUT);
+    const uint64_t dk0 = desc(smem_u32(Ks), 16, SW::ATOM, SW::LAYOUT);
+    const uint64_t dv0 = desc(smem_u32(Vs), 16, SW::ATOM, SW::LAYOUT);
+    const uint64_t dkt = desc(smem_u32(Ks), C::KV_BOX, SW::ATOM, SW::LAYOUT);
+    constexpr uint64_t STAGE = C::KV_BYTES >> 4;
+
+    float acc[D / 2];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        bool ok = true;
-        if (edge) {
-          const int key = k0 + 8 * n + 2 * t + (e & 1);
-          const int qi = rows[e >> 1];
-          ok = qi < p.sq && key < kv_end;
-          if (p.causal) ok = ok && key <= qi;
-          if (p.window > 0) ok = ok && key > qi - p.window;
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    const float scale_log2 = p.sm_scale * LOG2E;
+    mbar_wait(q_full, 0);
+
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % C::STAGES;
+      const uint32_t phase = (j / C::STAGES) & 1;
+      const int k0 = k_begin + j * C::BK;
+      mbar_wait(&k_full[s], phase);
+      __syncwarp();
+      // group-uniform: a tile with no valid pair for this group's rows
+      if (qw >= p.sq || (p.causal && k0 > qw + 63) ||
+          (p.window > 0 && k0 + C::BK - 1 <= qw - p.window)) {
+        if (lane == 0) mbar_arrive(&k_empty[s]);
+        // V must land before the stage is released for refilling
+        mbar_wait(&v_full[s], phase);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&v_empty[s]);
+        __syncwarp();
+        continue;
+      }
+
+      // this tile's descriptors, opaque to the compiler (it would hoist
+      // every k-step's descriptor out of the loop, 2 registers each)
+      uint64_t dqj = dq0, doj = do0, dkj = dk0 + s * STAGE,
+               dvj = dv0 + s * STAGE, dktj = dkt + s * STAGE;
+      asm volatile("" : "+l"(dqj), "+l"(doj), "+l"(dkj), "+l"(dvj),
+                   "+l"(dktj));
+
+      // S = q.k^T, then dP = do.v^T once V has landed
+      float sacc[NS], dpacc[NS];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < KQ; ++kk) {
+        const uint64_t qo = (kk / PER_BOX) * (C::Q_BOX >> 4) +
+                            (kk % PER_BOX) * 2;
+        const uint64_t ko = (kk / PER_BOX) * (C::KV_BOX >> 4) +
+                            (kk % PER_BOX) * 2;
+        Wgmma<C::BK>::ss(sacc, opaque(dqj + qo), opaque(dkj + ko), kk > 0);
+      }
+      wgmma_commit();
+      mbar_wait(&v_full[s], phase);
+      __syncwarp();
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < KQ; ++kk) {
+        const uint64_t qo = (kk / PER_BOX) * (C::Q_BOX >> 4) +
+                            (kk % PER_BOX) * 2;
+        const uint64_t ko = (kk / PER_BOX) * (C::KV_BOX >> 4) +
+                            (kk % PER_BOX) * 2;
+        Wgmma<C::BK>::ss(dpacc, opaque(doj + qo), opaque(dvj + ko), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_regs(sacc);
+
+      // p = 2^(q.k . scale . log2(e) - lse . log2(e)) = exp(s - lse) while
+      // dP is in flight; masked, without branches, only where the tile
+      // crosses kv_len, the diagonal or the window edge for some row
+#pragma unroll
+      for (int i = 0; i < NS; ++i)
+        sacc[i] = ex2(fmaf(sacc[i], scale_log2, -lse2[(i >> 1) & 1]));
+      const bool edge = k0 + C::BK > kv_end ||
+                        (p.causal && k0 + C::BK - 1 > qw) ||
+                        (p.window > 0 && k0 <= qw + 63 - p.window);
+      if (edge) {
+        // valid keys of this lane's rows: [lo, hi)
+        int lo[2], hi[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          hi[r] = p.causal ? min(kv_end, rows[r] + 1) : kv_end;
+          lo[r] = p.window > 0 ? rows[r] - p.window + 1 : 0;
         }
-        const float pr =
-            ok ? exp2f((s[n][e] * p.sm_scale - lse[e >> 1]) * LOG2E) : 0.f;
-        s[n][e] = pr * (dp[n][e] - dd[e >> 1]) * p.sm_scale;
+#pragma unroll
+        for (int i = 0; i < NS; ++i) {
+          const int key = k0 + 8 * (i >> 2) + 2 * t + (i & 1);
+          const int r = (i >> 1) & 1;
+          sacc[i] = key >= lo[r] && key < hi[r] ? sacc[i] : 0.f;
+        }
+      }
+      wgmma_wait<0>();
+      fence_regs(dpacc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&v_empty[s]);
+
+      // ds = p (dp - dd) scale = hi + lo in the A layout: register e of
+      // k-step kk holds accumulators 8kk + 2e and 8kk + 2e + 1
+      uint32_t dh[KP][4], dl[KP][4];
+#pragma unroll
+      for (int kk = 0; kk < KP; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 8 * kk + 2 * e;
+          const float d0 = sacc[i] * (dpacc[i] - dd[e & 1]) * p.sm_scale;
+          const float d1 =
+              sacc[i + 1] * (dpacc[i + 1] - dd[e & 1]) * p.sm_scale;
+          split(d0, d1, dh[kk][e], dl[kk][e]);
+        }
+
+      // dQ += dS.K: a fresh accumulator a chunk of DC columns, added by
+      // one FADD; K read MN-major
+#pragma unroll
+      for (int n0 = 0; n0 < D; n0 += C::DC) {
+        float part[C::DC / 2];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < KP; ++kk) {
+          // 16 keys a k-step: 16 rows of every box; the chunk's first box
+          const uint64_t ko = (n0 / SW::BW) * (C::KV_BOX >> 4) +
+                              kk * ((16 * SW::BYTES) >> 4);
+          const uint64_t b = opaque(dktj + ko);
+          Wgmma<C::DC>::rs(part, dh[kk], b, kk > 0);
+          Wgmma<C::DC>::rs(part, dl[kk], b, 1);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(part);
+        fence_regs(dh);
+        fence_regs(dl);
+#pragma unroll
+        for (int i = 0; i < C::DC / 2; ++i) acc[n0 / 2 + i] += part[i];
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&k_empty[s]);
+    }
+
+    bf16* dqg = static_cast<bf16*>(p.dq) + b * p.dq_sb + h * p.dq_sh;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = rows[r];
+      if (row >= p.sq) continue;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+        *reinterpret_cast<__nv_bfloat162*>(
+            &dqg[(int64_t)row * p.dq_ss + 8 * n + 2 * t]) =
+            __floats2bfloat162_rn(acc[4 * n + 2 * r], acc[4 * n + 2 * r + 1]);
+    }
+  }
+}
+
+// K7: dk and dv of 64 keys of one (batch, kv head); the file's header.
+template <int D>
+__device__ __forceinline__ void dkv_wg(const Params& p, const CUtensorMap* mq,
+                                       const CUtensorMap* mk,
+                                       const CUtensorMap* mv,
+                                       const CUtensorMap* mo) {
+  using namespace hopper;
+  using C = DkvWg<D>;
+  using SW = typename C::SW;
+  using bf16 = __nv_bfloat16;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* Ks = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* Vs = Ks + C::TILE;
+  uint8_t* Qs = Vs + C::TILE;                  // STAGES tiles
+  uint8_t* Os = Qs + C::STAGES * C::TILE;      // STAGES tiles, do
+  float* Ps = reinterpret_cast<float*>(Os + C::STAGES * C::TILE);  // 2 x p^T
+  float* Ls = Ps + 2 * C::P_FLOATS;            // STAGES x BQ, lse * log2(e)
+  float* Ds = Ls + C::STAGES * C::BQ;          // STAGES x BQ, dd
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(Ds + C::STAGES * C::BQ);
+  uint64_t* q_full = kv_full + 1;
+  uint64_t* q_empty = q_full + C::STAGES;
+  uint64_t* p_full = q_empty + C::STAGES;
+  uint64_t* p_empty = p_full + 2;
+
+  const int b = blockIdx.x / p.hkv, hk = blockIdx.x % p.hkv;
+  const int group = p.h / p.hkv;
+  const int k0 = blockIdx.y * C::BK;            // causal: longest tiles first
+  const int kv_end = min(p.kv_len, p.skv);
+  // query tiles that hold a valid pair with a key of this tile
+  int iq_begin = 0, iq_end = (p.sq + C::BQ - 1) / C::BQ;
+  if (k0 >= kv_end) iq_end = 0;
+  if (p.causal) iq_begin = k0 / C::BQ;
+  if (p.window > 0)
+    iq_end = min(iq_end, (k0 + C::BK - 1 + p.window - 1) / C::BQ + 1);
+  const int nqt = max(0, iq_end - iq_begin);
+  const int n_iter = group * nqt;               // (head, query tile) pairs
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+#pragma unroll
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(&q_full[s], 1 + C::LOADERS);
+      mbar_init(&q_empty[s], CONSUMER_WARPS);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&p_full[i], 128);
+      mbar_init(&p_empty[i], 128);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // the producer warpgroup: thread 0 starts the TMA loads, warp 1
+    // loads each stage's lse and dd
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      if (n_iter > 0) {
+        mbar_expect_tx(kv_full, 2 * C::TILE);
+#pragma unroll
+        for (int x = 0; x < SW::BOXES; ++x) {
+          tma_load_4d(Ks + x * C::BOX, mk, kv_full, x * SW::BW, k0, hk, b);
+          tma_load_4d(Vs + x * C::BOX, mv, kv_full, x * SW::BW, k0, hk, b);
+        }
+      }
+      for (int it = 0; it < n_iter; ++it) {
+        const int s = it % C::STAGES;
+        const uint32_t phase = (it / C::STAGES) & 1;
+        const int h = hk * group + it / nqt;
+        const int q0 = (iq_begin + it % nqt) * C::BQ;
+        mbar_wait(&q_empty[s], phase ^ 1);
+        mbar_expect_tx(&q_full[s], 2 * C::TILE);
+#pragma unroll
+        for (int x = 0; x < SW::BOXES; ++x) {
+          tma_load_4d(Qs + s * C::TILE + x * C::BOX, mq, &q_full[s],
+                      x * SW::BW, q0, h, b);
+          tma_load_4d(Os + s * C::TILE + x * C::BOX, mo, &q_full[s],
+                      x * SW::BW, q0, h, b);
+        }
+      }
+    } else if (threadIdx.x >= 32 && threadIdx.x < 32 + C::LOADERS) {
+      const int lane = threadIdx.x - 32;
+      for (int it = 0; it < n_iter; ++it) {
+        const int s = it % C::STAGES;
+        const uint32_t phase = (it / C::STAGES) & 1;
+        const int h = hk * group + it / nqt;
+        const int q0 = (iq_begin + it % nqt) * C::BQ;
+        const int64_t row0 = ((int64_t)b * p.h + h) * p.sq;
+        mbar_wait(&q_empty[s], phase ^ 1);
+        // rows at or past Sq are 0 (their pairs are masked)
+        for (int r = lane; r < C::BQ; r += C::LOADERS) {
+          const bool in = q0 + r < p.sq;
+          Ls[s * C::BQ + r] = in ? p.lse[row0 + q0 + r] * LOG2E : 0.f;
+          Ds[s * C::BQ + r] = in ? p.dd[row0 + q0 + r] : 0.f;
+        }
+        mbar_arrive(&q_full[s]);
+      }
+    }
+  } else {
+    // a consumer warpgroup, role 0: s^T = K.q^T, p^T (handed over), dV +=
+    // P^T.do; role 1: dp^T = V.do^T, ds^T with the p^T handed over, dK +=
+    // dS^T.q. Both on the block's 64 keys.
+    setmaxnreg_inc<CONSUMER_REGS>();
+    constexpr int NS = C::BQ / 2;   // score accumulators a thread
+    constexpr int KD = D / 16;      // k-steps of the score product
+    constexpr int KP = C::BQ / 16;  // k-steps of the output product
+    constexpr int PER_BOX = SW::BW / 16;
+    const int tw = threadIdx.x % 128;
+    const int role = threadIdx.x / 128 - 1;
+    const int warp = tw >> 5, lane = tw & 31, t = lane & 3;
+    const int keys[2] = {k0 + 16 * warp + (lane >> 2),
+                         k0 + 16 * warp + (lane >> 2) + 8};
+    // the score product's A (K or V) and B (stage 0's q or do), both
+    // K-major; the output product's B (stage 0's do or q) MN-major, the
+    // same tile as the other role's score B: a stage is TILE further
+    const uint64_t da = desc(smem_u32(role ? Vs : Ks), 16, SW::ATOM,
+                             SW::LAYOUT);
+    const uint64_t db = desc(smem_u32(role ? Os : Qs), 16, SW::ATOM,
+                             SW::LAYOUT);
+    const uint64_t dm = desc(smem_u32(role ? Qs : Os), C::BOX, SW::ATOM,
+                             SW::LAYOUT);
+    constexpr uint64_t STAGE = C::TILE >> 4;
+    // role 0's mask: the valid queries of this lane's keys, [lo, hi)
+    int lo[2], hi[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      lo[r] = p.causal ? keys[r] : 0;
+      hi[r] = keys[r] >= kv_end ? 0
+              : p.window > 0    ? min(p.sq, keys[r] + p.window)
+                                : p.sq;
+    }
+
+    float acc[D / 2];   // dV (role 0) or dK (role 1)
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    const float scale_log2 = p.sm_scale * LOG2E;
+    if (n_iter > 0) mbar_wait(kv_full, 0);
+
+    for (int it = 0; it < n_iter; ++it) {
+      const int s = it % C::STAGES;
+      const uint32_t phase = (it / C::STAGES) & 1;
+      const int q0 = (iq_begin + it % nqt) * C::BQ;
+      const int pb = it & 1;                     // the p^T buffer
+      const uint32_t pphase = (it >> 1) & 1;
+      mbar_wait(&q_full[s], phase);
+      __syncwarp();
+      uint64_t daj = da, dbj = db + s * STAGE, dmj = dm + s * STAGE;
+      asm volatile("" : "+l"(daj), "+l"(dbj), "+l"(dmj));
+
+      // s^T (role 0) or dp^T (role 1): keys x queries
+      float x[NS];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+        const uint64_t o = (kk / PER_BOX) * (C::BOX >> 4) + (kk % PER_BOX) * 2;
+        Wgmma<C::BQ>::ss(x, opaque(daj + o), opaque(dbj + o), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(x);
+
+      // accumulators 4j .. 4j + 3: columns 8j + 2t, 8j + 2t + 1 of rows g
+      // and g + 8; their lse (dd) are a float2 of the stage
+      const float2* l2 = reinterpret_cast<const float2*>(Ls + s * C::BQ);
+      const float2* d2 = reinterpret_cast<const float2*>(Ds + s * C::BQ);
+      float4* pbuf = reinterpret_cast<float4*>(Ps + pb * C::P_FLOATS);
+      if (role == 0) {
+        // p^T = 2^(s^T . scale . log2(e) - lse . log2(e)), masked without
+        // branches where the tile crosses kv_len, Sq, the diagonal or the
+        // window edge (block-uniform)
+#pragma unroll
+        for (int j = 0; j < NS / 4; ++j) {
+          const float2 l = l2[4 * j + t];
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            x[4 * j + e] =
+                ex2(fmaf(x[4 * j + e], scale_log2, -(e & 1 ? l.y : l.x)));
+        }
+        const bool inside =
+            k0 + C::BK <= kv_end && q0 + C::BQ <= p.sq &&
+            (!p.causal || k0 + C::BK - 1 <= q0) &&
+            (p.window <= 0 || q0 + C::BQ - 1 < k0 + p.window);
+        if (!inside) {
+#pragma unroll
+          for (int i = 0; i < NS; ++i) {
+            const int q = q0 + 8 * (i >> 2) + 2 * t + (i & 1);
+            const int r = (i >> 1) & 1;
+            x[i] = q >= lo[r] && q < hi[r] ? x[i] : 0.f;
+          }
+        }
+        mbar_wait(&p_empty[pb], pphase ^ 1);
+#pragma unroll
+        for (int j = 0; j < NS / 4; ++j)
+          pbuf[j * 128 + tw] =
+              make_float4(x[4 * j], x[4 * j + 1], x[4 * j + 2], x[4 * j + 3]);
+        mbar_arrive(&p_full[pb]);
+      } else {
+        // ds^T = p^T (dp^T - dd) scale
+        mbar_wait(&p_full[pb], pphase);
+#pragma unroll
+        for (int j = 0; j < NS / 4; ++j) {
+          const float4 pt = pbuf[j * 128 + tw];
+          const float2 dd = d2[4 * j + t];
+          x[4 * j] = pt.x * (x[4 * j] - dd.x) * p.sm_scale;
+          x[4 * j + 1] = pt.y * (x[4 * j + 1] - dd.y) * p.sm_scale;
+          x[4 * j + 2] = pt.z * (x[4 * j + 2] - dd.x) * p.sm_scale;
+          x[4 * j + 3] = pt.w * (x[4 * j + 3] - dd.y) * p.sm_scale;
+        }
+        mbar_arrive(&p_empty[pb]);
       }
 
-    // dQ += dS.K
-    accumulate<D, NK>(dq, s, Kb, 0, lane);
-  }
-  cp_async_wait<0>();  // nothing left in flight (n_tiles may be 0)
+      // p^T or ds^T = hi + lo in the A layout: register e of k-step kk
+      // holds accumulators 8kk + 2e and 8kk + 2e + 1
+      uint32_t xh[KP][4], xl[KP][4];
+#pragma unroll
+      for (int kk = 0; kk < KP; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 8 * kk + 2 * e;
+          split(x[i], x[i + 1], xh[kk][e], xl[kk][e]);
+        }
 
-  bf16* dqg = static_cast<bf16*>(p.dq) + b * p.dq_sb + h * p.dq_sh;
+      // dV += P^T.do or dK += dS^T.q: a fresh accumulator a chunk of DC
+      // columns, added by one FADD; do or q read MN-major
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = rows[i];
-    if (r >= p.sq) continue;
+      for (int n0 = 0; n0 < D; n0 += C::DC) {
+        float part[C::DC / 2];
+        wgmma_fence();
 #pragma unroll
-    for (int n = 0; n < ND; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(
-          &dqg[(int64_t)r * p.dq_ss + 8 * n + 2 * t]) =
-          __floats2bfloat162_rn(dq[n][2 * i], dq[n][2 * i + 1]);
+        for (int kk = 0; kk < KP; ++kk) {
+          // 16 queries a k-step: 16 rows of every box; the chunk's first box
+          const uint64_t o = (n0 / SW::BW) * (C::BOX >> 4) +
+                             kk * ((16 * SW::BYTES) >> 4);
+          const uint64_t b = opaque(dmj + o);
+          Wgmma<C::DC>::rs(part, xh[kk], b, kk > 0);
+          Wgmma<C::DC>::rs(part, xl[kk], b, 1);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(part);
+        fence_regs(xh);
+        fence_regs(xl);
+#pragma unroll
+        for (int i = 0; i < C::DC / 2; ++i) acc[n0 / 2 + i] += part[i];
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&q_empty[s]);
+    }
+
+    // every key row of the tile is written once, zeros where no pair was
+    // valid
+    bf16* dst = static_cast<bf16*>(role ? p.dk : p.dv) +
+                b * (role ? p.dk_sb : p.dv_sb) +
+                hk * (role ? p.dk_sh : p.dv_sh);
+    const int64_t ss = role ? p.dk_ss : p.dv_ss;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int key = keys[r];
+      if (key >= p.skv) continue;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+        *reinterpret_cast<__nv_bfloat162*>(&dst[(int64_t)key * ss + 8 * n +
+                                                2 * t]) =
+            __floats2bfloat162_rn(acc[4 * n + 2 * r], acc[4 * n + 2 * r + 1]);
+    }
   }
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(
-    mma_bf16::kTensorCores<T> ? DqTc<D>::THREADS : THREADS,
-    mma_bf16::kTensorCores<T> ? DqTc<D>::MIN_BLOCKS : 1)
-flash_bwd_dq_kernel(const Params p) {
-  if constexpr (mma_bf16::kTensorCores<T>)
-    dq_tc<D>(p);
+__global__ void __launch_bounds__(kWgmma<T> ? WG_THREADS : THREADS, 1)
+flash_bwd_dq_kernel(const Params p, const __grid_constant__ CUtensorMap mq,
+                    const __grid_constant__ CUtensorMap mk,
+                    const __grid_constant__ CUtensorMap mv,
+                    const __grid_constant__ CUtensorMap mo) {
+  if constexpr (kWgmma<T>)
+    dq_wg<D>(p, &mq, &mk, &mv, &mo);
   else
     dq_fma<T, D>(p);
 }
 
 template <typename T, int D>
-cudaError_t launch(const Params& p, int batch, bool dkv, cudaStream_t stream) {
-  // one flag per instantiation and kernel: the attribute is set once
-  static bool configured[2] = {false, false};
-  constexpr bool tc = mma_bf16::kTensorCores<T>;
-  const int bytes = dkv ? (tc ? smem_dkv_tc<D>() : smem_dkv<D>())
-                        : (tc ? smem_dq_tc<D>() : smem_dq<D>());
-  const void* fn = dkv ? (const void*)flash_bwd_dkv_kernel<T, D>
-                       : (const void*)flash_bwd_dq_kernel<T, D>;
-  if (!configured[dkv]) {
+__global__ void __launch_bounds__(kWgmma<T> ? WG_THREADS : THREADS, 1)
+flash_bwd_dkv_kernel(const Params p, const __grid_constant__ CUtensorMap mq,
+                     const __grid_constant__ CUtensorMap mk,
+                     const __grid_constant__ CUtensorMap mv,
+                     const __grid_constant__ CUtensorMap mo) {
+  if constexpr (kWgmma<T>)
+    dkv_wg<D>(p, &mq, &mk, &mv, &mo);
+  else
+    dkv_fma<T, D>(p);
+}
+
+// The bf16 kernels' tensor maps: q and do in boxes of q_rows rows, k and v
+// of kv_rows. A tensor with no rows takes a copy of another's map (its
+// kernel loads nothing from it). false if one cannot be encoded.
+struct Maps {
+  CUtensorMap q, k, v, o;
+};
+
+template <int D>
+bool make_maps(const Params& p, int batch, int q_rows, int kv_rows,
+               Maps& m) {
+  using SW = hopper::Swizzle<D>;
+  if (p.sq > 0 &&
+      !(hopper::tensor_map_4d(&m.q, p.q, D, p.sq, p.h, batch, p.q_ss,
+                              p.q_sh, p.q_sb, SW::BW, q_rows, SW::BYTES) &&
+        hopper::tensor_map_4d(&m.o, p.dout, D, p.sq, p.h, batch, p.o_ss,
+                              p.o_sh, p.o_sb, SW::BW, q_rows, SW::BYTES)))
+    return false;
+  if (p.skv > 0 &&
+      !(hopper::tensor_map_4d(&m.k, p.k, D, p.skv, p.hkv, batch, p.k_ss,
+                              p.k_sh, p.k_sb, SW::BW, kv_rows, SW::BYTES) &&
+        hopper::tensor_map_4d(&m.v, p.v, D, p.skv, p.hkv, batch, p.v_ss,
+                              p.v_sh, p.v_sb, SW::BW, kv_rows, SW::BYTES)))
+    return false;
+  if (p.sq == 0) m.q = m.o = m.k;
+  if (p.skv == 0) m.k = m.v = m.q;
+  return true;
+}
+
+// Dynamic shared memory of a K6 or (dkv) K7 launch at head dim D.
+template <typename T, int D>
+int smem_bytes(bool dkv) {
+  if constexpr (kWgmma<T>)
+    return dkv ? DkvWg<D>::SMEM : DqWg<D>::SMEM;
+  else
+    return dkv ? smem_dkv<D>() : smem_dq<D>();
+}
+
+template <typename T, int D>
+cudaError_t launch(const Params& p, int batch, bool dkv, int device,
+                   cudaStream_t stream) {
+  constexpr bool wg = kWgmma<T>;
+  const int bytes = smem_bytes<T, D>(dkv);
+  // the attribute belongs to a kernel on one device: one flag a kernel,
+  // one bit of it a device
+  static std::atomic<uint64_t> configured[2] = {};
+  const uint64_t bit = uint64_t(1) << (device & 63);
+  if (!(configured[dkv].load(std::memory_order_relaxed) & bit)) {
+    const void* fn = dkv ? (const void*)flash_bwd_dkv_kernel<T, D>
+                         : (const void*)flash_bwd_dq_kernel<T, D>;
     const cudaError_t e = cudaFuncSetAttribute(
         fn, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (e != cudaSuccess) return e;
-    configured[dkv] = true;
+    configured[dkv].fetch_or(bit, std::memory_order_relaxed);
   }
-  const int nk = (p.skv + BK - 1) / BK;
-  if (dkv && tc) {
-    if (nk > 65535) return cudaErrorInvalidConfiguration;  // gridDim.y
-    const dim3 grid(batch * p.hkv, nk);
-    flash_bwd_dkv_kernel<T, D><<<grid, DkvTc<D>::THREADS, bytes, stream>>>(
-        p);
-  } else if (dkv) {
-    const dim3 grid(nk, batch * p.hkv);
-    flash_bwd_dkv_kernel<T, D><<<grid, THREADS, bytes, stream>>>(p);
+  Maps maps{};
+  if constexpr (wg) {
+    const bool ok = dkv ? make_maps<D>(p, batch, DkvWg<D>::BQ,
+                                       DkvWg<D>::BK, maps)
+                        : make_maps<D>(p, batch, DqWg<D>::BQ, DqWg<D>::BK,
+                                       maps);
+    if (!ok) return cudaErrorInvalidValue;
+  }
+  const int threads = wg ? WG_THREADS : THREADS;
+  if (dkv) {
+    const int bk = wg ? DkvWg<D>::BK : BK;
+    const int nk = (p.skv + bk - 1) / bk;
+    // bf16: blockIdx.y the key tile, so that every (batch, kv head) takes
+    // its first (longest causal) tiles before any takes its next
+    if (wg && nk > 65535) return cudaErrorInvalidConfiguration;
+    const dim3 grid = wg ? dim3(batch * p.hkv, nk) : dim3(nk, batch * p.hkv);
+    flash_bwd_dkv_kernel<T, D><<<grid, threads, bytes, stream>>>(
+        p, maps.q, maps.k, maps.v, maps.o);
   } else {
-    const int bq = tc ? DqTc<D>::BQ : BQ;
+    const int bq = wg ? DqWg<D>::BQ : BQ;
     const dim3 grid((p.sq + bq - 1) / bq, batch * p.h);
-    flash_bwd_dq_kernel<T, D><<<grid, tc ? DqTc<D>::THREADS : THREADS,
-                                bytes, stream>>>(p);
+    flash_bwd_dq_kernel<T, D><<<grid, threads, bytes, stream>>>(
+        p, maps.q, maps.k, maps.v, maps.o);
   }
   return cudaGetLastError();
-}
-
-// Dynamic shared memory of a K6 or (dkv) K7 launch at head dim d (0: not
-// built).
-template <typename T, int D>
-int smem_bytes(bool dkv) {
-  constexpr bool tc = mma_bf16::kTensorCores<T>;
-  return dkv ? (tc ? smem_dkv_tc<D>() : smem_dkv<D>())
-             : (tc ? smem_dq_tc<D>() : smem_dq<D>());
 }
 
 template <typename T>
@@ -1004,14 +1161,14 @@ int smem_bytes(int d, bool dkv) {
 }
 
 template <typename T>
-cudaError_t dispatch(const Params& p, int batch, int d, bool dkv,
+cudaError_t dispatch(const Params& p, int batch, int d, bool dkv, int device,
                      cudaStream_t s) {
   switch (d) {
-    case 32: return launch<T, 32>(p, batch, dkv, s);
-    case 64: return launch<T, 64>(p, batch, dkv, s);
-    case 80: return launch<T, 80>(p, batch, dkv, s);
-    case 128: return launch<T, 128>(p, batch, dkv, s);
-    case 256: return launch<T, 256>(p, batch, dkv, s);
+    case 32: return launch<T, 32>(p, batch, dkv, device, s);
+    case 64: return launch<T, 64>(p, batch, dkv, device, s);
+    case 80: return launch<T, 80>(p, batch, dkv, device, s);
+    case 128: return launch<T, 128>(p, batch, dkv, device, s);
+    case 256: return launch<T, 256>(p, batch, dkv, device, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1021,8 +1178,8 @@ int run(int dtype, const Params& p, int batch, int d, bool dkv, int device,
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  e = dtype == 1 ? dispatch<__nv_bfloat16>(p, batch, d, dkv, s)
-      : dtype == 0 ? dispatch<float>(p, batch, d, dkv, s)
+  e = dtype == 1 ? dispatch<__nv_bfloat16>(p, batch, d, dkv, device, s)
+      : dtype == 0 ? dispatch<float>(p, batch, d, dkv, device, s)
                    : cudaErrorInvalidValue;
   return (int)e;
 }

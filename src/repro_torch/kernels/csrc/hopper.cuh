@@ -1,7 +1,8 @@
 // Hopper (sm_90a) primitives in inline PTX: mbarriers, TMA tensor loads,
-// wgmma with shared-memory descriptors, setmaxnreg, and the encoding of
-// a tensor map. Written for K5 (flash_attention.cu);
-// K6 and K7 are to be built on the same pieces.
+// wgmma with shared-memory descriptors, setmaxnreg, the encoding of a
+// tensor map, and the float32 helpers the bf16 flash kernels share (ex2,
+// the hi/lo split). K5 (flash_attention.cu), K6 and K7
+// (flash_attention_bwd.cu) are built on them.
 //
 // Shared-memory tiles. A tile of R rows x D bf16 columns is stored as
 // D / BW boxes of R rows x BW columns, each box one TMA load whose rows
@@ -29,6 +30,7 @@
 #pragma once
 
 #include <cuda.h>   // CUtensorMap and its enums (types only; no -lcuda)
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -123,6 +125,14 @@ __device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
          static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 | layout << 62;
 }
 
+// A copy of a descriptor that the compiler cannot compute ahead of the
+// wgmma that takes it: an unrolled loop of wgmmas would otherwise hoist
+// every k-step's descriptor, 2 registers each, out of it.
+__device__ __forceinline__ uint64_t opaque(uint64_t d) {
+  asm volatile("" : "+l"(d));
+  return d;
+}
+
 // Orders register and shared-memory writes before the next wgmma.
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
@@ -151,14 +161,30 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[R][4]) {
 }
 
 // m64nNk16 bf16 x bf16 -> float32: ss (both operands in shared memory) at
-// N = 64 and 128, rs (A in registers) at N in {32, 64, 80, 128}, the
-// widths K5 takes. `accumulate` 0 overwrites d (its registers need no
-// initial value), 1 adds to it.
+// N = 32, 64 and 128, rs (A in registers) at N in {32, 64, 80, 128}, the
+// widths K5, K6 and K7 take. `accumulate` 0 overwrites d (its registers
+// need no initial value), 1 adds to it.
 template <int N>
 struct Wgmma;
 
 template <>
 struct Wgmma<32> {
+  // d (+)= A . B, A and B K-major in shared memory
+  static __device__ __forceinline__ void ss(float (&d)[16], uint64_t a,
+                                            uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "%16, %17, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(a), "l"(b), "r"(accumulate));
+  }
   // d (+)= A . B, A in registers (4 x bf16x2 a thread), B MN-major in
   // shared memory (transposed)
   static __device__ __forceinline__ void rs(float (&d)[16],
@@ -337,6 +363,26 @@ struct Wgmma<128> {
           "r"(accumulate));
   }
 };
+
+// --- float32 helpers -----------------------------------------------------------
+// 2^x on the special-function unit; results below 2^-126 flush to 0.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// hi = bf16(x), lo = bf16(x - hi), each packed as bf16x2 with x0 in the
+// low half: a register-A wgmma operand. hi + lo keeps about 16 bits of x;
+// x - hi is exact in float32.
+__device__ __forceinline__ void split(float x0, float x1, uint32_t& hi,
+                                      uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 r = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&r);
+}
 
 // --- tensor maps (host) -------------------------------------------------------
 using EncodeTiled = CUresult (*)(

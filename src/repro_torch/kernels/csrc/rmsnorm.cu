@@ -40,6 +40,7 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <atomic>
 #include <type_traits>
 
 namespace {
@@ -203,15 +204,17 @@ cudaError_t launch_rows(const T* x, const float* g, T* y, int rows, int d,
                         float eps, int device, cudaStream_t s) {
   const auto fn = rmsnorm_rows_kernel<T, VPT, WPR>;
   const int bytes = d * (int)sizeof(float);  // gamma
-  static bool configured = false;
-  if (!configured) {
+  // the attribute belongs to the kernel on one device: set once per device
+  static std::atomic<uint64_t> configured{0};
+  const uint64_t bit = uint64_t(1) << (device & 63);
+  if (!(configured.load(std::memory_order_relaxed) & bit)) {
     // gamma at the widest row this instantiation takes
     constexpr int widest = 32 * WPR * VPT * (int)(16 / sizeof(T));
     const cudaError_t e = cudaFuncSetAttribute(
         fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
         widest * (int)sizeof(float));
     if (e != cudaSuccess) return e;
-    configured = true;
+    configured.fetch_or(bit, std::memory_order_relaxed);
   }
   int sms = 0, per_sm = 0;
   cudaError_t e =

@@ -39,7 +39,7 @@ REPLACES = {NAME: "src/repro/kernels/flash_attention.py:29",
 HEAD_DIMS = (32, 64, 80, 128, 256)
 MAX_BATCH_HEADS = 65535          # gridDim.y: one block row per (b, h)
 MAX_SEQ = 64 * 65535             # gridDim.y of K7 (bf16): 64-key tiles
-ALIGN = 16                       # bytes: TMA (bf16 K5), cp.async (K6, K7)
+ALIGN = 16                       # bytes: TMA (bf16 K5, K6, K7)
 NEG_BIG = -0.7 * float(torch.finfo(torch.float32).max)
 LAUNCHES = {NAME: 0, DQ: 0, DKV: 0}
 
@@ -194,8 +194,8 @@ def _check_card(*tensors: tuple[str, torch.Tensor]) -> None:
     """What the CUDA kernels take: float32 or bf16, a built head dim,
     B*H block rows, at most MAX_SEQ positions, one device, contiguous head
     dims; for bf16, which the kernels read in 16-byte pieces (TMA boxes
-    in K5, cp.async in K6 and K7), 16-byte aligned data and batch, head
-    and row strides. ``tensors`` starts with ("q", q) and ("k", k)."""
+    in K5, K6 and K7), 16-byte aligned data and batch, head and row
+    strides. ``tensors`` starts with ("q", q) and ("k", k)."""
     (_, q), (_, k) = tensors[:2]
     b, h, sq, d = q.shape
     if q.dtype not in _DTYPES:

@@ -307,8 +307,8 @@ def _misaligned(bad, dtype, b=1, h=4, s=8, d=32, device="cpu"):
 
 @pytest.mark.parametrize("bad", ["offset", "row_stride", "head_stride"])
 def test_card_checks_reject_misaligned_bf16(bad):
-    """The bf16 kernels read 16-byte pieces (TMA in K5, cp.async in K6
-    and K7), so the card checks (run here on CPU tensors) raise on bf16
+    """The bf16 kernels read 16-byte pieces (TMA in K5, K6 and K7), so
+    the card checks (run here on CPU tensors) raise on bf16
     data whose pointer or batch, head or row stride is not a multiple of
     16 bytes; float32 (the FMA kernels) takes the same layouts."""
     k = torch.zeros((1, 2, 8, 32))
@@ -343,9 +343,9 @@ def test_build_key_covers_headers(tmp_path):
 
 def test_bf16_forward_is_built_on_hopper_primitives():
     """K5's source includes the Hopper primitives (TMA tensor loads,
-    wgmma), not the mma.sync helpers K6 and K7 keep; the header holds
-    both instructions and the source no longer carries the mma.sync
-    forward body. Reading the sources needs no nvcc."""
+    wgmma), which K6 and K7 share; the header holds both instructions and
+    the source no longer carries the mma.sync forward body. Reading the
+    sources needs no nvcc."""
     csrc = flash_cuda.LIBRARY.source.parent
     src = flash_cuda.LIBRARY.source.read_text()
     includes = re.findall(r'#include "([^"]+)"', src)
@@ -356,7 +356,7 @@ def test_bf16_forward_is_built_on_hopper_primitives():
     for gone in ("fwd_tc", "FwdTc", "mma_bf16::", "ldmatrix"):
         assert gone not in src, gone
     bwd = flash_cuda.BWD_LIBRARY.source.read_text()
-    assert '#include "mma_bf16.cuh"' in bwd
+    assert '#include "hopper.cuh"' in bwd
 
 
 # --- on the card ----------------------------------------------------------------
@@ -461,8 +461,8 @@ def test_cuda_flash_strided_view(dtype):
 @pytest.mark.gpu
 @pytest.mark.parametrize("bad", ["offset", "row_stride", "head_stride"])
 def test_cuda_flash_rejects_misaligned_bf16(bad):
-    """On the card a bf16 q, k or v that a 16-byte cp.async would read out
-    of line raises before the launch; float32 in the same layout runs the
+    """On the card a bf16 q, k or v that no TMA tensor map takes (16-byte
+    pieces out of line) raises before the launch; float32 in the same layout runs the
     FMA kernel and agrees with the plain version."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run with -m gpu on the card)")

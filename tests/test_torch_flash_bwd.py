@@ -245,6 +245,26 @@ def test_c_signatures_match_bindings(name):
         assert f"case {d}: return launch<T, {d}>" in src
 
 
+def test_bf16_backward_is_built_on_hopper_primitives():
+    """K6's and K7's source includes the Hopper primitives (TMA tensor
+    loads, wgmma, setmaxnreg) and carries their bf16 bodies (dq_wg,
+    dkv_wg); the mma.sync path (mma.sync, ldmatrix, cp.async and their
+    header, mma_bf16.cuh) is gone from it and from csrc/. Reading the
+    sources needs no nvcc."""
+    src = flash_cuda.BWD_LIBRARY.source.read_text()
+    includes = re.findall(r'#include "([^"]+)"', src)
+    assert includes.count("hopper.cuh") == 1
+    assert "mma_bf16.cuh" not in includes
+    csrc = flash_cuda.BWD_LIBRARY.source.parent
+    assert not (csrc / "mma_bf16.cuh").exists()
+    for used in ("dq_wg<D>", "dkv_wg<D>", "Wgmma<", "tma_load_4d",
+                 "setmaxnreg_inc", "mbar_wait"):
+        assert used in src, used
+    for gone in ("mma.sync", "ldmatrix", "ldsm", "cp.async", "cp_async",
+                 "mma_bf16::", "dq_tc", "dkv_tc"):
+        assert gone not in src, gone
+
+
 # a head dim the kernels do not take, with and without a window
 PAD_CASES = [(d, w) for d in (8, 16, 48) for w in (None, 16)]
 
@@ -419,8 +439,8 @@ def test_cuda_flash_bwd_strided_view(dtype):
 
 @pytest.mark.gpu
 def test_cuda_flash_bwd_rejects_misaligned_bf16():
-    """A bf16 do whose data pointer is off 16 bytes (a cp.async of K7
-    would read it out of line) raises before any launch."""
+    """A bf16 do whose data pointer is off 16 bytes (no tensor map of
+    K6 or K7 takes it) raises before any launch."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run with -m gpu on the card)")
     dev = torch.device("cuda")

@@ -7,7 +7,12 @@ float32 sums. q.k^T and do.v^T take bf16 operands as they are (a product
 of two bf16 values is exact in float32) and scale s after the product;
 p (in P.V and P^T.dO) and ds (in dS.K and dS^T.Q) are float32 results, so
 each is cut into hi = bf16(x) and lo = bf16(x - hi) and its product is
-taken as hi.B + lo.B. This file repeats that arithmetic in torch at a
+taken as hi.B + lo.B. K6 and K7 take p as K5 does, 2^(q.k * c - lse *
+log2(e)) with c = scale * log2(e) and the exponent one FFMA, and sum
+their outputs tile by tile: each tile's product (K6: a tile of keys, 64;
+32 at D = 256; K7: a (query head, tile of 64 queries) pair, heads of the
+group in order) is taken fresh and added to the running float32 sum.
+This file repeats that arithmetic in torch at a
 small size and holds out, lse, dq, dk and dv to the reference
 (``ops.flash_attention`` in interpret mode, which pads S, and ``jax.vjp``
 through it) by the rule chip_smoke.py holds the kernels to on the card:
@@ -23,7 +28,8 @@ and causal with window 16. At this size the split leaves 0.1-0.4% of the
 elements one ulp off (dq 0.3%) and every unsplit control already fails
 (24-41% of its elements differ; dq's 38-41%), so S stays 200. The same
 holds at D = 256, gemma-7b's head dim, which the ``*_at_head_dim_256``
-tests check: there the kernels split D between warps, which moves no
+tests check: there K6 takes tiles of 32 keys (``k6_keys``), and the
+kernels take their outputs in chunks of 64 columns, which moves no
 rounding point of this arithmetic.
 """
 import numpy as np
@@ -67,20 +73,49 @@ def _product(x, y, split):
 
 
 def _operands(q, k, v, window):
-    """float32 q, k and v (k, v repeated over the GQA group), the mask and
-    the scaled scores s = (q.k) * scale."""
+    """float32 q, k and v (k, v repeated over the GQA group), the mask,
+    the products q.k and the scaled scores s = (q.k) * scale."""
     g = H // HKV
     qf = q.float()
     kf, vf = (t.float().repeat_interleave(g, dim=1) for t in (k, v))
     ok = flash_cuda.mask(S, S, causal=True, window=window, kv_len=S,
                          device="cpu")
-    s = torch.matmul(qf, kf.transpose(-1, -2)) * q.shape[-1] ** -0.5
-    return qf, kf, vf, ok, s
+    qk = torch.matmul(qf, kf.transpose(-1, -2))
+    return qf, kf, vf, ok, qk, qk * q.shape[-1] ** -0.5
+
+
+LOG2E = np.float32(1.4426950408889634)
+K7_BQ = 64                    # queries a K7 tile
+
+
+def k6_keys(d):
+    """Keys a K6 tile at head dim d."""
+    return 32 if d > 128 else 64
+
+
+def _probs(qk, lse, ok, d):
+    """The backward kernels' p: 2^(q.k * c - lse * log2(e)), c and lse *
+    log2(e) float32 products, the exponent one rounding (an FFMA), 0 off
+    the mask."""
+    c = float(np.float32(d ** -0.5) * LOG2E)
+    l2 = lse * torch.tensor(LOG2E)
+    x = (qk.double() * c - l2.double()[..., None]).float()
+    return torch.where(ok, torch.exp2(x), 0.0)
+
+
+def _tiled(x, y, tile, split):
+    """x . y over x's last axis, one tile of it at a time: each tile's
+    product fresh, added to the float32 sum in order."""
+    acc = None
+    for n0 in range(0, x.shape[-1], tile):
+        part = _product(x[..., n0:n0 + tile], y[..., n0:n0 + tile, :], split)
+        acc = part if acc is None else acc + part
+    return acc
 
 
 def emulate_fwd(q, k, v, *, window, split_pv=True):
     """K5's bf16 arithmetic: (out bf16, lse float32), p split in P.V."""
-    _, _, vf, ok, s = _operands(q, k, v, window)
+    _, _, vf, ok, _, s = _operands(q, k, v, window)
     m = torch.amax(torch.where(ok, s, flash_cuda.NEG_BIG), -1, keepdim=True)
     p = torch.where(ok, torch.exp(s - m), 0.0)
     lm = torch.clamp_min(torch.sum(p, -1, keepdim=True), 1e-30)
@@ -91,22 +126,34 @@ def emulate_fwd(q, k, v, *, window, split_pv=True):
 def emulate_bwd(q, k, v, do, out, lse, *, window, split_dsk=True,
                 split_pdo=True, split_dsq=True):
     """K6's and K7's bf16 arithmetic from a forward's out and lse: dq, and
-    (dk, dv) summed over each GQA group, all bf16; s = (q.k) * scale
-    scaled after the product, ds split in dS.K (K6) and dS^T.Q (K7), p in
-    P^T.dO (K7)."""
-    qf, kf, vf, ok, s = _operands(q, k, v, window)
+    (dk, dv) summed over each GQA group, all bf16; p from q.k by
+    ``_probs``, ds split in dS.K (K6) and dS^T.Q (K7), p in P^T.dO (K7);
+    dq summed over K6's key tiles, dk and dv over K7's (query head, query
+    tile) pairs, each tile fresh."""
+    qf, kf, vf, ok, qk, _ = _operands(q, k, v, window)
     d = q.shape[-1]
+    g = H // HKV
     dof = do.float()
     dd = torch.sum(dof * out.float(), -1, keepdim=True)
-    p = torch.where(ok, torch.exp(s - lse[..., None]), 0.0)
+    p = _probs(qk, lse, ok, d)
     dp = torch.matmul(dof, vf.transpose(-1, -2))
     ds = p * (dp - dd) * d ** -0.5
-    dq = _product(ds, kf, split_dsk).to(torch.bfloat16)
-    dv = _product(p.transpose(-1, -2), dof, split_pdo)
-    dk = _product(ds.transpose(-1, -2), qf, split_dsq)
-    return (dq,) + tuple(
-        t.reshape(B, HKV, H // HKV, S, d).sum(2).to(torch.bfloat16)
-        for t in (dk, dv))
+    dq = _tiled(ds, kf, k6_keys(d), split_dsk).to(torch.bfloat16)
+
+    def over_group(x, y, split):
+        # x (B, H, S, S) queries x keys, y (B, H, S, D): sum of x^T . y
+        # over the group's heads in order, each head tile by tile
+        xt = x.transpose(-1, -2).reshape(B, HKV, g, S, S)
+        yg = y.reshape(B, HKV, g, S, d)
+        acc = None
+        for gi in range(g):
+            for q0 in range(0, S, K7_BQ):
+                part = _product(xt[:, :, gi, :, q0:q0 + K7_BQ],
+                                yg[:, :, gi, q0:q0 + K7_BQ], split)
+                acc = part if acc is None else acc + part
+        return acc.to(torch.bfloat16)
+
+    return dq, over_group(ds, qf, split_dsq), over_group(p, dof, split_pdo)
 
 
 def agreement(got, want):
