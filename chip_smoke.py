@@ -200,6 +200,33 @@ the whole script.
 runs the ``[dryrun]`` phase alone (no kernel runs on its path, so
 nothing is built), and ends with the same last line as the whole
 script.
+
+    python3 chip_smoke.py --mesh-only
+
+runs ``[mesh]``, training on four cards, one NCCL rank a card (spawned
+here after the build, so that the ranks only load the libraries): K5, K6
+and K7 at one rank's local heads (``tp2``: H 16, Hkv 4; ``tp4``: H 8,
+Hkv 2; ``tp2_w4096``: mixtral's, window 4096, 8191 tokens) timed on card
+0 beside their plain versions and SDPA, and held to their plain versions
+on every card (K7 bit for bit over two launches); (a) llama3-8b at full
+width and depth through ``launch.train``'s path (``make_train_step``,
+ZeRO-1, int8 moments) on (data=2, model=2), 2 x 4096 tokens a step, and
+(b) on (1, 4), each held to one process on card 0 running the same
+sequences (losses within 1e-2), with step time, tokens a second, NCCL's
+time from the profiler and each card's peak (under 80 GB); (c) [dist]'s
+compressed data-parallel step on (4, 1), held as [dist] (b) holds it,
+with the all-reduce's seconds and bytes over NCCL; (d) the elastic
+restore: 2 layers saved at (2, 2) after step 2, restored at (1, 4) and
+(4, 1) bit for bit, step 3 within 1e-2 of the (2, 2) run's; (e)
+mixtral-8x7b at 4 layers on (2, 2), one 8192-token sequence a data
+rank, held to one process that follows the mesh's expert choices (each
+difference a near-tie), with the share of each card's MoE work that
+serves its own data shard; and one (2, 2) step of (a) at 2 layers
+(einsum attention) counted by ``launch.op_analysis`` on meta under a
+fake 4-rank group and on every card, equal exactly, the measured step
+at or above its roofline bound, the predicted peak within [0.5, 2]x.
+With fewer than four cards it exits non-zero at once. The whole
+script's run does not include it.
 """
 from __future__ import annotations
 
@@ -1143,9 +1170,10 @@ def row_name(name, d, window=None, tag=None):
     """The kernel table's row of kernel ``name`` at head dim ``d``: the
     D = 256 and D = 64 instantiations have rows of their own, and so have
     mixtral's windowed shapes, zamba2's D = 112 (padded to 128) and one
-    rank's local heads on the (1, 2) mesh (case ``tag`` LOCAL_HEADS)."""
-    if tag == "tp2":
-        return f"{name}_tp2"
+    rank's local heads (the cases MESH_TAGS: ``tp2`` on a (1, 2) or (2, 2)
+    mesh, ``tp4`` on (1, 4), ``tp2_w4096`` mixtral's on (2, 2))."""
+    if tag in MESH_TAGS:
+        return f"{name}_{tag}"
     if window == WINDOW_ROW:
         return f"{name}_w{WINDOW_ROW}"
     return f"{name}_d{d}" if d in (NARROW_D, WIDE_D, ZAMBA_D) else name
@@ -2895,9 +2923,10 @@ def device_ms(fn, top=None):
     """Device time (ms) of everything ``fn`` launches, by torch.profiler,
     split into K5, K6, K7, matrix products (cuBLAS's gemm / gemv / nvjet
     kernels, CUTLASS), gathers, scatters, sorts and scans (``dispatch``:
-    the MoE's routing, dispatch and combine, and the embedding lookup) and
-    the rest; None where the profiler records no device time. With a list
-    ``top``, the 8 longest kernels (name, ms) are put in it."""
+    the MoE's routing, dispatch and combine, and the embedding lookup),
+    NCCL's collective kernels and the rest; None where the profiler
+    records no device time. With a list ``top``, the 8 longest kernels
+    (name, ms) are put in it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -2906,12 +2935,13 @@ def device_ms(fn, top=None):
         fn()
         torch.cuda.synchronize()
     split = {"k5": 0.0, "k6": 0.0, "k7": 0.0, "gemm": 0.0, "dispatch": 0.0,
-             "other": 0.0}
+             "nccl": 0.0, "other": 0.0}
     for ev in prof.key_averages():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
         name = ev.key.lower()
-        group = ("k5" if "flash_fwd_kernel" in name else
+        group = ("nccl" if "nccl" in name else
+                 "k5" if "flash_fwd_kernel" in name else
                  "k6" if "flash_bwd_dq_kernel" in name else
                  "k7" if "flash_bwd_dkv_kernel" in name else
                  "gemm" if any(t in name for t in ("gemm", "gemv", "xmma",
@@ -3271,6 +3301,25 @@ def _free():
     import torch
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def _sync(dev):
+    """Wait for ``dev``'s work (nothing to wait for on the CPU)."""
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _reset_peak(dev):
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def _peak(dev):
+    """``max_memory_allocated`` on a card; 0 on the CPU."""
+    import torch
+    return torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
 
 
 def _rel(a, b):
@@ -4093,13 +4142,25 @@ DIST_CHECK_LEAVES = ("dense.attn.wq", "final_ln")
 LOCAL_HEADS = "tp2"
 K5_CASES.append((LOCAL_HEADS, 1, 16, 4, 4095, 128, "bfloat16", None, 10))
 BWD_CASES.append((LOCAL_HEADS, 1, 16, 4, 4095, 128, "bfloat16", None, 5))
+# [mesh]'s local-head cases beside tp2, timed only in --mesh-only: tp4,
+# one rank's heads of (1, 4) (the kv heads split too); tp2_w4096,
+# mixtral-8x7b's on (2, 2) (window 4096, 8191 tokens)
+MESH_K5_CASES = [("tp4", 1, 8, 2, 4095, 128, "bfloat16", None, 10),
+                 ("tp2_w4096", 1, 16, 4, 8191, 128, "bfloat16", 4096, 5)]
+MESH_BWD_CASES = [("tp4", 1, 8, 2, 4095, 128, "bfloat16", None, 5),
+                  ("tp2_w4096", 1, 16, 4, 8191, 128, "bfloat16", 4096, 3)]
+MESH_TAGS = (LOCAL_HEADS, "tp4", "tp2_w4096")
 # K7 launched twice at these cases (the training shape, one rank's local
 # heads): dk and dv must be equal bit for bit
-K7_DETERMINISTIC = ("train", LOCAL_HEADS)
+K7_DETERMINISTIC = ("train",) + MESH_TAGS
 
 
-def dist_config(dtype="bfloat16", layers=DIST_LAYERS):
+def dist_config(dtype="bfloat16", layers=DIST_LAYERS, smoke=False):
+    """[dist]'s configuration; with ``smoke`` the SMOKE config (its own
+    depth and dtype: the CPU tests' size)."""
     from repro_torch.configs import registry
+    if smoke:
+        return registry.smoke_config(DIST_ARCH, attn_impl="flash")
     return registry.config(DIST_ARCH, attn_impl="flash", n_layers=layers,
                            dtype=dtype)
 
@@ -4110,14 +4171,15 @@ def dist_opt():
                              total_steps=DIST_STEPS, quantized_state=True)
 
 
-def dist_tokens(vocab, rows, step, lo=0, hi=None):
+def dist_tokens(vocab, rows, step, lo=0, hi=None, seq=DIST_SEQ):
     from repro_torch.data.pipeline import SyntheticLM
-    return SyntheticLM(vocab, DIST_SEQ, rows).batch_at(step, lo, hi)
+    return SyntheticLM(vocab, seq, rows).batch_at(step, lo, hi)
 
 
-def one_process_steps(dev, cfg, rows):
-    """make_train_fn's DIST_STEPS steps on ``rows`` sequences a step, one
-    process, no mesh: the per-step metrics and the launch counts."""
+def one_process_steps(dev, cfg, rows, seq=DIST_SEQ):
+    """make_train_fn's DIST_STEPS steps on ``rows`` ``seq``-token
+    sequences a step, one process, no mesh: the per-step metrics and the
+    launch counts."""
     import torch
 
     from repro_torch.data.pipeline import device_batch
@@ -4135,10 +4197,10 @@ def one_process_steps(dev, cfg, rows):
     fc.reset_launches()
     for s in range(DIST_STEPS):
         p, o, m = step(*state, device_batch(
-            {"tokens": dist_tokens(cfg.vocab, rows, s)}, dev))
+            {"tokens": dist_tokens(cfg.vocab, rows, s, seq=seq)}, dev))
         state = (p, o)
         hist.append({k: float(v) for k, v in m.items()})
-    torch.cuda.synchronize()
+    _sync(dev)
     launches = dict(fc.LAUNCHES)
     del model, step, state, params
     _free()
@@ -4240,10 +4302,14 @@ def dist_one_rank_phase(dev):
     return launches
 
 
-def _dist_dp(rank):
-    """(data=2, model=1) compressed DP on this rank: per-step metrics, the
-    all-reduce's bytes and time, the checks' inputs on
-    DIST_CHECK_LEAVES (gathered from both ranks) and the launches."""
+def _dist_dp(rank, dev, cfg, seq=DIST_SEQ, profile=False, params_out=False):
+    """(data=world, model=1) compressed DP on this rank (on ``dev``, one
+    ``seq``-token row a rank): per-step metrics, the all-reduce's bytes
+    and time, the checks' inputs on DIST_CHECK_LEAVES (gathered from
+    every rank) and the launches; with ``profile``, one more step under
+    torch.profiler (its NCCL kernels' device time); with ``params_out``,
+    the parameters after the first step and after the last as the
+    reference's numpy trees."""
     import torch
     import torch.distributed as dist
 
@@ -4254,9 +4320,8 @@ def _dist_dp(rank):
     from repro_torch.optim import adamw, compress
     from repro_torch.train import loop as tl
 
-    dev = torch.device("cuda", 0)
-    mesh = make_host_mesh(1, device="cuda")
-    cfg = dist_config()
+    mesh = make_host_mesh(1, device=dev.type)
+    world = dist.get_world_size()
     model = LM(cfg, device=dev, seed=0, trainable=True)
     ocfg = dist_opt()
     groups = {k: v for k, v in model.reference_leaves().items()
@@ -4269,10 +4334,10 @@ def _dist_dp(rank):
     orig = compress.tree_compressed_psum
 
     def timed(grads, errs, group, **kw):
-        torch.cuda.synchronize()
+        _sync(dev)
         t0 = time.perf_counter()
         g_hat, new_err = orig(grads, errs, group, **kw)
-        torch.cuda.synchronize()
+        _sync(dev)
         rec.append({"s": time.perf_counter() - t0,
                     "dtype": {k: grads[names[0]].dtype
                               for k, names in groups.items()},
@@ -4282,41 +4347,54 @@ def _dist_dp(rank):
                     "g_hat": {n: g_hat[n].float().clone() for n in watched}})
         return g_hat, new_err
 
-    lo, hi = local_rows(mesh, 2)
-    hist = []
+    def batch_at(s):
+        return make_global_batch(mesh, {"tokens": dist_tokens(
+            cfg.vocab, world, s, lo, hi, seq=seq)}, global_batch=world)
+
+    lo, hi = local_rows(mesh, world)
+    hist, tree1 = [], None
     compress.tree_compressed_psum = timed
-    torch.cuda.reset_peak_memory_stats()
+    _reset_peak(dev)
     try:
         fc.reset_launches()
         for s in range(DIST_STEPS):
             t0 = time.perf_counter()
-            batch = make_global_batch(mesh, {"tokens": dist_tokens(
-                cfg.vocab, 2, s, lo, hi)}, global_batch=2)
-            p, o, e, m = step(*state, batch)
+            p, o, e, m = step(*state, batch_at(s))
             state = (p, o, e)
             m = {k: float(v) for k, v in m.items()}
+            if params_out and s == 0:
+                from repro_torch.convert import lm_params_to_numpy
+                tree1 = lm_params_to_numpy(model)
             hist.append(dict(m, step_s=time.perf_counter() - t0,
                              allreduce_s=rec[-1]["s"], **step.stats))
         launches = dict(fc.LAUNCHES)
     finally:
         compress.tree_compressed_psum = orig
-    peak = torch.cuda.max_memory_allocated()
+    peak = _peak(dev)
+    tree = None
+    if params_out:
+        from repro_torch.convert import lm_params_to_numpy
+        tree = lm_params_to_numpy(model)
+    split = (device_ms(lambda: step(*state, batch_at(DIST_STEPS)))
+             if profile else None)
     del model, state, params, p, o, e, step
     _free()
     # the checks: the int32 sums and g_hat against the plain formula on
-    # both ranks' inputs (gathered), error feedback's running sum
-    world = dist.get_world_size()
+    # every rank's inputs (gathered; gloo's over host copies), error
+    # feedback's running sum
+    host = dist.get_backend() == "gloo"
     checks = {}
     for s, r in enumerate(rec):
         for key, names in groups.items():
             x = torch.cat([(r["g"][n] + r["err_in"][n]).reshape(-1)
                            for n in names])
-            xs = [torch.empty_like(x, device="cpu") for _ in range(world)]
-            dist.all_gather(xs, x.cpu())
+            x = x.cpu() if host else x
+            xs = [torch.empty_like(x) for _ in range(world)]
+            dist.all_gather(xs, x)
             qs = [compress._quantize(t.to(dev)) for t in xs]
             qsum = sum(q.to(torch.int32) for q, _, _ in qs)
             mine = qs[rank][0].to(torch.int32)
-            dist.all_reduce(mine)                   # gloo, CUDA tensors
+            dist.all_reduce(mine)
             ssum = qs[0][1]
             for _, sc, _ in qs[1:]:
                 ssum = ssum + sc
@@ -4349,7 +4427,8 @@ def _dist_dp(rank):
         dropped = float((sent0 + last0 - g_sum).abs().max())
         ef[key] = (kept, dropped, tol)
     return {"hist": hist, "launches": launches, "peak": peak,
-            "checks": checks, "ef": ef}
+            "checks": checks, "ef": ef, "split": split, "params": tree,
+            "params1": tree1}
 
 
 def _dist_rank(rank, world, init_file):
@@ -4367,7 +4446,40 @@ def _dist_rank(rank, world, init_file):
     torch.cuda.set_device(0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
-    return {"dp": _dist_dp(rank)}
+    return {"dp": _dist_dp(rank, torch.device("cuda", 0), dist_config())}
+
+
+def dp_report(tag, res, whole, mesh_name):
+    """Print and check each rank's compressed DP run (``_dist_dp``'s
+    results ``res``) against ``whole``, the one-process steps on every
+    rank's rows: the losses within DIST_LOSS_RTOL, the int32 sums exact,
+    g_hat within one ulp of the plain formula, error feedback's running
+    sum within its limit and the control that drops the residual beyond
+    it."""
+    for r, dp in enumerate(res):
+        for s, h in enumerate(dp["hist"]):
+            rel = _rel(h["loss"], whole[s]["loss"])
+            phase(tag, run="dp_compressed", mesh=mesh_name, rank=r, step=s,
+                  loss=f"{h['loss']:.6f}", loss_rel_vs_one_process=f"{rel:.3e}",
+                  step_s=f"{h['step_s']:.3f}",
+                  allreduce_s=f"{h['allreduce_s']:.3f}",
+                  payload_bytes=h["payload_bytes"],
+                  dense_f32_bytes=h["dense_bytes"],
+                  peak_gb=f"{dp['peak'] / 2 ** 30:.2f}",
+                  launches=json.dumps(dp["launches"], separators=(",", ":")))
+            check(rel <= DIST_LOSS_RTOL, f"DP rank {r} step {s}: loss {rel} "
+                  f"from the one-process step on the whole batch")
+        for key, (exact, ulps) in dp["checks"].items():
+            check(exact and ulps <= 1.0, f"DP rank {r} {key}: int32 sums "
+                  f"exact {exact}, g_hat {ulps} ulp from the plain formula")
+        for key, (kept, dropped, tol) in dp["ef"].items():
+            check(kept <= tol < dropped, f"DP rank {r} {key}: error feedback "
+                  f"sum err {kept}, control {dropped}, limit {tol}")
+        phase(tag, run="dp_compressed", rank=r, checks=",".join(
+            f"{k}:int32_exact={e}:g_hat_ulps={u:.1f}"
+            for k, (e, u) in dp["checks"].items()),
+              error_feedback=",".join(f"{k}:{a:.2e}<={t:.2e}<{b:.2e}"
+                                      for k, (a, b, t) in dp["ef"].items()))
 
 
 def dist_two_rank_phase(dev):
@@ -4387,31 +4499,7 @@ def dist_two_rank_phase(dev):
     ranks_s = time.perf_counter() - t0
     init.unlink(missing_ok=True)
     whole, _ = one_process_steps(dev, dist_config(), 2)
-    for r, out in enumerate(res):
-        dp = out["dp"]
-        for s, h in enumerate(dp["hist"]):
-            rel = _rel(h["loss"], whole[s]["loss"])
-            phase("dist", run="dp_compressed", mesh="2x1", rank=r, step=s,
-                  loss=f"{h['loss']:.6f}", loss_rel_vs_one_process=f"{rel:.3e}",
-                  step_s=f"{h['step_s']:.3f}",
-                  allreduce_s=f"{h['allreduce_s']:.3f}",
-                  payload_bytes=h["payload_bytes"],
-                  dense_f32_bytes=h["dense_bytes"],
-                  peak_gb=f"{dp['peak'] / 2 ** 30:.2f}",
-                  launches=json.dumps(dp["launches"], separators=(",", ":")))
-            check(rel <= DIST_LOSS_RTOL, f"DP rank {r} step {s}: loss {rel} "
-                  f"from the one-process step on the whole batch")
-        for key, (exact, ulps) in dp["checks"].items():
-            check(exact and ulps <= 1.0, f"DP rank {r} {key}: int32 sums "
-                  f"exact {exact}, g_hat {ulps} ulp from the plain formula")
-        for key, (kept, dropped, tol) in dp["ef"].items():
-            check(kept <= tol < dropped, f"DP rank {r} {key}: error feedback "
-                  f"sum err {kept}, control {dropped}, limit {tol}")
-        phase("dist", run="dp_compressed", rank=r, checks=",".join(
-            f"{k}:int32_exact={e}:g_hat_ulps={u:.1f}"
-            for k, (e, u) in dp["checks"].items()),
-              error_feedback=",".join(f"{k}:{a:.2e}<={t:.2e}<{b:.2e}"
-                                      for k, (a, b, t) in dp["ef"].items()))
+    dp_report("dist", [out["dp"] for out in res], whole, "2x1")
     phase("dist", ranks_seconds=f"{ranks_s:.1f}")
     return collections.Counter(res[0]["dp"]["launches"])
 
@@ -4629,6 +4717,732 @@ def dryrun_phases(dev, procs, out_dir, t_start):
           cells_wall_s=f"{time.perf_counter() - t_start:.1f}")
 
 
+# --- [mesh]: training on four cards, one NCCL rank a card --------------------
+MESH_FLAG = "--mesh-only"
+MESH_COUNT_FLAG = "--mesh-count"         # [mesh]'s meta count (a CPU child)
+MESH_WORLD = 4
+MESH_ARCH = "llama3-8b"
+# (a) on (2, 2) and (b) on (1, 4): llama3-8b whole, MESH_BATCH sequences
+# of MESH_SEQ tokens a step (one a data rank at (2, 2)), TRAIN_STEPS steps
+MESH_TP = {"a": (2, 2), "b": (1, 4)}
+MESH_SEQ, MESH_BATCH = 4096, 2
+# (d): (a) at MESH_SHORT layers and MESH_ELASTIC_BATCH sequences (a row a
+# rank at (4, 1)), saved at (2, 2) after step 2, restored at MESH_RESTORE;
+# the count: one (2, 2) step of (a) at MESH_SHORT layers
+MESH_SHORT, MESH_ELASTIC_BATCH = 2, 4
+MESH_RESTORE = ((1, 4), (4, 1))
+# (e): mixtral-8x7b at [moe]'s 4 of 32 layers, one sequence of twice
+# MESH_SEQ tokens (8192) a data rank on (2, 2)
+MESH_MOE_LAYERS = 4
+MESH_MOE_HELD = 2        # (e)'s steps held to one process (mesh_phases)
+MESH_TIMEOUT = 900       # the ranks' join (s)
+MESH_PEAK = 80e9         # a card's memory: each rank's peak below it
+
+
+def mesh_spec(device="cuda", smoke=False, ckpt=None, **over):
+    """What the ranks of [mesh] run (a picklable dict): the device
+    (``"cuda"``: a card a rank, NCCL, each checking the local-head kernels
+    on its card; ``"cpu"``: gloo, the tests' SMOKE run), the SMOKE configs
+    or the published ones, the checkpoint directory of (d), the sequence
+    length (``seq``; (c)'s too, (e)'s twice it), (a)'s and (b)'s depth
+    (``layers``, None for all), the phases in order, and whether each
+    rank profiles a step and returns its parameters."""
+    spec = dict(device=device, smoke=smoke, ckpt=ckpt, seq=MESH_SEQ,
+                layers=None, phases=("a", "b", "c", "d", "e", "count"),
+                profile=device == "cuda", params_out=False)
+    spec.update(over)
+    return spec
+
+
+def mesh_argv(spec, arch, layers, seq, batch, layout=None):
+    """launch.train's arguments for a [mesh] run (int8 moments, the
+    spec's device; ``--model-axis`` of ``layout`` on the mesh)."""
+    argv = train_argv(arch, layers, seq, batch) + ["--quantized-state"]
+    argv[argv.index("--device") + 1] = spec["device"]
+    if spec["smoke"]:
+        argv.append("--smoke")
+    if layout is not None:
+        argv += ["--model-axis", str(layout[1])]
+    return argv
+
+
+def local_head_checks(dev):
+    """K5, K6 and K7 at every local-head case on this rank's card against
+    their plain versions (``k5_agreement``, ``grad_agreement``), and K7's
+    dk and dv over two launches bit for bit: per case (K5 passes, K5 max
+    err, K6/K7 pass, their max err, K7 bitwise)."""
+    import torch
+
+    from repro_torch.kernels import flash_cuda as fc
+    gen = torch.Generator(device=dev).manual_seed(2)
+    out = {}
+    for tag, b, h, hkv, s, d, dname, window, _ in (
+            [c for c in K5_CASES if c[0] == LOCAL_HEADS] + MESH_K5_CASES):
+        q, k, v = _attention_case(dev, gen, b, h, hkv, s, d,
+                                  getattr(torch, dname))
+        do = torch.randn(q.shape, generator=gen, device=dev).to(q.dtype)
+        kw = dict(sm_scale=d ** -0.5, causal=True, window=window)
+        o, lse = fc.flash_fwd(q, k, v, **kw)
+        ok5, err, err_lse, _ = k5_agreement(o, lse,
+                                            *fc.flash_fwd_plain(q, k, v, **kw))
+        dd = torch.sum(do.float() * o.float(), dim=-1)
+        got = (fc.flash_bwd_dq(q, k, v, do, lse, dd, **kw),
+               *fc.flash_bwd_dkv(q, k, v, do, lse, dd, **kw))
+        res = [grad_agreement(g, w) for g, w in zip(
+            got, fc.flash_bwd_plain(q, k, v, o, lse, do, **kw))]
+        again = fc.flash_bwd_dkv(q, k, v, do, lse, dd, **kw)
+        torch.cuda.synchronize(dev)
+        out[tag] = (ok5, max(err, err_lse), all(r[0] for r in res),
+                    max(r[1] for r in res),
+                    all(torch.equal(a, g) for a, g in zip(again, got[1:])))
+        del q, k, v, do, o, lse, dd, got, again
+        _free()
+    return out
+
+
+@contextlib.contextmanager
+def dispatch_recorder(slots):
+    """Record every MoE dispatch of a run: (slot (G, s, K), B, S) a call,
+    each kept choice's slot e * C + pos (E * C where dropped)."""
+    from repro_torch.models import moe
+    orig = moe._dispatch
+
+    def recording(router, router_bias, cfg, x, n_groups):
+        out = orig(router, router_bias, cfg, x, n_groups)
+        slots.append((out[1].detach(), x.shape[0], x.shape[1]))
+        return out
+
+    moe._dispatch = recording
+    try:
+        yield
+    finally:
+        moe._dispatch = orig
+
+
+def moe_share(r, slots):
+    """This rank's MoE work on the mesh, by its own data shard: the kept
+    choices its local experts compute (the expert weights' shard), the
+    share of them whose token is in its data rows, and that share of the
+    expert rows it computes (E_local x G x C, empty slots included). The
+    routing, dispatch and combine run on the whole batch on every rank,
+    so their own share is 1 / data."""
+    import torch
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+
+    from repro_torch.models import moe
+    mesh, cfg = r.mesh, r.cfg
+    w1 = next(p for n, p in r.state["params"].items()
+              if n.endswith("moe.w1"))
+    shape, off = compute_local_shape_and_global_offset(
+        w1.shape, w1.device_mesh, w1.placements)
+    lo, hi = off[0], off[0] + shape[0]
+    n_data = mesh.size(mesh.mesh_dim_names.index("data"))
+    d = mesh.get_local_rank("data")
+    E = cfg.n_experts
+    own = kept = rows = 0
+    for slot, B, S in slots:
+        G, s, _ = slot.shape
+        C = moe.capacity(cfg, s)
+        expert = torch.div(slot, C, rounding_mode="floor")
+        mine = (slot < E * C) & (expert >= lo) & (expert < hi)
+        tok = torch.arange(G * s, device=slot.device).reshape(G, s, 1)
+        shard = (tok // S) // (B // n_data)
+        own += int((mine & (shard == d)).sum())
+        kept += int(mine.sum())
+        rows += (hi - lo) * G * C
+    return {"experts": f"{lo}-{hi - 1}", "own_kept_share": own / kept,
+            "own_rows_share": own / rows, "kept_rows_share": kept / rows,
+            "routed_own_share": 1 / n_data}
+
+
+def _mesh_train(dev, spec, layout, arch=MESH_ARCH, layers=None, seq=None,
+                batch=None, moe=False):
+    """launch.train's path on this rank's mesh of ``layout``: build, then
+    TRAIN_STEPS steps (the launches counted over them), the peak, one
+    more step under torch.profiler (with ``spec["profile"]``); an MoE
+    run records its routing (``RoutingRecorder``) and its dispatches
+    (``moe_share``), and saves its parameters after MESH_MOE_HELD steps
+    (``spec["ckpt"] + "_moe"``)."""
+    import numpy as np
+
+    from repro_torch.kernels import flash_cuda as fc
+    from repro_torch.launch import train as lt
+    from repro_torch.train import checkpoint
+    args = lt.parse(mesh_argv(spec, arch, layers or spec["layers"],
+                              seq or spec["seq"], batch or MESH_BATCH,
+                              layout))
+    t0 = time.perf_counter()
+    r = lt.build(args)
+    init_s = time.perf_counter() - t0
+    check(tuple(r.mesh.shape) == tuple(layout),
+          f"mesh {tuple(r.mesh.shape)}, wanted {layout}")
+    rec = RoutingRecorder() if moe else None
+    slots, last, out1 = [], {}, {}
+
+    def on_step(h):
+        if rec:
+            rec.mark()
+        h["launches"] = {k: n - last.get(k, 0) for k, n in fc.LAUNCHES.items()}
+        last.update(fc.LAUNCHES)
+        if spec["params_out"] and h["step"] == 0:
+            from repro_torch.convert import lm_params_to_numpy
+            out1["tree"] = lm_params_to_numpy(r.model)
+
+    _reset_peak(dev)
+    with rec.hook() if rec else contextlib.nullcontext(), \
+            dispatch_recorder(slots) if moe else contextlib.nullcontext():
+        if rec:
+            rec.mark()
+        # the main path: counts set to 0 just before, read just after
+        fc.reset_launches()
+        if moe:
+            # the weights (e)'s step MESH_MOE_HELD + 1 starts from, for
+            # one process to take that step at them (moe_restored_step)
+            hist = lt.train_steps(r, 0, MESH_MOE_HELD, on_step=on_step)
+            checkpoint.save(spec["ckpt"] + "_moe", MESH_MOE_HELD,
+                            {"params": r.state["params"]})
+            hist += lt.train_steps(r, MESH_MOE_HELD, TRAIN_STEPS,
+                                   on_step=on_step)
+        else:
+            hist = lt.train_steps(r, 0, TRAIN_STEPS, on_step=on_step)
+        launches = dict(fc.LAUNCHES)
+    out = {"hist": hist, "launches": launches, "peak": _peak(dev),
+           "init_s": init_s, "params": sum(p.numel() for p in
+                                           r.model.parameters()),
+           "mesh": tuple(r.mesh.shape)}
+    if moe:
+        out["routes"] = [[c.cpu().numpy().astype(np.int8) for c in call]
+                         for call in rec.calls if call]
+        out["share"] = moe_share(r, slots)
+    del slots, rec
+    out["split"] = (device_ms(lambda: lt.train_steps(
+        r, TRAIN_STEPS, TRAIN_STEPS + 1)) if spec["profile"] else None)
+    if spec["params_out"]:
+        from repro_torch.convert import lm_params_to_numpy
+        out["tree"] = lm_params_to_numpy(r.model)
+        out["tree1"] = out1["tree"]
+    del r
+    _free()
+    return out
+
+
+def _mesh_dp(dev, spec):
+    """(c): [dist]'s compressed data-parallel step on (world, 1)."""
+    import torch.distributed as dist
+    return _dist_dp(dist.get_rank(), dev, dist_config(smoke=spec["smoke"]),
+                    seq=spec["seq"], profile=spec["profile"],
+                    params_out=spec["params_out"])
+
+
+def _same_leaf(a, b):
+    """Whether two checkpoint leaves hold the same bits (DTensors whole)."""
+    import torch
+    from torch.distributed.tensor import DTensor
+    if not isinstance(a, torch.Tensor):
+        return a == b
+    a = a.full_tensor() if isinstance(a, DTensor) else a
+    b = b.full_tensor() if isinstance(b, DTensor) else b
+    return a.dtype == b.dtype and torch.equal(a, b)
+
+
+def _mesh_elastic(dev, spec):
+    """(d): MESH_SHORT layers at (2, 2), saved after step 2; restored at
+    each of MESH_RESTORE (every leaf held to the saved one bit for bit,
+    laid out by the new mesh's shardings) and stepped once; then the
+    (2, 2) run's own step 3."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.launch import train as lt
+    from repro_torch.train import checkpoint
+
+    def build(layout):
+        return lt.build(lt.parse(mesh_argv(
+            spec, MESH_ARCH, None if spec["smoke"] else MESH_SHORT,
+            spec["seq"], MESH_ELASTIC_BATCH, layout)))
+
+    last = TRAIN_STEPS - 1
+    r = build((2, 2))
+    first = lt.train_steps(r, 0, last)
+    t0 = time.perf_counter()
+    checkpoint.save(spec["ckpt"], last, r.state)
+    out = {"first": first, "save_s": time.perf_counter() - t0,
+           "restored": {}}
+    saved = checkpoint._flatten(r.state)
+    for layout in MESH_RESTORE:
+        r2 = build(layout)
+        t0 = time.perf_counter()
+        got = checkpoint.restore(spec["ckpt"], last, r2.state, r2.shardings)
+        restore_s = time.perf_counter() - t0
+        flat, want = checkpoint._flatten(got), checkpoint._flatten(
+            r2.shardings)
+        bad = [k for k, v in saved.items() if not _same_leaf(v, flat[k])]
+        placed = all(tuple(v.placements) == tuple(want[k].placements)
+                     for k, v in flat.items() if isinstance(v, DTensor))
+        r2.state = got
+        h = lt.train_steps(r2, last, last + 1)[0]
+        out["restored"][layout] = dict(h, bad=bad, leaves=len(saved),
+                                       placed=placed, restore_s=restore_s,
+                                       mesh=tuple(r2.mesh.shape))
+        del r2, got, flat
+        _free()
+    out["straight"] = lt.train_steps(r, last, last + 1)[0]
+    del r
+    _free()
+    return out
+
+
+def mesh_count_cell(spec, mesh, device):
+    """The count's program: one (2, 2) training step of (a)'s model at
+    MESH_SHORT layers (the SMOKE config with ``spec["smoke"]``), int8
+    moments, einsum attention (the dry run counts no ctypes kernel), on
+    ``device``: ``(fn, args)``."""
+    from repro_torch.configs import registry
+    from repro_torch.launch import dryrun, specs
+    cfg = (registry.smoke_config(MESH_ARCH) if spec["smoke"] else
+           registry.config(MESH_ARCH, n_layers=MESH_SHORT))
+    cell = specs.Cell(MESH_ARCH, "train_4k", spec["seq"], MESH_BATCH,
+                      "train")
+    fn, args, _, _ = dryrun.build_cell(
+        MESH_ARCH, "train_4k", mesh, dryrun.Plan(quantized=True), cfg=cfg,
+        cell=cell, device=device, seed=0)
+    return fn, args
+
+
+def _count_record(a, out, secs):
+    an = a.analyze()
+    return {"cost": {k: getattr(a.cost, k) for k in ("flops", "eflops",
+                                                     "bytes", "coll_bytes")},
+            "n_ops": a.n_ops, "op_counts": dict(a.op_counts),
+            "argument_bytes": a.argument_bytes,
+            "memory": a.memory(out), "collectives": an["collectives"],
+            "per_dev": {k: an[k] for k in (
+                "flops_per_dev", "bytes_per_dev",
+                "collective_bytes_per_dev")}, "seconds": secs}
+
+
+def mesh_count_child(out_path, spec_json):
+    """[mesh]'s meta count, in a process of its own on the CPU: the count
+    program on meta under a fake 4-rank group (this process rank 0) on a
+    (2, 2) mesh; its record to ``out_path`` (JSON)."""
+    import logging
+
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.launch import dryrun
+    logging.getLogger("torch.distributed.tensor").setLevel(logging.ERROR)
+    dryrun.fake_world(MESH_WORLD)
+    mesh = init_device_mesh("cpu", MESH_TP["a"],
+                            mesh_dim_names=("data", "model"))
+    fn, args = mesh_count_cell(json.loads(spec_json), mesh,
+                               torch.device("meta"))
+    a, out, secs = dryrun.count_cell(fn, args)
+    Path(out_path).write_text(json.dumps(_count_record(a, out, secs)))
+
+
+def mesh_count_start(out_path, spec):
+    """Start ``mesh_count_child`` (the card hidden from it)."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="",
+               OMP_NUM_THREADS="1")
+    log = open(f"{out_path}.log", "w")
+    try:
+        return subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), MESH_COUNT_FLAG,
+             out_path, json.dumps(spec)], env=env, cwd=str(ROOT),
+            stdout=log, stderr=subprocess.STDOUT)
+    finally:
+        log.close()
+
+
+def _mesh_count(dev, spec):
+    """The count on this rank: the count program counted by
+    ``op_analysis`` on the card (the first run), then timed (median of
+    DRYRUN_REPS after a warm-up; CUDA events) and profiled once."""
+    from repro_torch.launch import dryrun, op_analysis
+    from repro_torch.launch.mesh import make_host_mesh
+    mesh = make_host_mesh(MESH_TP["a"][1], device=dev.type)
+    fn, args = mesh_count_cell(spec, mesh, dev)
+    real = sum(t.numel() * t.element_size()
+               for t in op_analysis.local_tensors(args))
+    _sync(dev)
+    _reset_peak(dev)
+    a, out, secs = dryrun.count_cell(fn, args, device=dev)
+    _sync(dev)
+    rec = dict(_count_record(a, out, secs), real_argument_bytes=real,
+               peak=_peak(dev))
+    del out
+    times = []
+    for i in range(DRYRUN_REPS + 1):
+        t0 = time.perf_counter()
+        fn(*args)
+        _sync(dev)
+        if i:
+            times.append(time.perf_counter() - t0)
+    rec["steps_s"] = times
+    rec["split"] = (device_ms(lambda: fn(*args)) if spec["profile"]
+                    else None)
+    del fn, args
+    _free()
+    return rec
+
+
+MESH_RUNS = {
+    "a": lambda dev, spec: _mesh_train(dev, spec, MESH_TP["a"]),
+    "b": lambda dev, spec: _mesh_train(dev, spec, MESH_TP["b"]),
+    "c": _mesh_dp,
+    "d": _mesh_elastic,
+    "e": lambda dev, spec: _mesh_train(
+        dev, spec, MESH_TP["a"], MIXTRAL_ARCH,
+        None if spec["smoke"] else MESH_MOE_LAYERS, 2 * spec["seq"],
+        MESH_BATCH, moe=True),
+    "count": _mesh_count,
+}
+
+
+def _mesh_rank(rank, world, init_file, spec):
+    """One rank of [mesh]: on card ``rank`` over NCCL (``spec["device"]``
+    ``"cuda"``; first the local-head kernel checks on its card), or on the
+    CPU over gloo (the tests' SMOKE run); then ``spec["phases"]`` in
+    order. Returns each phase's results."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch import ranks
+    cuda = spec["device"] == "cuda"
+    if cuda:
+        os.environ["LOCAL_RANK"] = str(rank)
+        torch.cuda.set_device(rank)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.\
+            allow_bf16_reduced_precision_reduction = False
+    ranks.init(rank, world, init_file, backend="nccl" if cuda else "gloo",
+               threads=None if cuda else 1)
+    dev = torch.device("cuda", rank) if cuda else torch.device("cpu")
+    out = {"backend": dist.get_backend(), "device": str(dev)}
+    if cuda:
+        out["kernels"] = local_head_checks(dev)
+    for name in spec["phases"]:
+        t0 = time.perf_counter()
+        out[name] = MESH_RUNS[name](dev, spec)
+        out[f"{name}_s"] = time.perf_counter() - t0
+    return out
+
+
+def _rank_lines(tag, res, key, whole, what, cuda=True, held=None):
+    """Print (a)'s, (b)'s or (e)'s lines: every rank's steps against the
+    one-process run ``whole`` (the losses of its first ``held`` steps,
+    default all, within DIST_LOSS_RTOL; the rest printed), its step time,
+    tokens a second, NCCL's device time in the profiled step, the peak
+    (under MESH_PEAK) and its launches, each kernel launched on a card
+    (on the CPU the kernels' plain versions run)."""
+    from repro_torch.kernels import flash_cuda as fc
+    for r, out in enumerate(res):
+        run = out[key]
+        mesh = "x".join(map(str, run["mesh"]))
+        for h, w in zip(run["hist"], whole["hist"], strict=True):
+            rel = _rel(h["loss"], w["loss"])
+            limit = (DIST_LOSS_RTOL if held is None or h["step"] < held
+                     else "not_held")
+            phase(tag, run=what, mesh=mesh, rank=r, step=h["step"],
+                  loss=f"{h['loss']:.6f}", loss_one_process=f"{w['loss']:.6f}",
+                  loss_rel_vs_one_process=f"{rel:.3e}",
+                  grad_norm_rel_vs_one_process=(
+                      f"{_rel(h['grad_norm'], w['grad_norm']):.3e}"),
+                  aux=f"{h['aux']:.6f}", aux_one_process=f"{w['aux']:.6f}",
+                  limit=limit, time_s=f"{h['time_s']:.3f}",
+                  launches=json.dumps(h["launches"], separators=(",", ":")))
+            check(limit == "not_held" or rel <= DIST_LOSS_RTOL,
+                  f"{what} {mesh} rank {r} step {h['step']}: loss {rel} "
+                  f"from one process")
+        wall = run["hist"][-1]["time_s"]
+        split = run["split"] or {}
+        busy = sum(split.values())
+        tokens = run["tokens"]
+        phase(tag, run=what, mesh=mesh, rank=r, device=out["device"],
+              params=run["params"], tokens_per_step=tokens,
+              init_s=f"{run['init_s']:.3f}",
+              step_s=",".join(f"{h['time_s']:.3f}" for h in run["hist"]),
+              tokens_per_s=f"{tokens / wall:.1f}",
+              tokens_per_s_per_card=f"{tokens / wall / MESH_WORLD:.1f}",
+              nccl_s=(f"{split['nccl'] / 1e3:.4f}" if split
+                      else "not measured"),
+              device_s=f"{busy / 1e3:.4f}" if split else "not measured",
+              **{f"profiled_{k}_ms": f"{v:.3f}" for k, v in split.items()},
+              max_memory_allocated=run["peak"],
+              launches=json.dumps(run["launches"], separators=(",", ":")))
+        check(run["peak"] < MESH_PEAK, f"{what} rank {r}: peak "
+              f"{run['peak']} bytes")
+        check(not cuda or all(run["launches"].get(k, 0) > 0
+                              for k in (fc.NAME, fc.DQ, fc.DKV)),
+              f"{what} rank {r}: a flash kernel never launched "
+              f"{run['launches']}")
+
+
+def _routes_lead(dev, routes):
+    """A lead for ``RoutingRecorder`` from a rank's recorded choices."""
+    import types
+
+    import torch
+    return types.SimpleNamespace(calls=[
+        [torch.as_tensor(c, device=dev).long() for c in call]
+        for call in routes])
+
+
+def moe_restored_step(dev, spec, routes):
+    """(e)'s step MESH_MOE_HELD + 1 in one process at the weights the
+    mesh took it from (saved by the mesh run), following the mesh's
+    expert choices of that step: its history entry and the routing
+    recorder."""
+    from repro_torch.launch import train as lt
+    from repro_torch.train import checkpoint
+    from repro_torch.train import loop as tl
+    r = lt.build(lt.parse(mesh_argv(
+        spec, MIXTRAL_ARCH, None if spec["smoke"] else MESH_MOE_LAYERS,
+        2 * spec["seq"], MESH_BATCH)))
+    got = checkpoint.restore(spec["ckpt"] + "_moe", MESH_MOE_HELD,
+                             {"params": r.state["params"]})
+    r.state["params"] = tl.bind(r.model, got["params"])
+    del got
+    rec = RoutingRecorder(_routes_lead(
+        dev, routes[MESH_MOE_HELD:MESH_MOE_HELD + 1]))
+    with rec.hook():
+        rec.mark()
+        h = lt.train_steps(r, MESH_MOE_HELD, MESH_MOE_HELD + 1)[0]
+    del r
+    _free()
+    return h, rec
+
+
+def mesh_count_finish(proc, out_path, t_start):
+    """The meta count's record, once its process ends."""
+    proc.wait(timeout=max(DRYRUN_TIMEOUT - (time.perf_counter() - t_start),
+                          1))
+    check(proc.returncode == 0, f"meta count exited {proc.returncode}: "
+          f"{Path(out_path + '.log').read_text()[-2000:]}")
+    return json.loads(Path(out_path).read_text())
+
+
+def mesh_count_report(tag, meta, res):
+    """Every card's count equal to meta's (flops, elementwise flops,
+    bytes, collective bytes, argument bytes), the measured step at or
+    above its roofline bound, the predicted peak within PEAK_RATIO of
+    the card's; the collective term beside NCCL's measured time. Ops
+    that the card dispatches and meta does not (or the other way) are
+    printed by name: they may differ only in ops that cost nothing, since
+    every cost is equal."""
+    from repro_torch.launch import dryrun
+    roof = dryrun.roofline(*(meta["per_dev"][k] for k in (
+        "flops_per_dev", "bytes_per_dev", "collective_bytes_per_dev")))
+    bound = max(roof["compute_s"], roof["memory_s"])
+    for r, out in enumerate(res):
+        card = out["count"]
+        check(card["cost"] == meta["cost"], f"rank {r}: card counts "
+              f"{card['cost']} differ from meta's {meta['cost']}")
+        ops_differ = {k: card["op_counts"].get(k, 0)
+                      - meta["op_counts"].get(k, 0)
+                      for k in set(card["op_counts"]) | set(meta["op_counts"])
+                      if card["op_counts"].get(k, 0)
+                      != meta["op_counts"].get(k, 0)}
+        check(card["argument_bytes"] == meta["argument_bytes"]
+              == card["real_argument_bytes"], f"rank {r}: argument bytes "
+              f"card {card['argument_bytes']}, meta "
+              f"{meta['argument_bytes']}, tensors "
+              f"{card['real_argument_bytes']}")
+        step = sorted(card["steps_s"])[len(card["steps_s"]) // 2]
+        pred = meta["memory"]["peak_bytes"]
+        ratio = pred / card["peak"]
+        split = card["split"] or {}
+        nccl = split.get("nccl")
+        coll = meta["per_dev"]["collective_bytes_per_dev"]
+        phase(tag, run="count", mesh="2x2", rank=r,
+              flops=f"{meta['cost']['flops'] + meta['cost']['eflops']:.6e}",
+              matmul_flops=f"{meta['cost']['flops']:.6e}",
+              bytes=f"{meta['cost']['bytes']:.6e}",
+              collective_bytes=f"{coll:.6e}", ops=meta["n_ops"],
+              card_ops=card["n_ops"], counts="meta_equals_card",
+              card_minus_meta_ops=json.dumps(ops_differ, sort_keys=True,
+                                             separators=(",", ":")),
+              argument_bytes=card["argument_bytes"],
+              compute_s=f"{roof['compute_s']:.6e}",
+              memory_s=f"{roof['memory_s']:.6e}",
+              collective_s_at_50GBps=f"{roof['collective_s']:.6e}",
+              bound_s=f"{bound:.6e}", step_s=f"{step:.6f}",
+              steps_s=",".join(f"{t:.6f}" for t in card["steps_s"]),
+              bound_over_step=f"{bound / step:.4f}",
+              nccl_s=f"{nccl / 1e3:.6f}" if nccl is not None
+              else "not measured",
+              collective_bytes_per_nccl_s=(
+                  f"{coll / (nccl / 1e3):.4e}" if nccl else "not measured"),
+              predicted_peak=pred, max_memory_allocated=card["peak"],
+              peak_ratio=f"{ratio:.4f}",
+              collectives=json.dumps({k: v for k, v in
+                                      meta["collectives"].items()},
+                                     separators=(",", ":")),
+              meta_count_s=f"{meta['seconds']:.1f}",
+              card_count_s=f"{card['seconds']:.1f}", derived="counts")
+        check(step >= bound, f"rank {r}: measured step {step} s below its "
+              f"roofline bound {bound} s: a miscount")
+        check(PEAK_RATIO[0] <= ratio <= PEAK_RATIO[1], f"rank {r}: predicted "
+              f"peak {pred} vs max_memory_allocated {card['peak']}")
+
+
+def mesh_phases(dev, spec=None):
+    """[mesh] on MESH_WORLD cards (``spec``, default ``mesh_spec()``): the
+    meta count's process, the ranks (each its card's local-head checks,
+    then (a) through (e) and the count), then on card 0 the one-process
+    runs that (a), (b) and (c) are held to and (e)'s, which follows the
+    mesh's routing, and the checks. Returns the launches of the
+    local-head rows: (a)'s for tp2, (b)'s for tp4, (e)'s for tp2_w4096
+    (rank 0's)."""
+    from repro_torch.launch import ranks
+
+    t0 = time.perf_counter()
+    spec = spec or mesh_spec(ckpt=str(ROOT / "build" / "mesh_ckpt"))
+    ckpt, cuda = spec["ckpt"], spec["device"] == "cuda"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    shutil.rmtree(ckpt + "_moe", ignore_errors=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        count_json = str(Path(tmp) / "count.json")
+        t_count = time.perf_counter()
+        proc = mesh_count_start(count_json, spec)
+        try:
+            _free()
+            init = ROOT / "build" / "mesh_rdzv"
+            init.unlink(missing_ok=True)
+            t1 = time.perf_counter()
+            res = ranks.run_ranks(_mesh_rank, MESH_WORLD, str(init), (spec,),
+                                  timeout=MESH_TIMEOUT)
+            ranks_s = time.perf_counter() - t1
+            init.unlink(missing_ok=True)
+            shutil.rmtree(ckpt, ignore_errors=True)
+            # the one-process runs on card 0, once the ranks have left it
+            whole = full_depth_run("one_process", {}, arch=MESH_ARCH,
+                                   argv=mesh_argv(spec, MESH_ARCH, None,
+                                                  spec["seq"], MESH_BATCH),
+                                   line="mesh")
+            whole_dp, _ = one_process_steps(
+                dev, dist_config(smoke=spec["smoke"]), MESH_WORLD,
+                seq=spec["seq"])
+            moe_whole = full_depth_run(
+                "one_process", {}, arch=MIXTRAL_ARCH,
+                argv=mesh_argv(spec, MIXTRAL_ARCH, None if spec["smoke"]
+                               else MESH_MOE_LAYERS, 2 * spec["seq"],
+                               MESH_BATCH), line="mesh",
+                lead=_routes_lead(dev, res[0]["e"]["routes"]))
+            moe_at, moe_rec = moe_restored_step(dev, spec,
+                                                res[0]["e"]["routes"])
+            shutil.rmtree(ckpt + "_moe", ignore_errors=True)
+            meta = mesh_count_finish(proc, count_json, t_count)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    # every card: the backend, and K5, K6, K7 at each local-head case
+    for r, out in enumerate(res):
+        want = ("nccl", f"cuda:{r}") if cuda else ("gloo", "cpu")
+        check((out["backend"], out["device"]) == want,
+              f"rank {r}: {out['backend']} on {out['device']}")
+        for tag, (ok5, e5, okb, eb, same) in out.get("kernels", {}).items():
+            phase("mesh", rank=r, device=out["device"], case=tag,
+                  k5_max_abs_err=f"{e5:.3e}", k6_k7_max_abs_err=f"{eb:.3e}",
+                  k7_two_launches="bitwise" if same else "differ")
+            check(ok5 and okb and same, f"rank {r} {tag}: K5 {ok5} ({e5}), "
+                  f"K6/K7 {okb} ({eb}), K7 bitwise {same}")
+    # (a), (b): tensor parallelism against one process on card 0
+    tokens = MESH_BATCH * (spec["seq"] - 1)
+    for key in ("a", "b"):
+        for out in res:
+            out[key]["tokens"] = tokens
+        _rank_lines("mesh", res, key, whole, f"tp_{key}", cuda)
+    phase("mesh", run="one_process", arch=MESH_ARCH, batch=MESH_BATCH,
+          n_micro=1, step_s=",".join(f"{h['time_s']:.3f}"
+                                     for h in whole["hist"]),
+          max_memory_allocated=whole["peak"])
+    # (c): the compressed data-parallel step over NCCL
+    dp_report("mesh", [out["c"] for out in res], whole_dp, "4x1")
+    for r, out in enumerate(res):
+        split = out["c"]["split"] or {}
+        phase("mesh", run="dp_compressed", rank=r,
+              allreduce_s=",".join(f"{h['allreduce_s']:.4f}"
+                                   for h in out["c"]["hist"]),
+              payload_bytes=out["c"]["hist"][-1]["payload_bytes"],
+              profiled_nccl_s=(f"{split['nccl'] / 1e3:.4f}" if split
+                               else "not measured"),
+              profiled_device_s=(f"{sum(split.values()) / 1e3:.4f}"
+                                 if split else "not measured"))
+    # (d): the elastic restore across cards
+    for r, out in enumerate(res):
+        el = out["d"]
+        want = el["straight"]
+        for layout, got in el["restored"].items():
+            rel = _rel(got["loss"], want["loss"])
+            mesh = "x".join(map(str, got["mesh"]))
+            phase("mesh", run="elastic", rank=r, saved="2x2", restored=mesh,
+                  leaves=got["leaves"], bitwise_leaves=got["leaves"]
+                  - len(got["bad"]), placed=got["placed"],
+                  step=want["step"], loss=f"{got['loss']:.6f}",
+                  loss_2x2=f"{want['loss']:.6f}", loss_rel=f"{rel:.3e}",
+                  save_s=f"{el['save_s']:.1f}",
+                  restore_s=f"{got['restore_s']:.1f}")
+            check(not got["bad"] and got["placed"], f"rank {r} restored at "
+                  f"{mesh}: leaves {got['bad'][:3]} differ from the saved "
+                  f"ones, placed {got['placed']}")
+            check(tuple(got["mesh"]) == tuple(layout)
+                  and rel <= DIST_LOSS_RTOL, f"rank {r} at {mesh}: step "
+                  f"{want['step']} loss {rel} from the (2, 2) run's")
+    # (e): mixtral-8x7b, held as [moe] holds it where both runs have the
+    # same weights: at step 1, and at step MESH_MOE_HELD + 1 taken by one
+    # process from the mesh's own weights (moe_restored_step): each loss
+    # within TRAIN_LOSS_RTOL, each routing difference a near-tie. The
+    # free-running one process is held for MESH_MOE_HELD steps: the mesh
+    # sums bf16 partial gradients over data (one more rounding of each
+    # element than one process), Adam's sign-like first updates turn those
+    # ulps into steps of lr on near-0 gradients, and the router's changes
+    # flip choices, so by step 3 the two runs are other models (their
+    # grad norms 41% apart in the first four-card run, PERF.md §6); that
+    # step's free-running loss is printed beside.
+    follow_check(moe_whole["routes"], "mesh", MIXTRAL_ARCH,
+                 "one_process_follows_mesh", held=1)
+    follow_check(moe_rec, "mesh", MIXTRAL_ARCH,
+                 f"one_process_at_mesh_weights_step{MESH_MOE_HELD}")
+    moe_tokens = MESH_BATCH * (2 * spec["seq"] - 1)
+    for r, out in enumerate(res):
+        out["e"]["tokens"] = moe_tokens
+        first, at = out["e"]["hist"][0], out["e"]["hist"][MESH_MOE_HELD]
+        rels = (_rel(first["loss"], moe_whole["hist"][0]["loss"]),
+                _rel(at["loss"], moe_at["loss"]),
+                _rel(at["grad_norm"], moe_at["grad_norm"]))
+        phase("mesh", run="moe_e", rank=r, step=MESH_MOE_HELD,
+              compare="one_process_at_mesh_weights",
+              loss=f"{at['loss']:.6f}",
+              loss_one_process=f"{moe_at['loss']:.6f}",
+              loss_rel=f"{rels[1]:.3e}", grad_norm_rel=f"{rels[2]:.3e}",
+              step0_loss_rel=f"{rels[0]:.3e}", limit=TRAIN_LOSS_RTOL)
+        check(rels[0] <= TRAIN_LOSS_RTOL and rels[1] <= TRAIN_LOSS_RTOL,
+              f"moe_e rank {r}: loss at step 0 {rels[0]}, at step "
+              f"{MESH_MOE_HELD} from the same weights {rels[1]} "
+              f"(limit {TRAIN_LOSS_RTOL})")
+    _rank_lines("mesh", res, "e", moe_whole, "moe_e", cuda,
+                held=MESH_MOE_HELD)
+    for r, out in enumerate(res):
+        phase("mesh", run="moe_e", rank=r, **out["e"]["share"])
+    # the count: meta against every card
+    mesh_count_report("mesh", meta, res)
+    phase("mesh", ranks_seconds=f"{ranks_s:.1f}", **{
+        f"{k}_s": f"{res[0][f'{k}_s']:.1f}" for k in spec["phases"]},
+          seconds=f"{time.perf_counter() - t0:.1f}")
+    launches = collections.Counter()
+    for key, tag in (("a", LOCAL_HEADS), ("b", "tp4"), ("e", "tp2_w4096")):
+        for name, n in res[0][key]["launches"].items():
+            launches[f"{name}_{tag}"] += n
+    return launches
+
+
 def kernel_rows(table, launches):
     """The kernel table line's rows: each row's launches from the main
     paths' counts; the local-head rows, which no card path launches, go
@@ -4650,6 +5464,10 @@ def main() -> int:
     except ImportError:
         print("chip_smoke: torch is not installed", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == [MESH_COUNT_FLAG]:   # [mesh]'s meta count child
+        sys.path.insert(0, str(SRC))
+        mesh_count_child(*sys.argv[2:4])
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False); this script runs only on the card", file=sys.stderr)
@@ -4685,6 +5503,28 @@ def main() -> int:
               seconds=f"{time.perf_counter() - t0:.1f}")
         print(smi)
         print(json.dumps({"kernels": []}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name, "count": count}}))
+        return 0
+    if sys.argv[1:] == [MESH_FLAG]:          # training on four cards
+        if count < MESH_WORLD:
+            print(f"chip_smoke: {MESH_FLAG} needs {MESH_WORLD} cards, "
+                  f"{count} visible", file=sys.stderr)
+            return 1
+        build_phase()           # once, before any rank loads the libraries
+        table = lm_kernel_phase(dev, [c for c in K5_CASES
+                                      if c[0] == LOCAL_HEADS]
+                                + MESH_K5_CASES, small=False)
+        table.update(bwd_kernel_phase(
+            dev, [c for c in BWD_CASES if c[0] == LOCAL_HEADS]
+            + MESH_BWD_CASES, small=False))
+        launches = mesh_phases(dev)
+        for row in table.values():
+            row["launches"] = launches[row["name"]]
+        phase("done", mesh_only=True,
+              seconds=f"{time.perf_counter() - t0:.1f}")
+        print(smi)
+        print(json.dumps({"kernels": list(table.values())}))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": name, "count": count}}))
         return 0

@@ -206,9 +206,9 @@ class Analyzer(TorchDispatchMode):
     """Counts the program run under it (``with Analyzer(device) as a:``)
     on ``device`` (default: every device). ``a.cost`` is the total
     ``Cost``; ``a.analyze()`` the reference's dict; ``a.contrib`` scope
-    -> [flops, bytes, coll_bytes]; ``a.memory(args, out)`` the memory
-    analysis. ``args`` passed here are live from the start (their bytes
-    are the argument bytes)."""
+    -> [flops, bytes, coll_bytes]; ``a.op_counts`` op name -> calls;
+    ``a.memory(args, out)`` the memory analysis. ``args`` passed here
+    are live from the start (their bytes are the argument bytes)."""
 
     def __init__(self, device=None, args=None):
         super().__init__()
@@ -216,6 +216,7 @@ class Analyzer(TorchDispatchMode):
         self.cost = Cost()
         self.contrib: dict[str, list[float]] = {}
         self.n_ops = 0
+        self.op_counts: dict[str, int] = {}
         self._live: dict[int, tuple[int, Any]] = {}
         self.live_bytes = 0
         self.peak_bytes = 0
@@ -322,6 +323,7 @@ class Analyzer(TorchDispatchMode):
             elif name not in _MOVE:
                 efl = float(sum(t.numel() for t in douts))
         self.n_ops += 1
+        self.op_counts[name] = self.op_counts.get(name, 0) + 1
         self.cost.flops += fl
         self.cost.eflops += efl
         self.cost.bytes += by

@@ -28,6 +28,8 @@ from __future__ import annotations
 from typing import Mapping
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dot, dtype_of, init_dense, rmsnorm
@@ -94,6 +96,77 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(x)
 
 
+def _causal_conv(conv_in: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The causal depthwise conv of (B, S, C) ``conv_in`` with the (k, C)
+    taps ``w``: explicit pad + shifts, summed left to right in x's dtype
+    (the reference's Python ``sum``)."""
+    k, S = w.shape[0], conv_in.shape[1]
+    padded = _pad_seq(conv_in, k - 1, 0)
+    conv = padded[:, 0:S] * w[0]
+    for i in range(1, k):
+        conv = conv + padded[:, i:i + S] * w[i]
+    return conv
+
+
+def _causal_conv_mesh(conv_in: DTensor, w: DTensor) -> DTensor:
+    """``_causal_conv`` of DTensors in a ``local_map`` region, so that no
+    sharding rule of pad or of the shifted products is asked (torch
+    2.11's redistribution planner fails on the pad's): the batch and the
+    channels keep their placements and the sequence is whole on every
+    rank; the taps are split with the channels, and their gradient is a
+    partial sum over the mesh dims that split the batch. The output is
+    laid out as the input."""
+    last = conv_in.dim() - 1
+    xp = [p if isinstance(p, Shard) and p.dim in (0, last) else Replicate()
+          for p in conv_in.placements]
+    wp = [Shard(1) if isinstance(p, Shard) and p.dim == last
+          else Replicate() for p in xp]
+    w_grad = [Partial() if isinstance(p, Shard) and p.dim == 0 else q
+              for p, q in zip(xp, wp)]
+    return local_map(_causal_conv, out_placements=xp,
+                     in_placements=(xp, wp), in_grad_placements=(xp, w_grad),
+                     device_mesh=conv_in.device_mesh,
+                     redistribute_inputs=True)(conv_in, w)
+
+
+def _pad_seq(t: torch.Tensor, before: int, after: int) -> torch.Tensor:
+    """(B, S, ...) ``t`` zero-padded on its sequence dim. A DTensor is
+    padded in a ``local_map`` region, its sequence whole on every rank and
+    its other dims' splits kept (torch 2.11's planner fails on pad's
+    rule)."""
+    def pad(x):
+        return torch.nn.functional.pad(
+            x, (0, 0) * (x.dim() - 2) + (before, after))
+    if not isinstance(t, DTensor):
+        return pad(t)
+    pl = [p if isinstance(p, Shard) and p.dim != 1 else Replicate()
+          for p in t.placements]
+    return local_map(pad, out_placements=pl, in_placements=(pl,),
+                     in_grad_placements=(pl,), device_mesh=t.device_mesh,
+                     redistribute_inputs=True)(t)
+
+
+def _readout(c: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """The decode step's y = C h: (B, N) ``c`` and (B, H, N, P) ``h`` ->
+    (B, H, P), one matrix product a (batch, head)."""
+    return torch.matmul(c[:, None, None, :], h)[:, :, 0]
+
+
+def _readout_mesh(c: DTensor, h: DTensor) -> DTensor:
+    """``_readout`` of DTensors in a ``local_map`` region: both with their
+    batch split as it is and every other dim whole (the heads gathered),
+    the output laid out so. A sharding rule would flatten the batch and
+    head dims of a head-split h, which torch 2.11 refuses."""
+    def batch_only(t):
+        return [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+                for p in t.placements]
+    hp = batch_only(h)
+    return local_map(_readout, out_placements=hp,
+                     in_placements=(batch_only(c), hp),
+                     device_mesh=h.device_mesh,
+                     redistribute_inputs=True)(c, h)
+
+
 def _ssd_chunked(x, dt_, A, B, C, chunk: int):
     """SSD chunked scan (reference mamba2.py:48-95).
     x: (b, s, h, p); dt_: (b, s, h) float32 > 0; A: (h,) < 0; B, C:
@@ -148,6 +221,49 @@ def _ssd_chunked(x, dt_, A, B, C, chunk: int):
     return y.to(x.dtype), h_prev
 
 
+def _ssd_mesh(x: DTensor, dt_: DTensor, A: DTensor, B: DTensor,
+              C: DTensor, chunk: int):
+    """``_ssd_chunked`` of DTensors in a ``local_map`` region: each rank
+    scans its batch rows and its heads (every head's scan is its own; B
+    and C are shared by the heads), the sequence whole. A mesh dim splits
+    the heads where x or dt splits them, the batch where x does. y is
+    laid out as x with the heads split, the final state (b, h, n, p) so;
+    A's gradient is a partial sum over the batch's mesh dims, B's and C's
+    over the heads'. The sharding rules of the scan's batched products
+    would flatten a head-split dim with others, which torch 2.11
+    refuses."""
+    def split(t, d):
+        return [isinstance(p, Shard) and p.dim == d for p in t.placements]
+    rows = split(x, 0)
+    heads = [(a or b) and not r for a, b, r in zip(split(x, 2), split(dt_, 2),
+                                                    rows)]
+
+    def place(b_dim, h_dim, partial_over=None):
+        out = []
+        for r, h in zip(rows, heads):
+            if r and b_dim is not None:
+                out.append(Shard(b_dim))
+            elif h and h_dim is not None:
+                out.append(Shard(h_dim))
+            elif partial_over == "rows" and r or partial_over == "heads" \
+                    and h:
+                out.append(Partial())
+            else:
+                out.append(Replicate())
+        return out
+
+    xp, dtp, ap, bcp = place(0, 2), place(0, 2), place(None, 0), \
+        place(0, None)
+    return local_map(
+        lambda *t: _ssd_chunked(*t, chunk),
+        out_placements=(place(0, 2), place(0, 1)),
+        in_placements=(xp, dtp, ap, bcp, bcp),
+        in_grad_placements=(xp, dtp, place(None, 0, "rows"),
+                            place(0, None, "heads"), place(0, None, "heads")),
+        device_mesh=x.device_mesh, redistribute_inputs=True)(
+            x, dt_, A, B, C)
+
+
 def mamba2_forward(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
                    chunk: int = CHUNK, state: dict | None = None,
                    return_state: bool = False):
@@ -181,21 +297,18 @@ def mamba2_forward(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
     A = -torch.exp(p["a_log"])
 
     if state is None:
-        # causal depthwise conv: explicit pad + shifts, summed left to
-        # right in x's dtype (the reference's Python ``sum``)
-        padded = torch.nn.functional.pad(conv_in, (0, 0, k - 1, 0))
-        conv = padded[:, 0:S] * w[0]
-        for i in range(1, k):
-            conv = conv + padded[:, i:i + S] * w[i]
+        conv = (_causal_conv_mesh(conv_in, w) if isinstance(conv_in, DTensor)
+                else _causal_conv(conv_in, w))
         conv = silu(conv.float()).to(x.dtype)
         xin, Bc, Cc = (conv[..., :d_inner], conv[..., d_inner:d_inner + N],
                        conv[..., d_inner + N:])
         dts = softplus(dt_.float() + p["dt_bias"])
         if pad:
-            xin, Bc, Cc, dts = (torch.nn.functional.pad(t, (0, 0, 0, pad))
+            xin, Bc, Cc, dts = (_pad_seq(t, 0, pad)
                                 for t in (xin, Bc, Cc, dts))
         xh = xin.reshape(B, S + pad, H, P)
-        y, h_final = _ssd_chunked(xh, dts, A, Bc, Cc, chunk)
+        y, h_final = (_ssd_mesh if isinstance(xh, DTensor)
+                      else _ssd_chunked)(xh, dts, A, Bc, Cc, chunk)
         y = y[:, :S] + xh[:, :S] * p["d_skip"][:, None].to(x.dtype)
         y = y.reshape(B, S, d_inner)
         y = rmsnorm(y * silu(z.float()).to(x.dtype), p["norm_g"],
@@ -205,8 +318,7 @@ def mamba2_forward(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
             return out, None
         # the decode state after the prompt: the final SSM state and the
         # last k conv inputs (zero-padded on the left when S < k)
-        tail = (conv_in[:, -k:] if S >= k else
-                torch.nn.functional.pad(conv_in, (0, 0, k - S, 0)))
+        tail = conv_in[:, -k:] if S >= k else _pad_seq(conv_in, k - S, 0)
         return out, {"conv": tail, "ssm": h_final}
 
     # --- decode: S == 1, O(1) state update ---
@@ -222,7 +334,9 @@ def mamba2_forward(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
     inject = Bc[:, 0].float()[:, None, :, None] * (dt1[..., None]
                                                    * xh)[:, :, None, :]
     h_new = state["ssm"] * dec[..., None, None] + inject          # (B,H,N,P)
-    y = torch.matmul(Cc[:, 0].float()[:, None, None, :], h_new)[:, :, 0]
+    c = Cc[:, 0].float()
+    y = (_readout_mesh(c, h_new) if isinstance(h_new, DTensor)
+         else _readout(c, h_new))
     y = y + xh * p["d_skip"][None, :, None]
     y = y.reshape(B, 1, d_inner).to(x.dtype)
     y = rmsnorm(y * silu(z.float()).to(x.dtype), p["norm_g"], cfg.norm_eps)

@@ -105,9 +105,18 @@ def _split(batch: dict, n_micro: int) -> list[dict]:
 
 def _distribute(t: torch.Tensor, mesh, spec: rules.Spec) -> DTensor:
     """``t``, whole and equal on every rank, as a DTensor laid out by
-    ``spec``: each rank keeps its own slice, nothing is sent."""
-    return distribute_tensor(t, mesh, rules.placements(spec, mesh),
-                             src_data_rank=None)
+    ``spec``: each rank keeps its own slice, nothing is sent. A slice
+    that is a view of ``t`` (a split of its leading dim) is copied, so
+    that the whole tensor's memory goes with ``t``."""
+    d = distribute_tensor(t, mesh, rules.placements(spec, mesh),
+                          src_data_rank=None)
+    local = d.to_local()
+    if local.untyped_storage().nbytes() > local.numel() \
+            * local.element_size():
+        d = DTensor.from_local(local.clone(), mesh, d.placements,
+                               run_check=False, shape=d.shape,
+                               stride=d.stride())
+    return d
 
 
 def _accumulate(model: LM, batch: dict, n_micro: int,
