@@ -227,6 +227,35 @@ fake 4-rank group and on every card, equal exactly, the measured step
 at or above its roofline bound, the predicted peak within [0.5, 2]x.
 With fewer than four cards it exits non-zero at once. The whole
 script's run does not include it.
+
+    python3 chip_smoke.py --mesh-families
+
+runs the rest of the families on four cards the same way (a mode of its
+own beside ``--mesh-only``, whose runs with these would take most of the
+script's 1,200 s): K5, K6 and K7 at their local heads on (2, 2)
+(``tp2_d256``: gemma-7b's H 8 at D = 256; ``tp2_d112``: zamba2-7b's H 16
+at D = 112 through the wrapper's pad; ``tp2_d64``: whisper-base's encoder,
+B 8, H 4, 1500 frames, bidirectional; ``tp2_vlm``: llama-3.2-vision-90b's
+H 32 on 4 kv heads) timed on card 0 and held on every card; then, on
+(2, 2) through ``launch.train``'s path under each family's plan
+(``launch.dryrun.PLANS``: n_micro, fsdp, int8 moments), 3 steps at full
+width: (f) gemma-7b, 28 layers, 4 x 4096 tokens, n_micro 2, float32
+moments; (g) zamba2-7b, 27 of 81 layers, 4 x 4096, n_micro 2; (h)
+whisper-base whole, 16 x 448 tokens with 1500 frames each; (i)
+llama-3.2-vision-90b at 1 of 20 groups, 16 x 4096 tokens with 1601 vision
+tokens each, fsdp, int8 moments, n_micro 8. Each card's K5, K6 and K7
+launches a step must be the model's (twice, once, once a flash layer a
+microbatch) and its peak under 80 GB. Each is held to one process on card
+0 at the depth one card holds the plan at (gemma-7b: 4 layers, in a
+second mesh run beside the timed one): free-running, the first two
+steps' losses within 1e-2; the third step's loss within 1e-4 of one
+process's at the weights the mesh saved after two (the vision run, whose
+plan no card holds, at the seeded weights for its first step too). (j)
+llama3-8b at 2 layers on (2, 2), n_micro 2, int8 moments, 4 x 4096
+tokens, under ``fault.Supervisor`` with ``shardings=``, a checkpoint
+every 2 steps and a fault at step 3: the history's steps must be [0, 1,
+2, 2, 3, 4] and the final parameters and moments the uninterrupted
+run's bit for bit. With fewer than four cards it exits non-zero at once.
 """
 from __future__ import annotations
 
@@ -323,7 +352,8 @@ K5_CASES.append(("w", 4, 32, 8, 8192, 128, "bfloat16", 4096, 5))
 # 1500 frames, bidirectional; its rows in the kernel table are
 # ``<kernel>_d64``.
 K5_CASES.append(("whisper", 4, 8, 8, 1500, 64, "bfloat16", None, 20))
-BIDIRECTIONAL = ("whisper", "whisper_train")    # cases with causal=False
+# cases with causal=False (tp2_d64: whisper's encoder on one rank's heads)
+BIDIRECTIONAL = ("whisper", "whisper_train", "tp2_d64")
 K5_FAULT_CASES = ("a", "b", "e", "f", "whisper")
 K5_SMALL = (2, 8, 2, 333)            # a GQA group of 4, every head dim
 # The bf16 K5's tile edges (128 query rows and 128 keys a tile; 64 keys at
@@ -1171,7 +1201,8 @@ def row_name(name, d, window=None, tag=None):
     D = 256 and D = 64 instantiations have rows of their own, and so have
     mixtral's windowed shapes, zamba2's D = 112 (padded to 128) and one
     rank's local heads (the cases MESH_TAGS: ``tp2`` on a (1, 2) or (2, 2)
-    mesh, ``tp4`` on (1, 4), ``tp2_w4096`` mixtral's on (2, 2))."""
+    mesh, ``tp4`` on (1, 4), ``tp2_w4096`` mixtral's on (2, 2), and the
+    families' FAMILY_TAGS on (2, 2))."""
     if tag in MESH_TAGS:
         return f"{name}_{tag}"
     if window == WINDOW_ROW:
@@ -1690,14 +1721,17 @@ def pad_scale_fwd(q, k, v, **kw):
                                              sm_scale=q.shape[-1] ** -0.5))
 
 
-def padded_kernel_phase(dev):
-    """K5 (zamba2's serving shape) and K6 / K7 (its training shape) at
-    head dim ZAMBA_D, which no kernel is built for: through
+def padded_kernel_phase(dev, k5=None, bwd=None):
+    """K5 at ``k5`` (tag, B, H = Hkv, S, timed reps; default zamba2's
+    serving shape, ZAMBA_K5) and K6 / K7 at ``bwd`` (default its training
+    shape, ZAMBA_BWD) at head dim ZAMBA_D, which no kernel is built for:
+    through
     ``ops.flash_attention`` (zero-padded to 128, the output sliced back;
     under autograd for K6 and K7) and bare on inputs padded beforehand,
     each against the plain version at D = 112, with a control at the
-    padded D's scale; timed beside SDPA at D = 112. Returns the
-    ``<kernel>_d112`` rows."""
+    padded D's scale; timed beside SDPA at D = 112; K7 twice where the
+    tag is in K7_DETERMINISTIC. Returns the ``<kernel>_d112`` rows (a
+    local-head tag's: ``<kernel>_<tag>``)."""
     import torch
     import torch.nn.functional as F
 
@@ -1714,7 +1748,7 @@ def padded_kernel_phase(dev):
         return [F.pad(t, (0, dp - d)).contiguous() for t in ts]
 
     # K5 at the serving shape
-    b, h, s = ZAMBA_K5
+    tag, b, h, s, reps = k5 or ("zamba2",) + ZAMBA_K5 + (10,)
     q, k, v = _attention_case(dev, gen, b, h, h, s, d, torch.bfloat16)
     pout, plse = fc.flash_fwd_plain(q, k, v, **kw)
     wrapped = ops.flash_attention(q, k, v, causal=True)
@@ -1734,22 +1768,22 @@ def padded_kernel_phase(dev):
         *[t[..., :d].contiguous() if t.dim() == 4 else t
           for t in pad_scale_fwd(qp, kp, vp, **kw)], pout, plse)
     check(not c_ok, f"K5 d{d}: the check passed the padded-scale control")
-    ms = cuda_ms(lambda: fc.flash_fwd(qp, kp, vp, **kw), 10)
+    ms = cuda_ms(lambda: fc.flash_fwd(qp, kp, vp, **kw), reps)
     wrapper_ms = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=True),
-                         10)
+                         reps)
     plain_ms = cuda_ms(lambda: fc.flash_fwd_plain(q, k, v, **kw), 3,
                        warmup=1)
     lib = lambda: F.scaled_dot_product_attention(   # noqa: E731
         q, k, v, is_causal=True, scale=scale)
     lib_err = float((lib().float() - pout.float()).abs().max())
-    library_ms = cuda_ms(lib, 10)
+    library_ms = cuda_ms(lib, reps)
     backend, lib_kernel = sdpa_backend(lib)
     pairs = attention_pairs(s, None)
     # q, k, v and out at the model's D, lse float32
     nbytes = 4 * q.numel() * q.element_size() + lse.numel() * 4
     flops = 4 * d * b * h * pairs
     b_ms, b_by = bound(nbytes, flops, BF16_FLOPS)
-    phase("kernels", kernel=fc.NAME, case="zamba2", B=b, H=h, Hkv=h, S=s,
+    phase("kernels", kernel=fc.NAME, case=tag, B=b, H=h, Hkv=h, S=s,
           D=d, padded_D=dp, dtype="bfloat16", causal=True,
           max_abs_err=f"{err:.3e}", lse_max_abs_err=f"{err_lse:.3e}",
           differing_share=f"{share:.2e}", wrapper_max_abs_err=f"{w_err:.3e}",
@@ -1761,7 +1795,7 @@ def padded_kernel_phase(dev):
           library_kernel=lib_kernel, bound_ms=f"{b_ms:.6f}", bound_by=b_by,
           tflops=f"{flops / ms / 1e9:.2f}",
           padded_share_of_work=f"{1 - d / dp:.3f}")
-    rname = row_name(fc.NAME, d)
+    rname = row_name(fc.NAME, d, tag=tag)
     table[rname] = dict(
         name=rname, route="cuda", source=f"{CSRC}/flash_attention.cu",
         replaces=fc.REPLACES[fc.NAME], launches=0,
@@ -1773,7 +1807,7 @@ def padded_kernel_phase(dev):
     torch.cuda.empty_cache()
 
     # K6 and K7 at the training shape
-    b, h, s = ZAMBA_BWD
+    tag, b, h, s, reps = bwd or ("zamba2_train",) + ZAMBA_BWD + (5,)
     q, k, v = _attention_case(dev, gen, b, h, h, s, d, torch.bfloat16)
     do = torch.randn(q.shape, generator=gen, device=dev).to(torch.bfloat16)
     qp, kp, vp, dop = padded(q, k, v, do)
@@ -1806,11 +1840,20 @@ def padded_kernel_phase(dev):
         q, k, v, pout, lse, do, **dict(kw, sm_scale=dp ** -0.5)), want)]
     check(not all(r[0] for r in c_res), f"K6/K7 d{d}: the check passed "
           f"the padded-scale control")
+    if tag in K7_DETERMINISTIC:
+        again = fc.flash_bwd_dkv(qp, kp, vp, dop, lse, dd, **kw)
+        _sync(dev)
+        same = [bool(torch.equal(a, g_)) for a, g_ in zip(again, bare[1:])]
+        check(all(same), f"K7 {tag}: dk, dv differ between two launches "
+              f"(equal: {same})")
+        phase("kernels", kernel=fc.DKV, case=tag, deterministic="bitwise",
+              launches_compared=2)
+        del again
     dq_ms = cuda_ms(lambda: fc.flash_bwd_dq(qp, kp, vp, dop, lse, dd, **kw),
-                    5)
+                    reps)
     dkv_ms = cuda_ms(lambda: fc.flash_bwd_dkv(qp, kp, vp, dop, lse, dd,
-                                              **kw), 5)
-    wrapper_ms = cuda_ms(wrap, 5)
+                                              **kw), reps)
+    wrapper_ms = cuda_ms(wrap, reps)
     plain_ms = cuda_ms(lambda: fc.flash_bwd_plain(q, k, v, pout, lse, do,
                                                   **kw), 3, warmup=1)
     sl = [t.detach().clone().requires_grad_() for t in (q, k, v)]
@@ -1819,7 +1862,7 @@ def padded_kernel_phase(dev):
         so, sl, do, retain_graph=True)
     lib_err = max(float((x.float() - w.float()).abs().max())
                   for x, w in zip(lib(), want))
-    library_ms = cuda_ms(lib, 5)
+    library_ms = cuda_ms(lib, reps)
     backend, lib_kernel = sdpa_backend(lib)
     pairs = attention_pairs(s, None)
     elt = q.element_size()
@@ -1832,7 +1875,7 @@ def padded_kernel_phase(dev):
                      ("dk", "dv"))}
     for name, (ms, (b_ms, b_by), outs) in rows.items():
         err = max(max(res[n][0], res[n][2]) for n in outs)
-        phase("kernels", kernel=name, case="zamba2_train", B=b, H=h, Hkv=h,
+        phase("kernels", kernel=name, case=tag, B=b, H=h, Hkv=h,
               S=s, D=d, padded_D=dp, dtype="bfloat16", causal=True,
               **{f"{n}_max_abs_err": f"{res[n][0]:.3e}" for n in outs},
               **{f"{n}_differing_share": f"{res[n][1]:.2e}" for n in outs},
@@ -1847,7 +1890,7 @@ def padded_kernel_phase(dev):
               library_max_abs_err=f"{lib_err:.3e}", library_backend=backend,
               library_kernel=lib_kernel, bound_ms=f"{b_ms:.6f}",
               bound_by=b_by)
-        rname = row_name(name, d)
+        rname = row_name(name, d, tag=tag)
         table[rname] = dict(
             name=rname, route="cuda",
             source=f"{CSRC}/flash_attention_bwd.cu",
@@ -2919,8 +2962,9 @@ def float32_model(model):
     return model
 
 
-def device_ms(fn, top=None):
-    """Device time (ms) of everything ``fn`` launches, by torch.profiler,
+def device_ms(fn, top=None, cpu=True):
+    """Device time (ms) of everything ``fn`` launches, by torch.profiler
+    (recording the host's ops too unless ``cpu`` is off),
     split into K5, K6, K7, matrix products (cuBLAS's gemm / gemv / nvjet
     kernels, CUTLASS), gathers, scatters, sorts and scans (``dispatch``:
     the MoE's routing, dispatch and combine, and the embedding lookup),
@@ -2930,8 +2974,8 @@ def device_ms(fn, top=None):
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU] * cpu
+                 + [ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     split = {"k5": 0.0, "k6": 0.0, "k7": 0.0, "gemm": 0.0, "dispatch": 0.0,
@@ -3347,10 +3391,11 @@ def train_inputs(cfg, batch):
 
 def full_depth_run(tag, route, profile=False, arch=SERVE_ARCH, argv=None,
                    line="train", lead=None, prepare=None, trace=True,
-                   halves="grads"):
+                   halves="grads", quantized=True):
     """TRAIN_STEPS steps of launch.train's code path (``build`` then
     ``train_steps``) for ``arch`` (with ``argv``, default
-    ``train_argv(arch)``; an arch that cross-attends with
+    ``train_argv(arch)``, and int8 moments unless ``quantized`` is off,
+    when ``argv`` says; an arch that cross-attends with
     ``train_inputs``) with the flash bindings routed by ``route``;
     ``prepare(model)`` runs on the model built. Returns the launch counts
     of each step, the peak device memory and, with ``profile``, the time
@@ -3366,7 +3411,8 @@ def full_depth_run(tag, route, profile=False, arch=SERVE_ARCH, argv=None,
     from repro_torch.optim import adamw
     from repro_torch.train import loop as tl
 
-    args = lt.parse((argv or train_argv(arch)) + ["--quantized-state"])
+    args = lt.parse((argv or train_argv(arch))
+                    + (["--quantized-state"] if quantized else []))
     _free()
     torch.cuda.reset_peak_memory_stats()
     out = {}
@@ -3791,16 +3837,24 @@ def perturb_ssm_leaves(model, seed=0):
     """Every constant-initialised Mamba2 / RWKV leaf of ``model`` (by name,
     SSM_NOISE) drawn uniform from its range, float32, from numpy's
     generator at ``seed``: at their constant inits (A = -1, u_bonus 0,
-    every mix 0.5) a wrong axis or a swapped mix could not show."""
+    every mix 0.5) a wrong axis or a swapped mix could not show. A
+    DTensor leaf (a model on a mesh) takes its slice of the same
+    values."""
     import numpy as np
     import torch
+    from torch.distributed.tensor import DTensor, distribute_tensor
     rng = np.random.default_rng(seed)
     with torch.no_grad():
         for name, p in model.named_parameters():
             leaf = name.rsplit(".", 1)[-1]
             if leaf in SSM_NOISE:
-                p.copy_(torch.from_numpy(rng.uniform(
-                    *SSM_NOISE[leaf], tuple(p.shape)).astype(np.float32)))
+                t = torch.from_numpy(rng.uniform(
+                    *SSM_NOISE[leaf], tuple(p.shape)).astype(np.float32))
+                if isinstance(p, DTensor):
+                    t = distribute_tensor(t.to(p.to_local().device),
+                                          p.device_mesh, p.placements,
+                                          src_data_rank=None)
+                p.copy_(t)
 
 
 def ssm_caches(cache, key):
@@ -4144,12 +4198,27 @@ K5_CASES.append((LOCAL_HEADS, 1, 16, 4, 4095, 128, "bfloat16", None, 10))
 BWD_CASES.append((LOCAL_HEADS, 1, 16, 4, 4095, 128, "bfloat16", None, 5))
 # [mesh]'s local-head cases beside tp2, timed only in --mesh-only: tp4,
 # one rank's heads of (1, 4) (the kv heads split too); tp2_w4096,
-# mixtral-8x7b's on (2, 2) (window 4096, 8191 tokens)
+# mixtral-8x7b's on (2, 2) (window 4096, 8191 tokens). Then the
+# families' on (2, 2), timed only in --mesh-families (FAMILY_TAGS):
+# gemma-7b's 8 of 16 heads at D = 256; zamba2-7b's 16 of 32 at D = 112,
+# through ops.flash_attention's pad to 128 (padded_kernel_phase); whisper-
+# base's encoder, 4 of 8 heads over 1500 frames, bidirectional
+# (BIDIRECTIONAL), 8 rows a data rank; llama-3.2-vision-90b's 32 of 64
+# query heads on 4 kv heads (a GQA group of 8)
 MESH_K5_CASES = [("tp4", 1, 8, 2, 4095, 128, "bfloat16", None, 10),
-                 ("tp2_w4096", 1, 16, 4, 8191, 128, "bfloat16", 4096, 5)]
+                 ("tp2_w4096", 1, 16, 4, 8191, 128, "bfloat16", 4096, 5),
+                 ("tp2_d256", 1, 8, 8, 4095, 256, "bfloat16", None, 10),
+                 ("tp2_d112", 1, 16, 16, 4095, 112, "bfloat16", None, 10),
+                 ("tp2_d64", 8, 4, 4, 1500, 64, "bfloat16", None, 20),
+                 ("tp2_vlm", 1, 32, 4, 4095, 128, "bfloat16", None, 10)]
 MESH_BWD_CASES = [("tp4", 1, 8, 2, 4095, 128, "bfloat16", None, 5),
-                  ("tp2_w4096", 1, 16, 4, 8191, 128, "bfloat16", 4096, 3)]
-MESH_TAGS = (LOCAL_HEADS, "tp4", "tp2_w4096")
+                  ("tp2_w4096", 1, 16, 4, 8191, 128, "bfloat16", 4096, 3),
+                  ("tp2_d256", 1, 8, 8, 4095, 256, "bfloat16", None, 5),
+                  ("tp2_d112", 1, 16, 16, 4095, 112, "bfloat16", None, 5),
+                  ("tp2_d64", 8, 4, 4, 1500, 64, "bfloat16", None, 5),
+                  ("tp2_vlm", 1, 32, 4, 4095, 128, "bfloat16", None, 5)]
+FAMILY_TAGS = ("tp2_d256", "tp2_d112", "tp2_d64", "tp2_vlm")
+MESH_TAGS = (LOCAL_HEADS, "tp4", "tp2_w4096") + FAMILY_TAGS
 # K7 launched twice at these cases (the training shape, one rank's local
 # heads): dk and dv must be equal bit for bit
 K7_DETERMINISTIC = ("train",) + MESH_TAGS
@@ -4737,6 +4806,48 @@ MESH_MOE_LAYERS = 4
 MESH_MOE_HELD = 2        # (e)'s steps held to one process (mesh_phases)
 MESH_TIMEOUT = 900       # the ranks' join (s)
 MESH_PEAK = 80e9         # a card's memory: each rank's peak below it
+# --mesh-families: (f)-(i), every remaining dense, cross-attention and
+# state-space family at full width on FAMILY_LAYOUT under its plan
+# (launch.dryrun.PLANS: n_micro, fsdp, int8 moments), TRAIN_STEPS steps
+# of ``batch`` sequences of ``seq`` tokens at ``layers`` (None: all; the
+# depth one card trains). Each is held to one process on card 0 at
+# ``held`` layers, the depth at which one card holds the plan (a second
+# mesh run at that depth where it differs): free-running (``free``), its
+# steps before MESH_MOE_HELD within DIST_LOSS_RTOL; and, as (e), the step
+# after MESH_MOE_HELD taken by one process at the mesh's saved weights
+# within TRAIN_LOSS_RTOL. Where one card cannot step the plan at all
+# (``free`` off: 1 group of llama-3.2-vision-90b is 7.2e9 parameters,
+# whose int8 moments and float32 accumulator with its bf16 weights and
+# gradients pass 80 GB), the first step too is held at the same weights
+# (the seeded ones), by one process's gradients alone. ``tag``: the
+# local-head kernel case the run's attention takes.
+FAMILY_FLAG = "--mesh-families"
+FAMILY_LAYOUT = (2, 2)
+GEMMA_MESH_HELD = 4      # gemma-7b: float32 moments and accumulator
+ZAMBA_MESH_HELD = ZAMBA_LAYERS
+FAMILIES = {
+    "f": dict(arch=GEMMA_ARCH, layers=None, seq=4096, batch=4,
+              held=GEMMA_MESH_HELD, free=True, tag="tp2_d256"),
+    "g": dict(arch=ZAMBA_ARCH, layers=ZAMBA_LAYERS, seq=4096, batch=4,
+              held=ZAMBA_MESH_HELD, free=True, tag="tp2_d112"),
+    "h": dict(arch=WHISPER_ARCH, layers=None, seq=WHISPER_TRAIN["seq_len"],
+              batch=WHISPER_TRAIN["batch"], held=None, free=True,
+              tag="tp2_d64"),
+    "i": dict(arch=VISION_ARCH, layers=VISION_TRAIN_LAYERS, seq=VISION_SEQ,
+              batch=16, held=VISION_TRAIN_LAYERS, free=False,
+              tag="tp2_vlm"),
+}
+# zamba2's profiled step records the card's activity only: recording the
+# host's ops too takes a minute a step on one card (zamba2_phases)
+FAMILY_DEVICE_ONLY_PROFILE = (ZAMBA_ARCH,)
+# (j): (a)'s model at MESH_SHORT layers on FAMILY_LAYOUT, the reference
+# CLI's n_micro (2) and int8 moments, SUP_BATCH sequences a step, under
+# fault.Supervisor (``shardings=``, a checkpoint every SUP_EVERY steps)
+# with a fault at step SUP_FAULT on every rank: its history's steps must
+# be SUP_HISTORY and its final state an uninterrupted run's bit for bit
+SUP_STEPS, SUP_EVERY, SUP_FAULT, SUP_BATCH = 5, 2, 3, 4
+SUP_HISTORY = [0, 1, 2, 2, 3, 4]
+FAMILY_PHASES = ("f", "g", "h", "i", "j")
 
 
 def mesh_spec(device="cuda", smoke=False, ckpt=None, **over):
@@ -4746,18 +4857,26 @@ def mesh_spec(device="cuda", smoke=False, ckpt=None, **over):
     or the published ones, the checkpoint directory of (d), the sequence
     length (``seq``; (c)'s too, (e)'s twice it), (a)'s and (b)'s depth
     (``layers``, None for all), the phases in order, and whether each
-    rank profiles a step and returns its parameters."""
+    rank profiles a step and returns its parameters; the local-head
+    kernel cases each card checks first (``kernel_tags``)."""
     spec = dict(device=device, smoke=smoke, ckpt=ckpt, seq=MESH_SEQ,
                 layers=None, phases=("a", "b", "c", "d", "e", "count"),
-                profile=device == "cuda", params_out=False)
+                profile=device == "cuda", params_out=False,
+                kernel_tags=MESH_TAGS[:3])
     spec.update(over)
     return spec
 
 
-def mesh_argv(spec, arch, layers, seq, batch, layout=None):
-    """launch.train's arguments for a [mesh] run (int8 moments, the
-    spec's device; ``--model-axis`` of ``layout`` on the mesh)."""
-    argv = train_argv(arch, layers, seq, batch) + ["--quantized-state"]
+def mesh_argv(spec, arch, layers, seq, batch, layout=None, plan=None):
+    """launch.train's arguments for a [mesh] run (the spec's device;
+    ``--model-axis`` of ``layout`` on the mesh): n_micro 1 and int8
+    moments, or ``plan``'s n_micro and moments (a ``launch.dryrun.Plan``;
+    its fsdp goes to ``build``)."""
+    argv = train_argv(arch, layers, seq, batch)
+    if plan is not None:
+        argv[argv.index("--n-micro") + 1] = str(plan.n_micro)
+    if plan is None or plan.quantized:
+        argv.append("--quantized-state")
     argv[argv.index("--device") + 1] = spec["device"]
     if spec["smoke"]:
         argv.append("--smoke")
@@ -4766,36 +4885,59 @@ def mesh_argv(spec, arch, layers, seq, batch, layout=None):
     return argv
 
 
-def local_head_checks(dev):
-    """K5, K6 and K7 at every local-head case on this rank's card against
-    their plain versions (``k5_agreement``, ``grad_agreement``), and K7's
-    dk and dv over two launches bit for bit: per case (K5 passes, K5 max
-    err, K6/K7 pass, their max err, K7 bitwise)."""
+def local_head_checks(dev, tags):
+    """K5, K6 and K7 at the local-head cases ``tags`` on this rank's card
+    against their plain versions (``k5_agreement``, ``grad_agreement``),
+    each with its case's mask (BIDIRECTIONAL: ``causal=False``), and K7's
+    dk and dv over two launches bit for bit. A head dim no kernel is built
+    for (zamba2's 112) runs the kernels on inputs zero-padded to the next
+    one, as ``ops.flash_attention`` pads them, and is also held through
+    that wrapper (forward, and its backward under autograd) against the
+    plain versions at the model's D. Per case (K5 passes, K5 max err,
+    K6/K7 pass, their max err, K7 bitwise)."""
     import torch
+    import torch.nn.functional as F
 
     from repro_torch.kernels import flash_cuda as fc
+    from repro_torch.kernels import ops
     gen = torch.Generator(device=dev).manual_seed(2)
     out = {}
     for tag, b, h, hkv, s, d, dname, window, _ in (
-            [c for c in K5_CASES if c[0] == LOCAL_HEADS] + MESH_K5_CASES):
+            [c for c in K5_CASES + MESH_K5_CASES if c[0] in tags]):
         q, k, v = _attention_case(dev, gen, b, h, hkv, s, d,
                                   getattr(torch, dname))
         do = torch.randn(q.shape, generator=gen, device=dev).to(q.dtype)
-        kw = dict(sm_scale=d ** -0.5, causal=True, window=window)
-        o, lse = fc.flash_fwd(q, k, v, **kw)
-        ok5, err, err_lse, _ = k5_agreement(o, lse,
-                                            *fc.flash_fwd_plain(q, k, v, **kw))
+        causal = tag not in BIDIRECTIONAL
+        kw = dict(sm_scale=d ** -0.5, causal=causal, window=window)
+        dp = ops.padded_head_dim(d)
+        qp, kp, vp, dop = ((F.pad(t, (0, dp - d)).contiguous()
+                            for t in (q, k, v, do)) if dp != d
+                           else (q, k, v, do))
+        o, lse = fc.flash_fwd(qp, kp, vp, **kw)
+        o = o[..., :d].contiguous() if dp != d else o
+        pout, plse = fc.flash_fwd_plain(q, k, v, **kw)
+        ok5, err, err_lse, _ = k5_agreement(o, lse, pout, plse)
         dd = torch.sum(do.float() * o.float(), dim=-1)
-        got = (fc.flash_bwd_dq(q, k, v, do, lse, dd, **kw),
-               *fc.flash_bwd_dkv(q, k, v, do, lse, dd, **kw))
-        res = [grad_agreement(g, w) for g, w in zip(
-            got, fc.flash_bwd_plain(q, k, v, o, lse, do, **kw))]
-        again = fc.flash_bwd_dkv(q, k, v, do, lse, dd, **kw)
-        torch.cuda.synchronize(dev)
+        got = (fc.flash_bwd_dq(qp, kp, vp, dop, lse, dd, **kw),
+               *fc.flash_bwd_dkv(qp, kp, vp, dop, lse, dd, **kw))
+        want = fc.flash_bwd_plain(q, k, v, o, lse, do, **kw)
+        res = [grad_agreement(g[..., :d].contiguous(), w)
+               for g, w in zip(got, want)]
+        if dp != d:
+            wo = ops.flash_attention(q, k, v, causal=causal, window=window)
+            w_ok, w_err, _ = agreement(wo, pout)
+            ok5, err = ok5 and w_ok, max(err, w_err)
+            leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+            res += [grad_agreement(g, w) for g, w in zip(torch.autograd.grad(
+                ops.flash_attention(*leaves, causal=causal, window=window),
+                leaves, do), want)]
+            del wo, leaves
+        again = fc.flash_bwd_dkv(qp, kp, vp, dop, lse, dd, **kw)
+        _sync(dev)
         out[tag] = (ok5, max(err, err_lse), all(r[0] for r in res),
                     max(r[1] for r in res),
                     all(torch.equal(a, g) for a, g in zip(again, got[1:])))
-        del q, k, v, do, o, lse, dd, got, again
+        del q, k, v, do, qp, kp, vp, dop, o, lse, dd, got, again
         _free()
     return out
 
@@ -4857,23 +4999,38 @@ def moe_share(r, slots):
 
 
 def _mesh_train(dev, spec, layout, arch=MESH_ARCH, layers=None, seq=None,
-                batch=None, moe=False):
-    """launch.train's path on this rank's mesh of ``layout``: build, then
-    TRAIN_STEPS steps (the launches counted over them), the peak, one
-    more step under torch.profiler (with ``spec["profile"]``); an MoE
-    run records its routing (``RoutingRecorder``) and its dispatches
-    (``moe_share``), and saves its parameters after MESH_MOE_HELD steps
-    (``spec["ckpt"] + "_moe"``)."""
+                batch=None, moe=False, plan=None, prepare=None, save=None,
+                inputs=None, profile=None):
+    """launch.train's path on this rank's mesh of ``layout``: build (under
+    ``plan``, ``mesh_argv``'s; ``inputs`` the cross-attended inputs of a
+    step, default ``train_inputs``, made before the steps),
+    ``prepare(model)`` on the model
+    built, then TRAIN_STEPS steps (the launches counted over them), the
+    peak, one more step under torch.profiler (``profile``, default
+    ``spec["profile"]``; ``"cuda"``: its device activity only); with
+    ``save``, the parameters saved there after MESH_MOE_HELD steps, for
+    one process to take the next step at them. An MoE run records its
+    routing (``RoutingRecorder``) and its dispatches (``moe_share``)."""
     import numpy as np
+    from torch.distributed.tensor import DTensor, Shard
 
     from repro_torch.kernels import flash_cuda as fc
     from repro_torch.launch import train as lt
     from repro_torch.train import checkpoint
     args = lt.parse(mesh_argv(spec, arch, layers or spec["layers"],
                               seq or spec["seq"], batch or MESH_BATCH,
-                              layout))
+                              layout, plan))
     t0 = time.perf_counter()
-    r = lt.build(args)
+    source = inputs or train_inputs(lt.config(args), args.global_batch)
+    if source is not None:
+        # every step's cross-attended inputs made first, so that no step's
+        # time holds their making (16 x 1601 x 8192 normals for
+        # llama-3.2-vision-90b: seconds of host time)
+        made = {s: source(s) for s in range(TRAIN_STEPS + 1)}
+        source = made.__getitem__
+    r = lt.build(args, source, fsdp=plan is not None and plan.fsdp)
+    if prepare is not None:
+        prepare(r.model)
     init_s = time.perf_counter() - t0
     check(tuple(r.mesh.shape) == tuple(layout),
           f"mesh {tuple(r.mesh.shape)}, wanted {layout}")
@@ -4896,28 +5053,42 @@ def _mesh_train(dev, spec, layout, arch=MESH_ARCH, layers=None, seq=None,
             rec.mark()
         # the main path: counts set to 0 just before, read just after
         fc.reset_launches()
-        if moe:
-            # the weights (e)'s step MESH_MOE_HELD + 1 starts from, for
-            # one process to take that step at them (moe_restored_step)
+        if save:
+            # the weights step MESH_MOE_HELD + 1 starts from, for one
+            # process to take that step at them (moe_restored_step,
+            # family_at)
             hist = lt.train_steps(r, 0, MESH_MOE_HELD, on_step=on_step)
-            checkpoint.save(spec["ckpt"] + "_moe", MESH_MOE_HELD,
-                            {"params": r.state["params"]})
+            checkpoint.save(save, MESH_MOE_HELD, {"params": r.state["params"]})
             hist += lt.train_steps(r, MESH_MOE_HELD, TRAIN_STEPS,
                                    on_step=on_step)
         else:
             hist = lt.train_steps(r, 0, TRAIN_STEPS, on_step=on_step)
         launches = dict(fc.LAUNCHES)
+    # the parameters fsdp shards over data on a dim model does not split
+    data = r.mesh.mesh_dim_names.index("data")
+    fsdp = sorted(n for n, p in r.state["params"].items()
+                  if isinstance(p, DTensor) and p.dim() >= 2
+                  and isinstance(p.placements[data], Shard)
+                  and all(p.placements[data].dim != q.dim
+                          for i, q in enumerate(p.placements)
+                          if i != data and isinstance(q, Shard)))
     out = {"hist": hist, "launches": launches, "peak": _peak(dev),
            "init_s": init_s, "params": sum(p.numel() for p in
                                            r.model.parameters()),
-           "mesh": tuple(r.mesh.shape)}
+           "mesh": tuple(r.mesh.shape), "layers": r.cfg.n_layers,
+           "flash_layers": flash_layers(r.model),
+           "n_micro": args.n_micro, "quantized": args.quantized_state,
+           "tokens": args.global_batch * (args.seq_len - 1),
+           "fsdp_leaves": fsdp}
     if moe:
         out["routes"] = [[c.cpu().numpy().astype(np.int8) for c in call]
                          for call in rec.calls if call]
         out["share"] = moe_share(r, slots)
     del slots, rec
+    profile = spec["profile"] if profile is None else profile
     out["split"] = (device_ms(lambda: lt.train_steps(
-        r, TRAIN_STEPS, TRAIN_STEPS + 1)) if spec["profile"] else None)
+        r, TRAIN_STEPS, TRAIN_STEPS + 1), cpu=profile != "cuda")
+                    if profile else None)
     if spec["params_out"]:
         from repro_torch.convert import lm_params_to_numpy
         out["tree"] = lm_params_to_numpy(r.model)
@@ -5088,6 +5259,129 @@ def _mesh_count(dev, spec):
     return rec
 
 
+def family_plan(key):
+    """(f)-(i)'s plan, the family's ``launch.dryrun.PLANS`` entry; (j)'s,
+    the reference CLI's n_micro (``launch.train``'s default) with int8
+    moments."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import train as lt
+    if key == "j":
+        return dryrun.Plan(n_micro=lt.parse([]).n_micro, quantized=True)
+    return dryrun.PLANS[FAMILIES[key]["arch"]]
+
+
+def family_prepare(arch):
+    """What the model of ``arch`` takes before training, as its one-card
+    slice does: zamba2's constant leaves drawn (perturb_ssm_leaves), the
+    VLM's gates set to VISION_GATE; None for the others."""
+    if arch == ZAMBA_ARCH:
+        return perturb_ssm_leaves
+    if arch == VISION_ARCH:
+        return lambda model: set_gates(model, VISION_GATE)
+    return None
+
+
+def family_argv(spec, key, layers, layout=None):
+    """launch.train's arguments for family ``key`` at ``layers`` (the
+    SMOKE config's own depth and the spec's sequence with ``smoke``)."""
+    fam = FAMILIES[key]
+    smoke = spec["smoke"]
+    return mesh_argv(spec, fam["arch"], None if smoke else layers,
+                     spec["seq"] if smoke else fam["seq"], fam["batch"],
+                     layout, family_plan(key))
+
+
+def _mesh_family(dev, spec, key, inputs=None):
+    """(f)-(i) on this rank: family ``key`` at its depth (profiled, as
+    the spec says), then, where one card holds the plan at another depth,
+    at that one; the held run saves its weights after MESH_MOE_HELD
+    steps under ``spec["ckpt"] + "_" + key``. ``inputs``: another source
+    of the cross-attended inputs (the CPU tests' control)."""
+    fam = FAMILIES[key]
+    layers, held, seq = ((None, None, spec["seq"]) if spec["smoke"]
+                         else (fam["layers"], fam["held"], fam["seq"]))
+
+    def run(depth, save, profile):
+        return _mesh_train(
+            dev, spec, FAMILY_LAYOUT, fam["arch"], depth, seq, fam["batch"],
+            plan=family_plan(key), prepare=family_prepare(fam["arch"]),
+            save=save, inputs=inputs, profile=profile)
+
+    save = spec["ckpt"] + f"_{key}" if spec["ckpt"] else None
+    profile = spec["profile"] and (
+        "cuda" if fam["arch"] in FAMILY_DEVICE_ONLY_PROFILE else True)
+    out = {"timed": run(layers, save if held == layers else None, profile)}
+    if held != layers:
+        out["held"] = run(held, save, False)
+    return out
+
+
+def _other_frames(dev, spec):
+    """(h) with each data rank's frames taken from the other data rank's
+    rows (its tokens its own): the CPU tests' control, whose loss must
+    move."""
+    import numpy as np
+
+    from repro_torch.launch import train as lt
+    fam = FAMILIES["h"]
+    cfg = lt.config(lt.parse(family_argv(spec, "h", fam["layers"])))
+    base = train_inputs(cfg, fam["batch"])
+
+    def inputs(step):
+        return {k: np.roll(v, fam["batch"] // 2, axis=0)
+                for k, v in base(step).items()}
+    return _mesh_family(dev, dict(spec, ckpt=None), "h", inputs)
+
+
+def _mesh_supervised(dev, spec):
+    """(j): SUP_STEPS steps under fault.Supervisor with ``shardings=``,
+    a checkpoint every SUP_EVERY steps and a fault injected at step
+    SUP_FAULT (once, on every rank), beside the same steps uninterrupted:
+    the history, every leaf of the final state against the uninterrupted
+    one's (bit for bit), the latest checkpoint and the launches."""
+    from repro_torch.kernels import flash_cuda as fc
+    from repro_torch.launch import train as lt
+    from repro_torch.train import checkpoint, fault
+    argv = mesh_argv(spec, MESH_ARCH, None if spec["smoke"] else MESH_SHORT,
+                     spec["seq"], SUP_BATCH, FAMILY_LAYOUT, family_plan("j"))
+    argv[argv.index("--steps") + 1] = str(SUP_STEPS)
+    args = lt.parse(argv)
+    straight = lt.build(args)
+    lt.train_steps(straight, 0, SUP_STEPS)
+    r = lt.build(args)
+    armed = [True]
+
+    def fault_hook(step):
+        if step == SUP_FAULT and armed[0]:
+            armed[0] = False
+            raise RuntimeError(f"injected fault at step {step}")
+
+    ckpt = spec["ckpt"] + "_j"
+    sup = fault.Supervisor(ckpt_dir=ckpt, ckpt_every=SUP_EVERY)
+    _reset_peak(dev)
+    # the main path: counts set to 0 just before, read just after
+    fc.reset_launches()
+    t0 = time.perf_counter()
+    final, hist = sup.run(state=r.state, step_fn=r.step_fn,
+                          data_fn=r.data_fn, n_steps=SUP_STEPS,
+                          fault_hook=fault_hook, shardings=r.shardings)
+    wall = time.perf_counter() - t0
+    launches = dict(fc.LAUNCHES)
+    got, want = checkpoint._flatten(final), checkpoint._flatten(
+        straight.state)
+    bad = [k for k in want if not _same_leaf(got[k], want[k])]
+    out = {"hist": hist, "steps": [h["step"] for h in hist],
+           "launches": launches, "leaves": len(want), "bad": bad,
+           "latest": checkpoint.latest_step(ckpt),
+           "opt_step": final["opt_state"].step, "peak": _peak(dev),
+           "wall_s": wall, "flash_layers": flash_layers(r.model),
+           "n_micro": args.n_micro,
+           "tokens": args.global_batch * (args.seq_len - 1)}
+    del r, straight, final, got, want
+    _free()
+    return out
+
+
 MESH_RUNS = {
     "a": lambda dev, spec: _mesh_train(dev, spec, MESH_TP["a"]),
     "b": lambda dev, spec: _mesh_train(dev, spec, MESH_TP["b"]),
@@ -5096,8 +5390,14 @@ MESH_RUNS = {
     "e": lambda dev, spec: _mesh_train(
         dev, spec, MESH_TP["a"], MIXTRAL_ARCH,
         None if spec["smoke"] else MESH_MOE_LAYERS, 2 * spec["seq"],
-        MESH_BATCH, moe=True),
+        MESH_BATCH, moe=True, save=spec["ckpt"] + "_moe"),
     "count": _mesh_count,
+    "f": lambda dev, spec: _mesh_family(dev, spec, "f"),
+    "g": lambda dev, spec: _mesh_family(dev, spec, "g"),
+    "h": lambda dev, spec: _mesh_family(dev, spec, "h"),
+    "i": lambda dev, spec: _mesh_family(dev, spec, "i"),
+    "j": _mesh_supervised,
+    "h_other_frames": _other_frames,
 }
 
 
@@ -5125,7 +5425,7 @@ def _mesh_rank(rank, world, init_file, spec):
     dev = torch.device("cuda", rank) if cuda else torch.device("cpu")
     out = {"backend": dist.get_backend(), "device": str(dev)}
     if cuda:
-        out["kernels"] = local_head_checks(dev)
+        out["kernels"] = local_head_checks(dev, spec["kernel_tags"])
     for name in spec["phases"]:
         t0 = time.perf_counter()
         out[name] = MESH_RUNS[name](dev, spec)
@@ -5291,6 +5591,21 @@ def mesh_count_report(tag, meta, res):
               f"peak {pred} vs max_memory_allocated {card['peak']}")
 
 
+def rank_kernel_lines(res, cuda):
+    """Every card: the backend, and K5, K6, K7 at each local-head case
+    held to their plain versions, K7 bit for bit over two launches."""
+    for r, out in enumerate(res):
+        want = ("nccl", f"cuda:{r}") if cuda else ("gloo", "cpu")
+        check((out["backend"], out["device"]) == want,
+              f"rank {r}: {out['backend']} on {out['device']}")
+        for tag, (ok5, e5, okb, eb, same) in out.get("kernels", {}).items():
+            phase("mesh", rank=r, device=out["device"], case=tag,
+                  k5_max_abs_err=f"{e5:.3e}", k6_k7_max_abs_err=f"{eb:.3e}",
+                  k7_two_launches="bitwise" if same else "differ")
+            check(ok5 and okb and same, f"rank {r} {tag}: K5 {ok5} ({e5}), "
+                  f"K6/K7 {okb} ({eb}), K7 bitwise {same}")
+
+
 def mesh_phases(dev, spec=None):
     """[mesh] on MESH_WORLD cards (``spec``, default ``mesh_spec()``): the
     meta count's process, the ranks (each its card's local-head checks,
@@ -5342,22 +5657,9 @@ def mesh_phases(dev, spec=None):
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
-    # every card: the backend, and K5, K6, K7 at each local-head case
-    for r, out in enumerate(res):
-        want = ("nccl", f"cuda:{r}") if cuda else ("gloo", "cpu")
-        check((out["backend"], out["device"]) == want,
-              f"rank {r}: {out['backend']} on {out['device']}")
-        for tag, (ok5, e5, okb, eb, same) in out.get("kernels", {}).items():
-            phase("mesh", rank=r, device=out["device"], case=tag,
-                  k5_max_abs_err=f"{e5:.3e}", k6_k7_max_abs_err=f"{eb:.3e}",
-                  k7_two_launches="bitwise" if same else "differ")
-            check(ok5 and okb and same, f"rank {r} {tag}: K5 {ok5} ({e5}), "
-                  f"K6/K7 {okb} ({eb}), K7 bitwise {same}")
+    rank_kernel_lines(res, cuda)
     # (a), (b): tensor parallelism against one process on card 0
-    tokens = MESH_BATCH * (spec["seq"] - 1)
     for key in ("a", "b"):
-        for out in res:
-            out[key]["tokens"] = tokens
         _rank_lines("mesh", res, key, whole, f"tp_{key}", cuda)
     phase("mesh", run="one_process", arch=MESH_ARCH, batch=MESH_BATCH,
           n_micro=1, step_s=",".join(f"{h['time_s']:.3f}"
@@ -5410,9 +5712,7 @@ def mesh_phases(dev, spec=None):
                  "one_process_follows_mesh", held=1)
     follow_check(moe_rec, "mesh", MIXTRAL_ARCH,
                  f"one_process_at_mesh_weights_step{MESH_MOE_HELD}")
-    moe_tokens = MESH_BATCH * (2 * spec["seq"] - 1)
     for r, out in enumerate(res):
-        out["e"]["tokens"] = moe_tokens
         first, at = out["e"]["hist"][0], out["e"]["hist"][MESH_MOE_HELD]
         rels = (_rel(first["loss"], moe_whole["hist"][0]["loss"]),
                 _rel(at["loss"], moe_at["loss"]),
@@ -5440,6 +5740,329 @@ def mesh_phases(dev, spec=None):
     for key, tag in (("a", LOCAL_HEADS), ("b", "tp4"), ("e", "tp2_w4096")):
         for name, n in res[0][key]["launches"].items():
             launches[f"{name}_{tag}"] += n
+    return launches
+
+
+def family_kernel_phase(dev):
+    """FAMILY_TAGS' kernel cases on card 0, each against its plain
+    version, timed beside it and SDPA: a head dim the kernels are built
+    for through lm_kernel_phase and bwd_kernel_phase, zamba2's through
+    padded_kernel_phase (the wrapper's pad). Returns their rows."""
+    from repro_torch.kernels import flash_cuda as fc
+    fwd = [c for c in MESH_K5_CASES if c[0] in FAMILY_TAGS]
+    bwd = [c for c in MESH_BWD_CASES if c[0] in FAMILY_TAGS]
+    table = lm_kernel_phase(dev, [c for c in fwd if c[5] in fc.HEAD_DIMS],
+                            small=False)
+    table.update(bwd_kernel_phase(
+        dev, [c for c in bwd if c[5] in fc.HEAD_DIMS], small=False))
+    for f, b in zip(fwd, bwd, strict=True):
+        if f[5] not in fc.HEAD_DIMS:
+            check(f[2] == f[3] and f[5] == b[5] == ZAMBA_D,
+                  f"padded case {f[0]}: H = Hkv and D = {ZAMBA_D} only")
+            table.update(padded_kernel_phase(
+                dev, (f[0], f[1], f[2], f[4], f[8]),
+                (b[0], b[1], b[2], b[4], b[8])))
+    return table
+
+
+def family_spec(**over):
+    """What the ranks of --mesh-families run: (f)-(j) on the cards, each
+    card checking FAMILY_TAGS' kernel cases first."""
+    return mesh_spec(**{"ckpt": str(ROOT / "build" / "mesh_ckpt"),
+                        "phases": FAMILY_PHASES, "kernel_tags": FAMILY_TAGS,
+                        **over})
+
+
+def accumulated_grads(model, batch):
+    """``train.loop.microbatch_grads``' mean loss and its gradients' global
+    norm (``adamw.global_norm``) for a model on one device, one row a
+    microbatch: every row holds as many tokens, so the mean over rows is
+    the mean over any plan's microbatches of equal rows, up to float32's
+    order of summation. Each row's gradient is added in float32 into the
+    accumulator as the backward makes it (a parameter's hook), so that no
+    whole set of gradients is held beside the accumulator: one card holds
+    llama-3.2-vision-90b's group so (two rows at a time and a set of bf16
+    gradients beside the accumulator pass 80 GB)."""
+    import torch
+
+    from repro_torch.optim import adamw
+    from repro_torch.train import loop as tl
+    params = dict(model.named_parameters())
+    acc = {n: torch.zeros_like(p, dtype=torch.float32)
+           for n, p in params.items()}
+
+    def add(n):
+        def hook(p):
+            acc[n].add_(p.grad.to(torch.float32))
+            p.grad = None
+        return hook
+
+    hooks = [p.register_post_accumulate_grad_hook(add(n))
+             for n, p in params.items()]
+    n_micro = next(iter(batch.values())).shape[0]
+    lsum = torch.zeros((), dtype=torch.float32, device=model.device)
+    try:
+        for mb in tl._split(batch, n_micro):
+            model.zero_grad(set_to_none=True)
+            loss, _ = model.loss(mb)
+            loss.backward()
+            lsum = lsum + loss.detach()
+    finally:
+        for h in hooks:
+            h.remove()
+    inv = 1.0 / n_micro
+    gnorm = adamw.global_norm(a.mul_(inv) for a in acc.values())
+    return float(lsum * inv), float(gnorm)
+
+
+def family_at(dev, argv, prepare, step, ckpt=None):
+    """One process's loss and gradient norm (``accumulated_grads``, no
+    optimizer state) at ``step``'s batch, at the seeded weights or, with
+    ``ckpt``, at the weights a mesh run saved there after MESH_MOE_HELD
+    steps (read into host memory, then copied into the model's
+    parameters); its peak and seconds."""
+    import torch
+
+    from repro_torch.data.pipeline import SyntheticLM, device_batch
+    from repro_torch.launch import train as lt
+    from repro_torch.models.lm import LM
+    from repro_torch.train import checkpoint
+    from repro_torch.train import loop as tl
+    args = lt.parse(argv)
+    cfg = lt.config(args)
+    _free()
+    _reset_peak(dev)
+    model = LM(cfg, device=dev, seed=0, trainable=True)
+    if prepare is not None:
+        prepare(model)
+    if ckpt:
+        got = checkpoint.restore(ckpt, MESH_MOE_HELD, {"params": {
+            n: torch.empty_like(p, device="cpu")
+            for n, p in tl.params_of(model).items()}})
+        tl.bind(model, got["params"])
+        del got
+    extra = train_inputs(cfg, args.global_batch)
+    batch = device_batch({"tokens": SyntheticLM(
+        cfg.vocab, args.seq_len, args.global_batch).batch_at(step),
+        **(extra(step) if extra else {})}, dev)
+    t0 = time.perf_counter()
+    loss, gnorm = accumulated_grads(model, batch)
+    out = {"loss": loss, "grad_norm": gnorm,
+           "s": time.perf_counter() - t0, "peak": _peak(dev)}
+    del model, batch
+    _free()
+    return out
+
+
+def family_one_process(dev, spec, key):
+    """On card 0, what (f)-(i)'s held run is held to: one process running
+    the plan's TRAIN_STEPS steps at the held depth (where ``free``), and
+    its loss at the mesh's saved weights at step MESH_MOE_HELD (and,
+    without ``free``, at the seeded weights at step 0). Returns (the
+    free-running run or None, {step: family_at's record})."""
+    fam = FAMILIES[key]
+    plan = family_plan(key)
+    argv = family_argv(spec, key, fam["held"])
+    prepare = family_prepare(fam["arch"])
+    whole = (full_depth_run("one_process", {}, arch=fam["arch"], argv=argv,
+                            line="mesh", prepare=prepare,
+                            quantized=plan.quantized)
+             if fam["free"] else None)
+    at = {} if fam["free"] else {0: family_at(dev, argv, prepare, 0)}
+    at[MESH_MOE_HELD] = family_at(dev, argv, prepare, MESH_MOE_HELD,
+                                  spec["ckpt"] + f"_{key}")
+    return whole, at
+
+
+def family_report(tag, res, key, whole, at, cuda=True):
+    """(f)-(i)'s lines and checks: on every rank, each run's launches a
+    step (K5 twice a flash layer a microbatch, K6 and K7 once: the
+    forward, the remat recompute, the backward) on a card, its peak under
+    MESH_PEAK; the held run's steps against one process (free-running:
+    the steps before MESH_MOE_HELD within DIST_LOSS_RTOL; at the same
+    weights within TRAIN_LOSS_RTOL); the timed run's step time, tokens a
+    second, NCCL's device time in the profiled step and peak; under fsdp,
+    the matrices sharded over data on a dim model does not split."""
+    from repro_torch.kernels import flash_cuda as fc
+    fam = FAMILIES[key]
+    arch, plan, what = fam["arch"], family_plan(key), f"family_{key}"
+    for r, out in enumerate(res):
+        timed = out[key]["timed"]
+        held = out[key].get("held", timed)
+        mesh = "x".join(map(str, timed["mesh"]))
+        for run in (timed, held) if held is not timed else (timed,):
+            n, nm = run["flash_layers"], run["n_micro"]
+            want = {fc.NAME: 2 * n * nm, fc.DQ: n * nm, fc.DKV: n * nm}
+            for h in run["hist"]:
+                got = {k: h["launches"].get(k, 0) for k in want}
+                check(not cuda or got == want, f"{what} {arch} at "
+                      f"{run['layers']} layers, rank {r} step {h['step']}: "
+                      f"launches {got}, want {want}")
+            check(run["peak"] < MESH_PEAK, f"{what} rank {r}: peak "
+                  f"{run['peak']} bytes")
+        for h in held["hist"]:
+            s = h["step"]
+            cmp = {}
+            if whole is not None:
+                w = whole["hist"][s]
+                rel = _rel(h["loss"], w["loss"])
+                limit = DIST_LOSS_RTOL if s < MESH_MOE_HELD else "not_held"
+                cmp.update(loss_one_process=f"{w['loss']:.6f}",
+                           loss_rel_vs_one_process=f"{rel:.3e}",
+                           grad_norm_rel_vs_one_process=(
+                               f"{_rel(h['grad_norm'], w['grad_norm']):.3e}"),
+                           limit=limit)
+                check(limit == "not_held" or rel <= DIST_LOSS_RTOL,
+                      f"{what} {arch} rank {r} step {s}: loss {rel} from "
+                      f"one process")
+            if s in at:
+                a = at[s]
+                rel = _rel(h["loss"], a["loss"])
+                cmp.update(compare="one_process_at_mesh_weights",
+                           loss_at_same_weights=f"{a['loss']:.6f}",
+                           loss_rel_at_same_weights=f"{rel:.3e}",
+                           grad_norm_rel_at_same_weights=(
+                               f"{_rel(h['grad_norm'], a['grad_norm']):.3e}"),
+                           same_weights_limit=TRAIN_LOSS_RTOL)
+                check(rel <= TRAIN_LOSS_RTOL, f"{what} {arch} rank {r} step "
+                      f"{s}: loss {rel} from one process at the same weights")
+            phase(tag, run=what, arch=arch, mesh=mesh, rank=r, step=s,
+                  n_layers=held["layers"], loss=f"{h['loss']:.6f}",
+                  grad_norm=f"{h['grad_norm']:.6f}", **cmp,
+                  time_s=f"{h['time_s']:.3f}",
+                  launches=json.dumps(h["launches"], separators=(",", ":")))
+        wall = timed["hist"][-1]["time_s"]
+        split = timed["split"] or {}
+        phase(tag, run=what, arch=arch, mesh=mesh, rank=r,
+              device=out["device"], n_layers=timed["layers"],
+              held_layers=held["layers"], n_micro=plan.n_micro,
+              fsdp=plan.fsdp, quantized_state=plan.quantized,
+              params=timed["params"], tokens_per_step=timed["tokens"],
+              init_s=f"{timed['init_s']:.3f}",
+              step_s=",".join(f"{h['time_s']:.3f}" for h in timed["hist"]),
+              tokens_per_s=f"{timed['tokens'] / wall:.1f}",
+              tokens_per_s_per_card=(
+                  f"{timed['tokens'] / wall / MESH_WORLD:.1f}"),
+              nccl_s=(f"{split['nccl'] / 1e3:.4f}" if split
+                      else "not measured"),
+              device_s=(f"{sum(split.values()) / 1e3:.4f}" if split
+                        else "not measured"),
+              **{f"profiled_{k}_ms": f"{v:.3f}" for k, v in split.items()},
+              max_memory_allocated=timed["peak"],
+              held_max_memory_allocated=held["peak"],
+              fsdp_leaves=len(timed["fsdp_leaves"]),
+              fsdp_example=(timed["fsdp_leaves"] or ["none"])[0],
+              launches=json.dumps(timed["launches"], separators=(",", ":")))
+        check(not plan.fsdp or timed["fsdp_leaves"], f"{what} rank {r}: "
+              f"fsdp, and no matrix is sharded over data")
+    peaks = {s: a["peak"] for s, a in at.items()}
+    phase(tag, run=f"{what}_one_process", arch=arch,
+          n_layers=res[0][key].get("held", res[0][key]["timed"])["layers"],
+          n_micro=plan.n_micro, free_running=whole is not None,
+          step_s=(",".join(f"{h['time_s']:.3f}" for h in whole["hist"])
+                  if whole else "not run"),
+          max_memory_allocated=whole["peak"] if whole else "not run",
+          same_weights_steps=",".join(map(str, at)),
+          same_weights_s=",".join(f"{a['s']:.3f}" for a in at.values()),
+          same_weights_peak=json.dumps(peaks, separators=(",", ":")))
+
+
+def supervisor_report(tag, res, cuda=True):
+    """(j)'s lines and checks on every rank: the history's steps equal
+    SUP_HISTORY, the final state the uninterrupted run's bit for bit, the
+    latest checkpoint and the optimizer's step SUP_STEPS, K5-K7 launched
+    as many times as the steps run (SUP_HISTORY's length) need, the peak
+    under MESH_PEAK."""
+    from repro_torch.kernels import flash_cuda as fc
+    for r, out in enumerate(res):
+        j = out["j"]
+        n, nm = j["flash_layers"], j["n_micro"]
+        runs = len(j["steps"])
+        want = {fc.NAME: 2 * n * nm * runs, fc.DQ: n * nm * runs,
+                fc.DKV: n * nm * runs}
+        got = {k: j["launches"].get(k, 0) for k in want}
+        phase(tag, run="supervisor_j", rank=r, mesh="x".join(
+            map(str, FAMILY_LAYOUT)), n_micro=nm, quantized_state=True,
+              tokens_per_step=j["tokens"],
+              steps=",".join(map(str, j["steps"])),
+              want_steps=",".join(map(str, SUP_HISTORY)),
+              leaves=j["leaves"], bitwise_leaves=j["leaves"] - len(j["bad"]),
+              compare="uninterrupted_run", latest_checkpoint=j["latest"],
+              opt_step=j["opt_step"],
+              losses=",".join(f"{h['loss']:.6f}" for h in j["hist"]),
+              step_s=",".join(f"{h['time_s']:.3f}" for h in j["hist"]),
+              wall_s=f"{j['wall_s']:.1f}", max_memory_allocated=j["peak"],
+              launches=json.dumps(got, separators=(",", ":")))
+        check(j["steps"] == SUP_HISTORY, f"supervisor rank {r}: steps "
+              f"{j['steps']}, want {SUP_HISTORY}")
+        check(not j["bad"], f"supervisor rank {r}: leaves {j['bad'][:3]} "
+              f"differ from the uninterrupted run's")
+        check(j["latest"] == SUP_STEPS and j["opt_step"] == SUP_STEPS,
+              f"supervisor rank {r}: latest checkpoint {j['latest']}, "
+              f"optimizer step {j['opt_step']}")
+        check(not cuda or got == want, f"supervisor rank {r}: launches "
+              f"{got}, want {want}")
+        check(j["peak"] < MESH_PEAK, f"supervisor rank {r}: peak "
+              f"{j['peak']} bytes")
+
+
+def family_phases(dev, spec=None):
+    """--mesh-families on MESH_WORLD cards (``spec``, default
+    ``family_spec()``): the ranks (each its card's FAMILY_TAGS kernel
+    checks, then (f)-(i) and (j)), then on card 0 the one-process runs
+    (f)-(i) are held to, and the checks. Returns the launches of the
+    FAMILY_TAGS rows: each family's timed run's on rank 0."""
+    from repro_torch.launch import ranks
+    t0 = time.perf_counter()
+    spec = spec or family_spec()
+    cuda = spec["device"] == "cuda"
+    dirs = [spec["ckpt"] + f"_{k}" for k in spec["phases"]]
+    for d in dirs:
+        shutil.rmtree(d, ignore_errors=True)
+    _free()
+    init = ROOT / "build" / "mesh_rdzv"
+    init.unlink(missing_ok=True)
+    t1 = time.perf_counter()
+    try:
+        res = ranks.run_ranks(_mesh_rank, MESH_WORLD, str(init), (spec,),
+                              timeout=MESH_TIMEOUT)
+        ranks_s = time.perf_counter() - t1
+        init.unlink(missing_ok=True)
+        # the one-process runs on card 0, once the ranks have left it; a
+        # family's failure is reported after every run's lines
+        t1 = time.perf_counter()
+        held, failed = {}, {}
+        for k in (k for k in FAMILIES if k in spec["phases"]):
+            try:
+                held[k] = family_one_process(dev, spec, k)
+            except Exception as e:          # noqa: BLE001
+                failed[k] = f"{type(e).__name__}: {e}"[:2000]
+                held[k] = (None, {})
+                _free()
+        one_s = time.perf_counter() - t1
+    finally:
+        for d in dirs:
+            shutil.rmtree(d, ignore_errors=True)
+    rank_kernel_lines(res, cuda)
+    # every run's lines before any failure ends the script
+    reports = [(k, lambda k=k: family_report("mesh", res, k, *held[k],
+                                             cuda)) for k in held]
+    if "j" in spec["phases"]:
+        reports.append(("j", lambda: supervisor_report("mesh", res, cuda)))
+    for key, report in reports:
+        try:
+            report()
+        except SmokeFailure as e:
+            failed[key] = str(e)
+    check(not failed, f"[mesh] families failed: {failed}")
+    phase("mesh", families=",".join(spec["phases"]),
+          ranks_seconds=f"{ranks_s:.1f}", one_process_seconds=f"{one_s:.1f}",
+          **{f"{k}_s": f"{res[0][f'{k}_s']:.1f}" for k in spec["phases"]},
+          seconds=f"{time.perf_counter() - t0:.1f}")
+    launches = collections.Counter()
+    for key in held:
+        for name, n in res[0][key]["timed"]["launches"].items():
+            launches[f"{name}_{FAMILIES[key]['tag']}"] += n
     return launches
 
 
@@ -5512,16 +6135,33 @@ def main() -> int:
                   f"{count} visible", file=sys.stderr)
             return 1
         build_phase()           # once, before any rank loads the libraries
-        table = lm_kernel_phase(dev, [c for c in K5_CASES
-                                      if c[0] == LOCAL_HEADS]
-                                + MESH_K5_CASES, small=False)
+        tags = MESH_TAGS[:3]
+        table = lm_kernel_phase(dev, [c for c in K5_CASES + MESH_K5_CASES
+                                      if c[0] in tags], small=False)
         table.update(bwd_kernel_phase(
-            dev, [c for c in BWD_CASES if c[0] == LOCAL_HEADS]
-            + MESH_BWD_CASES, small=False))
+            dev, [c for c in BWD_CASES + MESH_BWD_CASES if c[0] in tags],
+            small=False))
         launches = mesh_phases(dev)
         for row in table.values():
             row["launches"] = launches[row["name"]]
         phase("done", mesh_only=True,
+              seconds=f"{time.perf_counter() - t0:.1f}")
+        print(smi)
+        print(json.dumps({"kernels": list(table.values())}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name, "count": count}}))
+        return 0
+    if sys.argv[1:] == [FAMILY_FLAG]:        # the families on four cards
+        if count < MESH_WORLD:
+            print(f"chip_smoke: {FAMILY_FLAG} needs {MESH_WORLD} cards, "
+                  f"{count} visible", file=sys.stderr)
+            return 1
+        build_phase()           # once, before any rank loads the libraries
+        table = family_kernel_phase(dev)
+        launches = family_phases(dev)
+        for row in table.values():
+            row["launches"] = launches[row["name"]]
+        phase("done", mesh_families=True,
               seconds=f"{time.perf_counter() - t0:.1f}")
         print(smi)
         print(json.dumps({"kernels": list(table.values())}))

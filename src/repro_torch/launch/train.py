@@ -109,15 +109,17 @@ def config(args: argparse.Namespace):
     return cfg
 
 
-def build(args: argparse.Namespace, extra_inputs=None
-          ) -> types.SimpleNamespace:
+def build(args: argparse.Namespace, extra_inputs=None, *,
+          fsdp: bool = False) -> types.SimpleNamespace:
     """The model (weights from seed 0 on the device), its optimizer
     and train step, the training state and the data: ``cfg``, ``model``,
     ``ocfg``, ``step_fn``, ``state`` ({"params", "opt_state"}) and
     ``data_fn(step)``. ``extra_inputs(step)`` gives the batch's
     ``frames`` / ``vision`` at a step (numpy (global_batch, T, d_model)
     arrays, ``models.lm.cross_inputs``), which an encoder-decoder or VLM
-    needs."""
+    needs. On a mesh, ``fsdp`` shards the parameters over ``data`` too
+    (a plan's option, ``launch.dryrun.PLANS``; the command line has no
+    flag for it, as the reference's has none)."""
     cfg = config(args)
     need = cross_inputs(cfg)
     if need and extra_inputs is None:
@@ -142,8 +144,8 @@ def build(args: argparse.Namespace, extra_inputs=None
     ds = SyntheticLM(vocab=cfg.vocab, seq_len=args.seq_len,
                      global_batch=args.global_batch)
     params = tl.params_of(model)
-    state = {"params": params, "opt_state": adamw.init(ocfg, params)}
     if mesh is None:
+        state = {"params": params, "opt_state": adamw.init(ocfg, params)}
         return types.SimpleNamespace(
             cfg=cfg, model=model, ocfg=ocfg, mesh=None, shardings=None,
             step_fn=tl.make_train_fn(model, ocfg, n_micro=args.n_micro),
@@ -152,7 +154,7 @@ def build(args: argparse.Namespace, extra_inputs=None
                 {"tokens": ds.batch_at(s),
                  **(extra_inputs(s) if need else {})}, dev))
     step_fn, shardings = tl.make_train_step(model, ocfg, mesh,
-                                            n_micro=args.n_micro)
+                                            n_micro=args.n_micro, fsdp=fsdp)
     sh = shardings(params)
     lo, hi = local_rows(mesh, args.global_batch)
 
@@ -163,10 +165,11 @@ def build(args: argparse.Namespace, extra_inputs=None
                                         **extra},
                                  global_batch=args.global_batch)
 
+    # the optimizer state made in its layout, never whole on a rank
     return types.SimpleNamespace(
         cfg=cfg, model=model, ocfg=ocfg, mesh=mesh,
         shardings={"params": sh.params, "opt_state": sh.state},
-        step_fn=step_fn, state=sh.distribute(state), data_fn=data_fn)
+        step_fn=step_fn, state=sh.distribute({}), data_fn=data_fn)
 
 
 def train_steps(r: types.SimpleNamespace, first: int, last: int, *,

@@ -26,6 +26,7 @@ import types
 import torch
 import torch.distributed as dist
 from torch.distributed.tensor import DTensor, distribute_tensor
+from torch.distributed.tensor import zeros as dtensor_zeros
 from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch.models.lm import LM
@@ -135,12 +136,15 @@ def _accumulate(model: LM, batch: dict, n_micro: int,
         loss, metrics, grads = _grads(model, mb)
         for n, g in grads.items():
             acc[n].add_(g.to(acc_dt))
+        # the microbatch's gradients go before the next one's are made
+        del grads
         lsum = lsum + loss
         for k, v in metrics.items():
             msum[k] = msum.get(k, 0.0) + v
     inv = 1.0 / n_micro
+    # scaled in place: the same product, without a second accumulator
     return (lsum * inv, {k: v * inv for k, v in msum.items()},
-            {n: (g * inv).float() for n, g in acc.items()})
+            {n: g.mul_(inv).float() for n, g in acc.items()})
 
 
 def microbatch_grads(model: LM, params: dict, batch: dict, n_micro: int,
@@ -228,6 +232,31 @@ def state_shardings(opt_cfg: adamw.AdamWConfig, params: dict, mesh, *,
                           {n: leaf(n, p) for n, p in params.items()})
 
 
+def zero_state(opt_cfg: adamw.AdamWConfig, params: dict,
+               shardings: adamw.OptState) -> adamw.OptState:
+    """``adamw.init(opt_cfg, params)`` laid out by ``shardings``
+    (``state_shardings``) without any leaf made whole: every moment
+    starts at zeros (an int8 moment's ``q`` and ``scale`` too, as
+    ``quantize`` of zeros gives), so each rank makes only its own slices.
+    Whole float32 moments of gemma-7b (8.5e9 parameters) would take 68 GB
+    on every rank before ``place`` sliced them."""
+    def zeros(shape, dtype, sh):
+        return dtensor_zeros(shape, dtype=dtype, device_mesh=sh.mesh,
+                             placements=rules.placements(sh.spec, sh.mesh))
+
+    def leaf(name, sh):
+        shape = tuple(params[name].shape)
+        if isinstance(sh, adamw.QTensor):
+            qs, ss = adamw.qtensor_shapes(shape)
+            return adamw.QTensor(zeros(qs, torch.int8, sh.q),
+                                 zeros(ss, torch.float32, sh.scale), shape)
+        return zeros(shape, torch.float32, sh)
+
+    return adamw.OptState(0, {n: leaf(n, sh) for n, sh in
+                              shardings.m.items()},
+                          {n: leaf(n, sh) for n, sh in shardings.v.items()})
+
+
 def place(tree, shardings):
     """Every tensor of ``tree`` (whole and equal on every rank: a seeded
     build, a checkpoint) as a DTensor laid out by the matching
@@ -274,9 +303,10 @@ def make_train_step(model: LM, opt_cfg: adamw.AdamWConfig, mesh,
     (``NamedSharding``s by ``rules.params_shardings`` and
     ``state_shardings``) and ``distribute(state)``, which puts the
     model's parameters and ``state["opt_state"]`` (from ``adamw.init`` of
-    the whole parameters) onto the mesh and returns the state dict the
-    step takes. The update is in place, so nothing is donated
-    (``donate`` is kept for the reference's signature)."""
+    the whole parameters; without it, ``zero_state``'s, made in its
+    layout) onto the mesh and returns the state dict the step takes. The
+    update is in place, so nothing is donated (``donate`` is kept for the
+    reference's signature)."""
     del donate
     train_step = make_train_fn(model, opt_cfg, n_micro)
     stacks = model.stack_dims()
@@ -289,8 +319,11 @@ def make_train_step(model: LM, opt_cfg: adamw.AdamWConfig, mesh,
 
         def distribute(state: dict) -> dict:
             params_d = distribute_model(model, pshard)
+            opt = state.get("opt_state")
             return {"params": params_d,
-                    "opt_state": place(state["opt_state"], sshard)}
+                    "opt_state": (place(opt, sshard) if opt is not None
+                                  else zero_state(opt_cfg, params_d,
+                                                  sshard))}
 
         return types.SimpleNamespace(params=pshard, state=sshard,
                                      distribute=distribute)
