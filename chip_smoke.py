@@ -256,6 +256,32 @@ tokens, under ``fault.Supervisor`` with ``shardings=``, a checkpoint
 every 2 steps and a fault at step 3: the history's steps must be [0, 1,
 2, 2, 3, 4] and the final parameters and moments the uninterrupted
 run's bit for bit. With fewer than four cards it exits non-zero at once.
+
+    python3 chip_smoke.py --mesh-serve
+
+runs serving on four cards (a mode of its own: the whole script's time is
+nearly full), one NCCL rank a card, the model's parameters laid out by
+the sharding rules and served through ``Engine`` on their mesh: K5 at
+one rank's serving heads (``tp4_serve``: B 4, H 8, Hkv 2, S 2048 on (1,
+4); ``tp2_serve``: B 2, H 16, Hkv 4 on (2, 2)) timed on card 0 beside its
+plain version and SDPA and held on every card; then (k) llama3-8b whole,
+bf16, seeded weights, on (1, 4) and on (2, 2), [serve]'s traffic (8
+requests of 1024-2048 prompt tokens in waves of 4, 32 new tokens), each
+card's K5 launched once a layer a wave, with prefill seconds a wave,
+decode ms a step, tokens a second, NCCL's profiled seconds and each
+card's peak (under 80 GB), held to one process on card 0 teacher-forced
+on the mesh's tokens (logits within 0.2, a differing argmax a near-tie),
+then 2 layers in float32 on (1, 4) within 1e-3 of one process, a control
+whose decode writes no k/v lying beyond it; (l) deepseek-v3-671b at its 3
+mla_dense and 1 mla_moe layers on (2, 2), its latent cache split over T
+on every card (8 requests of 512-1024 tokens, 16 new), held to one
+process that follows the mesh's expert choices (each difference a
+near-tie), no kernel on its path, and MLA's decode invariant on the mesh
+in float32 with the decode's write dropped as its control; and one (2,
+2) decode step of (k) at 2 layers (einsum attention) counted by
+``launch.op_analysis`` on meta under a fake 4-rank group and on every
+card, equal exactly, the measured step at or above its roofline bound.
+With fewer than four cards it exits non-zero at once.
 """
 from __future__ import annotations
 
@@ -1202,8 +1228,9 @@ def row_name(name, d, window=None, tag=None):
     mixtral's windowed shapes, zamba2's D = 112 (padded to 128) and one
     rank's local heads (the cases MESH_TAGS: ``tp2`` on a (1, 2) or (2, 2)
     mesh, ``tp4`` on (1, 4), ``tp2_w4096`` mixtral's on (2, 2), and the
-    families' FAMILY_TAGS on (2, 2))."""
-    if tag in MESH_TAGS:
+    families' FAMILY_TAGS on (2, 2), the serving SERVE_TAGS on (1, 4) and
+    (2, 2))."""
+    if tag in MESH_TAGS + SERVE_TAGS:
         return f"{name}_{tag}"
     if window == WINDOW_ROW:
         return f"{name}_w{WINDOW_ROW}"
@@ -3049,6 +3076,21 @@ def cross_extra(cfg, b, seed):
             for k, shape in cross_inputs(cfg).items()}
 
 
+def serve_requests(vocab, prompt, new, lengths=None):
+    """SERVE_REQUESTS requests of ``new`` tokens (no end token), their
+    prompt lengths drawn from ``prompt`` (inclusive) unless ``lengths``
+    gives them, the tokens in [2, vocab): (lengths, requests)."""
+    import numpy as np
+
+    from repro_torch.serve.engine import Request
+    rng = np.random.default_rng(0)
+    drawn = rng.integers(prompt[0], prompt[1] + 1, SERVE_REQUESTS)
+    lengths = drawn if lengths is None else np.asarray(lengths)
+    return lengths, [Request(i, rng.integers(2, vocab, n).astype(np.int32),
+                             max_new_tokens=new, eos_id=-1)
+                     for i, n in enumerate(lengths)]
+
+
 def serve_phase(dev, arch=SERVE_ARCH, *, layers=None, prompt=SERVE_PROMPT,
                 new=SERVE_NEW, max_len=None, f32=None,
                 controls=(("p_bf16", attention_fault, None, F32_LOGIT_TOL),),
@@ -3080,7 +3122,7 @@ def serve_phase(dev, arch=SERVE_ARCH, *, layers=None, prompt=SERVE_PROMPT,
     from repro_torch.configs import registry
     from repro_torch.kernels import flash_cuda, rmsnorm_cuda
     from repro_torch.models.lm import LM
-    from repro_torch.serve.engine import Engine, Request
+    from repro_torch.serve.engine import Engine
 
     cfg = registry.config(arch, attn_impl="flash",
                           **({"n_layers": layers} if layers else {}))
@@ -3094,12 +3136,7 @@ def serve_phase(dev, arch=SERVE_ARCH, *, layers=None, prompt=SERVE_PROMPT,
     init_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in model.parameters())
     n_gqa = flash_layers(model)
-    rng = np.random.default_rng(0)
-    drawn = rng.integers(prompt[0], prompt[1] + 1, SERVE_REQUESTS)
-    lengths = drawn if lengths is None else np.asarray(lengths)
-    reqs = [Request(i, rng.integers(2, cfg.vocab, n).astype(np.int32),
-                    max_new_tokens=new, eos_id=-1)
-            for i, n in enumerate(lengths)]
+    lengths, reqs = serve_requests(cfg.vocab, prompt, new, lengths)
     max_len = max_len or int(lengths.max()) + new
     routes = RoutingRecorder() if cfg.is_moe else None
     rec = RecordingLM(model, routes.mark if routes else None)
@@ -4858,11 +4895,13 @@ def mesh_spec(device="cuda", smoke=False, ckpt=None, **over):
     length (``seq``; (c)'s too, (e)'s twice it), (a)'s and (b)'s depth
     (``layers``, None for all), the phases in order, and whether each
     rank profiles a step and returns its parameters; the local-head
-    kernel cases each card checks first (``kernel_tags``)."""
+    kernel cases each card checks first (``kernel_tags``); the program
+    the count counts (``count``: ``"train"``, a training step; ``"decode"``,
+    a decode step, ``mesh_count_cell``)."""
     spec = dict(device=device, smoke=smoke, ckpt=ckpt, seq=MESH_SEQ,
                 layers=None, phases=("a", "b", "c", "d", "e", "count"),
                 profile=device == "cuda", params_out=False,
-                kernel_tags=MESH_TAGS[:3])
+                kernel_tags=MESH_TAGS[:3], count="train")
     spec.update(over)
     return spec
 
@@ -5164,19 +5203,27 @@ def _mesh_elastic(dev, spec):
 
 
 def mesh_count_cell(spec, mesh, device):
-    """The count's program: one (2, 2) training step of (a)'s model at
-    MESH_SHORT layers (the SMOKE config with ``spec["smoke"]``), int8
-    moments, einsum attention (the dry run counts no ctypes kernel), on
-    ``device``: ``(fn, args)``."""
+    """The count's program on ``device``: one (2, 2) step of (a)'s model
+    at MESH_SHORT layers (the SMOKE config with ``spec["smoke"]``), einsum
+    attention (the dry run counts no ctypes kernel), ``spec["count"]``'s
+    kind: a training step (int8 moments, MESH_BATCH sequences of
+    ``spec["seq"]`` tokens) or a decode step (SERVE_SLOTS rows against a
+    cache of SERVE_COUNT_LEN): ``(fn, args)``."""
     from repro_torch.configs import registry
     from repro_torch.launch import dryrun, specs
     cfg = (registry.smoke_config(MESH_ARCH) if spec["smoke"] else
            registry.config(MESH_ARCH, n_layers=MESH_SHORT))
-    cell = specs.Cell(MESH_ARCH, "train_4k", spec["seq"], MESH_BATCH,
-                      "train")
+    if spec["count"] == "decode":
+        cell = specs.Cell(MESH_ARCH, "decode_32k", SERVE_COUNT_LEN,
+                          SERVE_SLOTS, "decode")
+        plan = dryrun.Plan()
+    else:
+        cell = specs.Cell(MESH_ARCH, "train_4k", spec["seq"], MESH_BATCH,
+                          "train")
+        plan = dryrun.Plan(quantized=True)
     fn, args, _, _ = dryrun.build_cell(
-        MESH_ARCH, "train_4k", mesh, dryrun.Plan(quantized=True), cfg=cfg,
-        cell=cell, device=device, seed=0)
+        MESH_ARCH, cell.shape, mesh, plan, cfg=cfg, cell=cell,
+        device=device, seed=0)
     return fn, args
 
 
@@ -5604,6 +5651,19 @@ def rank_kernel_lines(res, cuda):
                   k7_two_launches="bitwise" if same else "differ")
             check(ok5 and okb and same, f"rank {r} {tag}: K5 {ok5} ({e5}), "
                   f"K6/K7 {okb} ({eb}), K7 bitwise {same}")
+
+
+def mesh_kernel_phase(dev):
+    """[mesh]'s local-head cases (``tp2``, ``tp4``, ``tp2_w4096``) on card
+    0: K5, K6 and K7 against their plain versions, timed beside them and
+    SDPA. Returns their rows."""
+    tags = MESH_TAGS[:3]
+    table = lm_kernel_phase(dev, [c for c in K5_CASES + MESH_K5_CASES
+                                  if c[0] in tags], small=False)
+    table.update(bwd_kernel_phase(
+        dev, [c for c in BWD_CASES + MESH_BWD_CASES if c[0] in tags],
+        small=False))
+    return table
 
 
 def mesh_phases(dev, spec=None):
@@ -6066,6 +6126,519 @@ def family_phases(dev, spec=None):
     return launches
 
 
+# --- --mesh-serve: serving on four cards, one NCCL rank a card ----------------
+# (k) llama3-8b whole (SERVE_ARCH, bf16, seeded weights) on each of
+# SERVE_LAYOUTS with the [serve] phase's traffic (SERVE_REQUESTS requests of
+# SERVE_PROMPT tokens in waves of SERVE_SLOTS, SERVE_NEW new tokens) through
+# Engine, K5 on each rank's local heads in every prefill (``tp4_serve``: (1,
+# 4), B 4, H 8, Hkv 2; ``tp2_serve``: (2, 2), B 2, H 16, Hkv 4; S up to 2048),
+# held to one process on card 0 teacher-forced on the mesh run's tokens
+# (LOGIT_TOL; a differing argmax a near-tie of the one process); then
+# SERVE_F32_LAYERS layers in float32 on (1, 4) at F32_LOGIT_TOL of one
+# process, whose control (a decode that writes no k/v into the cache, what
+# a sequence-split cache's lost writes did) must lie beyond it. (l)
+# deepseek-v3-671b at [moe]'s DEEPSEEK_SERVE_LAYERS on SERVE_MLA_LAYOUT (its
+# latent cache split over T on every card), DEEPSEEK_PROMPT tokens and
+# DEEPSEEK_NEW new ones, held to one process (its MoE dispatch in the mesh's
+# batch shards, moe_groups 2) that follows the mesh's expert choices (each
+# difference a near-tie, ROUTE_TIE_TOL) at LOGIT_TOL; then MLA's decode
+# invariant on the mesh at MLA_CHECK's size (MLA_B, MLA_S, MLA_TOL), whose
+# control with the decode's write dropped must fail it. The count: one (2,
+# 2) decode step of (k)'s model at MESH_SHORT layers (einsum attention),
+# SERVE_SLOTS rows against a cache of SERVE_COUNT_LEN.
+SERVE_MESH_FLAG = "--mesh-serve"
+SERVE_LAYOUTS = {"tp4_serve": (1, 4), "tp2_serve": (2, 2)}
+SERVE_TAGS = tuple(SERVE_LAYOUTS)
+MESH_K5_CASES += [("tp4_serve", 4, 8, 2, 2048, 128, "bfloat16", None, 10),
+                  ("tp2_serve", 2, 16, 4, 2048, 128, "bfloat16", None, 10)]
+SERVE_F32_LAYERS = 2
+SERVE_MLA_LAYOUT = (2, 2)
+SERVE_COUNT_LEN = 4096
+
+
+def serve_kernel_phase(dev):
+    """SERVE_TAGS' K5 cases on card 0 against K5's plain version, timed
+    beside it and SDPA. Returns their rows."""
+    return lm_kernel_phase(dev, [c for c in MESH_K5_CASES
+                                 if c[0] in SERVE_TAGS], small=False)
+
+
+def serve_mesh_spec(**over):
+    """What the ranks of --mesh-serve run: (k), (l) and the count (of a
+    decode step), each card checking SERVE_TAGS' kernel cases first; the
+    traffic (``serve``: prompt lengths and new tokens of (k); ``mla``:
+    (l)'s), the SMOKE configs with ``smoke`` (the CPU rehearsal's)."""
+    spec = mesh_spec(phases=("k", "l", "count"), kernel_tags=SERVE_TAGS,
+                     count="decode", serve=(SERVE_PROMPT, SERVE_NEW),
+                     mla=(DEEPSEEK_PROMPT, DEEPSEEK_NEW))
+    spec.update(over)
+    return spec
+
+
+def serve_mesh_config(spec, arch=SERVE_ARCH, **over):
+    """``arch``'s configuration for --mesh-serve (flash attention, the
+    SMOKE one with ``spec["smoke"]``), with ``over``."""
+    from repro_torch.configs import registry
+    if spec["smoke"]:
+        return registry.smoke_config(arch, attn_impl="flash", **{
+            k: v for k, v in over.items() if k != "n_layers"})
+    return registry.config(arch, attn_impl="flash", **over)
+
+
+def serve_mesh_model(dev, cfg, mesh):
+    """``cfg``'s model with the seeded weights (seed 0, as one process
+    draws them on card 0) on ``dev``, its parameters laid out on ``mesh``
+    by the sharding rules (each rank keeps its slices)."""
+    from repro_torch.models.lm import LM
+    from repro_torch.sharding import rules
+    from repro_torch.train import loop as tl
+    model = LM(cfg, device=dev, seed=0)
+    tl.distribute_model(model, rules.params_shardings(
+        tl.params_of(model), mesh, stacks=model.stack_dims()))
+    _free()
+    return model
+
+
+@contextlib.contextmanager
+def decode_writes_dropped():
+    """Every one-row cache write (a decode step's) dropped: what a cache
+    split over its sequence dim did with DTensor's slice assignment
+    before ``layers.write_seq`` (the controls)."""
+    from repro_torch.models import layers
+    orig = layers.write_seq
+
+    def write(cache, idx, new):
+        if new.shape[1] != 1:
+            orig(cache, idx, new)
+
+    layers.write_seq = write
+    try:
+        yield
+    finally:
+        layers.write_seq = orig
+
+
+def _whole(t):
+    """A logits or tokens DTensor read whole (a collective: every rank
+    calls it), as a float32 or int64 numpy array."""
+    import torch
+    from torch.distributed.tensor import DTensor
+    t = t.full_tensor() if isinstance(t, DTensor) else t
+    return (t.float() if t.is_floating_point() else t).cpu().numpy()
+
+
+def _serve_mesh_run(dev, spec, layout, cfg, traffic, routes=False,
+                    after=None):
+    """``cfg``'s model on this rank's mesh of ``layout``, ``traffic``'s
+    SERVE_REQUESTS requests (prompt lengths, new tokens) through
+    ``Engine`` in waves of SERVE_SLOTS: the launches (counted over the
+    run), the results, every call's inputs and seconds, the logits read
+    whole (kept on rank 0), the peak, then (``spec["profile"]``) the
+    device time of the last wave's prefill and of PROFILE_STEPS decode
+    steps by torch.profiler, NCCL's kernels (waits included) apart. An
+    MoE model's routing is recorded (``routes``); ``after(model, calls,
+    max_len)`` adds its result before the model is freed."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import flash_cuda as fc
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.serve.engine import Engine
+    mesh = make_host_mesh(layout[1], device=dev.type)
+    check(tuple(mesh.shape) == tuple(layout),
+          f"mesh {tuple(mesh.shape)}, wanted {layout}")
+    rank = torch.distributed.get_rank()
+    _reset_peak(dev)
+    t0 = time.perf_counter()
+    model = serve_mesh_model(dev, cfg, mesh)
+    _sync(dev)
+    init_s = time.perf_counter() - t0
+    build_peak = _peak(dev)
+    _reset_peak(dev)
+    prompt, new = traffic
+    lengths, reqs = serve_requests(cfg.vocab, prompt, new)
+    max_len = int(lengths.max()) + new
+    rr = RoutingRecorder() if routes else None
+    rec = RecordingLM(model, rr.mark if rr else None)
+    eng = Engine(rec, batch_slots=SERVE_SLOTS, max_len=max_len)
+    with rr.hook() if rr else contextlib.nullcontext():
+        # the main path: counts set to 0 just before, read just after
+        fc.reset_launches()
+        t0 = time.perf_counter()
+        results = eng.serve(reqs)
+        _sync(dev)
+        serve_s = time.perf_counter() - t0
+        launches = dict(fc.LAUNCHES)
+    peak = _peak(dev)
+    out = {"mesh": tuple(mesh.shape), "layers": cfg.n_layers,
+           "dtype": cfg.dtype, "flash_layers": flash_layers(model),
+           "params": sum(p.numel() for p in model.parameters()),
+           "lengths": [int(n) for n in lengths], "max_len": max_len,
+           "launches": launches, "peak": peak, "build_peak": build_peak,
+           "init_s": init_s,
+           "serve_s": serve_s,
+           "results": [(r.uid, r.tokens.tolist()) for r in results],
+           "calls": [dict(kind=c["kind"], seconds=c["seconds"],
+                          tokens=(c["tokens"] if c["kind"] == "prefill"
+                                  else _whole(c["tokens"])))
+                     for c in rec.calls]}
+    logits = [_whole(c["logits"]) for c in rec.calls]
+    out["logits"] = logits if rank == 0 else None
+    if rr is not None:
+        out["routes"] = ([[c.cpu().numpy().astype(np.int16) for c in call]
+                          for call in rr.calls if call] if rank == 0
+                         else None)
+    if after is not None:
+        out.update(after(model, rec.calls, max_len))
+    del logits, rec, eng
+    out["split"] = None
+    if spec["profile"]:
+        last = [c for c in out["calls"] if c["kind"] == "prefill"][-1]
+        state = {}
+
+        def prefill():
+            state["logits"], state["cache"] = model.prefill(last["tokens"],
+                                                            max_len)
+
+        def decode():
+            tok = torch.argmax(state["logits"], dim=-1)
+            for _ in range(PROFILE_STEPS):
+                logits, state["cache"] = model.decode(state["cache"], tok)
+                tok = torch.argmax(logits, dim=-1)
+
+        out["split"] = {"prefill": device_ms(prefill),
+                        "decode": device_ms(decode)}
+        del state
+    del model
+    _free()
+    return out
+
+
+def _f32_control(model, calls, max_len):
+    """The float32 run's control on the mesh: its calls replayed with
+    every decode step's k/v write dropped, the logits read whole."""
+    import torch
+    with decode_writes_dropped():
+        logits = teacher_forced(model, calls, max_len)
+    rank = torch.distributed.get_rank()
+    whole = [_whole(t) for t in logits]
+    return {"control_logits": whole if rank == 0 else None}
+
+
+def _serve_mesh_dense(dev, spec):
+    """(k) on this rank: llama3-8b whole on each of SERVE_LAYOUTS in bf16,
+    then SERVE_F32_LAYERS layers in float32 on (1, 4) with its control."""
+    out = {}
+    cfg = serve_mesh_config(spec)
+    for tag, layout in SERVE_LAYOUTS.items():
+        out[tag] = _serve_mesh_run(dev, spec, layout, cfg, spec["serve"])
+    out["f32"] = _serve_mesh_run(
+        dev, spec, SERVE_LAYOUTS["tp4_serve"],
+        serve_mesh_config(spec, n_layers=SERVE_F32_LAYERS, dtype="float32"),
+        spec["serve"], after=_f32_control)
+    return out
+
+
+@contextlib.contextmanager
+def dropped_choices(counts):
+    """Append each ``moe.route`` call's number of choices dropped past
+    capacity to ``counts``."""
+    from repro_torch.models import moe
+    route = moe.route
+
+    def counting(p, cfg, x_flat, **kw):
+        r = route(p, cfg, x_flat, **kw)
+        counts.append(int((~r.keep).sum()))
+        return r
+
+    moe.route = counting
+    try:
+        yield
+    finally:
+        moe.route = route
+
+
+def mla_mesh_check(dev, spec):
+    """MLA's decode invariant on this rank's SERVE_MLA_LAYOUT mesh in
+    float32 at MLA_CHECK's size: the absorbed decode of token MLA_S after
+    a prefill of MLA_S tokens against the prefill of MLA_S + 1 (the latent
+    cache split over T), the MoE choices dropped past capacity in them,
+    and the same with the decode's write dropped (the control); K5's
+    launches over both."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import flash_cuda as fc
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.sharding import rules
+    mesh = make_host_mesh(SERVE_MLA_LAYOUT[1], device=dev.type)
+    # the invariant needs the MoE to drop no choice: MLA_CHECK's capacity
+    # factor keeps one group of MLA_B x MLA_S tokens whole, and the mesh
+    # dispatches each of its batch shards as a group of its own
+    groups = rules.batch_groups(mesh, MLA_B)
+    cfg = serve_mesh_config(spec, DEEPSEEK_ARCH, **dict(
+        MLA_CHECK, capacity_factor=MLA_CHECK["capacity_factor"] * groups))
+    _reset_peak(dev)
+    t0 = time.perf_counter()
+    model = serve_mesh_model(dev, cfg, mesh)
+    toks = torch.as_tensor(np.random.default_rng(1).integers(
+        1, cfg.vocab, (MLA_B, MLA_S + 1)), device=dev)
+    dropped_counts = []
+    fc.reset_launches()
+    with dropped_choices(dropped_counts):
+        _, cache = model.prefill(toks[:, :MLA_S], MLA_S + 4)
+        inc, _ = model.decode(cache, toks[:, MLA_S])
+        full, _ = model.prefill(toks, MLA_S + 4)
+    with decode_writes_dropped():
+        _, cache = model.prefill(toks[:, :MLA_S], MLA_S + 4)
+        dropped, _ = model.decode(cache, toks[:, MLA_S])
+    launches = sum(fc.LAUNCHES.values())
+    inc, full, dropped = (_whole(t) for t in (inc, full, dropped))
+    out = {"decode_vs_prefill": float(np.abs(inc - full).max()),
+           "control_decode_write_dropped": float(np.abs(dropped
+                                                        - full).max()),
+           "max_abs_logit": float(np.abs(full).max()),
+           "finite": bool(np.isfinite(inc).all() and np.isfinite(full).all()),
+           "launches": launches, "layers": cfg.n_layers,
+           "capacity_factor": cfg.capacity_factor,
+           "dropped_choices": sum(dropped_counts),
+           "seconds": time.perf_counter() - t0, "peak": _peak(dev)}
+    del model, cache
+    _free()
+    return out
+
+
+def _serve_mesh_mla(dev, spec):
+    """(l) on this rank: deepseek-v3-671b at DEEPSEEK_SERVE_LAYERS on
+    SERVE_MLA_LAYOUT through Engine, its routing recorded; then MLA's
+    decode invariant on the mesh."""
+    cfg = serve_mesh_config(spec, DEEPSEEK_ARCH,
+                            n_layers=DEEPSEEK_SERVE_LAYERS)
+    out = _serve_mesh_run(dev, spec, SERVE_MLA_LAYOUT, cfg, spec["mla"],
+                          routes=True)
+    out["mla_check"] = mla_mesh_check(dev, spec)
+    return out
+
+
+MESH_RUNS.update(k=_serve_mesh_dense, l=_serve_mesh_mla)
+
+
+def _held(got, want, tol):
+    """``compare_runs`` of two runs' logits, its failure kept (reported
+    after every line is printed) rather than raised."""
+    try:
+        return compare_runs(got, want, tol), None
+    except SmokeFailure as e:
+        return None, str(e)
+
+
+def serve_one_process(dev, spec, res):
+    """On card 0, once the ranks have left it, what (k) and (l) are held
+    to: one process with the same seeded weights, teacher-forced on rank
+    0's calls — (k) bf16 at full depth for each layout, float32 at
+    SERVE_F32_LAYERS (and the mesh's control against it); (l) with its
+    MoE dispatch in the mesh's batch shards (``rules.batch_groups``),
+    following the mesh's expert choices."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models.lm import LM
+    from repro_torch.sharding import rules
+    k, ll = res[0]["k"], res[0]["l"]
+    out = {}
+
+    def held(model, run, lead=None, tol=LOGIT_TOL):
+        want, rr = replay(model, run["calls"], run["max_len"], lead=lead)
+        got = [torch.as_tensor(x, device=dev) for x in run["logits"]]
+        stats, failure = _held(got, want, tol)
+        by_kind = {kind: max((float((g - w).abs().max()) for g, w, c in zip(
+            got, want, run["calls"]) if c["kind"] == kind), default=0.0)
+            for kind in ("prefill", "decode")}
+        return {"stats": stats, "failure": failure, "by_kind": by_kind,
+                "err": max_diff(got, want), "routes": rr,
+                "max_abs_logit": max(float(w.abs().max()) for w in want)}
+
+    t0 = time.perf_counter()
+    _reset_peak(dev)
+    model = LM(serve_mesh_config(spec), device=dev, seed=0)
+    for tag in SERVE_LAYOUTS:
+        out[tag] = held(model, k[tag])
+    out["peak"] = _peak(dev)
+    del model
+    _free()
+    model = LM(serve_mesh_config(spec, n_layers=SERVE_F32_LAYERS,
+                                 dtype="float32"), device=dev, seed=0)
+    out["f32"] = held(model, k["f32"], tol=F32_LOGIT_TOL)
+    want, _ = replay(model, k["f32"]["calls"], k["f32"]["max_len"])
+    out["f32"]["control"] = max_diff(
+        [torch.as_tensor(x, device=dev) for x in k["f32"]["control_logits"]],
+        want)
+    del model, want
+    _free()
+    cfg = serve_mesh_config(spec, DEEPSEEK_ARCH,
+                            n_layers=DEEPSEEK_SERVE_LAYERS)
+    groups = rules.batch_groups(dict(zip(("data", "model"),
+                                         SERVE_MLA_LAYOUT)), SERVE_SLOTS)
+    model = LM(dataclasses.replace(cfg, moe_groups=groups), device=dev,
+               seed=0)
+    out["l"] = held(model, ll, lead=_routes_lead(dev, ll["routes"]))
+    out["l"]["groups"] = groups
+    del model
+    _free()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def serve_mesh_report(tag, res, one, cuda=True):
+    """(k)'s and (l)'s lines and checks: every rank's results equal rank
+    0's, its launches (K5 once a GQA layer a wave on the card, none on
+    MLA's path, K6 and K7 never), its peak under MESH_PEAK; prefill
+    seconds a wave, decode ms a step, tokens a second and NCCL's profiled
+    seconds; the logits against one process (bf16 LOGIT_TOL, float32
+    F32_LOGIT_TOL with its control beyond it), (l)'s routing differences
+    near-ties and MLA's decode invariant with its control."""
+    import numpy as np
+
+    from repro_torch.kernels import flash_cuda as fc
+    waves = -(-SERVE_REQUESTS // SERVE_SLOTS)
+    runs = {t: lambda o, t=t: o["k"][t] for t in SERVE_LAYOUTS}
+    runs.update(f32=lambda o: o["k"]["f32"], mla=lambda o: o["l"])
+    for what, run_of in runs.items():
+        for r, out in enumerate(res):
+            run = run_of(out)
+            pre = [c["seconds"] for c in run["calls"]
+                   if c["kind"] == "prefill"]
+            dec = [c["seconds"] for c in run["calls"]
+                   if c["kind"] == "decode"]
+            n_tok = sum(len(t) for _, t in run["results"])
+            split = run["split"] or {}
+            nccl = {k: f"{v['nccl'] / 1e3:.4f}" if v else "not recorded"
+                    for k, v in split.items()}
+            busy = {k: f"{sum(v.values()) / 1e3:.4f}" if v
+                    else "not recorded" for k, v in split.items()}
+            phase(tag, run="serve_l" if what == "mla" else "serve_k",
+                  case=what, mesh="x".join(map(str, run["mesh"])), rank=r,
+                  layers=run["layers"], dtype=run["dtype"],
+                  params=run["params"], requests=SERVE_REQUESTS,
+                  slots=SERVE_SLOTS, waves=waves,
+                  prompt_lengths=",".join(map(str, run["lengths"])),
+                  max_len=run["max_len"], init_s=f"{run['init_s']:.3f}",
+                  serve_s=f"{run['serve_s']:.3f}", tokens=n_tok,
+                  tokens_per_s=f"{n_tok / run['serve_s']:.2f}",
+                  prefill_s_per_wave=",".join(f"{x:.4f}" for x in pre),
+                  decode_steps=len(dec),
+                  decode_ms_median=f"{1e3 * float(np.median(dec)):.3f}",
+                  decode_ms_max=f"{1e3 * max(dec):.3f}",
+                  prefill_nccl_s=nccl.get("prefill", "not measured"),
+                  prefill_device_s=busy.get("prefill", "not measured"),
+                  decode_nccl_s=nccl.get("decode", "not measured"),
+                  decode_device_s=busy.get("decode", "not measured"),
+                  profiled_decode_steps=PROFILE_STEPS,
+                  build_peak=run["build_peak"],
+                  max_memory_allocated=run["peak"],
+                  launches=json.dumps(run["launches"],
+                                      separators=(",", ":")))
+            check(run["results"] == run_of(res[0])["results"],
+                  f"{what} rank {r}: results differ from rank 0's")
+            got = run["launches"]
+            want = run["flash_layers"] * waves if cuda else 0
+            check(got[fc.NAME] == want and got[fc.DQ] == got[fc.DKV] == 0,
+                  f"{what} rank {r}: launches {got}, K5 wanted {want}")
+            check(run["peak"] < MESH_PEAK and run["build_peak"] < MESH_PEAK,
+                  f"{what} rank {r}: peak {run['peak']} bytes, at build "
+                  f"{run['build_peak']}")
+    for what in runs:
+        o = one["l" if what == "mla" else what]
+        st = o["stats"] or {}
+        phase(tag, run="serve_l" if what == "mla" else "serve_k", case=what,
+              compare="one_process", moe_groups=o.get("groups"),
+              compared_rows=st.get("rows"),
+              max_abs_logit=f"{o['max_abs_logit']:.4f}",
+              max_logit_err_vs_one_process=f"{o['err']:.4e}",
+              prefill_max_logit_err=f"{o['by_kind']['prefill']:.4e}",
+              decode_max_logit_err=f"{o['by_kind']['decode']:.4e}",
+              control_decode_write_dropped=(f"{o['control']:.4e}"
+                                            if "control" in o else None),
+              logit_tol=F32_LOGIT_TOL if what == "f32" else LOGIT_TOL,
+              near_ties=st.get("near_ties"),
+              max_near_tie_gap=(f"{st['max_tie_gap']:.4e}" if st else None),
+              failure=o["failure"])
+    follow_check(one["l"]["routes"], tag, DEEPSEEK_ARCH,
+                 "one_process_follows_mesh")
+    for r, out in enumerate(res):
+        m = out["l"]["mla_check"]
+        phase(tag, run="serve_l", check="mla_decode", rank=r,
+              dtype="float32", layers=m["layers"], B=MLA_B, s=MLA_S,
+              max_abs_logit=f"{m['max_abs_logit']:.4f}",
+              decode_vs_prefill=f"{m['decode_vs_prefill']:.4e}",
+              control_decode_write_dropped=(
+                  f"{m['control_decode_write_dropped']:.4e}"),
+              tol=MLA_TOL, launches=m["launches"],
+              capacity_factor=m["capacity_factor"],
+              dropped_choices=m["dropped_choices"],
+              seconds=f"{m['seconds']:.1f}", max_memory_allocated=m["peak"])
+        check(m["dropped_choices"] == 0, f"rank {r}: the MoE dropped "
+              f"{m['dropped_choices']} choices in the MLA check")
+        check(m["finite"] and m["decode_vs_prefill"] <= MLA_TOL,
+              f"rank {r}: MLA decode vs prefill {m['decode_vs_prefill']}")
+        check(m["control_decode_write_dropped"] > MLA_TOL, f"rank {r}: the "
+              f"MLA control lies within {MLA_TOL}")
+        check(m["launches"] == 0, f"rank {r}: MLA launched a flash kernel")
+        check(m["peak"] < MESH_PEAK, f"rank {r}: MLA check peak {m['peak']}")
+    for what in runs:
+        o = one["l" if what == "mla" else what]
+        check(o["failure"] is None, f"{what} against one process: "
+              f"{o['failure']}")
+    f32 = one["f32"]
+    check(f32["control"] > F32_LOGIT_TOL, f"(k) float32: the control (no "
+          f"decode write) lies within {F32_LOGIT_TOL}: {f32['control']}")
+
+
+def serve_mesh_phases(dev, spec=None):
+    """--mesh-serve on MESH_WORLD cards (``spec``, default
+    ``serve_mesh_spec()``): the meta count's process, the ranks (each its
+    card's SERVE_TAGS kernel checks, then (k), (l) and the count), then on
+    card 0 the one-process runs they are held to, and the checks. Returns
+    the launches of the SERVE_TAGS rows: (k)'s bf16 runs' on rank 0."""
+    from repro_torch.launch import ranks
+    t0 = time.perf_counter()
+    spec = spec or serve_mesh_spec()
+    cuda = spec["device"] == "cuda"
+    with tempfile.TemporaryDirectory() as tmp:
+        count_json = str(Path(tmp) / "count.json")
+        t_count = time.perf_counter()
+        proc = mesh_count_start(count_json, spec)
+        try:
+            _free()
+            init = ROOT / "build" / "mesh_rdzv"
+            init.unlink(missing_ok=True)
+            t1 = time.perf_counter()
+            res = ranks.run_ranks(_mesh_rank, MESH_WORLD, str(init), (spec,),
+                                  timeout=MESH_TIMEOUT)
+            ranks_s = time.perf_counter() - t1
+            init.unlink(missing_ok=True)
+            one = serve_one_process(dev, spec, res)
+            meta = mesh_count_finish(proc, count_json, t_count)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    rank_kernel_lines(res, cuda)
+    serve_mesh_report("mesh_serve", res, one, cuda)
+    mesh_count_report("mesh_serve", meta, res)
+    phase("mesh_serve", ranks_seconds=f"{ranks_s:.1f}",
+          one_process_seconds=f"{one['seconds']:.1f}",
+          one_process_peak=one["peak"],
+          **{f"{k}_s": f"{res[0][f'{k}_s']:.1f}" for k in spec["phases"]},
+          seconds=f"{time.perf_counter() - t0:.1f}")
+    launches = collections.Counter()
+    for tag in SERVE_TAGS:
+        for name, n in res[0]["k"][tag]["launches"].items():
+            launches[f"{name}_{tag}"] += n
+    return launches
+
+
 def kernel_rows(table, launches):
     """The kernel table line's rows: each row's launches from the main
     paths' counts; the local-head rows, which no card path launches, go
@@ -6129,39 +6702,23 @@ def main() -> int:
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": name, "count": count}}))
         return 0
-    if sys.argv[1:] == [MESH_FLAG]:          # training on four cards
+    four = {MESH_FLAG: ("mesh_only", mesh_kernel_phase, mesh_phases),
+            FAMILY_FLAG: ("mesh_families", family_kernel_phase,
+                          family_phases),
+            SERVE_MESH_FLAG: ("mesh_serve", serve_kernel_phase,
+                              serve_mesh_phases)}
+    if len(sys.argv) == 2 and sys.argv[1] in four:   # on four cards
+        done, kernels, phases = four[sys.argv[1]]
         if count < MESH_WORLD:
-            print(f"chip_smoke: {MESH_FLAG} needs {MESH_WORLD} cards, "
+            print(f"chip_smoke: {sys.argv[1]} needs {MESH_WORLD} cards, "
                   f"{count} visible", file=sys.stderr)
             return 1
         build_phase()           # once, before any rank loads the libraries
-        tags = MESH_TAGS[:3]
-        table = lm_kernel_phase(dev, [c for c in K5_CASES + MESH_K5_CASES
-                                      if c[0] in tags], small=False)
-        table.update(bwd_kernel_phase(
-            dev, [c for c in BWD_CASES + MESH_BWD_CASES if c[0] in tags],
-            small=False))
-        launches = mesh_phases(dev)
+        table = kernels(dev)
+        launches = phases(dev)
         for row in table.values():
             row["launches"] = launches[row["name"]]
-        phase("done", mesh_only=True,
-              seconds=f"{time.perf_counter() - t0:.1f}")
-        print(smi)
-        print(json.dumps({"kernels": list(table.values())}))
-        print(json.dumps({"ok": True, "device": {
-            "platform": "gpu", "kind": name, "count": count}}))
-        return 0
-    if sys.argv[1:] == [FAMILY_FLAG]:        # the families on four cards
-        if count < MESH_WORLD:
-            print(f"chip_smoke: {FAMILY_FLAG} needs {MESH_WORLD} cards, "
-                  f"{count} visible", file=sys.stderr)
-            return 1
-        build_phase()           # once, before any rank loads the libraries
-        table = family_kernel_phase(dev)
-        launches = family_phases(dev)
-        for row in table.values():
-            row["launches"] = launches[row["name"]]
-        phase("done", mesh_families=True,
+        phase("done", **{done: True},
               seconds=f"{time.perf_counter() - t0:.1f}")
         print(smi)
         print(json.dumps({"kernels": list(table.values())}))

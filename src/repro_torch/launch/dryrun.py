@@ -42,7 +42,6 @@ import traceback
 import numpy as np
 import torch
 import torch.distributed as dist
-from torch.distributed.tensor import DTensor
 from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch.configs import registry
@@ -117,46 +116,6 @@ def fake_world(world_size: int) -> None:
                             world_size=world_size)
 
 
-def _batch_groups(mesh, global_batch: int) -> int:
-    """Number of MoE dispatch groups = number of batch shards."""
-    if mesh is None:
-        return 1
-    ba = rules._batch_axes_for(mesh, global_batch)
-    n = 1
-    for a in ba:
-        n *= rules.sizes(mesh)[a]
-    return max(n, 1)
-
-
-def _place(tree: dict, shardings: dict):
-    """``train.loop.place`` over a cache dict, its Python-int ``len`` as
-    it is."""
-    return {k: (_place(v, shardings[k]) if isinstance(v, dict)
-                else v if not isinstance(v, torch.Tensor)
-                else train_loop.place(v, shardings[k]))
-            for k, v in tree.items()}
-
-
-def _zeros(layout: dict | None) -> dict | None:
-    """A zero cache of ``layout``'s shapes and DTensor placements, each
-    rank allocating its own shard (``layout`` itself is not read)."""
-    if layout is None:
-        return None
-    out = {}
-    for k, v in layout.items():
-        if isinstance(v, dict):
-            out[k] = _zeros(v)
-        elif isinstance(v, DTensor):
-            out[k] = DTensor.from_local(
-                torch.zeros(v._local_tensor.shape, dtype=v.dtype,
-                            device=v.device),
-                v.device_mesh, v.placements, run_check=False,
-                shape=v.shape, stride=v.stride())
-        else:
-            out[k] = v
-    return out
-
-
 def _tokens(shape: tuple, vocab: int, device, seed: int) -> torch.Tensor:
     rng = np.random.default_rng(seed)
     return torch.as_tensor(rng.integers(0, vocab, size=shape,
@@ -198,7 +157,7 @@ def build_cell(arch: str, shape: str, mesh, plan: Plan, *, cfg=None,
     cfg = cfg or registry.config(arch)
     cfg = dataclasses.replace(
         cfg,
-        moe_groups=_batch_groups(
+        moe_groups=rules.batch_groups(
             mesh, c.global_batch if c.kind != "train"
             else c.global_batch // plan.n_micro),
         attn_impl=plan.attn_impl,
@@ -242,12 +201,13 @@ def build_cell(arch: str, shape: str, mesh, plan: Plan, *, cfg=None,
             # the cache the program makes, laid out as the reference's
             # out_shardings: its shapes and placements (no storage read)
             cache = specs.cache_specs(model, c.global_batch, c.seq_len)
-            layout = _place(cache, rules.cache_shardings(cache, mesh))
+            layout = rules.place_cache(cache,
+                                        rules.cache_shardings(cache, mesh))
 
         def prefill(p, b):
             with implicit_replication():
                 return model.prefill(b, max_len=c.seq_len,
-                                     cache=_zeros(layout))
+                                     cache=rules.zero_cache(layout))
 
         return prefill, (params, batch), cfg, c
 
@@ -259,7 +219,7 @@ def build_cell(arch: str, shape: str, mesh, plan: Plan, *, cfg=None,
     toks = (specs.decode_token_specs(c) if device.type == "meta" else
             _tokens((c.global_batch,), cfg.vocab, device, seed))
     if mesh is not None:
-        cache = _place(cache, rules.cache_shardings(cache, mesh))
+        cache = rules.place_cache(cache, rules.cache_shardings(cache, mesh))
         toks = train_loop.place(toks, rules.NamedSharding(
             mesh, rules.batch_spec(mesh, tuple(toks.shape))))
 

@@ -24,7 +24,10 @@ reference's condition (``_flash_shardable``); otherwise ``_sdpa`` runs,
 on the same local heads where the model axis takes them and on the
 DTensors where it does not. Decode uses ``_sdpa``, plain
 torch as the reference's is plain XLA. The decode cache is updated in
-place. Every function here is differentiable with ``torch.autograd``.
+place (``write_seq``; a cache split over its sequence dim, as
+``rules.cache_spec`` lays out MLA's latents and k/v whose kv heads the
+model axis does not divide, is written rank by rank). Every function
+here is differentiable with ``torch.autograd``.
 Neither cross-attention
 (``attention(..., kv_src=...)``) nor MLA (``mla_attention``) takes K5: the
 reference's call ``_sdpa`` (layers.py:225, :299).
@@ -38,6 +41,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor._utils import \
+    compute_local_shape_and_global_offset
 from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.kernels import ops as kops
@@ -407,6 +412,40 @@ def _split_heads(t: torch.Tensor, n: int, hd: int) -> torch.Tensor:
     return t.reshape(*t.shape[:-1], n, hd)
 
 
+def write_seq(cache: torch.Tensor, idx: int, new: torch.Tensor) -> None:
+    """``cache[:, idx:idx + S] = new`` in place, the reference's
+    ``dynamic_update_slice_in_dim`` on axis 1 (S = ``new.shape[1]``; the
+    caller checks the bounds). A DTensor cache split over that axis is
+    written in a ``local_map`` region: each rank writes the part of
+    ``[idx, idx + S)`` that falls in its own shard, from the matching rows
+    of ``new`` (whole over the axes that split the cache's). DTensor's
+    own slice of a split dim gathers a copy, and the assignment would
+    land in it and be lost. Any other cache takes the slice assignment."""
+    split = isinstance(cache, DTensor) and any(
+        isinstance(p, Shard) and p.dim == 1 for p in cache.placements)
+    if not split:
+        cache[:, idx:idx + new.shape[1]] = new
+        return
+    mesh, place = cache.device_mesh, list(cache.placements)
+    if not isinstance(new, DTensor):
+        new = DTensor.from_local(new, mesh, [Replicate()] * mesh.ndim,
+                                 run_check=False)
+    shape, off = compute_local_shape_and_global_offset(cache.shape, mesh,
+                                                       place)
+    lo, hi = off[1], off[1] + shape[1]
+    a, b = max(idx, lo), min(idx + new.shape[1], hi)
+
+    def local(cl, nl):
+        if a < b:
+            cl[:, a - lo:b - lo] = nl[:, a - idx:b - idx]
+        return cl
+
+    new_place = [Replicate() if isinstance(p, Shard) and p.dim == 1 else p
+                 for p in place]
+    local_map(local, out_placements=place, in_placements=(place, new_place),
+              device_mesh=mesh, redistribute_inputs=True)(cache, new)
+
+
 def attention(p: Params, cfg: ModelConfig, x: torch.Tensor, *, kv_src=None,
               positions: torch.Tensor | None = None, causal: bool = True,
               cache: dict | None = None, use_rope: bool = True):
@@ -446,8 +485,8 @@ def attention(p: Params, cfg: ModelConfig, x: torch.Tensor, *, kv_src=None,
         if idx + S > ck.shape[1]:
             raise ValueError(f"cache of length {ck.shape[1]} cannot take "
                              f"{S} more entries at position {idx}")
-        ck[:, idx:idx + S] = k
-        cv[:, idx:idx + S] = v
+        write_seq(ck, idx, k)
+        write_seq(cv, idx, v)
         if use_flash:
             # prefill starts from an empty cache (idx == 0), so attention
             # over the in-flight k/v equals attention over the cache
@@ -478,6 +517,47 @@ def _einsum_f32(eq: str, *xs: torch.Tensor) -> torch.Tensor:
     """``torch.einsum`` of the operands in float32 (exact for bf16), the
     result float32: the reference's ``preferred_element_type`` einsums."""
     return torch.einsum(eq, *(x.float() for x in xs))
+
+
+def _mla_absorbed(q_nope, q_rope, wuk, wuv, ckv, ckr, *,
+                  positions: torch.Tensor, kv_len: int, scale: float):
+    """MLA's absorbed form over the cached latents: q taken into the
+    latent space through wuk (R, H, dn), scored against ckv (B, T, R) and
+    ckr (B, T, dr) (the first ``kv_len`` positions, causal at
+    ``positions``), the weighted latents taken out through wuv (R, H, dv):
+    (B, S, H, dv) in q's dtype. DTensors on a mesh with a ``"model"``
+    dim that divides the heads run on each rank's local heads in a
+    ``local_map`` region, the latents whole on every rank (as ``_sdpa``
+    takes k and v the axis cannot split)."""
+    dtype = q_nope.dtype
+
+    def core(qn, qr, uk, uv, kv, kr):
+        q_c = _einsum_f32("bshd,rhd->bshr", qn, uk).to(dtype)
+        logits = (_einsum_f32("bshr,btr->bhst", q_c, kv)
+                  + _einsum_f32("bshd,btd->bhst", qr, kr)) * scale
+        ki = torch.arange(kv.shape[1], device=kv.device)[None, None, None, :]
+        qi = positions[None, None, :, None]
+        logits = torch.where((ki < kv_len) & (ki <= qi), logits, -1e30)
+        probs = torch.softmax(logits, dim=-1).to(dtype)
+        del logits
+        o_c = _einsum_f32("bhst,btr->bshr", probs, kv).to(dtype)
+        return _einsum_f32("bshr,rhd->bshd", o_c, uv).to(dtype)
+
+    mesh = model_mesh(q_nope)
+    if mesh is None or q_nope.shape[2] % rules.model_axis_size(mesh):
+        return core(q_nope, q_rope, wuk, wuv, ckv, ckr)
+    ba = rules.batch_axes(mesh)
+    if not ba or q_nope.shape[0] % math.prod(rules.sizes(mesh)[a]
+                                             for a in ba):
+        ba = None
+    q_place = rules.placements(rules.Spec(ba, None, "model", None), mesh)
+    w_place = rules.placements(rules.Spec(None, "model", None), mesh)
+    c_place = rules.placements(rules.Spec(ba, None, None), mesh)
+    return local_map(core, out_placements=list(q_place),
+                     in_placements=(q_place, q_place, w_place, w_place,
+                                    c_place, c_place),
+                     device_mesh=mesh, redistribute_inputs=True)(
+        q_nope, q_rope, wuk, wuv, ckv, ckr)
 
 
 def mla_attention(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
@@ -524,21 +604,11 @@ def mla_attention(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
     if idx + S > ckv.shape[1]:
         raise ValueError(f"cache of length {ckv.shape[1]} cannot take "
                          f"{S} more entries at position {idx}")
-    ckv[:, idx:idx + S] = kv_c
-    ckr[:, idx:idx + S] = k_rope[:, :, 0, :]
-    wuk = p["wuk"].reshape(R, H, dn)
-    q_c = _einsum_f32("bshd,rhd->bshr", q_nope, wuk).to(x.dtype)
-    logits = (_einsum_f32("bshr,btr->bhst", q_c, ckv)
-              + _einsum_f32("bshd,btd->bhst", q_rope, ckr)) * scale
-    t = ckv.shape[1]
-    ki = torch.arange(t, device=x.device)[None, None, None, :]
-    qi = positions[None, None, :, None]
-    logits = torch.where((ki < idx + S) & (ki <= qi), logits, -1e30)
-    probs = torch.softmax(logits, dim=-1).to(x.dtype)
-    del logits
-    o_c = _einsum_f32("bhst,btr->bshr", probs, ckv).to(x.dtype)
-    wuv = p["wuv"].reshape(R, H, dv)
-    out = _einsum_f32("bshr,rhd->bshd", o_c, wuv).to(x.dtype)
+    write_seq(ckv, idx, kv_c)
+    write_seq(ckr, idx, k_rope[:, :, 0, :])
+    out = _mla_absorbed(q_nope, q_rope, p["wuk"].reshape(R, H, dn),
+                        p["wuv"].reshape(R, H, dv), ckv, ckr,
+                        positions=positions, kv_len=idx + S, scale=scale)
     new_cache = {"kv_c": ckv, "k_rope": ckr, "len": idx + S}
     return dot(out.reshape(B, S, H * dv), p["wo"]), new_cache
 

@@ -41,6 +41,14 @@ the reference's layout — ``{"len": int, <segment name>: {"k", "v"}}``
 has no cache) — and is updated in place: a cache handed to ``decode`` is
 the one it returns.
 
+A model whose parameters are DTensors (laid out by ``sharding.rules``)
+serves on their mesh: ``prefill`` places the batch by
+``rules.batch_shardings`` and, without a cache, makes a zero cache laid
+out by ``rules.cache_shardings`` (each rank allocating its own shard);
+``decode`` places its tokens by ``rules.batch_spec``; an MoE block's
+dispatch groups are the batch's shards (``rules.batch_groups``); the
+logits come back as DTensors.
+
 ``loss`` is the training objective (lm.py:454-461): next-token
 cross-entropy over ``tokens[:, :-1]``, chunked by 1024 positions, plus
 0.01 times the MoE blocks' summed load-balancing loss, with each block
@@ -56,7 +64,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
-from torch.distributed.tensor.experimental import local_map
+from torch.distributed.tensor.experimental import (implicit_replication,
+                                                   local_map)
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
@@ -66,6 +75,7 @@ from repro_torch.models.layers import (attention, attn_shapes, dot_f32,
                                        dtype_of, ffn, ffn_shapes, frozen,
                                        init_dense, mla_attention, mla_shapes,
                                        rmsnorm)
+from repro_torch.sharding import rules
 
 PORTED_KINDS = ("dense", "moe", "mla_dense", "mla_moe", "enc", "dec",
                 "vlm_group", "mamba", "mamba_group", "rwkv")
@@ -337,6 +347,13 @@ class LM(nn.Module):
     def device(self) -> torch.device:
         return self.embed.device
 
+    @property
+    def mesh(self):
+        """The ``DeviceMesh`` the parameters are laid out on (the
+        embedding's), or None on one device."""
+        return (self.embed.device_mesh if isinstance(self.embed, DTensor)
+                else None)
+
     def segment_blocks(self):
         """(segment, [its blocks' indices in ``blocks``]) in order."""
         i = 0
@@ -382,18 +399,21 @@ class LM(nn.Module):
         encoder-decoder's ``enc_out`` and a VLM's ``vision`` zeros too (a
         prefill without ``frames`` / ``vision`` attends to them, as the
         reference's does)."""
+        return self._init_cache(batch_size, max_len, self.device)
+
+    def _init_cache(self, batch_size: int, max_len: int, dev) -> dict:
         cfg = self.cfg
         dt = dtype_of(cfg)
         cache = {"len": 0}
 
         def zeros(*shape):
-            return torch.zeros(shape, dtype=dt, device=self.device)
+            return torch.zeros(shape, dtype=dt, device=dev)
         for seg in self.segments:
             if seg.kind == "enc":
                 continue
             if seg.kind in ("mamba", "mamba_group", "rwkv"):
                 cache[seg.name] = self._state_cache(seg, batch_size,
-                                                    max_len)
+                                                    max_len, dev)
                 continue
             n = (seg.n_blocks,)
             if seg.kind == "vlm_group":
@@ -415,13 +435,13 @@ class LM(nn.Module):
                                     cfg.d_model)
         return cache
 
-    def _state_cache(self, seg: Segment, batch_size: int,
-                     max_len: int) -> dict:
+    def _state_cache(self, seg: Segment, batch_size: int, max_len: int,
+                     dev) -> dict:
         """A state-space segment's decode cache, zeros: each block's
         ``mamba2_init_state`` (``{"m": ...}``; a group's stacked (n, k,
         ...) beside the shared block's k/v (n, B, T, Hkv, hd)) or
         ``rwkv6_block_state``, stacked (n_blocks, ...)."""
-        cfg, dev = self.cfg, self.device
+        cfg = self.cfg
         if seg.kind == "rwkv":
             one = rwkv6.rwkv6_block_state(cfg, batch_size, dev)
         else:
@@ -437,6 +457,14 @@ class LM(nn.Module):
                 "shared_kv": {k: torch.zeros(kv, dtype=dtype_of(cfg),
                                              device=dev)
                               for k in ("k", "v")}}
+
+    def _mesh_cache(self, batch_size: int, max_len: int) -> dict:
+        """``init_cache``'s zeros laid out by ``rules.cache_shardings`` on
+        the model's mesh, each rank allocating only its own shard (the
+        layout is made on meta)."""
+        meta = self._init_cache(batch_size, max_len, torch.device("meta"))
+        return rules.zero_cache(rules.place_cache(
+            meta, rules.cache_shardings(meta, self.mesh)), self.device)
 
     # --- forward -------------------------------------------------------------
     def _tokens(self, tokens) -> torch.Tensor:
@@ -454,6 +482,21 @@ class LM(nn.Module):
             if key in batch:
                 out[key] = torch.as_tensor(batch[key], device=self.device
                                            ).to(dtype_of(self.cfg))
+        return out
+
+    def _placed(self, batch: dict) -> dict:
+        """On a mesh, ``batch``'s leaves laid out by
+        ``rules.batch_shardings`` (a plain leaf, whole and equal on every
+        rank, split; a DTensor redistributed); otherwise as they are."""
+        mesh = self.mesh
+        if mesh is None:
+            return batch
+        out = {}
+        for k, sh in rules.batch_shardings(batch, mesh).items():
+            x = batch[k]
+            out[k] = (x.redistribute(mesh, sh.placements)
+                      if isinstance(x, DTensor)
+                      else rules.distribute(x, mesh, sh.spec))
         return out
 
     def _carried(self, cache: dict | None, key: str, source: str):
@@ -519,7 +562,8 @@ class LM(nn.Module):
             x = x + h
         y = rmsnorm(x, blk.ln2, eps)
         if _has_moe(blk.kind):
-            f, aux = moe.moe_ffn(blk.moe, cfg, y, cfg.moe_groups)
+            f, aux = moe.moe_ffn(blk.moe, cfg, y, (ex or {}).get(
+                "n_groups", cfg.moe_groups))
         else:
             f, aux = ffn(blk.ffn, cfg, y), zero
         return x + f, aux
@@ -618,6 +662,8 @@ class LM(nn.Module):
         attended to into ``cache["enc_out"]`` / ``cache["vision"]``."""
         tokens = batch["tokens"]
         ex = self._extras(batch, cache)
+        if self.mesh is not None:
+            ex["n_groups"] = rules.batch_groups(self.mesh, tokens.shape[0])
         positions = pos + torch.arange(tokens.shape[1], device=self.device)
         x = self._embed(tokens, positions)
         for seg, idx in self._decoder_segments():
@@ -642,25 +688,28 @@ class LM(nn.Module):
         dict with ``frames`` / ``vision``) and build a decode cache of
         length ``max_len``: ``cache``, a zero cache of ``init_cache``'s
         layout (on a mesh, DTensors laid out by the sharding rules), or a
-        fresh ``init_cache``. Returns (last-position logits (B, V)
-        float32, cache)."""
-        batch = self._batch(batch)
+        fresh ``init_cache`` (on a mesh, ``_mesh_cache``). Returns
+        (last-position logits (B, V) float32, cache)."""
+        batch = self._placed(self._batch(batch))
         B, S = batch["tokens"].shape
         if cache is None:
-            cache = self.init_cache(B, max_len)
-        x = self._forward(batch, cache, 0)
-        cache["len"] = S
-        return self._unembed(x[:, -1:, :])[:, 0], cache
+            cache = (self.init_cache(B, max_len) if self.mesh is None
+                     else self._mesh_cache(B, max_len))
+        with implicit_replication():
+            x = self._forward(batch, cache, 0)
+            cache["len"] = S
+            return self._unembed(x[:, -1:, :])[:, 0], cache
 
     @torch.no_grad()
     def decode(self, cache: dict, tokens) -> tuple[torch.Tensor, dict]:
         """One decode step for tokens (B,) at position ``cache["len"]``,
         the same for every row. Returns (logits (B, V) float32, cache)."""
-        tokens = self._tokens(tokens)
+        tokens = self._placed({"tokens": self._tokens(tokens)})["tokens"]
         pos = int(cache["len"])
-        x = self._forward({"tokens": tokens[:, None]}, cache, pos)
-        new_cache = {**cache, "len": pos + 1}
-        return self._unembed(x)[:, 0], new_cache
+        with implicit_replication():
+            x = self._forward({"tokens": tokens[:, None]}, cache, pos)
+            new_cache = {**cache, "len": pos + 1}
+            return self._unembed(x)[:, 0], new_cache
 
     # --- training ------------------------------------------------------------
     def decays(self) -> dict[str, bool]:

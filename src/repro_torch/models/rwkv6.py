@@ -8,7 +8,8 @@ with w_t = exp(-exp(decay_t)) data-dependent (the Finch novelty vs RWKV-5).
 
 Training and prefill run the recurrence one token at a time in float32 (a
 Python loop where the reference scans over time); decode is one step of
-it. No kernel runs here. The reference's own simplifications are kept as
+it. On a mesh whose model axis divides the heads the loop runs on each
+rank's heads in a ``local_map`` region (``_wkv``). No kernel runs here. The reference's own simplifications are kept as
 they are: one learned per-channel token-shift mix in place of the
 published low-rank one; the gate reads the ``mix_v`` mix (there is no
 ``mix_g``); ``u_bonus`` scales the key axis n of k^T v; the RMSNorm after
@@ -20,10 +21,16 @@ from __future__ import annotations
 
 from typing import Mapping
 
+import math
+
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import dot, dtype_of, init_dense, rmsnorm
+from repro_torch.models.layers import (dot, dtype_of, init_dense, model_mesh,
+                                       rmsnorm)
+from repro_torch.sharding import rules
 
 Params = Mapping[str, torch.Tensor]
 
@@ -99,6 +106,45 @@ def wkv_step(s_prev: torch.Tensor, r: torch.Tensor, k: torch.Tensor,
     return out[..., 0, :], w[..., None] * s_prev + kv
 
 
+def _scan(s_prev, r, k, v, w, u):
+    """``wkv_step`` over the S tokens of r, k, v, w (B, S, H, N): (y (B,
+    S, H, N), the last state)."""
+    ys = []
+    for t in range(r.shape[1]):
+        out, s_prev = wkv_step(s_prev, r[:, t], k[:, t], v[:, t], w[:, t], u)
+        ys.append(out)
+    return torch.stack(ys, dim=1), s_prev
+
+
+def _wkv(s_prev, r, k, v, w, u):
+    """``_scan``; DTensors on a mesh whose ``"model"`` dim divides the
+    heads run in a ``local_map`` region, each rank its batch rows and its
+    heads (every head's recurrence is its own), u's gradient a partial sum
+    over the batch's mesh dims. The sharding rule of ``wkv_step``'s
+    batched product would flatten a head-split dim with the batch, which
+    torch 2.11 refuses."""
+    mesh = model_mesh(r)
+    if mesh is None or r.shape[2] % rules.model_axis_size(mesh):
+        return _scan(s_prev, r, k, v, w, u)
+    ba = rules.batch_axes(mesh)
+    if not ba or r.shape[0] % math.prod(rules.sizes(mesh)[a] for a in ba):
+        ba = None
+    if not isinstance(s_prev, DTensor):     # training's zero state
+        s_prev = DTensor.from_local(s_prev, mesh, [Replicate()] * mesh.ndim,
+                                    run_check=False)
+    x_place = rules.placements(rules.Spec(ba, None, "model", None), mesh)
+    s_place = rules.placements(rules.Spec(ba, "model", None, None), mesh)
+    u_place = rules.placements(rules.Spec("model", None), mesh)
+    split = rules.placements(rules.Spec(ba), mesh)
+    u_grad = [Partial() if not isinstance(b, Replicate) else a
+              for a, b in zip(u_place, split)]
+    return local_map(_scan, out_placements=(x_place, s_place),
+                     in_placements=(s_place,) + (x_place,) * 4 + (u_place,),
+                     in_grad_placements=(s_place,) + (x_place,) * 4
+                     + (u_grad,), device_mesh=mesh,
+                     redistribute_inputs=True)(s_prev, r, k, v, w, u)
+
+
 def time_mix(p: Params, cfg: ModelConfig, x: torch.Tensor, state: dict):
     """x: (B, S, D); state: {tm_prev (B, 1, D), wkv (B, H, N, N) float32}
     (reference rwkv6.py:62-98). Returns (out (B, S, D), {tm_prev, wkv})."""
@@ -117,14 +163,9 @@ def time_mix(p: Params, cfg: ModelConfig, x: torch.Tensor, state: dict):
     wdec = dot(mix(p["mix_w"]), p["ww"]).float() + p["w_bias"]
     w = torch.exp(-torch.exp(wdec)).reshape(B, S, H, N)       # (0,1) decay
 
-    rf, kf, vf = r.float(), k.float(), v.float()
-    s_prev = state["wkv"]
-    ys = []
-    for t in range(S):
-        out, s_prev = wkv_step(s_prev, rf[:, t], kf[:, t], vf[:, t],
-                               w[:, t], p["u_bonus"])
-        ys.append(out)
-    y = torch.stack(ys, dim=1).reshape(B, S, D)               # (B,S,D) f32
+    y, s_prev = _wkv(state["wkv"], r.float(), k.float(), v.float(), w,
+                     p["u_bonus"])
+    y = y.reshape(B, S, D)                                    # (B,S,D) f32
     y = rmsnorm(y.to(x.dtype), p["ln_g"], cfg.norm_eps)
     y = (y.float() * g).to(x.dtype)
     return dot(y, p["wo"]), {"tm_prev": x[:, -1:, :], "wkv": s_prev}

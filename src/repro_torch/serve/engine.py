@@ -15,6 +15,11 @@ multiple of it, or its prefill raises (``models.mamba2``).
 encoder-decoder, ``{"vision": ...}`` for a VLM, with B the wave's slots)
 join every wave's prefill batch, the same for every wave; without them
 the model attends to the zeros of its cache's ``enc_out`` / ``vision``.
+
+A model laid out on a mesh (DTensor parameters, ``models.lm``) serves
+on it, one engine a rank with the same requests: the greedy tokens are
+read whole on every rank (``full_tensor``), so every rank takes the same
+tokens and stopping decisions and returns the same results.
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ import dataclasses
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models.lm import LM
 
@@ -67,7 +73,8 @@ class Engine:
         tok = torch.argmax(logits, dim=-1)
         max_new = max(r.max_new_tokens for r in reqs)
         for step in range(max_new):
-            t_np = tok.cpu().numpy()
+            t_np = (tok.full_tensor() if isinstance(tok, DTensor)
+                    else tok).cpu().numpy()
             for i, r in enumerate(reqs):
                 if not done[i] and step < r.max_new_tokens:
                     out[i].append(int(t_np[i]))

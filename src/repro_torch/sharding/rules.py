@@ -13,6 +13,9 @@ reference's ``PartitionSpec``. ``placements(spec, mesh)`` turns it into
 DTensor placements: ``Shard(d)`` on every mesh dim that splits tensor dim
 d, ``Replicate()`` on the others. The rules read only axis sizes, so
 ``mesh`` may be a ``DeviceMesh`` or a plain ``{axis: size}`` mapping.
+``distribute``, ``place_cache`` and ``zero_cache`` put tensors onto a
+``DeviceMesh`` by a spec (the reference's ``jax.device_put``);
+``batch_groups`` is the MoE dispatch groups a batch's shards make.
 
 Rules match on the *leaf name*, the last part of a dotted parameter name,
 with "moe" / "shared" among the parts as context. The reference's
@@ -29,7 +32,9 @@ import dataclasses
 from typing import Any, Mapping
 
 import numpy as np
-from torch.distributed.tensor import Replicate, Shard
+import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard, \
+    distribute_tensor
 
 # leaf name -> spec over the LAST TWO dims (leading stack dims unsharded).
 # "col" = shard output dim (last), "row" = shard input dim (-2), "rep" = none.
@@ -264,6 +269,66 @@ def cache_shardings(cache: Mapping, mesh, path: tuple = ()) -> dict:
             else NamedSharding(mesh, cache_spec(path + (k,),
                                                 tuple(np.shape(v)), mesh))
             for k, v in cache.items()}
+
+
+def batch_groups(mesh, global_batch: int) -> int:
+    """Number of MoE dispatch groups = number of batch shards (1 without
+    a mesh)."""
+    if mesh is None:
+        return 1
+    n = 1
+    for a in _batch_axes_for(mesh, global_batch):
+        n *= sizes(mesh)[a]
+    return max(n, 1)
+
+
+def distribute(t: torch.Tensor, mesh, spec: Spec) -> DTensor:
+    """``t``, whole and equal on every rank, as a DTensor laid out by
+    ``spec``: each rank keeps its own slice, nothing is sent. A slice
+    that is a view of ``t`` (a split of its leading dim) is copied, so
+    that the whole tensor's memory goes with ``t``. A meta ``t`` gives a
+    meta DTensor (a layout: shapes and placements, no storage)."""
+    d = distribute_tensor(t, mesh, placements(spec, mesh),
+                          src_data_rank=None)
+    local = d.to_local()
+    if local.untyped_storage().nbytes() > local.numel() \
+            * local.element_size():
+        d = DTensor.from_local(local.clone(), mesh, d.placements,
+                               run_check=False, shape=d.shape,
+                               stride=d.stride())
+    return d
+
+
+def place_cache(tree: Mapping, shardings: Mapping) -> dict:
+    """``distribute`` of every tensor of a cache dict by the matching
+    ``NamedSharding`` of ``shardings`` (``cache_shardings``' tree); its
+    Python-int ``len`` as it is."""
+    return {k: (place_cache(v, shardings[k]) if isinstance(v, Mapping)
+                else v if not isinstance(v, torch.Tensor)
+                else distribute(v, shardings[k].mesh, shardings[k].spec))
+            for k, v in tree.items()}
+
+
+def zero_cache(layout: Mapping | None, device=None) -> dict | None:
+    """A zero cache of ``layout``'s shapes, dtypes and DTensor placements
+    (``place_cache`` of a meta cache: no storage read), each rank
+    allocating only its own shard, on ``device`` (default: each leaf's
+    own)."""
+    if layout is None:
+        return None
+    out = {}
+    for k, v in layout.items():
+        if isinstance(v, Mapping):
+            out[k] = zero_cache(v, device)
+        elif isinstance(v, DTensor):
+            out[k] = DTensor.from_local(
+                torch.zeros(v._local_tensor.shape, dtype=v.dtype,
+                            device=device or v.device),
+                v.device_mesh, v.placements, run_check=False,
+                shape=v.shape, stride=v.stride())
+        else:
+            out[k] = v
+    return out
 
 
 def zero1_state_spec(pspec: Spec, shape: tuple, mesh) -> Spec:

@@ -25,7 +25,7 @@ import types
 
 import torch
 import torch.distributed as dist
-from torch.distributed.tensor import DTensor, distribute_tensor
+from torch.distributed.tensor import DTensor
 from torch.distributed.tensor import zeros as dtensor_zeros
 from torch.distributed.tensor.experimental import implicit_replication
 
@@ -95,29 +95,13 @@ def _split(batch: dict, n_micro: int) -> list[dict]:
                              f"{n_micro} microbatches")
         if isinstance(x, DTensor):
             whole, bm = x.full_tensor(), b // n_micro
-            parts[k] = [_distribute(whole[i * bm:(i + 1) * bm], x.device_mesh,
-                                    rules.batch_spec(x.device_mesh,
-                                                     (bm, *x.shape[1:])))
-                        for i in range(n_micro)]
+            parts[k] = [rules.distribute(
+                whole[i * bm:(i + 1) * bm], x.device_mesh,
+                rules.batch_spec(x.device_mesh, (bm, *x.shape[1:])))
+                for i in range(n_micro)]
         else:
             parts[k] = x.reshape(n_micro, b // n_micro, *x.shape[1:])
     return [{k: x[i] for k, x in parts.items()} for i in range(n_micro)]
-
-
-def _distribute(t: torch.Tensor, mesh, spec: rules.Spec) -> DTensor:
-    """``t``, whole and equal on every rank, as a DTensor laid out by
-    ``spec``: each rank keeps its own slice, nothing is sent. A slice
-    that is a view of ``t`` (a split of its leading dim) is copied, so
-    that the whole tensor's memory goes with ``t``."""
-    d = distribute_tensor(t, mesh, rules.placements(spec, mesh),
-                          src_data_rank=None)
-    local = d.to_local()
-    if local.untyped_storage().nbytes() > local.numel() \
-            * local.element_size():
-        d = DTensor.from_local(local.clone(), mesh, d.placements,
-                               run_check=False, shape=d.shape,
-                               stride=d.stride())
-    return d
 
 
 def _accumulate(model: LM, batch: dict, n_micro: int,
@@ -263,7 +247,7 @@ def place(tree, shardings):
     ``NamedSharding`` of ``shardings`` (same structure; dicts, ``OptState``
     and ``QTensor``); each rank keeps its slice, nothing is sent."""
     if isinstance(shardings, rules.NamedSharding):
-        return _distribute(tree, shardings.mesh, shardings.spec)
+        return rules.distribute(tree, shardings.mesh, shardings.spec)
     if isinstance(tree, adamw.QTensor):
         return adamw.QTensor(place(tree.q, shardings.q),
                              place(tree.scale, shardings.scale), tree.shape)
@@ -278,12 +262,17 @@ def place(tree, shardings):
 @torch.no_grad()
 def distribute_model(model: LM, shardings: dict) -> dict:
     """Replace each of the model's parameters by a DTensor parameter laid
-    out by ``shardings[name]`` (``place``); returns ``params_of(model)``."""
-    for name, p in list(model.named_parameters()):
+    out by ``shardings[name]`` (``place``); returns ``params_of(model)``.
+    Each whole parameter is let go once its slice replaces it, so that
+    the whole model and all its slices are never held at once."""
+    for name in [n for n, _ in model.named_parameters()]:
         owner, _, leaf = name.rpartition(".")
         mod = model.get_submodule(owner) if owner else model
+        p = (mod[leaf] if isinstance(mod, torch.nn.ParameterDict)
+             else getattr(mod, leaf))
         new = torch.nn.Parameter(place(p.detach(), shardings[name]),
                                  requires_grad=p.requires_grad)
+        del p
         if isinstance(mod, torch.nn.ParameterDict):
             mod[leaf] = new
         else:
