@@ -282,6 +282,31 @@ in float32 with the decode's write dropped as its control; and one (2,
 ``launch.op_analysis`` on meta under a fake 4-rank group and on every
 card, equal exactly, the measured step at or above its roofline bound.
 With fewer than four cards it exits non-zero at once.
+
+    python3 chip_smoke.py --mesh-remaining
+
+trains the last three registry architectures on four cards as
+``--mesh-families`` trains its families (a mode of its own): K5, K6 and
+K7 at ``tp2`` and ``tp2_g7`` (deepseek-coder-33b's H 28 on Hkv 4, a GQA
+group of 7) timed on card 0 and held on every card, with a planted input
+whose query head h reads kv head h // 8 that the checks must reject;
+then on (2, 2) through ``launch.train``'s path, 3 steps at full width:
+(m) deepseek-v3-671b at 4 layers (3 mla_dense, 1 mla_moe), 16 x 4096
+tokens, under its optimised plan (``launch.dryrun.OPT_PLANS``: the 256
+experts 64 a card over ("data", "model"), the slot rows re-sharded over
+those axes, a bf16 accumulator, int8 moments, n_micro 8, the MoE
+dispatched in one group a data rank), K5-K7 launched 0 times, each
+card's share of its experts' kept choices from its own rows; held to one
+process on card 0, which cannot step the plan (15.11e9 parameters), by
+its loss and gradient norm at the seeded weights and at the weights the
+mesh saved after two steps (bf16 accumulator, the mesh's microbatches
+and groups, following the mesh's expert choices); (n) deepseek-coder-33b
+at 12 of 62 layers, 8 x 4096 tokens, n_micro 4, float32 moments; (o)
+minitron-8b whole (32 layers, a 256,000-token vocabulary), 4 x 4096,
+n_micro 2; both held to one process at 4 layers as ``--mesh-families``
+holds gemma-7b; and one (2, 2) step of (m) counted on meta under a fake
+4-rank group (as each rank) and on every card, equal exactly. With fewer
+than four cards it exits non-zero at once.
 """
 from __future__ import annotations
 
@@ -1229,8 +1254,8 @@ def row_name(name, d, window=None, tag=None):
     rank's local heads (the cases MESH_TAGS: ``tp2`` on a (1, 2) or (2, 2)
     mesh, ``tp4`` on (1, 4), ``tp2_w4096`` mixtral's on (2, 2), and the
     families' FAMILY_TAGS on (2, 2), the serving SERVE_TAGS on (1, 4) and
-    (2, 2))."""
-    if tag in MESH_TAGS + SERVE_TAGS:
+    (2, 2), REMAIN_TAGS on (2, 2))."""
+    if tag in MESH_TAGS + SERVE_TAGS + REMAIN_TAGS:
         return f"{name}_{tag}"
     if window == WINDOW_ROW:
         return f"{name}_w{WINDOW_ROW}"
@@ -4856,8 +4881,9 @@ MESH_PEAK = 80e9         # a card's memory: each rank's peak below it
 # (``free`` off: 1 group of llama-3.2-vision-90b is 7.2e9 parameters,
 # whose int8 moments and float32 accumulator with its bf16 weights and
 # gradients pass 80 GB), the first step too is held at the same weights
-# (the seeded ones), by one process's gradients alone. ``tag``: the
-# local-head kernel case the run's attention takes.
+# (the seeded ones), by one process's loss and gradient norm alone (each
+# within TRAIN_LOSS_RTOL and TRAIN_GNORM_RTOL). ``tag``: the local-head
+# kernel case the run's attention takes.
 FAMILY_FLAG = "--mesh-families"
 FAMILY_LAYOUT = (2, 2)
 GEMMA_MESH_HELD = 4      # gemma-7b: float32 moments and accumulator
@@ -4885,6 +4911,60 @@ FAMILY_DEVICE_ONLY_PROFILE = (ZAMBA_ARCH,)
 SUP_STEPS, SUP_EVERY, SUP_FAULT, SUP_BATCH = 5, 2, 3, 4
 SUP_HISTORY = [0, 1, 2, 2, 3, 4]
 FAMILY_PHASES = ("f", "g", "h", "i", "j")
+# --mesh-remaining: the last three registry architectures at full width on
+# FAMILY_LAYOUT, as --mesh-families runs its families (``_mesh_family``,
+# ``family_one_process``, ``family_report``), TRAIN_STEPS steps each.
+# (m) deepseek-v3-671b at [moe]'s 4 layers (3 mla_dense + 1 mla_moe)
+# under its optimised plan (launch.dryrun.OPT_PLANS: its 256 experts 64 a
+# card over ("data", "model"), the slot rows re-sharded over those axes,
+# a bf16 accumulator, int8 moments, n_micro 8; ``opt``), 16 sequences of
+# 4096 tokens: two rows a microbatch, dispatched in one group a data rank
+# (``rules.batch_groups``). One card cannot step it (15.11e9 parameters:
+# bf16 weights and a float32 accumulator pass 80 GB), so it is held as
+# (i) is (``free`` off), by one process's loss and gradient norm at the
+# seeded weights (step 0) and at the mesh's saved ones (after
+# MESH_MOE_HELD steps) with the plan's own bf16 accumulator, its
+# microbatches and groups, following the mesh's expert choices (each
+# difference a near-tie, ROUTE_TIE_TOL); at the seeded weights its
+# gradient norm within PLAN_MICRO_GNORM_RTOL. MLA stays on ``_sdpa``:
+# K5-K7 launch 0 times. The count counts one (2, 2) step of it
+# (``moe_train``).
+# (n) deepseek-coder-33b at CODER_LAYERS of 62 (the guide's depth for a
+# card: ~3.4e9 parameters, ~48 GB before activations; 16 layers ~63 GB),
+# 8 sequences a step under PLANS (n_micro 4, float32 moments): its 56
+# query heads on 8 kv heads give each rank 28 on 4 (a GQA group of 7,
+# ``tp2_g7``). (o) minitron-8b whole (32 layers; llama3-8b's attention,
+# ``tp2``, and a 256,000-token vocabulary), 4 sequences, n_micro 2. Both
+# are held to one process at REMAIN_HELD layers free-running, as (f).
+REMAIN_FLAG = "--mesh-remaining"
+CODER_ARCH, MINITRON_ARCH = "deepseek-coder-33b", "minitron-8b"
+CODER_LAYERS, REMAIN_HELD = 12, 4
+FAMILIES.update(
+    m=dict(arch=DEEPSEEK_ARCH, layers=MESH_MOE_LAYERS, seq=4096, batch=16,
+           held=MESH_MOE_LAYERS, free=False, tag=None, opt=True),
+    n=dict(arch=CODER_ARCH, layers=CODER_LAYERS, seq=4096, batch=8,
+           held=REMAIN_HELD, free=True, tag="tp2_g7"),
+    o=dict(arch=MINITRON_ARCH, layers=None, seq=4096, batch=4,
+           held=REMAIN_HELD, free=True, tag=LOCAL_HEADS))
+FAMILY_DEVICE_ONLY_PROFILE += (DEEPSEEK_ARCH, CODER_ARCH, MINITRON_ARCH)
+# (m)'s one process at the seeded weights: two rows a bf16 microbatch
+# where each rank's backward takes one, and in bf16 the rows a backward
+# takes move the gradient norm, not the loss (minitron-8b's SMOKE rows
+# in 1, 2 or 4 microbatches on the CPU: 2.6e-4 apart in bf16, 1.0e-7 in
+# float32, tests/test_torch_mesh_remaining.py); on the cards (m) read
+# 2.22e-3 there, and (n) and (o), free-running at two rows a microbatch,
+# 1.99e-3 and 2.58e-3 at step 0 (their one-row controls: 1.3e-5, 1.4e-5)
+PLAN_MICRO_GNORM_RTOL = 3e-3
+REMAIN_PHASES = ("m", "n", "o", "count")
+# the local-head case new to this mode; each rank also checks ``tp2``
+# (minitron-8b's); the planted control reads kv head h // WRONG_GROUP
+REMAIN_TAGS = ("tp2_g7",)
+REMAIN_KERNEL_TAGS = (LOCAL_HEADS,) + REMAIN_TAGS
+WRONG_GROUP = 8
+MESH_K5_CASES.append(("tp2_g7", 1, 28, 4, 4095, 128, "bfloat16", None, 10))
+MESH_BWD_CASES.append(("tp2_g7", 1, 28, 4, 4095, 128, "bfloat16", None, 5))
+K7_DETERMINISTIC += REMAIN_TAGS
+REMAIN_TIMEOUT = 1000    # the ranks' join (s)
 
 
 def mesh_spec(device="cuda", smoke=False, ckpt=None, **over):
@@ -4909,8 +4989,9 @@ def mesh_spec(device="cuda", smoke=False, ckpt=None, **over):
 def mesh_argv(spec, arch, layers, seq, batch, layout=None, plan=None):
     """launch.train's arguments for a [mesh] run (the spec's device;
     ``--model-axis`` of ``layout`` on the mesh): n_micro 1 and int8
-    moments, or ``plan``'s n_micro and moments (a ``launch.dryrun.Plan``;
-    its fsdp goes to ``build``)."""
+    moments, or ``plan``'s n_micro and moments (a ``launch.dryrun.Plan``,
+    which ``build`` takes whole; the one-process runs, which take no plan
+    but (m)'s, read these)."""
     argv = train_argv(arch, layers, seq, batch)
     if plan is not None:
         argv[argv.index("--n-micro") + 1] = str(plan.n_micro)
@@ -4978,6 +5059,46 @@ def local_head_checks(dev, tags):
                     all(torch.equal(a, g) for a, g in zip(again, got[1:])))
         del q, k, v, do, qp, kp, vp, dop, o, lse, dd, got, again
         _free()
+    return out
+
+
+def group_control(dev, tag, group=WRONG_GROUP):
+    """The planted control of local-head case ``tag``: K5, K6 and K7 on
+    an input in which query head h reads kv head h // ``group`` (k and v
+    gathered to every query head by that map; K7's dk and dv summed back
+    by it), held to the plain versions at the case's own group, which
+    must reject each. Returns (K5 rejected, K6/K7 rejected, K5's max err,
+    K6/K7's)."""
+    import torch
+
+    from repro_torch.kernels import flash_cuda as fc
+    gen = torch.Generator(device=dev).manual_seed(3)
+    _, b, h, hkv, s, d, dname, window, _ = next(
+        c for c in MESH_K5_CASES if c[0] == tag)
+    check(h % hkv == 0 and (h - 1) // group < hkv,
+          f"{tag}: no map h // {group} at H {h}, Hkv {hkv}")
+    q, k, v = _attention_case(dev, gen, b, h, hkv, s, d,
+                              getattr(torch, dname))
+    do = torch.randn(q.shape, generator=gen, device=dev).to(q.dtype)
+    kw = dict(sm_scale=d ** -0.5, causal=True, window=window)
+    wrong = torch.arange(h, device=dev) // group
+    kr, vr = k[:, wrong].contiguous(), v[:, wrong].contiguous()
+    o, lse = fc.flash_fwd(q, kr, vr, **kw)
+    pout, plse = fc.flash_fwd_plain(q, k, v, **kw)
+    ok5, err5, err_lse, _ = k5_agreement(o, lse, pout, plse)
+    dd = torch.sum(do.float() * o.float(), dim=-1)
+    dq = fc.flash_bwd_dq(q, kr, vr, do, lse, dd, **kw)
+    dkr, dvr = fc.flash_bwd_dkv(q, kr, vr, do, lse, dd, **kw)
+    summed = [torch.zeros(k.shape, dtype=torch.float32, device=dev)
+              .index_add_(1, wrong, t.float()).to(k.dtype)
+              for t in (dkr, dvr)]
+    want = fc.flash_bwd_plain(q, k, v, pout, plse, do, **kw)
+    res = [grad_agreement(g, w) for g, w in zip((dq, *summed), want)]
+    _sync(dev)
+    out = (not ok5, not all(r[0] for r in res), max(err5, err_lse),
+           max(r[1] for r in res))
+    del q, k, v, do, kr, vr, o, lse, pout, plse, dd, dq, dkr, dvr, summed
+    _free()
     return out
 
 
@@ -5067,7 +5188,7 @@ def _mesh_train(dev, spec, layout, arch=MESH_ARCH, layers=None, seq=None,
         # llama-3.2-vision-90b: seconds of host time)
         made = {s: source(s) for s in range(TRAIN_STEPS + 1)}
         source = made.__getitem__
-    r = lt.build(args, source, fsdp=plan is not None and plan.fsdp)
+    r = lt.build(args, source, plan=plan)
     if prepare is not None:
         prepare(r.model)
     init_s = time.perf_counter() - t0
@@ -5114,13 +5235,15 @@ def _mesh_train(dev, spec, layout, arch=MESH_ARCH, layers=None, seq=None,
     out = {"hist": hist, "launches": launches, "peak": _peak(dev),
            "init_s": init_s, "params": sum(p.numel() for p in
                                            r.model.parameters()),
+           "moe_groups": r.cfg.moe_groups, "ep_axes": r.cfg.ep_axes,
+           "grad_dtype": plan.grad_dtype if plan else None,
            "mesh": tuple(r.mesh.shape), "layers": r.cfg.n_layers,
            "flash_layers": flash_layers(r.model),
            "n_micro": args.n_micro, "quantized": args.quantized_state,
            "tokens": args.global_batch * (args.seq_len - 1),
            "fsdp_leaves": fsdp}
     if moe:
-        out["routes"] = [[c.cpu().numpy().astype(np.int8) for c in call]
+        out["routes"] = [[route_ids(c) for c in call]
                          for call in rec.calls if call]
         out["share"] = moe_share(r, slots)
     del slots, rec
@@ -5208,9 +5331,22 @@ def mesh_count_cell(spec, mesh, device):
     attention (the dry run counts no ctypes kernel), ``spec["count"]``'s
     kind: a training step (int8 moments, MESH_BATCH sequences of
     ``spec["seq"]`` tokens) or a decode step (SERVE_SLOTS rows against a
-    cache of SERVE_COUNT_LEN): ``(fn, args)``."""
+    cache of SERVE_COUNT_LEN); or (``"moe_train"``) one step of (m),
+    deepseek-v3-671b at its depth, batch and sequence under its
+    OPT_PLANS plan: ``(fn, args)``."""
     from repro_torch.configs import registry
     from repro_torch.launch import dryrun, specs
+    if spec["count"] == "moe_train":
+        fam = FAMILIES["m"]
+        cfg = (registry.smoke_config(fam["arch"]) if spec["smoke"] else
+               registry.config(fam["arch"], n_layers=fam["layers"]))
+        seq = spec["seq"] if spec["smoke"] else fam["seq"]
+        cell = specs.Cell(fam["arch"], "train_4k", seq, fam["batch"],
+                          "train")
+        fn, args, _, _ = dryrun.build_cell(
+            fam["arch"], cell.shape, mesh, family_plan("m"), cfg=cfg,
+            cell=cell, device=device, seed=0)
+        return fn, args
     cfg = (registry.smoke_config(MESH_ARCH) if spec["smoke"] else
            registry.config(MESH_ARCH, n_layers=MESH_SHORT))
     if spec["count"] == "decode":
@@ -5241,20 +5377,34 @@ def _count_record(a, out, secs):
 
 def mesh_count_child(out_path, spec_json):
     """[mesh]'s meta count, in a process of its own on the CPU: the count
-    program on meta under a fake 4-rank group (this process rank 0) on a
-    (2, 2) mesh; its record to ``out_path`` (JSON)."""
+    program on meta under a fake 4-rank group on a (2, 2) mesh, as rank
+    ``count_rank`` (default 0); its record to ``out_path`` (JSON). Where
+    the spec's ``count_ranks`` name ranks besides 0, each is counted in a
+    child of its own (a dim split unevenly over a mesh axis, 4,095 tokens
+    over ``model``, gives the ranks other local shapes) and the record is
+    rank 0's with every rank's under ``by_rank``."""
     import logging
 
     import torch
     from torch.distributed.device_mesh import init_device_mesh
 
     from repro_torch.launch import dryrun
+    spec = json.loads(spec_json)
+    several = [r for r in spec.get("count_ranks", (0,))]
+    if "count_rank" not in spec and several != [0]:
+        procs = {r: mesh_count_start(f"{out_path}.{r}",
+                                     dict(spec, count_rank=r))
+                 for r in several}
+        recs = {str(r): mesh_count_finish(p, f"{out_path}.{r}",
+                                          time.perf_counter())
+                for r, p in procs.items()}
+        Path(out_path).write_text(json.dumps(dict(recs["0"], by_rank=recs)))
+        return
     logging.getLogger("torch.distributed.tensor").setLevel(logging.ERROR)
-    dryrun.fake_world(MESH_WORLD)
+    dryrun.fake_world(MESH_WORLD, spec.get("count_rank", 0))
     mesh = init_device_mesh("cpu", MESH_TP["a"],
                             mesh_dim_names=("data", "model"))
-    fn, args = mesh_count_cell(json.loads(spec_json), mesh,
-                               torch.device("meta"))
+    fn, args = mesh_count_cell(spec, mesh, torch.device("meta"))
     a, out, secs = dryrun.count_cell(fn, args)
     Path(out_path).write_text(json.dumps(_count_record(a, out, secs)))
 
@@ -5289,7 +5439,7 @@ def _mesh_count(dev, spec):
     a, out, secs = dryrun.count_cell(fn, args, device=dev)
     _sync(dev)
     rec = dict(_count_record(a, out, secs), real_argument_bytes=real,
-               peak=_peak(dev))
+               peak=_peak(dev), cell=spec["count"])
     del out
     times = []
     for i in range(DRYRUN_REPS + 1):
@@ -5307,14 +5457,23 @@ def _mesh_count(dev, spec):
 
 
 def family_plan(key):
-    """(f)-(i)'s plan, the family's ``launch.dryrun.PLANS`` entry; (j)'s,
+    """(f)-(i)'s and (n)-(o)'s plan, the architecture's
+    ``launch.dryrun.PLANS`` entry ((m)'s its ``OPT_PLANS`` one); (j)'s,
     the reference CLI's n_micro (``launch.train``'s default) with int8
     moments."""
     from repro_torch.launch import dryrun
     from repro_torch.launch import train as lt
     if key == "j":
         return dryrun.Plan(n_micro=lt.parse([]).n_micro, quantized=True)
-    return dryrun.PLANS[FAMILIES[key]["arch"]]
+    fam = FAMILIES[key]
+    return (dryrun.OPT_PLANS if fam.get("opt") else dryrun.PLANS)[
+        fam["arch"]]
+
+
+def is_moe(arch):
+    """Whether ``arch`` routes its tokens to experts."""
+    from repro_torch.configs import registry
+    return registry.config(arch).is_moe
 
 
 def family_prepare(arch):
@@ -5343,7 +5502,8 @@ def _mesh_family(dev, spec, key, inputs=None):
     the spec says), then, where one card holds the plan at another depth,
     at that one; the held run saves its weights after MESH_MOE_HELD
     steps under ``spec["ckpt"] + "_" + key``. ``inputs``: another source
-    of the cross-attended inputs (the CPU tests' control)."""
+    of the cross-attended inputs (the CPU tests' control). An MoE run
+    records its routing and dispatches (``_mesh_train``'s ``moe``)."""
     fam = FAMILIES[key]
     layers, held, seq = ((None, None, spec["seq"]) if spec["smoke"]
                          else (fam["layers"], fam["held"], fam["seq"]))
@@ -5351,8 +5511,9 @@ def _mesh_family(dev, spec, key, inputs=None):
     def run(depth, save, profile):
         return _mesh_train(
             dev, spec, FAMILY_LAYOUT, fam["arch"], depth, seq, fam["batch"],
-            plan=family_plan(key), prepare=family_prepare(fam["arch"]),
-            save=save, inputs=inputs, profile=profile)
+            moe=is_moe(fam["arch"]), plan=family_plan(key),
+            prepare=family_prepare(fam["arch"]), save=save, inputs=inputs,
+            profile=profile)
 
     save = spec["ckpt"] + f"_{key}" if spec["ckpt"] else None
     profile = spec["profile"] and (
@@ -5378,6 +5539,41 @@ def _other_frames(dev, spec):
         return {k: np.roll(v, fam["batch"] // 2, axis=0)
                 for k, v in base(step).items()}
     return _mesh_family(dev, dict(spec, ckpt=None), "h", inputs)
+
+
+def _moe_variant(dev, spec, what):
+    """(m) with one thing changed, the CPU tests' controls: ``"f32_acc"``,
+    its plan with a float32 accumulator (held to the reference at 1e-5);
+    ``"f32_state"``, float32 moments too; ``"misrouted"``, each rank's share of the expert weights taken from
+    the rank at its transposed mesh coordinates, what an expert layout in
+    the other order of ("data", "model") than the slot rows' gives: rank
+    r's slot rows reach another rank's experts, and the loss must move."""
+    import dataclasses
+
+    import torch
+    fam = FAMILIES["m"]
+    plan = family_plan("m")
+    prepare = None
+    if what == "f32_acc":
+        plan = dataclasses.replace(plan, grad_dtype=None)
+    elif what == "f32_state":
+        plan = dataclasses.replace(plan, grad_dtype=None, quantized=False)
+    else:
+        def prepare(model):
+            with torch.no_grad():
+                for n, p in model.named_parameters():
+                    if n.split(".")[-2:-1] == ["moe"] \
+                            and n.endswith(("w1", "w3", "w2")):
+                        mesh = p.device_mesh
+                        d, m = (mesh.get_local_rank(a)
+                                for a in ("data", "model"))
+                        parts = p.full_tensor().chunk(mesh.size())
+                        p.to_local().copy_(parts[m * mesh.size(0) + d])
+    return {"timed": _mesh_train(
+        dev, spec, FAMILY_LAYOUT, fam["arch"],
+        None if spec["smoke"] else fam["layers"],
+        spec["seq"] if spec["smoke"] else fam["seq"], fam["batch"],
+        moe=True, plan=plan, prepare=prepare, profile=False)}
 
 
 def _mesh_supervised(dev, spec):
@@ -5445,6 +5641,12 @@ MESH_RUNS = {
     "i": lambda dev, spec: _mesh_family(dev, spec, "i"),
     "j": _mesh_supervised,
     "h_other_frames": _other_frames,
+    "m": lambda dev, spec: _mesh_family(dev, spec, "m"),
+    "m_f32_acc": lambda dev, spec: _moe_variant(dev, spec, "f32_acc"),
+    "m_f32_state": lambda dev, spec: _moe_variant(dev, spec, "f32_state"),
+    "m_misrouted": lambda dev, spec: _moe_variant(dev, spec, "misrouted"),
+    "n": lambda dev, spec: _mesh_family(dev, spec, "n"),
+    "o": lambda dev, spec: _mesh_family(dev, spec, "o"),
 }
 
 
@@ -5473,6 +5675,8 @@ def _mesh_rank(rank, world, init_file, spec):
     out = {"backend": dist.get_backend(), "device": str(dev)}
     if cuda:
         out["kernels"] = local_head_checks(dev, spec["kernel_tags"])
+        out["controls"] = {t: group_control(dev, t)
+                           for t in spec.get("kernel_controls", ())}
     for name in spec["phases"]:
         t0 = time.perf_counter()
         out[name] = MESH_RUNS[name](dev, spec)
@@ -5530,6 +5734,13 @@ def _rank_lines(tag, res, key, whole, what, cuda=True, held=None):
               f"{run['launches']}")
 
 
+def route_ids(choices):
+    """A route call's (G, S, K) expert choices as a compact host array
+    (int16: deepseek-v3-671b's 256 experts pass int8's range)."""
+    import numpy as np
+    return choices.cpu().numpy().astype(np.int16)
+
+
 def _routes_lead(dev, routes):
     """A lead for ``RoutingRecorder`` from a rank's recorded choices."""
     import types
@@ -5574,27 +5785,37 @@ def mesh_count_finish(proc, out_path, t_start):
     return json.loads(Path(out_path).read_text())
 
 
-def mesh_count_report(tag, meta, res):
+def mesh_count_report(tag, whole, res):
     """Every card's count equal to meta's (flops, elementwise flops,
-    bytes, collective bytes, argument bytes), the measured step at or
-    above its roofline bound, the predicted peak within PEAK_RATIO of
-    the card's; the collective term beside NCCL's measured time. Ops
+    bytes, collective bytes, argument bytes; the meta count of the card's
+    own rank where ``whole`` has one, ``by_rank``, else rank 0's), the
+    measured step at or above its roofline bound, the predicted peak
+    within PEAK_RATIO of the card's; the collective term beside NCCL's
+    measured time. Ops
     that the card dispatches and meta does not (or the other way) are
     printed by name: they may differ only in ops that cost nothing, since
     every cost is equal."""
     from repro_torch.launch import dryrun
-    roof = dryrun.roofline(*(meta["per_dev"][k] for k in (
-        "flops_per_dev", "bytes_per_dev", "collective_bytes_per_dev")))
-    bound = max(roof["compute_s"], roof["memory_s"])
     for r, out in enumerate(res):
         card = out["count"]
-        check(card["cost"] == meta["cost"], f"rank {r}: card counts "
-              f"{card['cost']} differ from meta's {meta['cost']}")
+        meta = whole.get("by_rank", {}).get(str(r), whole)
+        roof = dryrun.roofline(*(meta["per_dev"][k] for k in (
+            "flops_per_dev", "bytes_per_dev", "collective_bytes_per_dev")))
+        bound = max(roof["compute_s"], roof["memory_s"])
         ops_differ = {k: card["op_counts"].get(k, 0)
                       - meta["op_counts"].get(k, 0)
                       for k in set(card["op_counts"]) | set(meta["op_counts"])
                       if card["op_counts"].get(k, 0)
                       != meta["op_counts"].get(k, 0)}
+        if card["cost"] != meta["cost"]:
+            # printed before the check ends the script: the ops to look at
+            phase(tag, run="count", cell=card["cell"], rank=r,
+                  card_cost=json.dumps(card["cost"]),
+                  meta_cost=json.dumps(meta["cost"]),
+                  card_minus_meta_ops=json.dumps(ops_differ, sort_keys=True,
+                                                 separators=(",", ":")))
+        check(card["cost"] == meta["cost"], f"rank {r}: card counts "
+              f"{card['cost']} differ from meta's {meta['cost']}")
         check(card["argument_bytes"] == meta["argument_bytes"]
               == card["real_argument_bytes"], f"rank {r}: argument bytes "
               f"card {card['argument_bytes']}, meta "
@@ -5606,7 +5827,7 @@ def mesh_count_report(tag, meta, res):
         split = card["split"] or {}
         nccl = split.get("nccl")
         coll = meta["per_dev"]["collective_bytes_per_dev"]
-        phase(tag, run="count", mesh="2x2", rank=r,
+        phase(tag, run="count", cell=card["cell"], mesh="2x2", rank=r,
               flops=f"{meta['cost']['flops'] + meta['cost']['eflops']:.6e}",
               matmul_flops=f"{meta['cost']['flops']:.6e}",
               bytes=f"{meta['cost']['bytes']:.6e}",
@@ -5651,13 +5872,22 @@ def rank_kernel_lines(res, cuda):
                   k7_two_launches="bitwise" if same else "differ")
             check(ok5 and okb and same, f"rank {r} {tag}: K5 {ok5} ({e5}), "
                   f"K6/K7 {okb} ({eb}), K7 bitwise {same}")
+        for tag, (rej5, rejb, e5, eb) in out.get("controls", {}).items():
+            phase("mesh", rank=r, device=out["device"], case=tag,
+                  control=f"kv_head_h_div_{WRONG_GROUP}",
+                  k5="rejected" if rej5 else "passed",
+                  k6_k7="rejected" if rejb else "passed",
+                  k5_max_abs_err=f"{e5:.3e}", k6_k7_max_abs_err=f"{eb:.3e}")
+            check(rej5 and rejb, f"rank {r} {tag}: the checks passed the "
+                  f"planted map h // {WRONG_GROUP} (K5 rejected {rej5}, "
+                  f"K6/K7 rejected {rejb})")
 
 
-def mesh_kernel_phase(dev):
-    """[mesh]'s local-head cases (``tp2``, ``tp4``, ``tp2_w4096``) on card
-    0: K5, K6 and K7 against their plain versions, timed beside them and
-    SDPA. Returns their rows."""
-    tags = MESH_TAGS[:3]
+def mesh_kernel_phase(dev, tags=MESH_TAGS[:3]):
+    """Local-head cases ``tags`` (default [mesh]'s: ``tp2``, ``tp4``,
+    ``tp2_w4096``; --mesh-remaining's REMAIN_KERNEL_TAGS) on card 0: K5,
+    K6 and K7 against their plain versions, timed beside them and SDPA.
+    Returns their rows."""
     table = lm_kernel_phase(dev, [c for c in K5_CASES + MESH_K5_CASES
                                   if c[0] in tags], small=False)
     table.update(bwd_kernel_phase(
@@ -5833,33 +6063,50 @@ def family_spec(**over):
                         **over})
 
 
-def accumulated_grads(model, batch):
+def remain_spec(**over):
+    """What the ranks of --mesh-remaining run: (m)-(o) and the count of
+    (m)'s step, each card checking REMAIN_KERNEL_TAGS' kernel cases and
+    the planted control of REMAIN_TAGS first."""
+    return mesh_spec(**{"ckpt": str(ROOT / "build" / "mesh_ckpt"),
+                        "phases": REMAIN_PHASES,
+                        "kernel_tags": REMAIN_KERNEL_TAGS,
+                        "kernel_controls": REMAIN_TAGS,
+                        "count": "moe_train", "count_ranks": (0, 1, 2, 3),
+                        "timeout": REMAIN_TIMEOUT,
+                        **over})
+
+
+def accumulated_grads(model, batch, n_micro=None, dtype=None):
     """``train.loop.microbatch_grads``' mean loss and its gradients' global
-    norm (``adamw.global_norm``) for a model on one device, one row a
-    microbatch: every row holds as many tokens, so the mean over rows is
-    the mean over any plan's microbatches of equal rows, up to float32's
-    order of summation. Each row's gradient is added in float32 into the
-    accumulator as the backward makes it (a parameter's hook), so that no
-    whole set of gradients is held beside the accumulator: one card holds
+    norm for a model on one device, over ``n_micro`` microbatches of
+    ``batch``'s rows (default: one row a microbatch; every row holds as
+    many tokens, so the mean over rows is the mean over any plan's
+    microbatches of equal rows, up to float32's order of summation),
+    accumulated in ``dtype`` (default float32; a plan's ``grad_dtype``).
+    Each microbatch's gradient is added into the accumulator as the
+    backward makes it (a parameter's hook), so that no whole set of
+    gradients is held beside the accumulator: one card holds
     llama-3.2-vision-90b's group so (two rows at a time and a set of bf16
-    gradients beside the accumulator pass 80 GB)."""
+    gradients beside a float32 accumulator pass 80 GB), and
+    deepseek-v3-671b's 4 layers with a bf16 one. The norm is summed a
+    slice of each leaf at a time in float32 (a whole float32 copy of
+    deepseek's (256, 7168, 2048) expert leaf is 15 GB)."""
     import torch
 
-    from repro_torch.optim import adamw
     from repro_torch.train import loop as tl
+    dtype = dtype or torch.float32
     params = dict(model.named_parameters())
-    acc = {n: torch.zeros_like(p, dtype=torch.float32)
-           for n, p in params.items()}
+    acc = {n: torch.zeros_like(p, dtype=dtype) for n, p in params.items()}
 
     def add(n):
         def hook(p):
-            acc[n].add_(p.grad.to(torch.float32))
+            acc[n].add_(p.grad.to(dtype))
             p.grad = None
         return hook
 
     hooks = [p.register_post_accumulate_grad_hook(add(n))
              for n, p in params.items()]
-    n_micro = next(iter(batch.values())).shape[0]
+    n_micro = n_micro or next(iter(batch.values())).shape[0]
     lsum = torch.zeros((), dtype=torch.float32, device=model.device)
     try:
         for mb in tl._split(batch, n_micro):
@@ -5871,16 +6118,26 @@ def accumulated_grads(model, batch):
         for h in hooks:
             h.remove()
     inv = 1.0 / n_micro
-    gnorm = adamw.global_norm(a.mul_(inv) for a in acc.values())
-    return float(lsum * inv), float(gnorm)
+    sq = torch.zeros((), dtype=torch.float32, device=model.device)
+    for a in acc.values():
+        for part in a.mul_(inv).reshape(-1).split(1 << 28):
+            sq = sq + torch.sum(part.float().square())
+    return float(lsum * inv), float(torch.sqrt(sq))
 
 
-def family_at(dev, argv, prepare, step, ckpt=None):
+def family_at(dev, argv, prepare, step, ckpt=None, plan=None, groups=1,
+              routes=None):
     """One process's loss and gradient norm (``accumulated_grads``, no
     optimizer state) at ``step``'s batch, at the seeded weights or, with
     ``ckpt``, at the weights a mesh run saved there after MESH_MOE_HELD
-    steps (read into host memory, then copied into the model's
-    parameters); its peak and seconds."""
+    steps (read a leaf at a time into the model's parameters); its peak
+    and seconds. With ``plan``, its
+    microbatches and accumulator dtype, the MoE dispatched in ``groups``
+    groups (the mesh's batch groups of a microbatch) and following
+    ``routes`` (the mesh's expert choices of that step), the recorder's
+    differences returned (``rec``)."""
+    import dataclasses
+
     import torch
 
     from repro_torch.data.pipeline import SyntheticLM, device_batch
@@ -5889,37 +6146,46 @@ def family_at(dev, argv, prepare, step, ckpt=None):
     from repro_torch.train import checkpoint
     from repro_torch.train import loop as tl
     args = lt.parse(argv)
-    cfg = lt.config(args)
+    cfg = dataclasses.replace(lt.config(args), moe_groups=groups)
     _free()
     _reset_peak(dev)
     model = LM(cfg, device=dev, seed=0, trainable=True)
     if prepare is not None:
         prepare(model)
     if ckpt:
-        got = checkpoint.restore(ckpt, MESH_MOE_HELD, {"params": {
-            n: torch.empty_like(p, device="cpu")
-            for n, p in tl.params_of(model).items()}})
-        tl.bind(model, got["params"])
-        del got
+        checkpoint.restore_into(ckpt, MESH_MOE_HELD,
+                                {"params": tl.params_of(model)})
     extra = train_inputs(cfg, args.global_batch)
     batch = device_batch({"tokens": SyntheticLM(
         cfg.vocab, args.seq_len, args.global_batch).batch_at(step),
         **(extra(step) if extra else {})}, dev)
+    rec = None if routes is None else RoutingRecorder(_routes_lead(
+        dev, routes[step:step + 1]))
     t0 = time.perf_counter()
-    loss, gnorm = accumulated_grads(model, batch)
-    out = {"loss": loss, "grad_norm": gnorm,
+    with rec.hook() if rec else contextlib.nullcontext():
+        if rec:
+            rec.mark()
+        loss, gnorm = accumulated_grads(
+            model, batch, plan.n_micro if plan else None,
+            getattr(torch, plan.grad_dtype) if plan and plan.grad_dtype
+            else None)
+    out = {"loss": loss, "grad_norm": gnorm, "rec": rec,
            "s": time.perf_counter() - t0, "peak": _peak(dev)}
     del model, batch
     _free()
     return out
 
 
-def family_one_process(dev, spec, key):
-    """On card 0, what (f)-(i)'s held run is held to: one process running
-    the plan's TRAIN_STEPS steps at the held depth (where ``free``), and
-    its loss at the mesh's saved weights at step MESH_MOE_HELD (and,
-    without ``free``, at the seeded weights at step 0). Returns (the
+def family_one_process(dev, spec, key, routes=None):
+    """On card 0, what (f)-(i)'s and (m)-(o)'s held run is held to: one
+    process running the plan's TRAIN_STEPS steps at the held depth (where
+    ``free``), and its loss at the mesh's saved weights at step
+    MESH_MOE_HELD (and, without ``free``, at the seeded weights at step
+    0). An MoE run without ``free`` ((m)) takes the plan's microbatches,
+    accumulator and the mesh's dispatch groups, and follows the mesh's
+    expert choices ``routes`` (rank 0's, a list a step). Returns (the
     free-running run or None, {step: family_at's record})."""
+    from repro_torch.sharding import rules
     fam = FAMILIES[key]
     plan = family_plan(key)
     argv = family_argv(spec, key, fam["held"])
@@ -5928,21 +6194,35 @@ def family_one_process(dev, spec, key):
                             line="mesh", prepare=prepare,
                             quantized=plan.quantized)
              if fam["free"] else None)
-    at = {} if fam["free"] else {0: family_at(dev, argv, prepare, 0)}
+    kw = {}
+    if not fam["free"] and is_moe(fam["arch"]):
+        layout = dict(zip(("data", "model"), FAMILY_LAYOUT))
+        kw = dict(plan=plan, routes=routes, groups=rules.batch_groups(
+            layout, fam["batch"] // plan.n_micro))
+    at = {} if fam["free"] else {0: family_at(dev, argv, prepare, 0, **kw)}
     at[MESH_MOE_HELD] = family_at(dev, argv, prepare, MESH_MOE_HELD,
-                                  spec["ckpt"] + f"_{key}")
+                                  spec["ckpt"] + f"_{key}", **kw)
     return whole, at
 
 
 def family_report(tag, res, key, whole, at, cuda=True):
-    """(f)-(i)'s lines and checks: on every rank, each run's launches a
-    step (K5 twice a flash layer a microbatch, K6 and K7 once: the
+    """(f)-(i)'s and (m)-(o)'s lines and checks: on every rank, each
+    run's launches a step (K5 twice a flash layer a microbatch, K6 and K7
+    once: the
     forward, the remat recompute, the backward) on a card, its peak under
     MESH_PEAK; the held run's steps against one process (free-running:
     the steps before MESH_MOE_HELD within DIST_LOSS_RTOL; at the same
     weights within TRAIN_LOSS_RTOL); the timed run's step time, tokens a
     second, NCCL's device time in the profiled step and peak; under fsdp,
-    the matrices sharded over data on a dim model does not split."""
+    the matrices sharded over data on a dim model does not split. Without
+    ``free`` ((i), (m)) the gradient norm at the same weights too, within
+    TRAIN_GNORM_RTOL; (m)'s one process at the seeded weights, which takes
+    the plan's two-row microbatches, within PLAN_MICRO_GNORM_RTOL. Each
+    step's line is printed before its checks. An MoE run ((m)) also shows
+    each rank's dispatch groups, its experts and the share of their kept
+    choices from its own data rows (``moe_share``), and, where the one
+    process followed the mesh's choices, each difference a near-tie
+    (``follow_check``)."""
     from repro_torch.kernels import flash_cuda as fc
     fam = FAMILIES[key]
     arch, plan, what = fam["arch"], family_plan(key), f"family_{key}"
@@ -5962,7 +6242,7 @@ def family_report(tag, res, key, whole, at, cuda=True):
                   f"{run['peak']} bytes")
         for h in held["hist"]:
             s = h["step"]
-            cmp = {}
+            cmp, fails = {}, []
             if whole is not None:
                 w = whole["hist"][s]
                 rel = _rel(h["loss"], w["loss"])
@@ -5972,9 +6252,8 @@ def family_report(tag, res, key, whole, at, cuda=True):
                            grad_norm_rel_vs_one_process=(
                                f"{_rel(h['grad_norm'], w['grad_norm']):.3e}"),
                            limit=limit)
-                check(limit == "not_held" or rel <= DIST_LOSS_RTOL,
-                      f"{what} {arch} rank {r} step {s}: loss {rel} from "
-                      f"one process")
+                if limit != "not_held" and rel > DIST_LOSS_RTOL:
+                    fails.append(f"loss {rel} from one process")
             if s in at:
                 a = at[s]
                 rel = _rel(h["loss"], a["loss"])
@@ -5984,13 +6263,24 @@ def family_report(tag, res, key, whole, at, cuda=True):
                            grad_norm_rel_at_same_weights=(
                                f"{_rel(h['grad_norm'], a['grad_norm']):.3e}"),
                            same_weights_limit=TRAIN_LOSS_RTOL)
-                check(rel <= TRAIN_LOSS_RTOL, f"{what} {arch} rank {r} step "
-                      f"{s}: loss {rel} from one process at the same weights")
+                if rel > TRAIN_LOSS_RTOL:
+                    fails.append(f"loss {rel} from one process at the same "
+                                 f"weights")
+                if not fam["free"]:
+                    g_rel = _rel(h["grad_norm"], a["grad_norm"])
+                    g_lim = (PLAN_MICRO_GNORM_RTOL if s == 0 and is_moe(arch)
+                             else TRAIN_GNORM_RTOL)
+                    cmp.update(same_weights_grad_norm_limit=f"{g_lim:.3e}")
+                    if g_rel > g_lim:
+                        fails.append(f"grad norm {g_rel} from one process at "
+                                     f"the same weights (limit {g_lim})")
             phase(tag, run=what, arch=arch, mesh=mesh, rank=r, step=s,
                   n_layers=held["layers"], loss=f"{h['loss']:.6f}",
                   grad_norm=f"{h['grad_norm']:.6f}", **cmp,
                   time_s=f"{h['time_s']:.3f}",
                   launches=json.dumps(h["launches"], separators=(",", ":")))
+            check(not fails, f"{what} {arch} rank {r} step {s}: "
+                  f"{'; '.join(fails)}")
         wall = timed["hist"][-1]["time_s"]
         split = timed["split"] or {}
         phase(tag, run=what, arch=arch, mesh=mesh, rank=r,
@@ -6012,9 +6302,17 @@ def family_report(tag, res, key, whole, at, cuda=True):
               held_max_memory_allocated=held["peak"],
               fsdp_leaves=len(timed["fsdp_leaves"]),
               fsdp_example=(timed["fsdp_leaves"] or ["none"])[0],
+              moe_groups=timed["moe_groups"],
+              ep_axes=",".join(timed["ep_axes"] or ()) or "none",
+              grad_dtype=timed["grad_dtype"] or "float32",
               launches=json.dumps(timed["launches"], separators=(",", ":")))
         check(not plan.fsdp or timed["fsdp_leaves"], f"{what} rank {r}: "
               f"fsdp, and no matrix is sharded over data")
+        if "share" in timed:
+            phase(tag, run=what, arch=arch, rank=r, **timed["share"])
+    for s, a in at.items():
+        follow_check(a.get("rec"), tag, arch,
+                     f"{what}_one_process_follows_mesh_step{s}")
     peaks = {s: a["peak"] for s, a in at.items()}
     phase(tag, run=f"{what}_one_process", arch=arch,
           n_layers=res[0][key].get("held", res[0][key]["timed"])["layers"],
@@ -6067,53 +6365,75 @@ def supervisor_report(tag, res, cuda=True):
 
 
 def family_phases(dev, spec=None):
-    """--mesh-families on MESH_WORLD cards (``spec``, default
-    ``family_spec()``): the ranks (each its card's FAMILY_TAGS kernel
-    checks, then (f)-(i) and (j)), then on card 0 the one-process runs
-    (f)-(i) are held to, and the checks. Returns the launches of the
-    FAMILY_TAGS rows: each family's timed run's on rank 0."""
+    """--mesh-families (and --mesh-remaining) on MESH_WORLD cards
+    (``spec``, default ``family_spec()``; ``remain_spec()``): the meta
+    count's process where the phases count, the ranks (each its card's
+    local-head kernel checks, then the runs (f)-(i) and (j), or (m)-(o)
+    and the count), then on card 0 the one-process runs they are held
+    to, and the checks. Returns the launches of the local-head rows:
+    each run's timed run's on rank 0."""
     from repro_torch.launch import ranks
     t0 = time.perf_counter()
     spec = spec or family_spec()
     cuda = spec["device"] == "cuda"
+    runs = [k for k in FAMILIES if k in spec["phases"]]
+    # every phase's checkpoints ((j)'s too: its Supervisor resumes from
+    # whatever checkpoint it finds), before and after the runs
     dirs = [spec["ckpt"] + f"_{k}" for k in spec["phases"]]
     for d in dirs:
         shutil.rmtree(d, ignore_errors=True)
     _free()
     init = ROOT / "build" / "mesh_rdzv"
     init.unlink(missing_ok=True)
-    t1 = time.perf_counter()
-    try:
-        res = ranks.run_ranks(_mesh_rank, MESH_WORLD, str(init), (spec,),
-                              timeout=MESH_TIMEOUT)
-        ranks_s = time.perf_counter() - t1
-        init.unlink(missing_ok=True)
-        # the one-process runs on card 0, once the ranks have left it; a
-        # family's failure is reported after every run's lines
+    with tempfile.TemporaryDirectory() as tmp:
+        count_json = str(Path(tmp) / "count.json")
+        t_count = time.perf_counter()
+        proc = (mesh_count_start(count_json, spec)
+                if "count" in spec["phases"] else None)
         t1 = time.perf_counter()
-        held, failed = {}, {}
-        for k in (k for k in FAMILIES if k in spec["phases"]):
-            try:
-                held[k] = family_one_process(dev, spec, k)
-            except Exception as e:          # noqa: BLE001
-                failed[k] = f"{type(e).__name__}: {e}"[:2000]
-                held[k] = (None, {})
-                _free()
-        one_s = time.perf_counter() - t1
-    finally:
-        for d in dirs:
-            shutil.rmtree(d, ignore_errors=True)
+        try:
+            res = ranks.run_ranks(_mesh_rank, MESH_WORLD, str(init), (spec,),
+                                  timeout=spec.get("timeout", MESH_TIMEOUT))
+            ranks_s = time.perf_counter() - t1
+            init.unlink(missing_ok=True)
+            # the one-process runs on card 0, once the ranks have left it;
+            # a run's failure is reported after every run's lines
+            t1 = time.perf_counter()
+            held, failed = {}, {}
+            for k in runs:
+                try:
+                    held[k] = family_one_process(
+                        dev, spec, k, res[0][k]["timed"].get("routes"))
+                except Exception as e:          # noqa: BLE001
+                    failed[k] = f"{type(e).__name__}: {e}"[:2000]
+                    held[k] = (None, {})
+                    # after a device-side assert every CUDA call raises:
+                    # the ranks' lines are still printed below
+                    with contextlib.suppress(Exception):
+                        _free()
+            one_s = time.perf_counter() - t1
+            meta = (mesh_count_finish(proc, count_json, t_count)
+                    if proc else None)
+        finally:
+            for d in dirs:
+                shutil.rmtree(d, ignore_errors=True)
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.wait()
     rank_kernel_lines(res, cuda)
     # every run's lines before any failure ends the script
     reports = [(k, lambda k=k: family_report("mesh", res, k, *held[k],
                                              cuda)) for k in held]
     if "j" in spec["phases"]:
         reports.append(("j", lambda: supervisor_report("mesh", res, cuda)))
+    if meta is not None:
+        reports.append(("count", lambda: mesh_count_report("mesh", meta,
+                                                           res)))
     for key, report in reports:
         try:
             report()
-        except SmokeFailure as e:
-            failed[key] = str(e)
+        except Exception as e:              # noqa: BLE001
+            failed[key] = f"{type(e).__name__}: {e}"[:2000]
     check(not failed, f"[mesh] families failed: {failed}")
     phase("mesh", families=",".join(spec["phases"]),
           ranks_seconds=f"{ranks_s:.1f}", one_process_seconds=f"{one_s:.1f}",
@@ -6122,7 +6442,8 @@ def family_phases(dev, spec=None):
     launches = collections.Counter()
     for key in held:
         for name, n in res[0][key]["timed"]["launches"].items():
-            launches[f"{name}_{FAMILIES[key]['tag']}"] += n
+            if FAMILIES[key]["tag"]:
+                launches[f"{name}_{FAMILIES[key]['tag']}"] += n
     return launches
 
 
@@ -6706,7 +7027,11 @@ def main() -> int:
             FAMILY_FLAG: ("mesh_families", family_kernel_phase,
                           family_phases),
             SERVE_MESH_FLAG: ("mesh_serve", serve_kernel_phase,
-                              serve_mesh_phases)}
+                              serve_mesh_phases),
+            REMAIN_FLAG: ("mesh_remaining",
+                          lambda dev: mesh_kernel_phase(dev,
+                                                        REMAIN_KERNEL_TAGS),
+                          lambda dev: family_phases(dev, remain_spec()))}
     if len(sys.argv) == 2 and sys.argv[1] in four:   # on four cards
         done, kernels, phases = four[sys.argv[1]]
         if count < MESH_WORLD:

@@ -99,20 +99,20 @@ OPT_PLANS["llama-3.2-vision-90b"] = dataclasses.replace(
 META = torch.device("meta")
 
 
-def fake_world(world_size: int) -> None:
+def fake_world(world_size: int, rank: int = 0) -> None:
     """The default process group: a fake one of ``world_size`` ranks (this
-    process rank 0), whose collectives move nothing — the counterpart of
-    the reference's forced CPU devices. Replaces a fake group of another
-    size; raises if a real group exists."""
+    process ``rank``, default 0), whose collectives move nothing — the
+    counterpart of the reference's forced CPU devices. Replaces a fake
+    group of another size or rank; raises if a real group exists."""
     from torch.testing._internal.distributed.fake_pg import FakeStore
     if dist.is_initialized():
         if dist.get_backend() != "fake":
             raise RuntimeError("the dry run needs its own process: a "
                                f"{dist.get_backend()} group exists")
-        if dist.get_world_size() == world_size:
+        if (dist.get_world_size(), dist.get_rank()) == (world_size, rank):
             return
         dist.destroy_process_group()
-    dist.init_process_group("fake", store=FakeStore(), rank=0,
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
                             world_size=world_size)
 
 
@@ -176,17 +176,25 @@ def build_cell(arch: str, shape: str, mesh, plan: Plan, *, cfg=None,
         gdt = getattr(torch, plan.grad_dtype) if plan.grad_dtype else None
         fn = train_loop.make_train_fn(model, ocfg, plan.n_micro,
                                       grad_dtype=gdt)
-        state = (specs.opt_state_specs(ocfg, specs.params_specs(model))
-                 if device.type == "meta" else adamw.init(ocfg, params))
         batch = _inputs(cfg, c, device, seed)
-        if mesh is not None:
-            _, shardings = train_loop.make_train_step(
-                model, ocfg, mesh, n_micro=plan.n_micro, fsdp=plan.fsdp)
-            placed = shardings(params).distribute({"opt_state": state})
-            params, state = placed["params"], placed["opt_state"]
-            batch = train_loop.place(batch,
-                                     rules.batch_shardings(batch, mesh))
-        return fn, (params, state, batch), cfg, c
+        if mesh is None:
+            state = (specs.opt_state_specs(ocfg, specs.params_specs(model))
+                     if device.type == "meta" else adamw.init(ocfg, params))
+            return fn, (params, state, batch), cfg, c
+        _, shardings = train_loop.make_train_step(
+            model, ocfg, mesh, n_micro=plan.n_micro, fsdp=plan.fsdp)
+        sh = shardings(params)
+        # on a device the state is made in its layout (zero_state) and
+        # each whole parameter let go once laid out, as launch.train's
+        # build: deepseek-v3-671b's whole int8 moments beside its whole
+        # weights would fill a card
+        state = ({"opt_state": specs.opt_state_specs(
+            ocfg, specs.params_specs(model))} if device.type == "meta"
+                 else {})
+        del params
+        placed = sh.distribute(state)
+        batch = train_loop.place(batch, rules.batch_shardings(batch, mesh))
+        return fn, (placed["params"], placed["opt_state"], batch), cfg, c
 
     if mesh is not None:
         params = train_loop.distribute_model(model, rules.params_shardings(

@@ -36,6 +36,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import time
 import types
@@ -51,6 +52,7 @@ from repro_torch.device import resolve_device
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models.lm import LM, cross_inputs, segments_for
 from repro_torch.optim import adamw
+from repro_torch.sharding import rules
 from repro_torch.train import fault
 from repro_torch.train import loop as tl
 
@@ -110,16 +112,27 @@ def config(args: argparse.Namespace):
 
 
 def build(args: argparse.Namespace, extra_inputs=None, *,
-          fsdp: bool = False) -> types.SimpleNamespace:
+          plan=None) -> types.SimpleNamespace:
     """The model (weights from seed 0 on the device), its optimizer
     and train step, the training state and the data: ``cfg``, ``model``,
     ``ocfg``, ``step_fn``, ``state`` ({"params", "opt_state"}) and
     ``data_fn(step)``. ``extra_inputs(step)`` gives the batch's
     ``frames`` / ``vision`` at a step (numpy (global_batch, T, d_model)
     arrays, ``models.lm.cross_inputs``), which an encoder-decoder or VLM
-    needs. On a mesh, ``fsdp`` shards the parameters over ``data`` too
-    (a plan's option, ``launch.dryrun.PLANS``; the command line has no
-    flag for it, as the reference's has none)."""
+    needs.
+
+    ``plan`` (a ``launch.dryrun.Plan``; the command line has no flag for
+    one, as the reference's has none) runs the step as the dry run's
+    cell does: its ``grad_dtype`` is the microbatch accumulator's dtype,
+    and on a mesh ``fsdp`` shards the parameters over ``data`` too,
+    ``ep_axes`` re-shards the MoE's slot rows over those axes, and the
+    MoE dispatches a microbatch in one group a batch shard
+    (``rules.batch_groups``); its ``n_micro`` and moments take the place
+    of the arguments'. Without a plan: one group, a float32 accumulator,
+    no fsdp."""
+    if plan is not None:
+        args = argparse.Namespace(**{**vars(args), "n_micro": plan.n_micro,
+                                     "quantized_state": plan.quantized})
     cfg = config(args)
     need = cross_inputs(cfg)
     if need and extra_inputs is None:
@@ -137,6 +150,14 @@ def build(args: argparse.Namespace, extra_inputs=None, *,
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
             False
+    grad_dtype = None
+    if plan is not None:
+        grad_dtype = (getattr(torch, plan.grad_dtype) if plan.grad_dtype
+                      else None)
+        cfg = dataclasses.replace(
+            cfg, moe_groups=rules.batch_groups(
+                mesh, args.global_batch // args.n_micro),
+            ep_axes=plan.ep_axes)
     model = LM(cfg, device=dev, seed=0, trainable=True)
     ocfg = adamw.AdamWConfig(lr=args.lr, warmup_steps=min(20, args.steps),
                              total_steps=args.steps,
@@ -148,13 +169,15 @@ def build(args: argparse.Namespace, extra_inputs=None, *,
         state = {"params": params, "opt_state": adamw.init(ocfg, params)}
         return types.SimpleNamespace(
             cfg=cfg, model=model, ocfg=ocfg, mesh=None, shardings=None,
-            step_fn=tl.make_train_fn(model, ocfg, n_micro=args.n_micro),
+            step_fn=tl.make_train_fn(model, ocfg, n_micro=args.n_micro,
+                                     grad_dtype=grad_dtype),
             state=state,
             data_fn=lambda s: device_batch(
                 {"tokens": ds.batch_at(s),
                  **(extra_inputs(s) if need else {})}, dev))
-    step_fn, shardings = tl.make_train_step(model, ocfg, mesh,
-                                            n_micro=args.n_micro, fsdp=fsdp)
+    step_fn, shardings = tl.make_train_step(
+        model, ocfg, mesh, n_micro=args.n_micro,
+        fsdp=plan is not None and plan.fsdp, grad_dtype=grad_dtype)
     sh = shardings(params)
     lo, hi = local_rows(mesh, args.global_batch)
 

@@ -44,6 +44,7 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor._utils import \
     compute_local_shape_and_global_offset
 from torch.distributed.tensor.experimental import local_map
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops as kops
 from repro_torch.models.config import ModelConfig
@@ -222,6 +223,13 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # materialising (S, T) logits beyond this many query rows switches to the
 # exact q-chunked path (bounds live memory to (B, H, CHUNK, T)).
 _Q_CHUNK = 4096
+# under autograd the chunks are this many rows, any S, and each chunk's
+# logits and probabilities are recomputed in the backward
+# (``torch.utils.checkpoint``): one chunk's (B, H, CHUNK, T) float32
+# tensors held at a time, not every row's (deepseek-v3-671b's 128 MLA
+# heads at 4,095 tokens: 8.6 GB a tensor a sequence whole, about five of
+# them live in its backward)
+_Q_GRAD_CHUNK = 512
 
 
 def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
@@ -246,13 +254,20 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
         if out is not None:
             return out
     b, s, h, d = q.shape
-    if s > _Q_CHUNK and s % _Q_CHUNK == 0:
+    grad = torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in (q, k, v))
+    chunk = _Q_GRAD_CHUNK if grad else _Q_CHUNK
+    if s > chunk and (grad or s % chunk == 0):
         if q_pos is None:
             q_pos = torch.arange(s, device=q.device)
-        return torch.cat([
-            _sdpa(q[:, i:i + _Q_CHUNK], k, v, causal=causal, window=window,
-                  q_pos=q_pos[i:i + _Q_CHUNK], kv_len=kv_len)
-            for i in range(0, s, _Q_CHUNK)], dim=1)
+
+        def rows(qc, pc):
+            return _sdpa(qc, k, v, causal=causal, window=window, q_pos=pc,
+                         kv_len=kv_len)
+        run = ((lambda qc, pc: checkpoint(rows, qc, pc, use_reentrant=False))
+               if grad else rows)
+        return torch.cat([run(q[:, i:i + chunk], q_pos[i:i + chunk])
+                          for i in range(0, s, chunk)], dim=1)
     t, hkv = k.shape[1], k.shape[2]
     # the reference's GQA rule: the grouped form, unless a model axis
     # that does not divide the kv heads would lose its head sharding in

@@ -133,7 +133,10 @@ def route(p: Params, cfg: ModelConfig, x_flat: torch.Tensor,
     # descending, ties to the lower index (jax.lax.top_k's order)
     idx = (torch.sort(sel, dim=-1, descending=True, stable=True)[1][..., :K]
            if choices is None else choices)
-    onehot = torch.nn.functional.one_hot(idx, E).float()     # (G, S, K, E)
+    # (G, S, K, E), as jax.nn.one_hot forms it: a compare with the expert
+    # ids (F.one_hot scatters on a card and compares on meta, so a
+    # step's count would differ between the two)
+    onehot = (idx[..., None] == torch.arange(E, device=idx.device)).float()
     flat = onehot.reshape(G, S * K, E)
     # the count runs along the last axis (a scan over E rows of S * K, not
     # E columns of S * K steps each); exact, as the sums are integers

@@ -22,9 +22,14 @@ leaf's partial sum of squares before the clip factor is taken. A float32
 moment's update runs on local tensors in the moment's layout (the
 gradient and the parameter are sliced to it, no communication) and is
 redistributed to the parameter's layout for the in-place write, which
-DTensor refuses across layouts. An int8 moment's ``q`` and ``scale`` may
-be split on different dims, so its update runs on the gathered leaf, and
-the new ``q`` and ``scale`` are sliced back to their layouts.
+DTensor refuses across layouts. An int8 moment whose ``q`` and
+``scale`` are laid out as the parameter, on dims other than the last (the
+blocks' dim), updates each rank's rows on local tensors: a block never
+spans two ranks (deepseek-v3-671b's experts, split over ("data",
+"model"), whose whole float32 temporaries would fill a card). Otherwise
+``q`` and ``scale`` may be split on different dims, so the update runs
+on the gathered leaf, and the new ``q`` and ``scale`` are sliced back to
+their layouts.
 """
 from __future__ import annotations
 
@@ -34,7 +39,7 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 BLOCK = 128
 
@@ -170,10 +175,33 @@ def _adamw_leaf(cfg: AdamWConfig, g, m, v, p, clip, lr, b1c, b2c,
     return mf, vf, p.float() - u.mul_(lr.to(dev))
 
 
+def _rows_local(m: QTensor, v: QTensor, p: DTensor) -> bool:
+    """Whether int8 moments ``m`` and ``v`` of parameter ``p`` hold each
+    rank's rows of ``p``: ``q``, ``scale`` and ``p`` in one layout that
+    splits no last dim."""
+    pl = tuple(p.placements)
+    return p.dim() >= 1 and all(
+        tuple(t.placements) == pl for q in (m, v) for t in (q.q, q.scale)) \
+        and not any(isinstance(x, Shard) and x.dim % p.dim() == p.dim() - 1
+                    for x in pl)
+
+
 def _update_dtensor(cfg: AdamWConfig, g, m, v, p, clip, lr, b1c, b2c,
                     decays: bool):
     """One DTensor leaf: the new moments in their layouts; ``p`` written
     in place."""
+    if isinstance(m, QTensor) and _rows_local(m, v, p):
+        shape = tuple(p.to_local().shape)
+        mf, vf, pn = _adamw_leaf(
+            cfg, _local(g, p), *(QTensor(t.q.to_local(), t.scale.to_local(),
+                                         shape) for t in (m, v)),
+            p.to_local(), clip, lr, b1c, b2c, decays)
+        p.to_local().copy_(pn.to(p.dtype))
+        return [QTensor(*(DTensor.from_local(x, y.device_mesh, y.placements,
+                                             shape=y.shape, stride=y.stride())
+                          for x, y in ((t.q, like.q),
+                                       (t.scale, like.scale))), like.shape)
+                for t, like in ((quantize(mf), m), (quantize(vf), v))]
     if isinstance(m, QTensor):
         full = [QTensor(t.q.full_tensor(), t.scale.full_tensor(), t.shape)
                 for t in (m, v)]

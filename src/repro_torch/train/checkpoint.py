@@ -97,8 +97,15 @@ def save(ckpt_dir: str, step: int, tree, *, blocking: bool = True):
     async save of the same step never collide; os.replace publishes
     atomically and the loser's rename is a no-op failure we swallow.
     Every rank calls it (DTensor leaves are gathered here, in the calling
-    thread); rank 0 writes, the others return None."""
-    host = {k: _to_host(v) for k, v in _flatten(tree).items()}  # snapshot
+    thread, a leaf at a time); rank 0 keeps the host copies and writes,
+    the others return None."""
+    host = {}
+    for k, v in _flatten(tree).items():                   # snapshot
+        if isinstance(v, DTensor):
+            v = v.full_tensor()          # a collective: every rank
+        if _rank() == 0:
+            host[k] = _to_host(v)
+        del v
     if _rank() != 0:
         if blocking:
             barrier()
@@ -158,6 +165,22 @@ def _load(src: str, key: str, dtype: str, like, sharding=None):
         return distribute_tensor(t, like.device_mesh, like.placements,
                                  src_data_rank=None)
     return t
+
+
+def restore_into(ckpt_dir: str, step: int, tree) -> None:
+    """Copy the leaves saved at ``step`` into ``tree``'s plain tensors in
+    place, one leaf at a time: each read from its file and put on its
+    tensor's device before the next, so that neither the host nor the
+    device holds a second copy of the whole tree (a checkpoint of
+    deepseek-v3-671b at 4 layers is 30.2 GB of bf16 weights)."""
+    src = os.path.join(ckpt_dir, f"step_{step:08d}")
+    with open(os.path.join(src, "manifest.json")) as f:
+        leaves = json.load(f)["leaves"]
+    with torch.no_grad():
+        for key, t in _flatten(tree).items():
+            if isinstance(t, DTensor) or not isinstance(t, torch.Tensor):
+                raise TypeError(f"{key}: restore_into takes plain tensors")
+            t.copy_(_load(src, key, leaves[key]["dtype"], t))
 
 
 def restore(ckpt_dir: str, step: int, like_tree, shardings=None):

@@ -282,7 +282,8 @@ def distribute_model(model: LM, shardings: dict) -> dict:
 
 def make_train_step(model: LM, opt_cfg: adamw.AdamWConfig, mesh,
                     n_micro: int = 1, donate: bool = True,
-                    fsdp: bool = False):
+                    fsdp: bool = False,
+                    grad_dtype: torch.dtype | None = None):
     """Returns ``(train_step, shardings)``, as the reference's.
     ``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)`` is ``make_train_fn``'s step on DTensors: parameters and
@@ -293,11 +294,15 @@ def make_train_step(model: LM, opt_cfg: adamw.AdamWConfig, mesh,
     ``state_shardings``) and ``distribute(state)``, which puts the
     model's parameters and ``state["opt_state"]`` (from ``adamw.init`` of
     the whole parameters; without it, ``zero_state``'s, made in its
-    layout) onto the mesh and returns the state dict the step takes. The
-    update is in place, so nothing is donated (``donate`` is kept for the
-    reference's signature)."""
+    layout) onto the mesh and returns the state dict the step takes.
+    ``grad_dtype`` is the microbatch accumulator's dtype
+    (``make_train_fn``), in the parameters' layout; the reference's
+    ``make_train_step`` has none, its dry run passes a plan's to
+    ``make_train_fn``. The update is in place, so nothing is donated
+    (``donate`` is kept for the reference's signature)."""
     del donate
-    train_step = make_train_fn(model, opt_cfg, n_micro)
+    train_step = make_train_fn(model, opt_cfg, n_micro,
+                               grad_dtype=grad_dtype)
     stacks = model.stack_dims()
 
     def shardings(params: dict) -> types.SimpleNamespace:

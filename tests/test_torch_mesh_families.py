@@ -2,7 +2,8 @@
 (chip_smoke.py ``--mesh-families``): its rank functions at the SMOKE size
 on 4 gloo CPU ranks, held against the reference's ``make_train_step``
 under the same plan on 4 forced XLA CPU devices; the Supervisor's restart
-held to the uninterrupted run bit for bit; a control whose frames come
+held to the uninterrupted run bit for bit, and again in a second run of
+the mode in one checkout; a control whose frames come
 from the other data rank's rows; the local-head kernel checks' masks and
 pad; the mode's exit without four cards; and, marked ``gpu``, two of the
 runs on four cards.
@@ -432,7 +433,8 @@ def test_family_kernel_cases_are_the_runs_local_heads():
     token fewer), whisper's 1500 frames; the kernel table's rows are
     named by tag."""
     cs = _chip_smoke()
-    for key, fam in cs.FAMILIES.items():
+    for key in KEYS:
+        fam = cs.FAMILIES[key]
         cfg = registry.config(fam["arch"])
         plan = dryrun.PLANS[fam["arch"]]
         tag, b, h, hkv, s, d = next(c[:6] for c in cs.MESH_K5_CASES
@@ -444,6 +446,23 @@ def test_family_kernel_cases_are_the_runs_local_heads():
         assert s == (cfg.n_audio_frames if cfg.enc_dec else fam["seq"] - 1)
         assert (tag in cs.BIDIRECTIONAL) == bool(cfg.enc_dec)
         assert cs.row_name(fc.NAME, d, tag=tag) == f"{fc.NAME}_{tag}"
+
+
+def test_family_phases_twice_on_one_checkpoint_prefix(tmp_path, monkeypatch):
+    """--mesh-families run twice in one checkout: each run removes (j)'s
+    checkpoints before and after it, so the second Supervisor starts at
+    step 0 again (its history SUP_HISTORY, its restart bit for bit), not
+    from the first run's last checkpoint, and none is left on disk."""
+    cs = _chip_smoke()
+    (tmp_path / "build").mkdir()
+    monkeypatch.setattr(cs, "ROOT", tmp_path)     # the ranks' rendezvous
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda: None)
+    spec = cs.family_spec(device="cpu", smoke=True, seq=SEQ,
+                          ckpt=str(tmp_path / "ckpt"), phases=("j",),
+                          profile=False)
+    for _ in range(2):
+        assert not cs.family_phases(torch.device("cpu"), spec)
+        assert not os.path.exists(spec["ckpt"] + "_j")
 
 
 def test_mesh_families_exits_nonzero_without_four_cards():
