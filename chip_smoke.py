@@ -126,7 +126,20 @@ it drives the port's main paths on the card:
   are the real tensors' bytes, the measured step is at or above its
   roofline bound, the predicted peak within [0.5, 2]x the card's; (c)
   ``launch.fleet`` places (a)'s jobs on a fleet of L4, A100 and H100
-  slices under the four schemes, and a degraded slice's job moves.
+  slices under the four schemes, and a degraded slice's job moves;
+* ``[examples]``, the repo's four examples as the port's entry points
+  (``examples/torch_*.py``), each ``main`` on the card at the reference's
+  sizes: the quickstart's hand-made decision (K1) equal to numpy's or a
+  near-tie; the fleet tour on (a)'s records (K2 in its 64 x 2,048 queue,
+  K3 in its scenarios, K4 in its 512-scheme frontier), then again on
+  numpy following the cuda run's near-tie breaks (``cluster.parity``):
+  every scenario's numbers equal, the queue's and the frontier's picks
+  equal or near-ties; train_lm's 300 steps with a failure and a restart
+  (K5, K6, K7), the loss falling, its first 3 losses within
+  TRAIN_LOSSES_RTOL of the same steps on the kernels' plain versions;
+  serve_lm's 12 requests (K5 in each prefill), its float32 logits within
+  F32_LOGIT_TOL of the same calls on K5's plain version. Each example's
+  launch counts are printed, each count of its path above 0.
 
 K3 and K4 write the -inf over infeasible nodes themselves and sum only the
 real criteria: each is held against its plain version masked and
@@ -194,6 +207,12 @@ K6, K7 and K8 case, row and planted fault, the local-head cases and
 zamba2's D = 112 included) and prints their kernel table line, each
 row's ``launches`` 0 (no main path runs), before the same last line as
 the whole script.
+
+    python3 chip_smoke.py --examples-only
+
+runs the build and the ``[examples]`` phase alone (the fleet tour on its
+demo jobs: no dry-run records), and ends with the same last line as the
+whole script.
 
     python3 chip_smoke.py --dryrun-only
 
@@ -299,8 +318,11 @@ dispatched in one group a data rank), K5-K7 launched 0 times, each
 card's share of its experts' kept choices from its own rows; held to one
 process on card 0, which cannot step the plan (15.11e9 parameters), by
 its loss and gradient norm at the seeded weights and at the weights the
-mesh saved after two steps (bf16 accumulator, the mesh's microbatches
-and groups, following the mesh's expert choices); (n) deepseek-coder-33b
+mesh saved after two steps (bf16 accumulator, one row a microbatch in a
+group of its own as each data rank takes it, with its microbatch's
+load-balancing loss, following the mesh's expert choices; at the seeded
+weights two faults planted in its gradient, one of which the 2e-3 limit
+must reject); (n) deepseek-coder-33b
 at 12 of 62 layers, 8 x 4096 tokens, n_micro 4, float32 moments; (o)
 minitron-8b whole (32 layers, a 256,000-token vocabulary), 4 x 4096,
 n_micro 2; both held to one process at 4 layers as ``--mesh-families``
@@ -4923,12 +4945,17 @@ FAMILY_PHASES = ("f", "g", "h", "i", "j")
 # bf16 weights and a float32 accumulator pass 80 GB), so it is held as
 # (i) is (``free`` off), by one process's loss and gradient norm at the
 # seeded weights (step 0) and at the mesh's saved ones (after
-# MESH_MOE_HELD steps) with the plan's own bf16 accumulator, its
-# microbatches and groups, following the mesh's expert choices (each
-# difference a near-tie, ROUTE_TIE_TOL); at the seeded weights its
-# gradient norm within PLAN_MICRO_GNORM_RTOL. MLA stays on ``_sdpa``:
-# K5-K7 launch 0 times. The count counts one (2, 2) step of it
-# (``moe_train``).
+# MESH_MOE_HELD steps) with the plan's own bf16 accumulator, one row a
+# microbatch in a group of its own (as each data rank's backward takes
+# its row of a microbatch and dispatches it; ``one_row_routes``) with
+# the load-balancing loss of the row's whole microbatch (``pair_aux``:
+# the mesh routes the microbatch whole), following the mesh's expert
+# choices (each difference a near-tie, ROUTE_TIE_TOL). At the seeded
+# weights GNORM_FAULTS are planted in the
+# one process's accumulated gradient: the one that must fail
+# TRAIN_GNORM_RTOL is rejected, the other's move is reported. MLA stays
+# on ``_sdpa``: K5-K7 launch 0 times. The count counts one (2, 2) step of
+# it (``moe_train``).
 # (n) deepseek-coder-33b at CODER_LAYERS of 62 (the guide's depth for a
 # card: ~3.4e9 parameters, ~48 GB before activations; 16 layers ~63 GB),
 # 8 sequences a step under PLANS (n_micro 4, float32 moments): its 56
@@ -4947,14 +4974,15 @@ FAMILIES.update(
     o=dict(arch=MINITRON_ARCH, layers=None, seq=4096, batch=4,
            held=REMAIN_HELD, free=True, tag=LOCAL_HEADS))
 FAMILY_DEVICE_ONLY_PROFILE += (DEEPSEEK_ARCH, CODER_ARCH, MINITRON_ARCH)
-# (m)'s one process at the seeded weights: two rows a bf16 microbatch
-# where each rank's backward takes one, and in bf16 the rows a backward
-# takes move the gradient norm, not the loss (minitron-8b's SMOKE rows
-# in 1, 2 or 4 microbatches on the CPU: 2.6e-4 apart in bf16, 1.0e-7 in
-# float32, tests/test_torch_mesh_remaining.py); on the cards (m) read
-# 2.22e-3 there, and (n) and (o), free-running at two rows a microbatch,
-# 1.99e-3 and 2.58e-3 at step 0 (their one-row controls: 1.3e-5, 1.4e-5)
-PLAN_MICRO_GNORM_RTOL = 3e-3
+# (m)'s planted faults, each (name, the leaves and rows it takes, scale,
+# whether the gradient-norm check must reject it): every leaf's gradient
+# 2.5e-3 off, which a limit of 3e-3 (the two-row control's, PR 30) would
+# pass; and rank 0's routed experts (the first quarter of each expert
+# leaf's rows) 1e-2 off, reported only (its move is a fraction of the
+# experts' share of the gradient norm). A gradient fault leaves the loss
+# as it is: the loss check passes under both.
+GNORM_FAULTS = (("all_leaves_2.5e-3", None, 1 + 2.5e-3, True),
+                ("rank0_experts_1e-2", "moe.w", 1 + 1e-2, False))
 REMAIN_PHASES = ("m", "n", "o", "count")
 # the local-head case new to this mode; each rank also checks ``tp2``
 # (minitron-8b's); the planted control reads kv head h // WRONG_GROUP
@@ -6076,7 +6104,7 @@ def remain_spec(**over):
                         **over})
 
 
-def accumulated_grads(model, batch, n_micro=None, dtype=None):
+def accumulated_grads(model, batch, n_micro=None, dtype=None, faults=()):
     """``train.loop.microbatch_grads``' mean loss and its gradients' global
     norm for a model on one device, over ``n_micro`` microbatches of
     ``batch``'s rows (default: one row a microbatch; every row holds as
@@ -6090,7 +6118,11 @@ def accumulated_grads(model, batch, n_micro=None, dtype=None):
     gradients beside a float32 accumulator pass 80 GB), and
     deepseek-v3-671b's 4 layers with a bf16 one. The norm is summed a
     slice of each leaf at a time in float32 (a whole float32 copy of
-    deepseek's (256, 7168, 2048) expert leaf is 15 GB)."""
+    deepseek's (256, 7168, 2048) expert leaf is 15 GB). Returns (loss,
+    norm, {name: norm with the fault planted}) for each of ``faults``
+    (GNORM_FAULTS' entries: the leaves they scale, all or the routed
+    experts' of rank 0, the first 1 / MESH_WORLD of an expert leaf's
+    rows)."""
     import torch
 
     from repro_torch.train import loop as tl
@@ -6118,35 +6150,98 @@ def accumulated_grads(model, batch, n_micro=None, dtype=None):
         for h in hooks:
             h.remove()
     inv = 1.0 / n_micro
-    sq = torch.zeros((), dtype=torch.float32, device=model.device)
-    for a in acc.values():
-        for part in a.mul_(inv).reshape(-1).split(1 << 28):
-            sq = sq + torch.sum(part.float().square())
-    return float(lsum * inv), float(torch.sqrt(sq))
+
+    def sq(a):
+        out = torch.zeros((), dtype=torch.float32, device=model.device)
+        for part in a.reshape(-1).split(1 << 28):
+            out = out + torch.sum(part.float().square())
+        return out
+
+    total = sum(sq(a.mul_(inv)) for a in acc.values())
+    planted = {}
+    for name, leaves, scale, _ in faults:
+        if leaves is None:
+            part = total
+        else:
+            part = sum(sq(a[:a.shape[0] // MESH_WORLD])
+                       for n, a in acc.items()
+                       if ".".join(n.split(".")[-2:]).startswith(leaves))
+        planted[name] = float(torch.sqrt(total + (scale ** 2 - 1) * part))
+    return float(lsum * inv), float(torch.sqrt(total)), planted
 
 
-def family_at(dev, argv, prepare, step, ckpt=None, plan=None, groups=1,
-              routes=None):
-    """One process's loss and gradient norm (``accumulated_grads``, no
-    optimizer state) at ``step``'s batch, at the seeded weights or, with
-    ``ckpt``, at the weights a mesh run saved there after MESH_MOE_HELD
-    steps (read a leaf at a time into the model's parameters); its peak
-    and seconds. With ``plan``, its
-    microbatches and accumulator dtype, the MoE dispatched in ``groups``
-    groups (the mesh's batch groups of a microbatch) and following
-    ``routes`` (the mesh's expert choices of that step), the recorder's
-    differences returned (``rec``)."""
-    import dataclasses
+def one_row_routes(calls, n_micro, n_experts):
+    """Rank 0's route calls of one mesh step (``n_micro`` microbatches, a
+    microbatch's calls consecutive, each (G, S, K): one group a data
+    rank, group g its row g) as one process makes them taking one row a
+    microbatch in a group of its own: row g of microbatch i takes group
+    g of each of microbatch i's calls. Each is (choices, me): ``me``
+    (E,) the mesh call's mean count a token of each expert over both
+    groups, the token fractions of the load-balancing loss, which the
+    mesh takes over the whole microbatch (``pair_aux``)."""
+    import numpy as np
+    per = len(calls) // n_micro
+    check(per * n_micro == len(calls), f"{len(calls)} route calls in "
+          f"{n_micro} microbatches")
+    out = []
+    for i in range(n_micro):
+        mb = calls[i * per:(i + 1) * per]
+        mes = [np.bincount(c.ravel(), minlength=n_experts)
+               / (c.shape[0] * c.shape[1]) for c in mb]
+        for g in range(mb[0].shape[0]):
+            out += [(c[g:g + 1], me) for c, me in zip(mb, mes)]
+    return out
 
+
+@contextlib.contextmanager
+def pair_aux(mes):
+    """Each ``moe.route`` call of a one-row run, in ``one_row_routes``'
+    order, with the load-balancing loss the mesh takes over the row's
+    whole microbatch: E * sum(me * ce) / K with the microbatch's token
+    fractions ``me`` and the row's own mean gates ``ce``. The mean of a
+    microbatch's rows' losses is then the microbatch's, gradients
+    included (the fractions are counts: constants)."""
     import torch
 
+    from repro_torch.models import moe
+    route = moe.route
+    left = iter(mes)
+
+    def paired(p, cfg, x_flat):
+        r = route(p, cfg, x_flat)
+        gates, _ = moe.selection_scores(p, x_flat)
+        me = torch.as_tensor(next(left), dtype=torch.float32,
+                             device=gates.device)
+        return r._replace(aux=cfg.n_experts * torch.sum(
+            me * torch.mean(gates, dim=(0, 1))) / cfg.top_k)
+
+    moe.route = paired
+    try:
+        yield
+    finally:
+        moe.route = route
+
+
+def family_at(dev, argv, prepare, step, ckpt=None, dtype=None, routes=None,
+              faults=()):
+    """One process's loss and gradient norm (``accumulated_grads``, one
+    row a microbatch, no optimizer state) at ``step``'s batch, at the
+    seeded weights or, with ``ckpt``, at the weights a mesh run saved
+    there after MESH_MOE_HELD steps (read a leaf at a time into the
+    model's parameters); its peak and seconds. ``dtype`` is the
+    accumulator's (a plan's ``grad_dtype``; default float32); an MoE
+    follows ``routes`` (a list a step of the route calls of one-row
+    microbatches, ``one_row_routes``) with its microbatches'
+    load-balancing losses (``pair_aux``), the recorder's differences
+    returned (``rec``); ``faults`` (GNORM_FAULTS' entries) give the
+    gradient norms with each planted (``planted``)."""
     from repro_torch.data.pipeline import SyntheticLM, device_batch
     from repro_torch.launch import train as lt
     from repro_torch.models.lm import LM
     from repro_torch.train import checkpoint
     from repro_torch.train import loop as tl
     args = lt.parse(argv)
-    cfg = dataclasses.replace(lt.config(args), moe_groups=groups)
+    cfg = lt.config(args)
     _free()
     _reset_peak(dev)
     model = LM(cfg, device=dev, seed=0, trainable=True)
@@ -6160,16 +6255,16 @@ def family_at(dev, argv, prepare, step, ckpt=None, plan=None, groups=1,
         cfg.vocab, args.seq_len, args.global_batch).batch_at(step),
         **(extra(step) if extra else {})}, dev)
     rec = None if routes is None else RoutingRecorder(_routes_lead(
-        dev, routes[step:step + 1]))
+        dev, [[c for c, _ in routes[step]]]))
     t0 = time.perf_counter()
-    with rec.hook() if rec else contextlib.nullcontext():
+    with rec.hook() if rec else contextlib.nullcontext(), \
+            pair_aux([me for _, me in routes[step]]) if rec \
+            else contextlib.nullcontext():
         if rec:
             rec.mark()
-        loss, gnorm = accumulated_grads(
-            model, batch, plan.n_micro if plan else None,
-            getattr(torch, plan.grad_dtype) if plan and plan.grad_dtype
-            else None)
-    out = {"loss": loss, "grad_norm": gnorm, "rec": rec,
+        loss, gnorm, planted = accumulated_grads(model, batch, dtype=dtype,
+                                                 faults=faults)
+    out = {"loss": loss, "grad_norm": gnorm, "planted": planted, "rec": rec,
            "s": time.perf_counter() - t0, "peak": _peak(dev)}
     del model, batch
     _free()
@@ -6181,11 +6276,14 @@ def family_one_process(dev, spec, key, routes=None):
     process running the plan's TRAIN_STEPS steps at the held depth (where
     ``free``), and its loss at the mesh's saved weights at step
     MESH_MOE_HELD (and, without ``free``, at the seeded weights at step
-    0). An MoE run without ``free`` ((m)) takes the plan's microbatches,
-    accumulator and the mesh's dispatch groups, and follows the mesh's
-    expert choices ``routes`` (rank 0's, a list a step). Returns (the
-    free-running run or None, {step: family_at's record})."""
-    from repro_torch.sharding import rules
+    0, where an MoE's GNORM_FAULTS are planted). An MoE run without
+    ``free`` ((m)) takes the plan's accumulator dtype, one row a
+    microbatch, and follows the mesh's expert choices ``routes`` (rank
+    0's, a list a step). Returns (the free-running run or None, {step:
+    family_at's record})."""
+    import torch
+
+    from repro_torch.launch import train as lt
     fam = FAMILIES[key]
     plan = family_plan(key)
     argv = family_argv(spec, key, fam["held"])
@@ -6194,12 +6292,15 @@ def family_one_process(dev, spec, key, routes=None):
                             line="mesh", prepare=prepare,
                             quantized=plan.quantized)
              if fam["free"] else None)
-    kw = {}
+    kw, faults = {}, ()
     if not fam["free"] and is_moe(fam["arch"]):
-        layout = dict(zip(("data", "model"), FAMILY_LAYOUT))
-        kw = dict(plan=plan, routes=routes, groups=rules.batch_groups(
-            layout, fam["batch"] // plan.n_micro))
-    at = {} if fam["free"] else {0: family_at(dev, argv, prepare, 0, **kw)}
+        n_experts = lt.config(lt.parse(argv)).n_experts
+        kw = dict(dtype=getattr(torch, plan.grad_dtype), routes=[
+            one_row_routes(calls, plan.n_micro, n_experts)
+            for calls in routes])
+        faults = GNORM_FAULTS
+    at = ({} if fam["free"] else
+          {0: family_at(dev, argv, prepare, 0, faults=faults, **kw)})
     at[MESH_MOE_HELD] = family_at(dev, argv, prepare, MESH_MOE_HELD,
                                   spec["ckpt"] + f"_{key}", **kw)
     return whole, at
@@ -6216,9 +6317,9 @@ def family_report(tag, res, key, whole, at, cuda=True):
     second, NCCL's device time in the profiled step and peak; under fsdp,
     the matrices sharded over data on a dim model does not split. Without
     ``free`` ((i), (m)) the gradient norm at the same weights too, within
-    TRAIN_GNORM_RTOL; (m)'s one process at the seeded weights, which takes
-    the plan's two-row microbatches, within PLAN_MICRO_GNORM_RTOL. Each
-    step's line is printed before its checks. An MoE run ((m)) also shows
+    TRAIN_GNORM_RTOL, and each planted fault's norm (``planted``) beyond
+    it where GNORM_FAULTS says it must be. Each step's line is printed
+    before its checks. An MoE run ((m)) also shows
     each rank's dispatch groups, its experts and the share of their kept
     choices from its own data rows (``moe_share``), and, where the one
     process followed the mesh's choices, each difference a near-tie
@@ -6268,12 +6369,25 @@ def family_report(tag, res, key, whole, at, cuda=True):
                                  f"weights")
                 if not fam["free"]:
                     g_rel = _rel(h["grad_norm"], a["grad_norm"])
-                    g_lim = (PLAN_MICRO_GNORM_RTOL if s == 0 and is_moe(arch)
-                             else TRAIN_GNORM_RTOL)
-                    cmp.update(same_weights_grad_norm_limit=f"{g_lim:.3e}")
-                    if g_rel > g_lim:
+                    cmp.update(same_weights_grad_norm_limit=(
+                        f"{TRAIN_GNORM_RTOL:.3e}"))
+                    if g_rel > TRAIN_GNORM_RTOL:
                         fails.append(f"grad norm {g_rel} from one process at "
-                                     f"the same weights (limit {g_lim})")
+                                     f"the same weights (limit "
+                                     f"{TRAIN_GNORM_RTOL})")
+                    for name, _, _, must in GNORM_FAULTS:
+                        if name not in a.get("planted", {}):
+                            continue
+                        f_rel = _rel(h["grad_norm"], a["planted"][name])
+                        cmp[f"control_{name}_rel"] = f"{f_rel:.3e}"
+                        cmp[f"control_{name}"] = (
+                            "rejected" if f_rel > TRAIN_GNORM_RTOL
+                            else "within_limit")
+                        cmp[f"control_{name}_must_fail"] = must
+                        if must and f_rel <= TRAIN_GNORM_RTOL:
+                            fails.append(f"planted {name}: grad norm "
+                                         f"{f_rel} from one process, within "
+                                         f"{TRAIN_GNORM_RTOL}")
             phase(tag, run=what, arch=arch, mesh=mesh, rank=r, step=s,
                   n_layers=held["layers"], loss=f"{h['loss']:.6f}",
                   grad_norm=f"{h['grad_norm']:.6f}", **cmp,
@@ -6960,6 +7074,318 @@ def serve_mesh_phases(dev, spec=None):
     return launches
 
 
+# --- [examples]: the repo's four examples as the port's entry points -------------
+EXAMPLES_FLAG = "--examples-only"
+EXAMPLES = ROOT / "examples"
+# the tour's sections that score on numpy in both runs (the reference's
+# explain and report): nothing to follow there
+TOUR_NUMPY_SECTIONS = ("explain", "report")
+EXAMPLE_PLAIN_STEPS = 3      # train_lm's steps held to the plain route
+
+
+def load_example(name):
+    """``examples/torch_<name>.py`` as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"torch_{name}", EXAMPLES / f"torch_{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _counts():
+    """K1-K7's launch counts, from the bindings."""
+    from repro_torch.kernels import flash_cuda as fc
+    from repro_torch.kernels import topsis_cuda as tc
+    return {**tc.LAUNCHES, **fc.LAUNCHES}
+
+
+def _reset_counts():
+    from repro_torch.kernels import flash_cuda as fc
+    from repro_torch.kernels import topsis_cuda as tc
+    tc.reset_launches()
+    fc.reset_launches()
+
+
+def example_line(name, launches, want, dev, seconds, **fields):
+    """An example's line, its launches of K1-K7 beside it; on a card each
+    kernel of ``want`` launched."""
+    phase("examples", example=name, seconds=f"{seconds:.3f}", **fields,
+          launches=json.dumps(launches, separators=(",", ":")))
+    missed = [k for k in want if launches.get(k, 0) == 0]
+    check(dev.type != "cuda" or not missed,
+          f"examples {name}: {missed} not launched")
+
+
+def quickstart_example(dev):
+    """torch_quickstart: K1's pick equal to numpy's or a near-tie
+    (closeness within TOL, the float64 gap within TOL), and the Table VI
+    cell. Returns its launches."""
+    import numpy as np
+
+    from repro_torch.cluster import parity as Q
+    t0 = time.perf_counter()
+    _reset_counts()
+    out = load_example("quickstart").main(["--device", str(dev)])
+    launches = _counts()
+    cc, pick = out["closeness"]["numpy"], out["pick"]
+    err = Q.max_err_np(out["closeness"]["cuda"], cc)
+    gap = abs(cc[pick["numpy"]] - cc[pick["cuda"]])
+    check(err <= TOL, f"quickstart: cuda closeness {err} from numpy")
+    check(gap <= Q.TOL, f"quickstart: cuda picks {pick['cuda']}, numpy "
+          f"{pick['numpy']}, float64 gap {gap}")
+    check(bool(np.isfinite(out["optimization_pct"])), "quickstart: no "
+          "Table VI cell")
+    example_line("quickstart", launches, ("topsis_single",), dev,
+                 time.perf_counter() - t0,
+                 pick_numpy=out["nodes"][pick["numpy"]],
+                 pick_cuda=out["nodes"][pick["cuda"]],
+                 max_err_vs_numpy=f"{err:.3e}", float64_gap=f"{gap:.3e}",
+                 default_kj=f"{out['default_kj']:.6f}",
+                 topsis_kj=f"{out['topsis_kj']:.6f}",
+                 optimization_pct=f"{out['optimization_pct']:.4f}")
+    return launches
+
+
+def fleet_tour_runs(dev, dryrun_dir, out_dir):
+    """torch_fleet_scheduler on the cuda backend, then on numpy following
+    the cuda run's near-tie breaks in every scenario (``cluster.parity``:
+    each differing pick a float64 near-tie). Returns (cuda run, numpy
+    run, the one-shot queue's and the frontier's calls by backend, the
+    scenarios' parity records by run, the cuda run's launches)."""
+    import contextlib as cl
+
+    from repro_torch.cluster import parity as Q
+    from repro_torch.core import scheduler as S
+    tour = load_example("fleet_scheduler")
+    calls = collections.defaultdict(list)
+    stats = {"cuda": {}, "numpy": {}}
+
+    class Recording(S.BatchScheduler):
+        def select_many(self, pods, nodes, now=0.0, blocked=None,
+                        exclude=None, explain=False):
+            assign, diag = super().select_many(
+                pods, nodes, now=now, blocked=blocked, exclude=exclude,
+                explain=explain)
+            calls["queue", self.backend].append(
+                (pods, nodes, assign, diag["closeness"]))
+            return assign, diag
+
+        def select_many_grid(self, pods, nodes, schemes, now=0.0,
+                             exclude=None):
+            assign, diag = super().select_many_grid(pods, nodes, schemes,
+                                                    now=now, exclude=exclude)
+            calls["grid", self.backend].append(
+                (pods, nodes, assign, diag["closeness"]))
+            return assign, diag
+
+    def hook(run):
+        @cl.contextmanager
+        def scenario(name):
+            if name in TOUR_NUMPY_SECTIONS:
+                yield
+                return
+            rec = stats[run][name] = Q.policy_stats()
+            replay = stats["cuda"][name]["calls"] if run == "numpy" else None
+            with Q.engine_scheduler(Q.make_policy_scheduler(rec, replay)), \
+                    Q.wake_scoring(rec):
+                yield
+        return scenario
+
+    outs = {}
+    for run in ("cuda", "numpy"):
+        argv = [str(dryrun_dir), "--backend", run, "--device", str(dev),
+                "--out-dir", str(Path(out_dir) / run)]
+        _reset_counts()
+        outs[run] = tour.main(argv, scenario=hook(run),
+                              batch_scheduler=Recording)
+        if run == "cuda":
+            launches = _counts()
+    return outs["cuda"], outs["numpy"], calls, stats, launches
+
+
+def walk_ties(got, want, what):
+    """The cuda calls ``got`` against the numpy calls ``want`` of the
+    same queues: closeness within TOL, every differing pick a float64
+    near-tie (``near_tie_walk``, per scheme of a grid call). Returns
+    (largest closeness difference, rows placed differently, near-ties)."""
+    import numpy as np
+
+    from repro_torch.cluster import parity as Q
+    from repro_torch.core.scheduler import _as_table
+    check(len(got) == len(want), f"{what}: {len(got)} cuda calls, "
+          f"{len(want)} numpy calls")
+    err, differ, ties = 0.0, 0, 0
+    for (pods, nodes, a_cu, cc_cu), (_, _, a_np, cc_np) in zip(got, want):
+        err = max(err, Q.max_err_np(cc_cu, cc_np))
+        grid = np.ndim(cc_np) == 3
+        for a, b, cc in (zip(a_cu, a_np, cc_np) if grid
+                         else [(a_cu, a_np, cc_np)]):
+            if list(a) != list(b):
+                differ += 1
+                ties += Q.near_tie_walk(cc, list(a), pods, _as_table(nodes),
+                                        None)[0]
+    check(err <= TOL, f"{what}: cuda closeness {err} from numpy")
+    return err, differ, ties
+
+
+def fleet_tour_example(dev, dryrun_dir, out_dir, runs=None):
+    """torch_fleet_scheduler's checks on ``runs`` (default: made here by
+    ``fleet_tour_runs`` on the records in ``dryrun_dir``): the
+    scenarios' numbers equal between the runs, K3 launched once a
+    scoring round; the one-shot queue's and the frontier's cuda picks
+    equal numpy's or near-ties, the frontiers equal or a near-tie
+    between them; explain's deltas summing to its gap; the trace and
+    the reports written. Returns the cuda run's launches."""
+    import numpy as np
+    t0 = time.perf_counter()
+    cu, nu, calls, stats, launches = runs or fleet_tour_runs(
+        dev, dryrun_dir, out_dir)
+    for name, got in cu["scenarios"].items():
+        differ = [k for k, v in got.items() if v != nu["scenarios"][name][k]]
+        check(not differ, f"fleet tour {name}: the cuda run and numpy "
+              f"following it differ in {differ}")
+    rounds = sum(len(r["calls"]) for r in stats["cuda"].values())
+    check(dev.type != "cuda" or launches["topsis_kinds"] == rounds,
+          f"fleet tour: K3 launched {launches['topsis_kinds']} times for "
+          f"{rounds} scoring rounds")
+    q_err, q_diff, q_ties = walk_ties(calls["queue", "cuda"][-1:],
+                                      calls["queue", "numpy"][-1:], "queue")
+    g_err, g_diff, g_ties = walk_ties(calls["grid", "cuda"],
+                                      calls["grid", "numpy"], "frontier")
+    for regime, f in cu["frontier"].items():
+        same = bool(np.array_equal(f["mask"],
+                                   nu["frontier"][regime]["mask"]))
+        check(same or g_ties > 0, f"fleet tour frontier {regime}: the "
+              f"frontiers differ with no near-tie")
+    check(cu["explain"] == nu["explain"], "fleet tour: explain differs")
+    exp = cu["explain"]
+    check(abs(sum(exp["deltas"].values()) - exp["gap"]) <= 1e-9,
+          f"fleet tour: explain's deltas sum to "
+          f"{sum(exp['deltas'].values())}, gap {exp['gap']}")
+    for path in (cu["recorder"]["trace"], cu["report"]["path"],
+                 cu["frontier_report"]):
+        check(Path(path).is_file() and Path(path).resolve().is_relative_to(
+            Path(out_dir).resolve()), f"fleet tour: {path} not written "
+              f"under {out_dir}")
+    example_line(
+        "fleet_scheduler", launches,
+        ("topsis_batched", "topsis_kinds", "topsis_grid"), dev,
+        time.perf_counter() - t0, jobs=cu["jobs"],
+        queue_placed=cu["select_many"]["cuda"]["placed"],
+        queue_ms_cuda=f"{cu['select_many']['cuda']['ms']:.3f}",
+        queue_ms_numpy=f"{cu['select_many']['numpy']['ms']:.3f}",
+        queue_max_err_vs_numpy=f"{q_err:.3e}", queue_pods_differ=q_diff,
+        queue_near_ties=q_ties, scenarios=len(cu["scenarios"]),
+        scoring_rounds=rounds,
+        scenario_near_ties=sum(c["ties"] for r in stats["numpy"].values()
+                               for c in r["calls"]),
+        scenarios_equal_numpy=True,
+        frontier_max_err_vs_numpy=f"{g_err:.3e}",
+        frontier_schemes_differ=g_diff, frontier_near_ties=g_ties,
+        frontier=",".join(str(f["front"]) for f in cu["frontier"].values()),
+        batch_rounds=cu["recorder"]["batch_rounds"])
+    return launches
+
+
+def train_example(dev, out_dir, argv=()):
+    """torch_train_lm at its defaults (``argv`` added): the failure and
+    the restart, the mean of the last 10 losses below the first 10's,
+    the first EXAMPLE_PLAIN_STEPS losses within TRAIN_LOSSES_RTOL of the
+    same steps on the kernels' plain versions. Returns its launches."""
+    import numpy as np
+
+    from repro_torch.kernels import flash_cuda as fc
+    ex = load_example("train_lm")
+    t0 = time.perf_counter()
+    _reset_counts()
+    kern = ex.main(["--device", str(dev), "--out-dir",
+                    str(Path(out_dir) / "train_ckpt"), *argv])
+    launches = _counts()
+    seconds = time.perf_counter() - t0
+    with kernel_route(flash_fwd=fc.flash_fwd_plain,
+                      flash_bwd=fc.flash_bwd_plain):
+        plain = ex.main(["--device", str(dev), *argv, "--steps",
+                         str(EXAMPLE_PLAIN_STEPS)], fail_at=None)
+    check(_counts() == launches, "train_lm: the plain run launched a "
+          "flash kernel")
+    losses = kern["losses"]
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    rel = max(_rel(a, b) for a, b in zip(
+        losses[:EXAMPLE_PLAIN_STEPS], plain["losses"], strict=True))
+    # the history: steps 0 .. fail_at - 1, then from the checkpoint the
+    # restart restored (at or before the failure) to the end
+    steps, fail_at = kern["steps"], kern["fail_at"]
+    restart = steps[fail_at]
+    check(kern["failures"] == 1 and restart <= fail_at
+          and steps == list(range(fail_at)) + list(range(restart,
+                                                         max(steps) + 1)),
+          f"train_lm: no failure and restart in steps {steps}")
+    check(last < first, f"train_lm: loss {first} -> {last}")
+    check(rel <= TRAIN_LOSSES_RTOL, f"train_lm: first losses {rel} from the "
+          f"plain route")
+    example_line("train_lm", launches, (fc.NAME, fc.DQ, fc.DKV), dev,
+                 seconds, steps=max(steps) + 1, executed=len(steps),
+                 failure_at=fail_at, restart_from=restart,
+                 loss_first10=f"{first:.4f}", loss_last10=f"{last:.4f}",
+                 losses_rel_vs_plain=f"{rel:.3e}",
+                 step_s_median=f"{float(np.median(kern['time_s'])):.4f}")
+    return launches
+
+
+def serve_example(dev, argv=()):
+    """torch_serve_lm at its defaults (``argv`` added): every request
+    served within the vocabulary, and its float32 logits within
+    F32_LOGIT_TOL of the same calls on K5's plain version (teacher-forced
+    on the kernel run's tokens). Returns its launches."""
+    from repro_torch.kernels import flash_cuda as fc
+    ex = load_example("serve_lm")
+    seen = {}
+
+    def wrap(model):
+        seen["model"] = model
+        seen["rec"] = RecordingLM(model)
+        return seen["rec"]
+
+    t0 = time.perf_counter()
+    _reset_counts()
+    out = ex.main(["--device", str(dev), *argv], wrap=wrap)
+    launches = _counts()
+    seconds = time.perf_counter() - t0
+    model, rec = seen["model"], seen["rec"]
+    check(model.cfg.dtype == "float32", f"serve_lm runs {model.cfg.dtype}")
+    kernel_logits = [c["logits"] for c in rec.calls]
+    before = fc.LAUNCHES[fc.NAME]
+    plain, _ = replay(model, rec.calls, 64, fc.flash_fwd_plain)
+    check(fc.LAUNCHES[fc.NAME] == before, "a comparison run launched K5")
+    stats = compare_runs(kernel_logits, plain, F32_LOGIT_TOL)
+    check(all(len(t) > 0 and bool(((t >= 0) & (t < model.cfg.vocab)).all())
+              for t in out["results"].values()), "serve_lm: bad tokens")
+    example_line("serve_lm", launches, (fc.NAME,), dev, seconds,
+                 requests=out["requests"], tokens=out["tokens"],
+                 serve_s=f"{out['seconds']:.3f}",
+                 tokens_per_s=f"{out['tokens_per_s']:.1f}",
+                 calls=len(rec.calls),
+                 max_logit_err_vs_plain=f"{stats['max_err']:.3e}",
+                 logit_tol=F32_LOGIT_TOL, near_ties=stats["near_ties"])
+    return launches
+
+
+def examples_phase(dev, dryrun_dir):
+    """[examples]: the four examples on ``dev`` (the fleet tour on the
+    dry run's records in ``dryrun_dir``), files into a temporary
+    directory. Returns their launches, summed."""
+    t0 = time.perf_counter()
+    launches = collections.Counter()
+    with tempfile.TemporaryDirectory() as out_dir:
+        launches.update(quickstart_example(dev))
+        launches.update(fleet_tour_example(dev, dryrun_dir, out_dir))
+        launches.update(train_example(dev, out_dir))
+        launches.update(serve_example(dev))
+    phase("examples", seconds=f"{time.perf_counter() - t0:.1f}")
+    return launches
+
+
 def kernel_rows(table, launches):
     """The kernel table line's rows: each row's launches from the main
     paths' counts; the local-head rows, which no card path launches, go
@@ -7059,6 +7485,15 @@ def main() -> int:
               seconds=f"{time.perf_counter() - t0:.1f}")
         print(smi)
         print(json.dumps({"kernels": list(table.values())}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name, "count": count}}))
+        return 0
+    if sys.argv[1:] == [EXAMPLES_FLAG]:      # the four examples alone
+        examples_phase(dev, ROOT / "build" / "no_dryrun_records")
+        phase("done", examples_only=True,
+              seconds=f"{time.perf_counter() - t0:.1f}")
+        print(smi)
+        print(json.dumps({"kernels": []}))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": name, "count": count}}))
         return 0
@@ -7168,6 +7603,8 @@ def _main_paths(dev, smi, dry_procs, dry_dir, dry_t0):
     supervisor_phase(dev)
     launches.update(dist_phases(dev))
     dryrun_phases(dev, dry_procs, dry_dir, dry_t0)
+    # the four examples, the fleet tour on [dryrun]'s records
+    launches.update(examples_phase(dev, dry_dir))
     launches.update(wide)
     launches.update({row_name(n, WIDE_D): c for n, c in wide.items()})
     launches.update(moe)

@@ -108,11 +108,12 @@ def test_report_modules_stand_alone(module):
 
 
 @pytest.mark.parametrize("path", sorted(
-    [p for p in PORT.rglob("*.py")] + [ROOT / "chip_smoke.py"]),
+    [p for p in PORT.rglob("*.py")] + [ROOT / "chip_smoke.py"]
+    + list((ROOT / "examples").glob("torch_*.py"))),
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_sources_import_nothing_of_jax_or_repro(path):
     """Static check, including imports inside functions (which a fresh
-    import does not execute) and chip_smoke.py."""
+    import does not execute), chip_smoke.py and the port's examples."""
     tree = ast.parse(path.read_text())
     roots = set()
     for node in ast.walk(tree):

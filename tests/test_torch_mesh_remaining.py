@@ -362,12 +362,13 @@ def test_report_holds_m_to_one_process_and_rejects_a_drift(remaining,
                                                           monkeypatch):
     """The chip's checks on (m): one process on the CPU (the card's place)
     at the seeded and at the mesh's saved weights, with the plan's bf16
-    accumulator, microbatches and groups, following the mesh's expert
-    choices, passes the ranks' steps; a rank whose gradient norm is off
-    by 1e-2 at the seeded weights, or by 2.5e-3 after MESH_MOE_HELD steps
-    (TRAIN_GNORM_RTOL), fails; 2.5e-3 off at the seeded weights passes
-    (PLAN_MICRO_GNORM_RTOL: one process takes the plan's two rows a bf16
-    microbatch there, where each rank's backward takes one)."""
+    accumulator, one row a microbatch in a group of its own, following
+    the mesh's expert choices, passes the ranks' steps; a rank whose
+    gradient norm is off by 2.5e-3 at the seeded weights or after
+    MESH_MOE_HELD steps (TRAIN_GNORM_RTOL; the two-row control's 3e-3
+    passed it at the seeded weights) fails. At the seeded weights the
+    planted faults' norms are recorded, the one that must fail is
+    rejected, and a report whose must-fail fault moved nothing fails."""
     cs, spec, got, _, _, _ = remaining
     for name in ("reset_peak_memory_stats", "synchronize", "empty_cache"):
         monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
@@ -377,6 +378,15 @@ def test_report_holds_m_to_one_process_and_rejects_a_drift(remaining,
                                       got[0]["m"]["timed"]["routes"])
     assert whole is None and set(at) == {0, cs.MESH_MOE_HELD}
     assert all(a["rec"].compared > 0 for a in at.values())
+    h0 = got[0]["m"]["timed"]["hist"][0]
+    assert abs(at[0]["loss"] - h0["loss"]) <= 1e-5 * abs(h0["loss"])
+    names = [f[0] for f in cs.GNORM_FAULTS]
+    assert set(at[0]["planted"]) == set(names)
+    assert at[cs.MESH_MOE_HELD]["planted"] == {}
+    g = at[0]["grad_norm"]
+    assert at[0]["planted"][names[0]] == pytest.approx(g * (1 + 2.5e-3),
+                                                       rel=1e-6)
+    assert g < at[0]["planted"][names[1]] < g * (1 + 1e-2)
     cs.family_report("mesh", got, "m", whole, at, cuda=False)
 
     def off(step, by):
@@ -385,12 +395,65 @@ def test_report_holds_m_to_one_process_and_rejects_a_drift(remaining,
                 dict(h, grad_norm=h["grad_norm"] * (1 + by))
                 if h["step"] == step else h
                 for h in out["m"]["timed"]["hist"]]))) for out in got]
-    assert cs.TRAIN_GNORM_RTOL < 2.5e-3 < cs.PLAN_MICRO_GNORM_RTOL < 1e-2
-    for step, by in ((0, 1e-2), (cs.MESH_MOE_HELD, 2.5e-3)):
+    assert cs.TRAIN_GNORM_RTOL < 2.5e-3 < 3e-3
+    for step in (0, cs.MESH_MOE_HELD):
         with pytest.raises(cs.SmokeFailure, match="grad norm"):
-            cs.family_report("mesh", off(step, by), "m", whole, at,
+            cs.family_report("mesh", off(step, 2.5e-3), "m", whole, at,
                              cuda=False)
-    cs.family_report("mesh", off(0, 2.5e-3), "m", whole, at, cuda=False)
+    unmoved = {**at, 0: dict(at[0], planted=dict(
+        at[0]["planted"], **{names[0]: at[0]["grad_norm"]}))}
+    with pytest.raises(cs.SmokeFailure, match=f"planted {names[0]}"):
+        cs.family_report("mesh", got, "m", whole, unmoved, cuda=False)
+
+
+def test_one_row_routes_give_each_row_its_group():
+    """A mesh step's route calls ((G, S, K) a call, a microbatch's calls
+    consecutive) split into one-row microbatches: row g of microbatch i
+    takes group g of each of microbatch i's calls, in order, with that
+    call's token fractions over both groups; a call count that does not
+    split into the microbatches fails."""
+    cs = _chip_smoke()
+    calls = [np.full((2, 3, 1), 10 * i + k) + np.arange(2)[:, None, None]
+             * 100 for i in range(3) for k in range(2)]
+    rows = cs.one_row_routes(calls, 3, 200)
+    assert [c.shape for c, _ in rows] == [(1, 3, 1)] * 12
+    assert [int(c[0, 0, 0]) for c, _ in rows] == [
+        0, 1, 100, 101, 10, 11, 110, 111, 20, 21, 120, 121]
+    me = rows[2][1]
+    assert me.shape == (200,) and me[0] == me[100] == 0.5 and me.sum() == 1
+    np.testing.assert_array_equal(rows[0][1], me)
+    with pytest.raises(cs.SmokeFailure, match="route calls"):
+        cs.one_row_routes(calls[:5], 3, 200)
+
+
+def test_pair_aux_gives_each_microbatch_its_loss():
+    """Two rows routed one at a time under ``pair_aux`` (their
+    microbatch's token fractions) give, on average, the load-balancing
+    loss and its router gradient of the two rows routed together; alone,
+    each row's own loss averages to another value."""
+    from repro_torch.models import moe
+    cs = _chip_smoke()
+    cfg = registry.smoke_config("deepseek-v3-671b")
+    gen = torch.Generator().manual_seed(0)
+    p = {"router": torch.randn(cfg.d_model, cfg.n_experts, generator=gen,
+                               requires_grad=True),
+         "router_bias": torch.zeros(cfg.n_experts)}
+    x = torch.randn(2, 16, cfg.d_model, generator=gen)
+    whole = moe.route(p, cfg, x)
+    g_whole, = torch.autograd.grad(whole.aux, p["router"])
+    (_, me), = cs.one_row_routes([whole.idx.numpy()], 1, cfg.n_experts)[1:]
+    route = moe.route
+    with cs.pair_aux([me, me]):
+        paired = [moe.route(p, cfg, x[r:r + 1]) for r in range(2)]
+    assert moe.route is route
+    aux = (paired[0].aux + paired[1].aux) / 2
+    g_pair, = torch.autograd.grad(aux, p["router"])
+    torch.testing.assert_close(aux, whole.aux, rtol=1e-6, atol=0)
+    torch.testing.assert_close(g_pair, g_whole, rtol=1e-5, atol=1e-7)
+    with torch.no_grad():
+        alone = sum(moe.route(p, cfg, x[r:r + 1]).aux for r in range(2)) / 2
+    ref = float(whole.aux.detach())
+    assert abs(float(alone) - ref) > 1e-4 * ref
 
 
 def test_count_of_the_moe_step_on_meta_and_on_the_ranks(remaining):
@@ -533,12 +596,13 @@ def test_sdpa_grad_chunks_equal_the_whole_rows(monkeypatch):
 
 
 def test_bf16_rows_a_backward_move_the_gradient_norm_not_the_loss():
-    """What PLAN_MICRO_GNORM_RTOL rests on: one process's gradients of the
-    same rows in 1, 2 or 4 microbatches (a backward taking 4, 2 or 1 of
-    them; a float32 accumulator) give one loss and one gradient norm in
-    float32, but in bf16 gradient norms further apart than 1e-4 while
-    the losses keep within 1e-6 (minitron-8b's SMOKE config: 2.6e-4 and
-    1.5e-7; float32 1.0e-7 and 0)."""
+    """Why (m)'s one process takes one row a microbatch, as each rank's
+    backward does: one process's gradients of the same rows in 1, 2 or 4
+    microbatches (a backward taking 4, 2 or 1 of them; a float32
+    accumulator) give one loss and one gradient norm in float32, but in
+    bf16 gradient norms further apart than 1e-4 while the losses keep
+    within 1e-6 (minitron-8b's SMOKE config: 2.6e-4 and 1.5e-7; float32
+    1.0e-7 and 0)."""
     from repro_torch.data.pipeline import device_batch
     from repro_torch.launch import train as lt
     cs = _chip_smoke()
@@ -549,7 +613,7 @@ def test_bf16_rows_a_backward_move_the_gradient_norm_not_the_loss():
                                  + ["--smoke", "--dtype", dtype]))
         batch = device_batch({"tokens": SyntheticLM(cfg.vocab, 64, 4)
                               .batch_at(0)}, cpu)
-        losses, norms = zip(*(cs.accumulated_grads(
+        losses, norms, _ = zip(*(cs.accumulated_grads(
             LM(cfg, device=cpu, seed=0, trainable=True), batch, n)
             for n in (1, 2, 4)))
         spread[dtype] = (np.ptp(losses) / losses[0], np.ptp(norms) / norms[0])
